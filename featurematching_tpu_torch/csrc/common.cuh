@@ -1,0 +1,107 @@
+// Helpers shared by the port's kernels: bf16 conversion, warp reductions,
+// WMMA fragment types and the error-string entry every library exports.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+namespace fm {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+// 16x16x16 bf16 tensor-core tiles with f32 accumulation
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+constexpr float kLnEps = 1e-6f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// (value, index) argmax across a warp; equal values keep the lower index
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// V consecutive bf16 <-> f32 (V even, pointer 4-byte aligned)
+template <int V>
+__device__ __forceinline__ void load_bf16(const bf16* p, float* v) {
+#pragma unroll
+  for (int i = 0; i < V; i += 2) {
+    __nv_bfloat162 t = reinterpret_cast<const __nv_bfloat162*>(p)[i / 2];
+    v[i] = __low2float(t);
+    v[i + 1] = __high2float(t);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_bf16(bf16* p, const float* v) {
+#pragma unroll
+  for (int i = 0; i < V; i += 2)
+    reinterpret_cast<__nv_bfloat162*>(p)[i / 2] = __floats2bfloat162_rn(v[i], v[i + 1]);
+}
+
+// LayerNorm over a row spread across one warp, V values per lane, stats in
+// f32 (two passes: mean, then mean squared deviation), in place.
+template <int V, int C>
+__device__ __forceinline__ void warp_layer_norm(float* v, const float* scale,
+                                                const float* bias) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) s += v[i];
+  const float mu = warp_sum(s) * (1.0f / C);
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    v[i] -= mu;
+    q += v[i] * v[i];
+  }
+  const float r = rsqrtf(warp_sum(q) * (1.0f / C) + kLnEps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = v[i] * r * scale[i] + bias[i];
+}
+
+// Copy `rows` rows of `cols` bf16 (cols % 8 == 0) from global (row stride
+// `gld`) into shared memory (row stride `sld`) with 16-byte accesses; rows at
+// or past `valid` are zero-filled.
+__device__ __forceinline__ void copy_rows_to_smem(bf16* dst, int sld, const bf16* src,
+                                                  int gld, int rows, int cols,
+                                                  int valid) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, c = (e % per_row) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * gld + c);
+    *reinterpret_cast<uint4*>(dst + r * sld + c) = val;
+  }
+}
+
+}  // namespace fm
+
+#define FM_ERROR_STRING_ENTRY                                   \
+  extern "C" const char* fm_error_string(int e) {               \
+    return cudaGetErrorString(static_cast<cudaError_t>(e));     \
+  }

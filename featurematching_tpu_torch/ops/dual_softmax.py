@@ -1,0 +1,94 @@
+"""Dual-softmax mutual-NN matching statistics without the [L, S] matrix.
+
+Port of `featurematching_tpu/ops/pallas_dual_softmax.py ·
+dual_softmax_match_stats`. On a CUDA tensor it launches `csrc/dual_softmax.cu`
+(two passes over 64x64 sim tiles on bf16 tensor cores, with two small
+combine kernels; bound by tensor-core operations); on a CPU tensor it runs
+`_stats_reference`.
+
+Both forms fold inv_temp = 1 / (C * T) into f0 in f0's dtype before the
+product, as the TPU kernel does (the JAX package's `_stats_reference` scales
+after it; in float32 the two agree to rounding).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from featurematching_tpu_torch.ops import _build
+
+ROW_TILE = 64
+_ARGTYPES = (
+    [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 12
+)
+
+
+class MatchStats(NamedTuple):
+    """Per-pair dual-softmax statistics.
+
+    row_max / row_argmax: [B, L] max / argmax over j of conf[i, j]
+    col_max / col_argmax: [B, S] max / argmax over i of conf[i, j]
+    """
+
+    row_max: torch.Tensor
+    row_argmax: torch.Tensor
+    col_max: torch.Tensor
+    col_argmax: torch.Tensor
+
+
+def dual_softmax_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
+                            inv_temp: float) -> torch.Tensor:
+    """conf [B, L, S] f32 = softmax_rows(sim) * softmax_cols(sim)."""
+    f0 = (feat0.float() * inv_temp).to(feat0.dtype)
+    sim = f0.float() @ feat1.float().transpose(1, 2)
+    return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def _stats_reference(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float) -> MatchStats:
+    """Plain version: the whole confidence matrix, then max/argmax (argmax
+    keeps the first maximum, as jnp.argmax does)."""
+    conf = dual_softmax_confidence(feat0, feat1, inv_temp)
+    return MatchStats(
+        conf.amax(dim=2), conf.argmax(dim=2).int(),
+        conf.amax(dim=1), conf.argmax(dim=1).int(),
+    )
+
+
+def dual_softmax_match_stats(
+    feat0: torch.Tensor, feat1: torch.Tensor, temperature: float = 0.1
+) -> MatchStats:
+    """Row/col max+argmax of the dual-softmax confidence. feat*: [B, L/S, C]."""
+    B, L, C = feat0.shape
+    S = feat1.shape[1]
+    inv_temp = 1.0 / (C * temperature)
+    if feat0.device.type == "cpu":
+        return _stats_reference(feat0, feat1, inv_temp)
+    if C not in (64, 128, 256):
+        raise ValueError(f"dual_softmax_match_stats kernel takes C in (64, 128, 256), got {C}")
+    _build.check_cuda(feat0, "feat0", torch.bfloat16)
+    _build.check_cuda(feat1, "feat1", torch.bfloat16, (B, S, C))
+    n_tiles = -(-L // ROW_TILE)
+    f32 = dict(device=feat0.device, dtype=torch.float32)
+    i32 = dict(device=feat0.device, dtype=torch.int32)
+    scratch = [
+        torch.empty(B, L, **f32), torch.empty(B, L, **f32),  # row max, row sum-exp
+        torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **f32),  # col partials
+        torch.empty(B, S, **f32),  # col log-sum-exp
+        torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **i32),  # col max/arg partials
+    ]
+    out = MatchStats(
+        torch.empty(B, L, **f32), torch.empty(B, L, **i32),
+        torch.empty(B, S, **f32), torch.empty(B, S, **i32),
+    )
+    _build.launch(
+        "dual_softmax", "fm_dual_softmax_stats", _ARGTYPES,
+        feat0.data_ptr(), feat1.data_ptr(), inv_temp, B, L, S, C,
+        *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in out], _build.stream(),
+    )
+    dual_softmax_match_stats.launches += 1
+    return out
+
+
+dual_softmax_match_stats.launches = 0
