@@ -6,12 +6,18 @@
 // (24*C^2 + 256*C multiply-adds x2 per token against 4*C bytes of
 // activations in and out; the weights stay in L2), so the design keeps every
 // intermediate of a window on chip: one thread block per window holds the
-// window's activations, its LN output, its q/k/v and one head's 64x64 scores
-// in shared memory, and runs every product on bf16 tensor cores (WMMA
-// 16x16x16, f32 accumulation). The MLP runs over the hidden width in chunks of
-// 128 columns and accumulates the mlp2 partial products in registers, so the
-// [64, 4C] hidden never exists at once (at C = 256 it alone would be 256 KB in
-// f32, more than a block's shared memory).
+// window's activations, its LN output and its q/k/v in shared memory, and
+// runs every product on bf16 tensor cores (WMMA 16x16x16, f32 accumulation).
+//   - Products: a warp computes a strip of 2 or 4 row tiles against one
+//     16-column strip of the weight, so each weight fragment it loads from
+//     L2 feeds 2-4 independent products.
+//   - Attention: a warp takes whole (head, 16 query rows) units in its own
+//     slice of shared memory (scores, softmax, P.V), so heads need no block
+//     barriers; a unit's output overwrites the q columns it alone reads.
+//   - MLP: the hidden width runs in chunks of 128 columns and the mlp2
+//     partial products accumulate in registers, so the [64, 4C] hidden never
+//     exists at once (at C = 256 it alone would be 256 KB in f32, more than a
+//     block's shared memory).
 //
 // Rounding follows the TPU kernel: products accumulate in f32, the bias is
 // added in f32 and the sum is rounded to bf16; residual adds are bf16 + bf16.
@@ -31,18 +37,19 @@ constexpr int HC = 128;      // MLP hidden columns per chunk
 constexpr int LDS = N + 4;   // f32 score row stride (padded against bank conflicts)
 constexpr int LDP = N + 8;   // bf16 probability row stride
 constexpr int LDH = HC + 8;  // bf16 hidden-chunk row stride
+// per-warp slice: 16 score rows (f32), then 16 probability rows (bf16); the
+// first 1 KB doubles as the warp's 16x16 f32 epilogue scratch
+constexpr int kWarpBytes = 16 * LDS * 4 + 16 * LDP * 2;
 
 template <int C>
 struct Smem {
   static constexpr int LDX = C + 8;      // x / LN rows
   static constexpr int LDQ = 3 * C + 8;  // q|k|v rows
-  static constexpr size_t x_off = 0;                     // bf16 [N][LDX] residual stream
-  static constexpr size_t h_off = x_off + N * LDX * 2;   // bf16 [N][LDX] LN output
-  static constexpr size_t q_off = h_off + N * LDX * 2;   // bf16 [N][LDQ] q|k|v, then MLP hidden chunk
-  static constexpr size_t s_off = q_off + N * LDQ * 2;   // f32 [N][LDS] one head's scores
-  static constexpr size_t p_off = s_off + N * LDS * 4;   // bf16 [N][LDP] one head's probabilities
-  static constexpr size_t w_off = p_off + N * LDP * 2;   // f32 [kWarps][256] per-warp tile scratch
-  static constexpr size_t bytes = w_off + kWarps * 256 * 4;
+  static constexpr size_t x_off = 0;                    // bf16 [N][LDX] residual stream
+  static constexpr size_t h_off = x_off + N * LDX * 2;  // bf16 [N][LDX] LN output
+  static constexpr size_t q_off = h_off + N * LDX * 2;  // bf16 [N][LDQ] q|k|v, then MLP hidden chunk
+  static constexpr size_t w_off = q_off + N * LDQ * 2;  // per-warp slices
+  static constexpr size_t bytes = w_off + kWarps * kWarpBytes;
   static_assert(N * LDH * 2 <= N * LDQ * 2, "hidden chunk must fit in the qkv region");
 };
 
@@ -58,17 +65,111 @@ __device__ __forceinline__ void tile_epilogue(const fm::FragC& acc, float* scr, 
   __syncwarp();
 }
 
+// acc[i] += A[16i .. 16i+16, 0..K) . B[0..K, 16 columns] for RT row tiles;
+// A in shared memory (row stride lda), B row-major in global (row stride ldb)
+template <int K, int RT>
+__device__ __forceinline__ void strip_mma(fm::FragC* acc, const bf16* a, int lda,
+                                          const bf16* b, int ldb) {
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k) {
+    fm::FragBRow fb;
+    wmma::load_matrix_sync(fb, b + (size_t)k * 16 * ldb, ldb);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      fm::FragA fa;
+      wmma::load_matrix_sync(fa, a + i * 16 * lda + k * 16, lda);
+      wmma::mma_sync(acc[i], fa, fb, acc[i]);
+    }
+  }
+}
+
+// row tiles per work unit: 4 when the strips alone keep all warps busy
+__host__ __device__ constexpr int rows_per_unit(int strips) { return strips % kWarps == 0 ? 4 : 2; }
+
+// out[64][16 * STRIPS] = A[64][K] . B[K][16 * STRIPS], handed to epi(row, col, v)
+template <int K, int STRIPS, typename Epi>
+__device__ __forceinline__ void gemm_rows64(const bf16* a, int lda, const bf16* b, int ldb,
+                                            float* scr, int warp, int lane, Epi epi) {
+  constexpr int RT = rows_per_unit(STRIPS), GROUPS = 4 / RT;
+  for (int u = warp; u < STRIPS * GROUPS; u += kWarps) {
+    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
+    fm::FragC acc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
+    strip_mma<K, RT>(acc, a + tm0 * 16 * lda, lda, b + tn * 16, ldb);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      tile_epilogue(acc[i], scr, lane,
+                    [&](int r, int c, float v) { epi((tm0 + i) * 16 + r, tn * 16 + c, v); });
+  }
+}
+
 // LN over the window's 64 rows of `src` into `dst` (bf16), 8 rows a warp.
 template <int C>
 __device__ __forceinline__ void layer_norm_rows(const bf16* src, bf16* dst, const float* s,
                                                 const float* b, int warp, int lane) {
   constexpr int V = C / 32, LDX = Smem<C>::LDX;
+#pragma unroll  // independent rows: their shuffle reductions overlap
   for (int r = warp * 8; r < warp * 8 + 8; ++r) {
     float v[V];
     fm::load_bf16<V>(src + r * LDX + lane * V, v);
     fm::warp_layer_norm<V, C>(v, s + lane * V, b + lane * V);
     fm::store_bf16<V>(dst + r * LDX + lane * V, v);
   }
+}
+
+// One (head, 16 query rows) attention unit in the warp's slice: scores with
+// the relative-position bias and the shift mask, softmax, then P.V written
+// over the unit's q columns.
+template <int C>
+__device__ __forceinline__ void attention_unit(bf16* qkv, int hd, int tm,
+                                               const float* rel_bias, const float* mk,
+                                               unsigned char* slice, int lane) {
+  constexpr int LDQ = Smem<C>::LDQ;
+  float* sc = reinterpret_cast<float*>(slice);
+  bf16* pr = reinterpret_cast<bf16*>(slice + 16 * LDS * 4);
+  fm::FragA fq;
+  wmma::load_matrix_sync(fq, qkv + tm * 16 * LDQ + hd * D, LDQ);
+#pragma unroll
+  for (int tn = 0; tn < N / 16; ++tn) {
+    fm::FragBCol fk;
+    fm::FragC s;
+    wmma::fill_fragment(s, 0.f);
+    wmma::load_matrix_sync(fk, qkv + tn * 16 * LDQ + C + hd * D, LDQ);
+    wmma::mma_sync(s, fq, fk, s);
+    wmma::store_matrix_sync(sc + tn * 16, s, LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+  const float* rb = rel_bias + ((size_t)hd * N + tm * 16) * N;
+  const float* mr = mk ? mk + (size_t)tm * 16 * N : nullptr;
+#pragma unroll  // independent rows: their shuffle reductions overlap
+  for (int r = 0; r < 16; ++r) {
+    float s0 = sc[r * LDS + lane] * 0.25f + rb[r * N + lane];
+    float s1 = sc[r * LDS + lane + 32] * 0.25f + rb[r * N + lane + 32];
+    if (mr) {
+      s0 += mr[r * N + lane];
+      s1 += mr[r * N + lane + 32];
+    }
+    const float m = fm::warp_max(fmaxf(s0, s1));
+    const float e0 = expf(s0 - m), e1 = expf(s1 - m);
+    const float z = fm::warp_sum(e0 + e1);
+    pr[r * LDP + lane] = __float2bfloat16(e0 / z);
+    pr[r * LDP + lane + 32] = __float2bfloat16(e1 / z);
+  }
+  __syncwarp();
+  fm::FragC o;
+  wmma::fill_fragment(o, 0.f);
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k) {
+    fm::FragA fp;
+    fm::FragBRow fv;
+    wmma::load_matrix_sync(fp, pr + k * 16, LDP);
+    wmma::load_matrix_sync(fv, qkv + k * 16 * LDQ + 2 * C + hd * D, LDQ);
+    wmma::mma_sync(o, fp, fv, o);
+  }
+  tile_epilogue(o, sc, lane, [&](int r, int c, float v) {
+    qkv[(tm * 16 + r) * LDQ + hd * D + c] = __float2bfloat16(v);
+  });
 }
 
 template <int C>
@@ -87,10 +188,9 @@ swin_block_kernel(const bf16* __restrict__ x, const float* __restrict__ mask, in
   bf16* xs = reinterpret_cast<bf16*>(smem + S::x_off);
   bf16* hs = reinterpret_cast<bf16*>(smem + S::h_off);
   bf16* qkv = reinterpret_cast<bf16*>(smem + S::q_off);
-  float* sc = reinterpret_cast<float*>(smem + S::s_off);
-  bf16* pr = reinterpret_cast<bf16*>(smem + S::p_off);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* scr = reinterpret_cast<float*>(smem + S::w_off) + warp * 256;
+  unsigned char* slice = smem + S::w_off + warp * kWarpBytes;
+  float* scr = reinterpret_cast<float*>(slice);
   const int win = blockIdx.x;
 
   fm::copy_rows_to_smem(xs, LDX, x + (size_t)win * N * C, C, N, C, N);
@@ -99,146 +199,64 @@ swin_block_kernel(const bf16* __restrict__ x, const float* __restrict__ mask, in
   __syncthreads();
 
   // qkv = LN1(x) @ w_qkv + b_qkv   ([64, C] x [C, 3C])
-  {
-    constexpr int TN = 3 * C / 16;
-    for (int t = warp; t < 4 * TN; t += kWarps) {
-      const int tm = t % 4, tn = t / 4;
-      fm::FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < C / 16; ++k) {
-        fm::FragA a;
-        fm::FragBRow b;
-        wmma::load_matrix_sync(a, hs + tm * 16 * LDX + k * 16, LDX);
-        wmma::load_matrix_sync(b, wqkv + (size_t)k * 16 * (3 * C) + tn * 16, 3 * C);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      tile_epilogue(acc, scr, lane, [&](int r, int c, float v) {
-        qkv[(tm * 16 + r) * LDQ + tn * 16 + c] = __float2bfloat16(v + bqkv[tn * 16 + c]);
-      });
-    }
-  }
+  gemm_rows64<C, 3 * C / 16>(hs, LDX, wqkv, 3 * C, scr, warp, lane,
+                             [&](int row, int col, float v) {
+                               qkv[row * LDQ + col] = __float2bfloat16(v + bqkv[col]);
+                             });
   __syncthreads();
 
-  // attention, one head at a time; head hd's output overwrites its q columns
   const float* mk = nW > 0 ? mask + (size_t)(win % nW) * N * N : nullptr;
-  for (int hd = 0; hd < H; ++hd) {
-    for (int t = warp; t < 16; t += kWarps) {
-      const int tm = t % 4, tn = t / 4;
-      fm::FragA a;
-      fm::FragBCol b;
-      fm::FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      wmma::load_matrix_sync(a, qkv + tm * 16 * LDQ + hd * D, LDQ);
-      wmma::load_matrix_sync(b, qkv + tn * 16 * LDQ + C + hd * D, LDQ);
-      wmma::mma_sync(acc, a, b, acc);
-      wmma::store_matrix_sync(sc + tm * 16 * LDS + tn * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-    const float* rb = rel_bias + (size_t)hd * N * N;
-    for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-      float s0 = sc[r * LDS + lane] * 0.25f + rb[r * N + lane];
-      float s1 = sc[r * LDS + lane + 32] * 0.25f + rb[r * N + lane + 32];
-      if (mk) {
-        s0 += mk[r * N + lane];
-        s1 += mk[r * N + lane + 32];
-      }
-      const float m = fm::warp_max(fmaxf(s0, s1));
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float z = fm::warp_sum(e0 + e1);
-      pr[r * LDP + lane] = __float2bfloat16(e0 / z);
-      pr[r * LDP + lane + 32] = __float2bfloat16(e1 / z);
-    }
-    __syncthreads();
-    if (warp < 4) {
-      const int tm = warp;
-      fm::FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < N / 16; ++k) {
-        fm::FragA a;
-        fm::FragBRow b;
-        wmma::load_matrix_sync(a, pr + tm * 16 * LDP + k * 16, LDP);
-        wmma::load_matrix_sync(b, qkv + k * 16 * LDQ + 2 * C + hd * D, LDQ);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      tile_epilogue(acc, scr, lane, [&](int r, int c, float v) {
-        qkv[(tm * 16 + r) * LDQ + hd * D + c] = __float2bfloat16(v);
-      });
-    }
-  }
+  for (int u = warp; u < H * (N / 16); u += kWarps)
+    attention_unit<C>(qkv, u / (N / 16), u % (N / 16), rel_bias, mk, slice, lane);
   __syncthreads();
 
   // x = x + (attn @ w_proj + b_proj)
-  {
-    constexpr int TN = C / 16;
-    for (int t = warp; t < 4 * TN; t += kWarps) {
-      const int tm = t % 4, tn = t / 4;
-      fm::FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < C / 16; ++k) {
-        fm::FragA a;
-        fm::FragBRow b;
-        wmma::load_matrix_sync(a, qkv + tm * 16 * LDQ + k * 16, LDQ);
-        wmma::load_matrix_sync(b, wproj + (size_t)k * 16 * C + tn * 16, C);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      tile_epilogue(acc, scr, lane, [&](int r, int c, float v) {
-        const int i = (tm * 16 + r) * LDX + tn * 16 + c;
-        const float o = __bfloat162float(__float2bfloat16(v + bproj[tn * 16 + c]));
-        xs[i] = __float2bfloat16(__bfloat162float(xs[i]) + o);
-      });
-    }
-  }
+  gemm_rows64<C, C / 16>(qkv, LDQ, wproj, C, scr, warp, lane, [&](int row, int col, float v) {
+    const float o = __bfloat162float(__float2bfloat16(v + bproj[col]));
+    bf16& xr = xs[row * LDX + col];
+    xr = __float2bfloat16(__bfloat162float(xr) + o);
+  });
   __syncthreads();
   layer_norm_rows<C>(xs, hs, ln2s, ln2b, warp, lane);
   __syncthreads();
 
-  // out = x + mlp2(gelu(mlp1(LN2(x)))), hidden in chunks of HC columns
-  constexpr int TPW = 4 * (C / 16) / kWarps;  // output tiles per warp
-  fm::FragC acc[TPW];
+  // out = x + mlp2(gelu(mlp1(LN2(x)))), hidden in chunks of HC columns; each
+  // warp keeps UPW units of RT2 output tiles in registers across the chunks
+  constexpr int S2 = C / 16, RT2 = rows_per_unit(S2), G2 = 4 / RT2;
+  constexpr int UPW = S2 * G2 / kWarps;
+  static_assert(S2 * G2 % kWarps == 0, "mlp2 units must spread evenly over the warps");
+  fm::FragC acc[UPW][RT2];
 #pragma unroll
-  for (int i = 0; i < TPW; ++i) wmma::fill_fragment(acc[i], 0.f);
+  for (int j = 0; j < UPW; ++j)
+#pragma unroll
+    for (int i = 0; i < RT2; ++i) wmma::fill_fragment(acc[j][i], 0.f);
   bf16* hid = qkv;
   for (int c0 = 0; c0 < HID; c0 += HC) {
-    for (int t = warp; t < 4 * (HC / 16); t += kWarps) {
-      const int tm = t % 4, tn = t / 4;
-      fm::FragC h;
-      wmma::fill_fragment(h, 0.f);
-      for (int k = 0; k < C / 16; ++k) {
-        fm::FragA a;
-        fm::FragBRow b;
-        wmma::load_matrix_sync(a, hs + tm * 16 * LDX + k * 16, LDX);
-        wmma::load_matrix_sync(b, w1 + (size_t)k * 16 * HID + c0 + tn * 16, HID);
-        wmma::mma_sync(h, a, b, h);
-      }
-      tile_epilogue(h, scr, lane, [&](int r, int c, float v) {
-        v += b1[c0 + tn * 16 + c];
-        const float g = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-        hid[(tm * 16 + r) * LDH + tn * 16 + c] = __float2bfloat16(g);
-      });
-    }
+    gemm_rows64<C, HC / 16>(hs, LDX, w1 + c0, HID, scr, warp, lane,
+                            [&](int row, int col, float v) {
+                              v += b1[c0 + col];
+                              const float g = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+                              hid[row * LDH + col] = __float2bfloat16(g);
+                            });
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int t = warp * TPW + i, tm = t % 4, tn = t / 4;
-      for (int k = 0; k < HC / 16; ++k) {
-        fm::FragA a;
-        fm::FragBRow b;
-        wmma::load_matrix_sync(a, hid + tm * 16 * LDH + k * 16, LDH);
-        wmma::load_matrix_sync(b, w2 + (size_t)(c0 + k * 16) * C + tn * 16, C);
-        wmma::mma_sync(acc[i], a, b, acc[i]);
-      }
+    for (int j = 0; j < UPW; ++j) {
+      const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
+      strip_mma<HC, RT2>(acc[j], hid + tm0 * 16 * LDH, LDH, w2 + (size_t)c0 * C + tn * 16, C);
     }
     __syncthreads();
   }
   bf16* og = out + (size_t)win * N * C;
 #pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int t = warp * TPW + i, tm = t % 4, tn = t / 4;
-    tile_epilogue(acc[i], scr, lane, [&](int r, int c, float v) {
-      const int row = tm * 16 + r, col = tn * 16 + c;
-      const float y = __bfloat162float(__float2bfloat16(v + b2[col]));
-      og[row * C + col] = __float2bfloat16(__bfloat162float(xs[row * LDX + col]) + y);
-    });
+  for (int j = 0; j < UPW; ++j) {
+    const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
+#pragma unroll
+    for (int i = 0; i < RT2; ++i)
+      tile_epilogue(acc[j][i], scr, lane, [&](int r, int c, float v) {
+        const int row = (tm0 + i) * 16 + r, col = tn * 16 + c;
+        const float y = __bfloat162float(__float2bfloat16(v + b2[col]));
+        og[row * C + col] = __float2bfloat16(__bfloat162float(xs[row * LDX + col]) + y);
+      });
   }
 }
 
