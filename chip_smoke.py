@@ -41,7 +41,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 B, H, W = 4, 480, 640
-N_FORWARD = 3
+N_FORWARD = 10
 EXPECTED_PER_FORWARD = {
     "swin_block_fused": 13, "layer_norm_chain": 4, "patch_expand_ln": 3,
     "dual_softmax_match_stats": 1,
@@ -85,8 +85,8 @@ class Record:
     """Per-kernel totals over one forward's call sites."""
 
     def __init__(self):
-        self.k = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, lib=0.0, err=0.0, nbytes=0.0,
-                          flops=0.0, has_lib=None) for n in EXPECTED_PER_FORWARD}
+        self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
+                  for n in EXPECTED_PER_FORWARD}
 
     def site(self, name, count, ms, plain_ms, nbytes, flops, err, lib_ms=None):
         k = self.k[name]
@@ -95,10 +95,8 @@ class Record:
         k["nbytes"] += count * nbytes
         k["flops"] += count * flops
         k["err"] = max(k["err"], err)
-        k["has_lib"] = lib_ms is not None if k["has_lib"] is None else (
-            k["has_lib"] and lib_ms is not None)
-        if lib_ms is not None:
-            k["lib"] += count * lib_ms
+        if lib_ms is not None:  # a kernel has a library call at all its sites or none
+            k["lib"] = (k["lib"] or 0.0) + count * lib_ms
         b, by = bound_ms(nbytes, flops)
         print(f"  site {name}: x{count} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, "
@@ -428,7 +426,7 @@ def main() -> int:
             "name": n, "route": "cuda", "source": f"featurematching_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches.get(n, 0), "max_abs_err": k["err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b, "bound_by": by,
-            "library_ms": k["lib"] if k["has_lib"] else None,
+            "library_ms": k["lib"],
         })
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -4,7 +4,9 @@ The port keeps its own copy of the configuration schema of
 `featurematching_tpu.config`, limited to the fields the serving forward
 reads. Field names and defaults are the same, so a configuration of the JAX
 package converts with `config_from_dict(ModelConfig, dataclasses.asdict(cfg))`
-(fields this copy does not hold are ignored).
+(fields this copy does not hold are ignored). The forward always has a qkv
+bias, a patch-embed LayerNorm and the fine stage's coarse-feature concat, the
+JAX defaults; a weight tree without them fails to load.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ class SwinConfig:
     num_heads: Tuple[int, ...] = (4, 8, 16)
     window_size: int = 8
     mlp_ratio: float = 4.0
-    qkv_bias: bool = True
-    patch_norm: bool = True
 
 
 @dataclass(frozen=True)
@@ -59,7 +59,6 @@ class FineMatchConfig:
     nhead: int = 8
     layer_names: Tuple[str, ...] = ("self", "cross")
     attention: str = "linear"
-    concat_coarse_feat: bool = True
 
 
 @dataclass(frozen=True)
@@ -75,14 +74,8 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class DataConfig:
-    img_size: Tuple[int, int] = (640, 480)  # (W, H)
-
-
-@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
-    data: DataConfig = field(default_factory=DataConfig)
 
 
 def default_config() -> Config:

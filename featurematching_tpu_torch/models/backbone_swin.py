@@ -62,9 +62,9 @@ def _rel_pos_bias_from_table(table: torch.Tensor, w: int, h: int) -> torch.Tenso
 
 
 class WindowAttentionParams(nn.Module):
-    def __init__(self, dim: int, window: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, window: int, num_heads: int):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_bias = nn.Parameter(torch.zeros((2 * window - 1) ** 2, num_heads))
 
@@ -72,25 +72,22 @@ class WindowAttentionParams(nn.Module):
 class SwinBlockParams(nn.Module):
     """One Swin block's weights, named as in the JAX tree."""
 
-    def __init__(self, dim: int, num_heads: int, window: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, window: int, mlp_ratio: float = 4.0):
         super().__init__()
         self.num_heads = num_heads
         self.window = window
         hid = int(dim * mlp_ratio)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = WindowAttentionParams(dim, window, num_heads, qkv_bias)
+        self.attn = WindowAttentionParams(dim, window, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp1 = nn.Linear(dim, hid)
         self.mlp2 = nn.Linear(hid, dim)
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """The block's weights in `ops.swin_block` form ([in, out] products)."""
-        qkv = self.attn.qkv
-        b_qkv = qkv.bias if qkv.bias is not None else torch.zeros_like(qkv.weight[:, 0])
         return {
             "ln1_scale": self.norm1.weight, "ln1_bias": self.norm1.bias,
-            "w_qkv": qkv.weight.t(), "b_qkv": b_qkv,
+            "w_qkv": self.attn.qkv.weight.t(), "b_qkv": self.attn.qkv.bias,
             "rel_bias": _rel_pos_bias_from_table(
                 self.attn.rel_pos_bias, self.window, self.num_heads
             ),

@@ -43,7 +43,7 @@ from featurematching_tpu_torch.models.backbone_swin import (
 from featurematching_tpu_torch.models.matcher import MatcherOutput
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
-from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_plain
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
 from featurematching_tpu_torch.ops.swin_block import swin_block_fused
 from featurematching_tpu_torch.utils.weights import init_weights
@@ -75,7 +75,7 @@ def _patch_merge(x: torch.Tensor, H: int, W: int, p: PatchMergingParams) -> torc
     cat = torch.cat(
         [xi[:, 0::2, 0::2], xi[:, 1::2, 0::2], xi[:, 0::2, 1::2], xi[:, 1::2, 1::2]], dim=-1
     ).reshape(B, -1, 4 * C)
-    return _dense(layer_norm_plain(cat, p.norm.weight, p.norm.bias), p.reduction)
+    return _dense(layer_norm_chain_plain(cat, p.norm.weight, p.norm.bias), p.reduction)
 
 
 class SwinBackbone(nn.Module):
@@ -89,14 +89,13 @@ class SwinBackbone(nn.Module):
         self.patch_embed = nn.Conv2d(
             cfg.input_channels, s.embed_dim, s.patch_size, stride=s.patch_size
         )
-        if s.patch_norm:
-            self.patch_norm = nn.LayerNorm(s.embed_dim, eps=1e-6)
+        self.patch_norm = nn.LayerNorm(s.embed_dim, eps=1e-6)
         n = len(s.depths)
         for i in range(n):
             dim = s.embed_dim * 2**i
             for b in range(s.depths[i]):
                 self.add_module(f"enc{i}_blk{b}", SwinBlockParams(
-                    dim, s.num_heads[i], s.window_size, s.mlp_ratio, s.qkv_bias))
+                    dim, s.num_heads[i], s.window_size, s.mlp_ratio))
             if i < n - 1:
                 self.add_module(f"enc{i}_merge", PatchMergingParams(dim))
             self.add_module(f"norm_down{i}", nn.LayerNorm(dim * (2 if i < n - 1 else 1), eps=1e-6))
@@ -105,7 +104,7 @@ class SwinBackbone(nn.Module):
             dim = s.embed_dim * 2 ** (n_up - 1 - j)
             for b in range(s.depths_up[n_up - 1 - j]):
                 self.add_module(f"dec{j}_blk{b}", SwinBlockParams(
-                    dim, s.num_heads[n_up - 1 - j], s.window_size, s.mlp_ratio, s.qkv_bias))
+                    dim, s.num_heads[n_up - 1 - j], s.window_size, s.mlp_ratio))
             scale = 2 if j < n_up - 1 else 4
             self.add_module(f"dec{j}_expand", PatchExpandParams(dim, scale))
             self.add_module(f"norm_up{j}", nn.LayerNorm(scale * dim // 4, eps=1e-6))
@@ -168,8 +167,7 @@ class SwinBackbone(nn.Module):
         y = y.permute(0, 2, 3, 1) + self.patch_embed.bias.to(dt)
         Wh, Ww = y.shape[1], y.shape[2]
         y = y.reshape(B, Wh * Ww, s.embed_dim).contiguous()
-        if s.patch_norm:
-            y = layer_norm_chain(y, self.patch_norm.weight, self.patch_norm.bias)
+        y = layer_norm_chain(y, self.patch_norm.weight, self.patch_norm.bias)
 
         n = len(s.depths)
         for i in range(n):
@@ -225,9 +223,8 @@ class FastMatcher(nn.Module):
         c, f = cfg.coarse, cfg.fine
         self.coarse_transformer = LocalFeatureTransformer(
             c.d_model, c.nhead, c.layer_names, c.attention)
-        if f.concat_coarse_feat:
-            self.fine_down_proj = nn.Linear(c.d_model, f.d_model)
-            self.fine_merge = nn.Linear(2 * f.d_model, f.d_model)
+        self.fine_down_proj = nn.Linear(c.d_model, f.d_model)
+        self.fine_merge = nn.Linear(2 * f.d_model, f.d_model)
         self.fine_transformer = LocalFeatureTransformer(
             f.d_model, f.nhead, f.layer_names, f.attention)
         ww = f.window_size**2
@@ -272,13 +269,13 @@ class FastMatcher(nn.Module):
         stride = sc // sf
         win0 = gather_fine_windows(feat_f0, i_ids, (hc, wc), Wf, stride)
         win1 = gather_fine_windows(feat_f1, j_ids, (hc, wc), Wf, stride)
-        if cfg.fine.concat_coarse_feat:
-            c0 = torch.gather(feat_c0, 1, i_ids[..., None].expand(-1, -1, Cc))
-            c1 = torch.gather(feat_c1, 1, j_ids[..., None].expand(-1, -1, Cc))
-            c0 = _dense(c0, self.fine_down_proj)[:, :, None, :]
-            c1 = _dense(c1, self.fine_down_proj)[:, :, None, :]
-            win0 = _dense(torch.cat([win0, c0.expand_as(win0)], dim=-1), self.fine_merge)
-            win1 = _dense(torch.cat([win1, c1.expand_as(win1)], dim=-1), self.fine_merge)
+        # coarse context: down-projected coarse feature at the match, merged into each tap
+        c0 = torch.gather(feat_c0, 1, i_ids[..., None].expand(-1, -1, Cc))
+        c1 = torch.gather(feat_c1, 1, j_ids[..., None].expand(-1, -1, Cc))
+        c0 = _dense(c0, self.fine_down_proj)[:, :, None, :]
+        c1 = _dense(c1, self.fine_down_proj)[:, :, None, :]
+        win0 = _dense(torch.cat([win0, c0.expand_as(win0)], dim=-1), self.fine_merge)
+        win1 = _dense(torch.cat([win1, c1.expand_as(win1)], dim=-1), self.fine_merge)
         K = win0.shape[1]
         ww = Wf * Wf
         w0, w1 = self.fine_transformer(win0.reshape(B * K, ww, Cf), win1.reshape(B * K, ww, Cf))

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from featurematching_tpu_torch.ops.attention import linear_attention
-from featurematching_tpu_torch.ops.layer_norm import layer_norm_plain
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -47,9 +47,9 @@ class EncoderLayer(nn.Module):
         k = _linear(source, self.k_proj).reshape(bs, -1, h, C // h)
         v = _linear(source, self.v_proj).reshape(bs, -1, h, C // h)
         msg = linear_attention(q, k, v).reshape(bs, -1, C)
-        msg = layer_norm_plain(_linear(msg, self.merge), self.norm1.weight, self.norm1.bias)
+        msg = layer_norm_chain_plain(_linear(msg, self.merge), self.norm1.weight, self.norm1.bias)
         y = torch.relu(_linear(torch.cat([x, msg], dim=-1), self.mlp1))
-        y = layer_norm_plain(_linear(y, self.mlp2), self.norm2.weight, self.norm2.bias)
+        y = layer_norm_chain_plain(_linear(y, self.mlp2), self.norm2.weight, self.norm2.bias)
         return x + y
 
 

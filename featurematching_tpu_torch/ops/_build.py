@@ -97,21 +97,16 @@ def _load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def kernel_fn(lib_name: str, fn_name: str, argtypes: Sequence):
-    """The C entry `fn_name` of library `lib_name`, with its argtypes set."""
+def launch(lib_name: str, fn_name: str, argtypes: Sequence, *args) -> None:
+    """Call the C entry `fn_name` of library `lib_name` (argtypes set, int
+    result) and raise if the launch reported a CUDA error."""
     lib = _load(lib_name)
     fn = getattr(lib, fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = INT
-    return fn
-
-
-def launch(lib_name: str, fn_name: str, argtypes: Sequence, *args) -> None:
-    """Call a C entry and raise if the launch reported a CUDA error."""
-    err = kernel_fn(lib_name, fn_name, argtypes)(*args)
+    err = fn(*args)
     if err != 0:
-        msg = _load(lib_name).fm_error_string(err).decode()
-        raise RuntimeError(f"{fn_name}: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{fn_name}: CUDA error {err} ({lib.fm_error_string(err).decode()})")
 
 
 def stream() -> int:

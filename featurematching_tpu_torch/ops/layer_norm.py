@@ -24,11 +24,6 @@ def layer_norm_f32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -
     return (x32 - mu) * torch.rsqrt(var + EPS) * scale.float() + bias.float()
 
 
-def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """LN over the last axis with f32 statistics, output in x's dtype."""
-    return layer_norm_f32(x.float(), scale, bias).to(x.dtype)
-
-
 def layer_norm_chain_plain(
     x: torch.Tensor,
     scale1: torch.Tensor,
@@ -36,7 +31,8 @@ def layer_norm_chain_plain(
     scale2: Optional[torch.Tensor] = None,
     bias2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the kernel: both LNs in f32, one rounding at the end."""
+    """Plain version of the kernel (also the port's plain LN): f32 statistics,
+    both LNs in f32, one rounding to x's dtype at the end."""
     y = layer_norm_f32(x.float(), scale1, bias1)
     if scale2 is not None:
         y = layer_norm_f32(y, scale2, bias2)

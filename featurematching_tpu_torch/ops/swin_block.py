@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from featurematching_tpu_torch.ops import _build
-from featurematching_tpu_torch.ops.layer_norm import layer_norm_plain
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 WINDOW_TOKENS = 64
 HEAD_DIM = 16
@@ -48,7 +48,7 @@ def swin_block_reference(
     h = num_heads
     d = C // h
     dt = x.dtype
-    hx = layer_norm_plain(x, params["ln1_scale"], params["ln1_bias"])
+    hx = layer_norm_chain_plain(x, params["ln1_scale"], params["ln1_bias"])
     qkv = _dense(hx, params["w_qkv"], params["b_qkv"]).to(dt)
     q, k, v = (
         qkv[..., i * C : (i + 1) * C].reshape(B_, N, h, d).transpose(1, 2)
@@ -62,7 +62,7 @@ def swin_block_reference(
     p = torch.softmax(s, dim=-1).to(dt)
     o = (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(B_, N, C)
     x = x + _dense(o, params["w_proj"], params["b_proj"]).to(dt)
-    h2 = layer_norm_plain(x, params["ln2_scale"], params["ln2_bias"])
+    h2 = layer_norm_chain_plain(x, params["ln2_scale"], params["ln2_bias"])
     y = F.gelu(_dense(h2, params["w_mlp1"], params["b_mlp1"])).to(dt)
     return x + _dense(y, params["w_mlp2"], params["b_mlp2"]).to(dt)
 
