@@ -22,9 +22,10 @@ Per-kernel numbers in the JSON line are totals over one forward: each call
 site's time times its launches per forward, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
-989 TFLOP/s (the published H100 SXM figures). Stdout ends with the card line,
-the kernels JSON line, and {"ok": true, "device": {...}}. Without a GPU it
-exits non-zero and prints no result.
+989 TFLOP/s (the published H100 SXM figures), counted from this run's
+inputs by `featurematching_tpu_torch/utils/kernel_bounds.py`. Stdout ends
+with the card line, the kernels JSON line, and {"ok": true, "device": {...}}.
+Without a GPU it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -38,8 +39,14 @@ import traceback
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
+from featurematching_tpu_torch.utils.kernel_bounds import (
+    bound_ms,
+    dual_softmax_work,
+    layer_norm_work,
+    patch_expand_work,
+    swin_block_work,
+)
+
 B, H, W = 4, 480, 640
 N_FORWARD = 10
 EXPECTED_PER_FORWARD = {
@@ -69,11 +76,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def close(got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
     """(max abs error, whether |got - ref| <= atol + rtol*|ref| everywhere)."""
     g, r = got.float(), ref.float()
@@ -88,7 +90,9 @@ class Record:
         self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
                   for n in EXPECTED_PER_FORWARD}
 
-    def site(self, name, count, ms, plain_ms, nbytes, flops, err, lib_ms=None):
+    def site(self, name, count, ms, plain_ms, work, err, lib_ms=None):
+        """One call site: `count` launches per forward; work = (bytes, operations)."""
+        nbytes, flops = work
         k = self.k[name]
         k["ms"] += count * ms
         k["plain_ms"] += count * plain_ms
@@ -136,7 +140,7 @@ def check_layer_norm(rec: Record, g) -> None:
             "layer_norm_chain", count,
             cuda_ms(lambda: layer_norm_chain(x, s, b)),
             cuda_ms(lambda: layer_norm_chain_plain(x, s, b), iters=5),
-            nbytes=2 * rows * C * 2 + 2 * C * 4, flops=0.0, err=max(err, err2),
+            layer_norm_work(rows, C), err=max(err, err2),
             lib_ms=cuda_ms(lambda: F.layer_norm(x, (C,), sb, bb, eps=1e-6)),
         )
 
@@ -166,20 +170,17 @@ def check_swin_block(rec: Record, g) -> None:
             "b_mlp2": rnd(g, C, scale=0.02),
         }
         mask = torch.as_tensor(_shift_attn_mask(Hp, Wp, 8, 4), device="cuda")
-        wbytes = sum(t.numel() * t.element_size() for t in p.values())
-        flops = nwin * 64 * 24 * C * C + nwin * 4 * 64 * 64 * C
         for m, count in ((None, n_plain), (mask, n_mask)):
             got = swin_block_fused(x, m, p, h)
             torch.cuda.synchronize()
             err, ok = close(got, swin_block_reference(x, m, p, h), atol, rtol)
             if not ok:
                 raise AssertionError(f"swin_block_fused C={C} mask={m is not None}: max err {err:.3e}")
-            mbytes = 0 if m is None else m.numel() * 4
             rec.site(
                 "swin_block_fused", count,
                 cuda_ms(lambda: swin_block_fused(x, m, p, h)),
                 cuda_ms(lambda: swin_block_reference(x, m, p, h), iters=3),
-                nbytes=2 * x.numel() * 2 + wbytes + mbytes, flops=flops, err=err,
+                swin_block_work(nwin, C, h, 0 if m is None else m.shape[0]), err=err,
             )
 
 
@@ -206,13 +207,10 @@ def check_patch_expand(rec: Record, g) -> None:
             err = max(err, e)
             if not ok:
                 raise AssertionError(f"patch_expand_ln C4={C4} head={CH}: max err {e:.3e}")
-        out_bytes = sum(t.numel() * 2 for t in got)
-        tokens = 8 * 4 * h * w
         rec.site(
             "patch_expand_ln", 1, cuda_ms(lambda: patch_expand_ln(*args)),
             cuda_ms(lambda: patch_expand_ln_plain(*args), iters=5),
-            nbytes=y.numel() * 2 + out_bytes + (C4 * CH * 2 if CH else 0) + 4 * C4 * 4,
-            flops=2 * tokens * C4 * CH, err=err,
+            patch_expand_work(8, h, w, C4, CH, emit), err=err,
         )
 
 
@@ -258,7 +256,7 @@ def check_dual_softmax(rec: Record, g) -> None:
         "dual_softmax_match_stats", 1,
         cuda_ms(lambda: dual_softmax_match_stats(f0, f1, T), iters=10),
         cuda_ms(lambda: _stats_reference(f0, f1, inv_temp), iters=3),
-        nbytes=2 * Bp * L * C * 2 + 2 * Bp * L * 8, flops=2 * 2 * Bp * L * L * C, err=err,
+        dual_softmax_work(Bp, L, L, C), err=err,
     )
 
 

@@ -1,0 +1,194 @@
+"""The least time an H100 could take for the work of each TPU kernel.
+
+A kernel's bound is the larger of two times: the bytes its function must
+move (each input read once, each output written once) over the card's memory
+rate, and its matrix-product operations over the bf16 tensor-core peak.
+Both rates are NVIDIA's published H100 SXM figures, which assume the card's
+full 700 W power limit. The `*_work` functions count (bytes, operations) for
+one call at given shapes; `chip_smoke.py` applies them to the inputs it runs,
+and this module's command line applies them to every kernel of the JAX
+package, ported or not, at `default_config()`, 640x480, batch 4:
+
+    python -m featurematching_tpu_torch.utils.kernel_bounds
+
+Training kernels are counted at the same shapes (the default training batch
+is also 4 pairs at 640x480, with `max_gt_matches` = 1024 fine windows a
+pair). A forward and its backward count together: the backward does twice
+the forward's products, reads the forward's inputs and the output gradient,
+writes the input gradient and f32 weight gradients, and what the forward
+saves for it is written once and read once.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Tuple
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+WINDOW = 64  # tokens of an 8x8 Swin window
+BF16, F32 = 2, 4
+
+Work = Tuple[float, float]  # (bytes, operations)
+
+
+def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
+    """(least time in ms, "bytes" or "operations", whichever bounds it)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def total(works) -> Work:
+    works = list(works)
+    return sum(w[0] for w in works), sum(w[1] for w in works)
+
+
+def swin_block_work(windows: int, C: int, heads: int, mask_windows: int,
+                    tokens: int = 0) -> Work:
+    """K2 `swin_block_fused` on [windows, 64, C], mask [mask_windows, 64, 64]
+    (0: none). `tokens`: activation tokens read and written, when they are
+    fewer than the windows hold (K12 reads the unpadded image)."""
+    tokens = tokens or windows * WINDOW
+    weights = 12 * C * C * BF16 + 13 * C * F32 + heads * WINDOW * WINDOW * F32
+    nbytes = 2 * tokens * C * BF16 + weights + mask_windows * WINDOW * WINDOW * F32
+    return nbytes, windows * WINDOW * (24 * C * C + 4 * WINDOW * C)
+
+
+def window_attention_work(windows: int, C: int, heads: int, mask_windows: int) -> Work:
+    """K11: q, k, v in and the heads' output out (bf16); rel bias and mask (f32)."""
+    nbytes = (4 * windows * WINDOW * C * BF16 + heads * WINDOW * WINDOW * F32
+              + mask_windows * WINDOW * WINDOW * F32)
+    return nbytes, windows * 4 * WINDOW * WINDOW * C
+
+
+def layer_norm_work(rows: int, C: int, n_ln: int = 1) -> Work:
+    """K3 `layer_norm_chain`: bf16 [rows, C] in and out, f32 scales/biases."""
+    return 2 * rows * C * BF16 + n_ln * 2 * C * F32, 0.0
+
+
+def patch_expand_work(batch: int, H: int, W: int, C4: int, head: int, emit_ln: bool) -> Work:
+    """K4 `patch_expand_ln` on the expand output [batch, H*W, 4*C4]; `head`
+    is the head's width (0: none)."""
+    tokens = batch * 4 * H * W
+    nbytes = (tokens * C4 * BF16 * (2 if emit_ln else 1) + 4 * C4 * F32
+              + head * (tokens * BF16 + C4 * BF16 + F32))
+    return nbytes, 2 * tokens * C4 * head
+
+
+def dual_softmax_work(B: int, L: int, S: int, C: int) -> Work:
+    """K1 `dual_softmax_match_stats`: bf16 features in, an f32 max and an
+    int32 argmax per row and per column out. Two passes over the L x S
+    products: the [L, S] matrix is never stored, so the second recomputes it."""
+    return B * (L + S) * C * BF16 + B * (L + S) * 2 * F32, 2 * 2 * B * L * S * C
+
+
+def encoder_work(tokens: int, C: int, heads: int, layers: int) -> Work:
+    """LoFTR encoder layers (q, k, v, merge, 2C->2C and 2C->C products, linear
+    attention) over `tokens` tokens in all; bf16 activations in and out."""
+    flops = layers * tokens * (20 * C * C + 4 * C * (C // heads))
+    return 2 * tokens * C * BF16 + layers * (10 * C * C * BF16 + 4 * C * F32), flops
+
+
+def sparse_focal_backward_work(B: int, L: int, S: int, C: int, G: int) -> Work:
+    """K7: bf16 features, f32 row/column log-sum-exps and G GT pairs a pair
+    in, bf16 df0 and df1 out; it recomputes sim, then df0 = dsim f1 and
+    df1 = dsim^T f0."""
+    nbytes = 2 * B * (L + S) * C * BF16 + B * (L + S) * F32 + B * G * 3 * F32
+    return nbytes, 3 * 2 * B * L * S * C
+
+
+def with_backward(fwd: Work, saved_bytes: float, weight_grad_bytes: float) -> Work:
+    return 2 * fwd[0] + 2 * saved_bytes + weight_grad_bytes, 3 * fwd[1]
+
+
+class Site(NamedTuple):
+    windows: int
+    C: int
+    heads: int
+    mask_windows: int  # 0 without the shift mask
+    tokens: int  # unpadded tokens of the map
+
+
+def swin_sites(cfg, images: int, H: int, W: int) -> List[Site]:
+    """Every Swin block of the serving backbone, in order, as K2 sees it."""
+    s = cfg.swin
+    w = s.window_size
+    maps = [(H // s.patch_size, W // s.patch_size)]
+    for _ in range(len(s.depths) - 1):
+        maps.append(((maps[-1][0] + 1) // 2, (maps[-1][1] + 1) // 2))
+    n = len(s.depths)
+    stages = [(i, s.depths[i]) for i in range(n)]
+    stages += [(n - 1 - j, s.depths_up[n - 1 - j]) for j in range(len(s.depths_up))]
+    sites = []
+    for level, depth in stages:
+        h, wd = maps[level]
+        nw = math.ceil(h / w) * math.ceil(wd / w)
+        for b in range(depth):
+            sites.append(Site(images * nw, s.embed_dim * 2**level, s.num_heads[level],
+                              nw if b % 2 else 0, images * h * wd))
+    return sites
+
+
+def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[str, str, Work]]:
+    """(id, entry point, Work) of the twelve kernels at the given serving
+    shapes; each Work sums every call of one forward (or training step)."""
+    s, co, fi = cfg.swin, cfg.coarse, cfg.fine
+    images, sc, E = 2 * batch, cfg.resolution[0], s.embed_dim
+    L = (H // sc) * (W // sc)
+    hp, wp = H // s.patch_size, W // s.patch_size
+    sites = swin_sites(cfg, images, H, W)
+    nwin = batch * cfg.match_coarse.max_matches  # fine windows
+    taps = fi.window_size**2
+    fine_enc = encoder_work(2 * nwin * taps, fi.d_model, fi.nhead, len(fi.layer_names))
+    coarse = encoder_work(images * L, co.d_model, co.nhead, len(co.layer_names))
+    return [
+        ("K1", "pallas_dual_softmax.dual_softmax_match_stats", dual_softmax_work(
+            batch, L, L, co.d_model)),
+        ("K2", "pallas_swin_block.swin_block_fused",
+         total(swin_block_work(*st[:4]) for st in sites)),
+        ("K3", "pallas_ln.layer_norm_chain", total([
+            layer_norm_work(images * hp * wp, E),
+            layer_norm_work(images * hp * wp // 4, 2 * E),
+            layer_norm_work(images * hp * wp // 16, 4 * E),
+            layer_norm_work(images * hp * wp // 16, 4 * E)])),
+        ("K4", "pallas_patch_expand.patch_expand_ln", total([
+            patch_expand_work(images, hp // 4, wp // 4, 2 * E, 256, True),
+            patch_expand_work(images, hp // 2, wp // 2, E, 0, True),
+            patch_expand_work(images, hp, wp, E, 64, False)])),
+        ("K5", "pallas_coarse_transformer.coarse_transformer_fused", coarse),
+        # + the 49->1 mix and both heatmaps (centre . window), f32 heatmaps out
+        ("K6", "pallas_fine_stage.fine_stage_fused", total([
+            fine_enc, (2 * nwin * taps * F32, 2 * 2 * nwin * taps * fi.d_model * 2)])),
+        ("K7", "sparse_focal_loss._sfl_bwd_pallas", sparse_focal_backward_work(
+            batch, L, L, co.d_model, cfg.match_coarse.max_matches)),
+        ("K8", "pallas_swin_block_grad.swin_block_train", total(
+            with_backward(swin_block_work(*st[:4]),
+                          st.windows * st.heads * WINDOW * WINDOW * BF16, 12 * st.C**2 * F32)
+            for st in sites)),
+        ("K9", "pallas_coarse_grad.coarse_transformer_train", with_backward(
+            coarse, len(co.layer_names) * images * L * co.d_model * BF16,
+            len(co.layer_names) * 10 * co.d_model**2 * F32)),
+        ("K10", "pallas_fine_grad.fine_transformer_train", with_backward(
+            fine_enc, len(fi.layer_names) * 2 * nwin * taps * fi.d_model * BF16,
+            len(fi.layer_names) * 10 * fi.d_model**2 * F32)),
+        ("K11", "pallas_window_attention.window_attention_pallas",
+         total(window_attention_work(*st[:4]) for st in sites)),
+        ("K12", "pallas_swin_block.swin_block_fused_image",
+         total(swin_block_work(*st) for st in sites)),
+    ]
+
+
+def main() -> None:
+    from featurematching_tpu_torch.config import default_config
+
+    print(f"H100 SXM peaks: {HBM_BYTES_PER_S / 1e12} TB/s, {BF16_TENSOR_FLOPS / 1e12} "
+          "TFLOP/s bf16 (700 W); default_config(), 640x480, batch 4")
+    print("| Id | Kernel | MB moved | GFLOP | bound ms | bound by |")
+    print("|---|---|---|---|---|---|")
+    for kid, name, (nbytes, flops) in all_kernels(default_config().model):
+        b, by = bound_ms(nbytes, flops)
+        print(f"| {kid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need an NVIDIA GPU (`sm_90a`) and `nvcc`; without them they skip.
+They cover what the serving shapes of `chip_smoke.py` do not reach: ragged
+edges (row counts and token counts that are no multiple of a tile), argmax
+ties across tiles, and the wrappers' refusal of tensors the kernels do not
+take. They import neither JAX nor the JAX package, so on a machine without
+JAX run them without the repository's conftest:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+
+import pytest
+import torch
+
+from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
+from featurematching_tpu_torch.ops.dual_softmax import (
+    _stats_reference,
+    dual_softmax_match_stats,
+)
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
+from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln, patch_expand_ln_plain
+from featurematching_tpu_torch.ops.swin_block import swin_block_fused, swin_block_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    """A seeded generator on the card; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(g, *shape, scale=1.0, shift=0.0, dtype=torch.float32):
+    return (torch.randn(*shape, generator=g, device="cuda") * scale + shift).to(dtype)
+
+
+def _assert_close(got, ref, atol, rtol):
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    bad = err > atol + rtol * ref.float().abs()
+    assert not bad.any(), f"max err {float(err.max()):.3e} at {int(bad.sum())} entries"
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("two", [False, True])
+def test_layer_norm_chain_ragged_rows(gen, C, two):
+    """37 * 3 rows: the last block of 8 rows is partly empty."""
+    x = _rnd(gen, 3, 37, C, scale=2.0, shift=0.5, dtype=torch.bfloat16)
+    s1, b1 = _rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)
+    s2, b2 = (_rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)) if two else (None, None)
+    got = layer_norm_chain(x, s1, b1, s2, b2)
+    # one bf16 rounding of an f32 result on both sides: one ulp apart at most
+    _assert_close(got, layer_norm_chain_plain(x, s1, b1, s2, b2), 1.6e-2, 1.6e-2)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_swin_block_small_batches(gen, C, masked):
+    """Two images of a 16x24 padded map (nW = 6): window w takes mask[w % 6]."""
+    h, hid = C // 16, 4 * C
+    x = _rnd(gen, 12, 64, C, dtype=torch.bfloat16)
+    p = {
+        "ln1_scale": _rnd(gen, C, scale=0.1, shift=1.0), "ln1_bias": _rnd(gen, C, scale=0.1),
+        "w_qkv": _rnd(gen, C, 3 * C, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_qkv": _rnd(gen, 3 * C, scale=0.02), "rel_bias": _rnd(gen, h, 64, 64, scale=0.02),
+        "w_proj": _rnd(gen, C, C, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_proj": _rnd(gen, C, scale=0.02),
+        "ln2_scale": _rnd(gen, C, scale=0.1, shift=1.0), "ln2_bias": _rnd(gen, C, scale=0.1),
+        "w_mlp1": _rnd(gen, C, hid, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_mlp1": _rnd(gen, hid, scale=0.02),
+        "w_mlp2": _rnd(gen, hid, C, scale=hid**-0.5, dtype=torch.bfloat16),
+        "b_mlp2": _rnd(gen, C, scale=0.02),
+    }
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda") if masked else None
+    got = swin_block_fused(x, mask, p, h)
+    # bf16 intermediates rounded in another order (the tolerance of chip_smoke.py)
+    _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("C4,CH,emit_ln", [(128, 256, True), (64, 0, True), (64, 64, False),
+                                           (128, 0, True), (64, 256, True)])
+def test_patch_expand_ragged_tokens(gen, C4, CH, emit_ln):
+    """3 images of 5x7: 420 output tokens, the last block of 64 partly empty."""
+    B, H, W = 3, 5, 7
+    y = _rnd(gen, B, H * W, 4 * C4, dtype=torch.bfloat16)
+    s1, b1 = _rnd(gen, C4, scale=0.1, shift=1.0), _rnd(gen, C4, scale=0.1)
+    s2, b2 = _rnd(gen, C4, scale=0.1, shift=1.0), _rnd(gen, C4, scale=0.1)
+    wh = _rnd(gen, C4, CH, scale=C4**-0.5, dtype=torch.bfloat16) if CH else None
+    bh = _rnd(gen, CH, scale=0.1) if CH else None
+    args = (y, H, W, s1, b1, s2, b2, wh, bh, emit_ln)
+    got, ref = patch_expand_ln(*args), patch_expand_ln_plain(*args)
+    assert len(got) == len(ref) == int(emit_ln) + int(CH > 0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        _assert_close(g, r, 3e-2, 1.6e-2)  # one bf16 ulp of the outputs
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_dual_softmax_ragged(gen, C):
+    """L = 200 rows and S = 136 columns: the last row and column tiles are partial."""
+    B, L, S = 2, 200, 136
+    f1 = _rnd(gen, B, S, C)
+    f0 = 0.5 * _rnd(gen, B, L, C)
+    f0[:, :S] += f1  # row i < S has its best column at i
+    f0, f1 = f0.bfloat16(), f1.bfloat16()
+    got = dual_softmax_match_stats(f0, f1, 0.1)
+    ref = _stats_reference(f0, f1, 1.0 / (C * 0.1))
+    # f32 sums in another order; conf is a product of exps
+    _assert_close(got.row_max, ref.row_max, 0.0, 1e-3)
+    _assert_close(got.col_max, ref.col_max, 0.0, 1e-3)
+    assert torch.equal(got.row_argmax[:, :S].cpu(), torch.arange(S).expand(B, S).int())
+    assert torch.equal(got.col_argmax.cpu(), torch.arange(S).expand(B, S).int())
+
+
+def test_dual_softmax_ties_keep_the_lowest_index(gen):
+    """Exact duplicates in other tiles tie: the argmax keeps the lower index,
+    as jnp.argmax does. Column 5 of f1 is repeated at column 100 (another
+    column tile); row 3 of f0 is repeated at row 150 (another row tile)."""
+    B, L, S, C = 1, 192, 128, 64
+    f1 = _rnd(gen, B, S, C)
+    f1[:, 100] = f1[:, 5]
+    f0 = 0.3 * _rnd(gen, B, L, C)
+    f0[:, 3] = 2.0 * f1[:, 5]
+    f0[:, 150] = f0[:, 3]
+    f0, f1 = f0.bfloat16(), f1.bfloat16()
+    got = dual_softmax_match_stats(f0, f1, 0.1)
+    torch.cuda.synchronize()
+    assert int(got.row_argmax[0, 3]) == 5 and int(got.row_argmax[0, 150]) == 5
+    assert int(got.col_argmax[0, 5]) == 3 and int(got.col_argmax[0, 100]) == 3
+
+
+def test_wrappers_raise_rather_than_fall_back(gen):
+    """A CUDA tensor the kernels do not take raises; no plain fallback runs."""
+    x = _rnd(gen, 4, 64)  # float32, not bfloat16
+    s, b = _rnd(gen, 64), _rnd(gen, 64)
+    before = layer_norm_chain.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        layer_norm_chain(x, s, b)
+    with pytest.raises(ValueError, match="C in"):
+        layer_norm_chain(_rnd(gen, 4, 96, dtype=torch.bfloat16), _rnd(gen, 96), _rnd(gen, 96))
+    f = _rnd(gen, 1, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dual_softmax_match_stats(f, f, 0.1)
+    assert layer_norm_chain.launches == before
