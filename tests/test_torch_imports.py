@@ -1,4 +1,4 @@
-"""The port and its chip driver import neither JAX nor the JAX package."""
+"""The port and chip_smoke.py import neither JAX nor the JAX package."""
 
 import ast
 from pathlib import Path
