@@ -13,10 +13,18 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   3. run the serving forward (`default_config()`, 640x480, batch 4, bf16,
      seeded random weights) with the launch counters set to 0 just before and
      read just after, check its outputs are finite and every kernel launched
-     the expected number of times, and print pairs/s;
+     the expected number of times, and print pairs/s and where the time goes
+     (backbone, coarse transformer, coarse matching and fine stage, each
+     through the path the forward takes, and the rest);
   4. semantic check: identical images with thr=1e-8 give matches on the
      coarse-grid diagonal; and the forward on the card agrees with the plain
-     path on the CPU at 64x64.
+     path on the CPU at 64x64 (feat_c0, and mkpts0_f over the matches both
+     find).
+
+The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
+patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
+layers' stats and apply launches), dual_softmax_match_stats (K1) and
+fine_stage_fused (K6, fold mode).
 
 Per-kernel numbers in the JSON line are totals over one forward: each call
 site's time times its launches per forward, summed. `bound_ms` is the larger
@@ -41,17 +49,26 @@ import torch
 
 from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
+    coarse_apply_work,
+    coarse_stats_work,
     dual_softmax_work,
+    fine_stage_work,
     layer_norm_work,
     patch_expand_work,
     swin_block_work,
+    total,
 )
 
 B, H, W = 4, 480, 640
 N_FORWARD = 10
+# K6 heatmaps against the plain version: the two sides' windows differ by
+# bf16 roundings taken in another order (within 5e-2 + 2e-2 |x|); over the
+# 64 channels of a logit m . w / 8 that moves a logit by up to about 0.2,
+# and a probability p by p (1 - p) 0.2 <= 0.05
+HEAT_ATOL = 5e-2
 EXPECTED_PER_FORWARD = {
     "swin_block_fused": 13, "layer_norm_chain": 4, "patch_expand_ln": 3,
-    "dual_softmax_match_stats": 1,
+    "dual_softmax_match_stats": 1, "coarse_transformer_fused": 1, "fine_stage_fused": 1,
 }
 SOURCES = {
     "swin_block_fused": ("swin_block.cu", "featurematching_tpu/ops/pallas_swin_block.py:301"),
@@ -59,6 +76,9 @@ SOURCES = {
     "patch_expand_ln": ("patch_expand.cu", "featurematching_tpu/ops/pallas_patch_expand.py:164"),
     "dual_softmax_match_stats": (
         "dual_softmax.cu", "featurematching_tpu/ops/pallas_dual_softmax.py:216"),
+    "coarse_transformer_fused": (
+        "coarse_transformer.cu", "featurematching_tpu/ops/pallas_coarse_transformer.py:168,194"),
+    "fine_stage_fused": ("fine_stage.cu", "featurematching_tpu/ops/pallas_fine_stage.py:378"),
 }
 
 
@@ -74,6 +94,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def kernel_times(fn):
+    """The device time of each kernel one call of fn() launches, by name,
+    from the profiler: [(ms, launches, name)], largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(((e.device_time_total / 1e3, e.count, e.key) for e in kern), reverse=True)
 
 
 def close(got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
@@ -260,47 +294,145 @@ def check_dual_softmax(rec: Record, g) -> None:
     )
 
 
+def layer_values(g, C):
+    """Random operands of one encoder layer: bf16 weights at lecun scale, LN
+    scales near 1 and biases near 0 (f32)."""
+    from featurematching_tpu_torch.ops.coarse_transformer import layer_values as pack
+
+    def w(i, o):
+        return rnd(g, i, o, scale=i**-0.5, dtype=torch.bfloat16)
+
+    def ln():
+        return rnd(g, C, scale=0.1, shift=1.0), rnd(g, C, scale=0.1)
+
+    return pack(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C), *ln())
+
+
+def check_coarse_transformer(rec: Record, g) -> None:
+    from featurematching_tpu_torch.ops.coarse_transformer import (
+        coarse_layer_fused,
+        coarse_transformer_fused,
+        coarse_transformer_reference,
+        encoder_reference,
+    )
+
+    Bp, N, C, h = B, (H // 8) * (W // 8), 256, 8
+    atol, rtol = 5e-2, 2e-2  # bf16 intermediates rounded in another order (as K2)
+    stack_rel = 5e-2  # eight layers: the per-layer differences add up
+    print(f"  tolerance per layer |kernel - plain| <= {atol} + {rtol} |plain|; "
+          f"8-layer stack max |kernel - plain| <= {stack_rel} max |plain|")
+    # the forward's sites: 4 self layers on both images (G = 2B), 8 cross launches (G = B)
+    for G, kind, count in ((2 * Bp, "self", 4), (Bp, "cross", 8)):
+        lv = layer_values(g, C)
+        x = rnd(g, G, N, C, dtype=torch.bfloat16)
+        src = x if kind == "self" else rnd(g, G, N, C, dtype=torch.bfloat16)
+        got = coarse_layer_fused(x, src, lv, h)
+        torch.cuda.synchronize()
+        err, ok = close(got, encoder_reference(x, src, lv, h), atol, rtol)
+        if not ok:
+            raise AssertionError(f"coarse layer ({kind}, G={G}): max err {err:.3e}")
+        rec.site(
+            "coarse_transformer_fused", count,
+            cuda_ms(lambda: coarse_layer_fused(x, src, lv, h)),
+            cuda_ms(lambda: encoder_reference(x, src, lv, h), iters=3),
+            total([coarse_stats_work(G, N, C, h), coarse_apply_work(G, N, C, h)]), err=err,
+        )
+    layers = [layer_values(g, C) for _ in range(8)]
+    names = ("self", "cross") * 4
+    f0, f1 = rnd(g, Bp, N, C, dtype=torch.bfloat16), rnd(g, Bp, N, C, dtype=torch.bfloat16)
+    got = coarse_transformer_fused(f0, f1, layers, names, h)
+    ref = coarse_transformer_reference(f0, f1, layers, names, h)
+    torch.cuda.synchronize()
+    rel = max(float((a.float() - r.float()).abs().max() / r.float().abs().max())
+              for a, r in zip(got, ref))
+    kms = cuda_ms(lambda: coarse_transformer_fused(f0, f1, layers, names, h), iters=5)
+    pms = cuda_ms(lambda: coarse_transformer_reference(f0, f1, layers, names, h), iters=2)
+    print(f"  8-layer stack: max err / max |plain| = {rel:.4f}; kernel {kms:.4f} ms, "
+          f"plain {pms:.4f} ms")
+    if not rel <= stack_rel:
+        raise AssertionError(f"coarse transformer stack: relative error {rel:.4f}")
+
+
+def check_fine_stage(rec: Record, g) -> None:
+    from featurematching_tpu_torch.matching.fine import window_heatmaps
+    from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_reference
+
+    B_, N, C, h = B * 1024, 49, 64, 8  # max_matches windows a pair, 7x7 taps
+    names = ("self", "cross")
+    layers = [layer_values(g, C) for _ in names]
+    mixes = [(rnd(g, N, scale=0.3), rnd(g, 1)) for _ in range(2)]
+    w0, w1 = rnd(g, B_, N, C, dtype=torch.bfloat16), rnd(g, B_, N, C, dtype=torch.bfloat16)
+    args = (w0, w1, layers, *mixes, names, h)
+    # fold math on the kernel's own windows and centres (its plain mode): f32
+    # sums in another order. Against the plain version: windows and mixes as
+    # the coarse layers (the mixes at the JAX package's bf16 tolerance for its
+    # 49-tap sum); heatmaps within HEAT_ATOL, see its note
+    own_atol = 1e-5
+    watol, wrtol, matol, mrtol = 5e-2, 2e-2, 0.13, 0.05
+    print(f"  tolerance: fold heatmaps vs the heatmaps of the kernel's own plain-mode outputs "
+          f"<= {own_atol}; vs the plain version <= {HEAT_ATOL}, rows sum to 1 within 1e-5; "
+          f"plain-mode windows <= {watol} + {wrtol} |plain|, mixes <= {matol} + {mrtol} |plain|")
+    heat = fine_stage_fused(*args, fold_softargmax=True)
+    got = fine_stage_fused(*args)
+    torch.cuda.synchronize()
+    ref_heat = fine_stage_reference(*args, fold_softargmax=True)
+    own = (window_heatmaps(got[2], got[1]), window_heatmaps(got[3], got[0]))
+    err = 0.0
+    for a, o, r in zip(heat, own, ref_heat, strict=True):
+        if tuple(a.shape) != (B_, N) or a.dtype != torch.float32:
+            raise AssertionError(f"fine_stage heatmap shape {tuple(a.shape)} {a.dtype}")
+        if not ((a.sum(-1) - 1.0).abs() <= 1e-5).all():
+            raise AssertionError("fine_stage heatmap rows do not sum to 1")
+        e_own, ok_own = close(a, o, own_atol, 0.0)
+        e, ok = close(a, r, HEAT_ATOL, 0.0)
+        over = float(((a - r).abs() > 1e-2).float().mean())
+        print(f"  heatmaps: vs own windows max err {e_own:.3e}; vs plain max err {e:.3e}, "
+              f"share of taps off by more than 1e-2: {over:.2e}")
+        if not (ok_own and ok):
+            raise AssertionError(f"fine_stage heatmaps: max err {e_own:.3e} / {e:.3e}")
+        err = max(err, e)
+    for i, (a, r) in enumerate(zip(got, fine_stage_reference(*args), strict=True)):
+        e, ok = close(a, r, *((watol, wrtol) if i < 2 else (matol, mrtol)))
+        print(f"  plain mode output {i}: max err {e:.3e}")
+        if a.shape != r.shape or not ok:
+            raise AssertionError(f"fine_stage plain mode output {i}: max err {e:.3e}")
+    rec.site(
+        "fine_stage_fused", 1,
+        cuda_ms(lambda: fine_stage_fused(*args, fold_softargmax=True)),
+        cuda_ms(lambda: fine_stage_reference(*args, fold_softargmax=True), iters=3),
+        fine_stage_work(B_, N, C, h, len(names)), err=err,
+    )
+
+
 @torch.no_grad()
 def breakdown(model, img0, img1, forward_ms: float) -> None:
-    """Where one forward's time goes: each layer timed alone with CUDA events
-    (the fine stage is the remainder), then the profiler's kernels by device
-    time and the device's busy share of the forward's wall time."""
-    from featurematching_tpu_torch.matching.coarse import extract_matches_from_stats
-    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
-
-    mc = model.cfg.match_coarse
+    """Where one forward's time goes: the device time of each stage's kernels
+    (profiler), each stage run alone through the path the forward takes, the
+    rest being the remainder of the whole forward's; then the forward's
+    largest kernels and the device's busy share of its wall time."""
     hc, wc = H // 8, W // 8
     imgs = torch.cat([img0, img1]).to(model.dtype)
-    feat_c, _ = model.backbone(imgs)
+    feat_c, feat_f = model.backbone(imgs)
     f0, f1 = feat_c[:B].reshape(B, hc * wc, -1), feat_c[B:].reshape(B, hc * wc, -1)
-    c0, c1 = model.coarse_transformer(f0, f1)
-    layers = {
-        "backbone": cuda_ms(lambda: model.backbone(imgs), iters=5),
-        "coarse transformer": cuda_ms(lambda: model.coarse_transformer(f0, f1), iters=5),
-        "coarse matching": cuda_ms(lambda: extract_matches_from_stats(
-            dual_softmax_match_stats(c0, c1, mc.dsmax_temperature), (hc, wc), (hc, wc),
-            mc.thr, mc.border_rm, mc.max_matches), iters=5),
+    c0, c1 = model.coarse_stage(f0, f1)
+    matches = model.coarse_matching(c0, c1, (hc, wc))
+    stages = {
+        "backbone": lambda: model.backbone(imgs),
+        "coarse transformer": lambda: model.coarse_stage(f0, f1),
+        "coarse matching": lambda: model.coarse_matching(c0, c1, (hc, wc)),
+        "fine stage": lambda: model.fine_stage(feat_f[:B], feat_f[B:], c0, c1, matches, (hc, wc)),
     }
-    total = cuda_ms(lambda: model(img0, img1), iters=5)
-    layers["fine stage and the rest"] = total - sum(layers.values())
-    print(f"  layers (device ms, forward {total:.3f}): "
+    layers = {k: sum(t[0] for t in kernel_times(fn)) for k, fn in stages.items()}
+    kern = kernel_times(lambda: model(img0, img1))
+    busy = sum(t[0] for t in kern)
+    layers["the rest"] = busy - sum(layers.values())
+    print(f"  layers (device ms of their kernels; forward {busy:.3f} busy): "
           + ", ".join(f"{k} {v:.3f}" for k, v in layers.items()))
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model(img0, img1)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.device_time_total for e in kern) / 1e3
-        print(f"  profiler: {len(kern)} kernel names, {sum(e.count for e in kern)} launches, "
-              f"{busy:.3f} ms device busy = {busy / forward_ms:.3f} of the "
-              f"{forward_ms:.3f} ms forward")
-        for e in sorted(kern, key=lambda e: -e.device_time_total)[:15]:
-            print(f"    {e.device_time_total / 1e3:8.3f} ms x{e.count:4d}  {e.key[:90]}")
-    except (RuntimeError, AttributeError) as exc:  # the profiler is optional here
-        print(f"  profiler unavailable: {exc!r}")
+    print(f"  profiler: {len(kern)} kernel names, {sum(t[1] for t in kern)} launches, "
+          f"{busy:.3f} ms device busy = {busy / forward_ms:.3f} of the "
+          f"{forward_ms:.3f} ms forward")
+    for ms, count, name in kern[:15]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
 
 
 def main() -> int:
@@ -310,7 +442,9 @@ def main() -> int:
     from featurematching_tpu_torch.config import default_config
     from featurematching_tpu_torch.models.fast_inference import FastMatcher
     from featurematching_tpu_torch.ops import _build
+    from featurematching_tpu_torch.ops.coarse_transformer import coarse_transformer_fused
     from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
+    from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused
     from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
     from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
     from featurematching_tpu_torch.ops.swin_block import swin_block_fused
@@ -318,6 +452,7 @@ def main() -> int:
     wrappers = {
         "swin_block_fused": swin_block_fused, "layer_norm_chain": layer_norm_chain,
         "patch_expand_ln": patch_expand_ln, "dual_softmax_match_stats": dual_softmax_match_stats,
+        "coarse_transformer_fused": coarse_transformer_fused, "fine_stage_fused": fine_stage_fused,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -353,6 +488,8 @@ def main() -> int:
     phase("check swin_block_fused", lambda: check_swin_block(rec, g))
     phase("check patch_expand_ln", lambda: check_patch_expand(rec, g))
     phase("check dual_softmax_match_stats", lambda: check_dual_softmax(rec, g))
+    phase("check coarse_transformer_fused", lambda: check_coarse_transformer(rec, g))
+    phase("check fine_stage_fused", lambda: check_fine_stage(rec, g))
 
     cfg = default_config().model
     launches = {}
@@ -403,7 +540,7 @@ def main() -> int:
         if int(m.sum()) == 0 or diag < 0.95:
             raise AssertionError("identical images do not match on the diagonal")
         # the card's forward against the plain path on the CPU, 64x64, same weights
-        cpu = FastMatcher(cfg, device="cpu", seed=0)
+        cpu = FastMatcher(model.cfg, device="cpu", seed=0)
         cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         a = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3))
         b = torch.roll(a, shifts=8, dims=2)
@@ -413,6 +550,16 @@ def main() -> int:
         print(f"  64x64 card vs CPU plain (bf16 both): feat_c0 max err / max |ref| = {rel:.4f}")
         if not rel < 0.05:
             raise AssertionError("the card's forward disagrees with the plain path")
+        gc, rc = got.coarse, ref.coarse
+        both = (gc.mask.cpu() & rc.mask & (gc.i_ids.cpu() == rc.i_ids)
+                & (gc.j_ids.cpu() == rc.j_ids))
+        px = float((got.fine.mkpts0_f.cpu()[both][:, :2] - ref.fine.mkpts0_f[both][:, :2])
+                   .abs().max()) if both.any() else float("nan")
+        print(f"  64x64 mkpts0_f over the {int(both.sum())} matches both find (of "
+              f"{int(rc.mask.sum())} on the CPU): max err {px:.4f} px")
+        # a 7x7 window at stride 2 spans +-6 px; bf16 moves a heatmap by ~1%
+        if not (both.any() and px <= 0.5):
+            raise AssertionError("the card's fine keypoints disagree with the plain path")
 
     phase("semantic checks", semantic)
 

@@ -1,0 +1,177 @@
+// Tensor-core tiles for kernels that work on 64-row tiles of tokens:
+// bf16 mma.sync.m16n8k16 with f32 accumulation, in the fragment layouts the
+// PTX ISA documents, so accumulators are read straight from registers.
+//
+// A 16x16 output tile is two m16n8k16 products. Its accumulator holds
+// c[j], j < 8, at row g + 8 ((j >> 1) & 1), column 8 (j >> 2) + 2 t + (j & 1),
+// where g = lane / 4 and t = lane % 4.
+//
+// Weights (the B operands of the products) are stored in fragment order
+// ("packed", ops/coarse_transformer.frag_pack): for each 16-column strip and
+// 16-row step, 32 lanes x 8 bf16, so a warp loads a 16x16 tile of B with one
+// coalesced 16-byte load a lane. A operands come from shared memory through
+// ldmatrix; row strides are multiples of 8 elements (16 bytes).
+#pragma once
+
+#include "common.cuh"
+
+namespace fm {
+
+struct Acc16 {
+  float c[8];
+};
+
+__device__ __forceinline__ void zero(Acc16& a) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a.c[j] = 0.f;
+}
+
+// c[0..4) += A (16x16, 4 regs) . B (16x8, 2 regs)
+__device__ __forceinline__ void mma16x8(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += A . B for one 16x16x16 step; b: the tile's B fragment (4 regs)
+__device__ __forceinline__ void mma16(Acc16& acc, const uint32_t* a, const uint32_t* b) {
+  mma16x8(acc.c, a, b[0], b[1]);
+  mma16x8(acc.c + 4, a, b[2], b[3]);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// A fragment of the 16x16 tile at a (shared, row-major, row stride lda)
+__device__ __forceinline__ void load_a(uint32_t* r, const bf16* a, int lda, int lane) {
+  ldsm_x4(r, a + (lane & 15) * lda + (lane >> 4) * 8);
+}
+
+// A fragment of the transpose of the 16x16 tile at s: A[i][k] = s[k][i]
+__device__ __forceinline__ void load_a_trans(uint32_t* r, const bf16* s, int lds, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4_trans(r, s + ((lane & 7) + (m >> 1) * 8) * lds + (m & 1) * 8);
+}
+
+// B fragment of the 16x16 tile at s (shared, row-major [k][n], row stride lds)
+__device__ __forceinline__ void load_b(uint32_t* r, const bf16* s, int lds, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4_trans(r, s + ((lane & 7) + (m & 1) * 8) * lds + (m >> 1) * 8);
+}
+
+// B fragment of a packed tile (16-byte aligned): this lane's 16 bytes
+__device__ __forceinline__ void load_b_packed(uint32_t* r, const bf16* tile, int lane) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(tile) + lane);
+  r[0] = v.x;
+  r[1] = v.y;
+  r[2] = v.z;
+  r[3] = v.w;
+}
+
+// The packed tile (k-step kt, strip nt) of a [K, N] weight: strips are
+// contiguous runs of K / 16 tiles of 256 bf16
+__device__ __forceinline__ const bf16* packed_tile(const bf16* w, int K, int kt, int nt) {
+  return w + ((size_t)nt * (K / 16) + kt) * 256;
+}
+
+// hand each of the tile's 256 values to epi(row, col, value)
+template <typename Epi>
+__device__ __forceinline__ void tile_epilogue(const Acc16& acc, int row0, int col0, int lane,
+                                              Epi epi) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    epi(row0 + g + 8 * ((j >> 1) & 1), col0 + 8 * (j >> 2) + 2 * t + (j & 1), acc.c[j]);
+}
+
+// acc[i] += A[16i .. 16i+16, 0..K) . B[kt0*16 .. kt0*16 + K, strip nt] for RT
+// row tiles; A in shared memory, B packed with KB rows in all
+template <int K, int RT>
+__device__ __forceinline__ void strip_mma(Acc16* acc, const bf16* a, int lda, const bf16* b,
+                                          int KB, int kt0, int nt, int lane) {
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k) {
+    uint32_t fb[4];
+    load_b_packed(fb, packed_tile(b, KB, kt0 + k, nt), lane);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      uint32_t fa[4];
+      load_a(fa, a + i * 16 * lda + k * 16, lda, lane);
+      mma16(acc[i], fa, fb);
+    }
+  }
+}
+
+// row tiles per work unit: 4 when the strips alone keep all warps busy
+__host__ __device__ constexpr int rows_per_unit(int strips, int warps) {
+  return strips % warps == 0 ? 4 : 2;
+}
+
+// out[64][16 * STRIPS] = A1[64][K1] . B[0..K1) + A2[64][K2] . B[K1..K1+K2)
+// for the strips [nt0, nt0 + STRIPS) of a packed B with K1 + K2 rows,
+// handed to epi(row, col, v) with col counted from the first strip. K2 = 0
+// gives a plain product; K2 > 0 a product over [A1 | A2] without the concat.
+template <int WARPS, int K1, int K2, int STRIPS, typename Epi>
+__device__ __forceinline__ void gemm_rows64_split(const bf16* a1, int lda1, const bf16* a2,
+                                                  int lda2, const bf16* b, int nt0, int warp,
+                                                  int lane, Epi epi) {
+  constexpr int RT = rows_per_unit(STRIPS, WARPS), GROUPS = 4 / RT;
+  for (int u = warp; u < STRIPS * GROUPS; u += WARPS) {
+    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
+    Acc16 acc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) zero(acc[i]);
+    strip_mma<K1, RT>(acc, a1 + tm0 * 16 * lda1, lda1, b, K1 + K2, 0, nt0 + tn, lane);
+    if (K2 > 0)
+      strip_mma<K2, RT>(acc, a2 + tm0 * 16 * lda2, lda2, b, K1 + K2, K1 / 16, nt0 + tn, lane);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) tile_epilogue(acc[i], (tm0 + i) * 16, tn * 16, lane, epi);
+  }
+}
+
+template <int WARPS, int K, int STRIPS, typename Epi>
+__device__ __forceinline__ void gemm_rows64(const bf16* a, int lda, const bf16* b, int nt0,
+                                            int warp, int lane, Epi epi) {
+  gemm_rows64_split<WARPS, K, 0, STRIPS>(a, lda, a, lda, b, nt0, warp, lane, epi);
+}
+
+// LayerNorm of 64 rows (bf16, row stride ld) in place, rows spread over the
+// block's warps; C / 32 values a lane, statistics in f32.
+template <int WARPS, int C>
+__device__ __forceinline__ void layer_norm_rows64(bf16* rows, int ld, const float* s,
+                                                  const float* b, int warp, int lane) {
+  constexpr int V = C / 32;
+  float sv[V], bv[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    sv[i] = s[lane * V + i];
+    bv[i] = b[lane * V + i];
+  }
+  for (int r = warp; r < 64; r += WARPS) {
+    float v[V];
+    load_bf16<V>(rows + r * ld + lane * V, v);
+    warp_layer_norm<V, C>(v, sv, bv);
+    store_bf16<V>(rows + r * ld + lane * V, v);
+  }
+}
+
+__device__ __forceinline__ float elu1(float v) { return v > 0.f ? v + 1.f : expf(v); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+}  // namespace fm

@@ -2,7 +2,8 @@
 
 Port of `featurematching_tpu/matching/fine.py` for the serving forward
 (FineMatches, window_center_offset, the gather_fine_windows forward,
-normalized_grid, spatial_expectation, fine_soft_argmax).
+normalized_grid, spatial_expectation, window_heatmaps, fine_from_heatmaps,
+fine_soft_argmax).
 """
 
 from __future__ import annotations
@@ -74,6 +75,41 @@ def spatial_expectation(heatmap: torch.Tensor, window: int):
     return coords, std
 
 
+def window_heatmaps(centre: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """softmax over the taps of (centre . windows[r]) / sqrt(C) in f32.
+    centre: [..., C], windows: [..., W*W, C] -> [..., W*W]."""
+    C = windows.shape[-1]
+    sim = torch.einsum("...c,...rc->...r", centre.float(), windows.float())
+    return torch.softmax(sim * (1.0 / C**0.5), dim=-1)
+
+
+def fine_from_heatmaps(
+    heat0: torch.Tensor,
+    heat1: torch.Tensor,
+    mkpts0_c: torch.Tensor,
+    mkpts1_c: torch.Tensor,
+    window: int,
+    img_to_fine_scale: float,
+) -> FineMatches:
+    """Heatmaps -> subpixel keypoints: the tail of fine_soft_argmax, also run
+    on the heatmaps of the fine-stage kernel's fold mode.
+
+    heat*: [B, K, W*W] softmaxed heatmaps; mkpts*_c: [B, K, 2]."""
+    coords0, std0 = spatial_expectation(heat0, window)
+    coords1, std1 = spatial_expectation(heat1, window)
+    half = window // 2
+    mkpts0_f = mkpts0_c + coords0 * (half * img_to_fine_scale) + half
+    mkpts1_f = mkpts1_c + coords1 * (half * img_to_fine_scale) + half
+    return FineMatches(
+        mkpts0_f=torch.cat([mkpts0_f, std0[..., None]], dim=-1),
+        mkpts1_f=torch.cat([mkpts1_f, std1[..., None]], dim=-1),
+        coords0=coords0,
+        coords1=coords1,
+        std0=std0,
+        std1=std1,
+    )
+
+
 def fine_soft_argmax(
     feat0_mixed: torch.Tensor,
     feat1_mixed: torch.Tensor,
@@ -88,20 +124,7 @@ def fine_soft_argmax(
 
     feat*_mixed: [B, K, C] per-window mixtures; feat*: [B, K, W*W, C] window
     features; mkpts*_c: [B, K, 2] coarse pixel coords."""
-    C = feat0.shape[-1]
-    temp = 1.0 / C**0.5
-    sim0 = torch.einsum("bkc,bkrc->bkr", feat0_mixed, feat1)
-    sim1 = torch.einsum("bkc,bkrc->bkr", feat1_mixed, feat0)
-    coords0, std0 = spatial_expectation(torch.softmax(temp * sim0, dim=-1), window)
-    coords1, std1 = spatial_expectation(torch.softmax(temp * sim1, dim=-1), window)
-    half = window // 2
-    mkpts0_f = mkpts0_c + coords0 * (half * img_to_fine_scale) + half
-    mkpts1_f = mkpts1_c + coords1 * (half * img_to_fine_scale) + half
-    return FineMatches(
-        mkpts0_f=torch.cat([mkpts0_f, std0[..., None]], dim=-1),
-        mkpts1_f=torch.cat([mkpts1_f, std1[..., None]], dim=-1),
-        coords0=coords0,
-        coords1=coords1,
-        std0=std0,
-        std1=std1,
+    return fine_from_heatmaps(
+        window_heatmaps(feat0_mixed, feat1), window_heatmaps(feat1_mixed, feat0),
+        mkpts0_c, mkpts1_c, window, img_to_fine_scale,
     )

@@ -1,11 +1,16 @@
 """The serving forward: image pair -> coarse matches -> refined keypoints.
 
 Port of `featurematching_tpu/models/fast_inference.py` (swin_backbone_fast
-and make_fast_matcher_fn) on the branches that run the plain coarse
-transformer and the plain fine stage. The backbone runs through the four
-kernels of `ops/` (swin_block_fused 13 times, layer_norm_chain 4 times and
-patch_expand_ln 3 times per forward at the default configuration), and the
-coarse matching through dual_softmax_match_stats once.
+and make_fast_matcher_fn). At `default_config()` the forward runs six
+kernels, as the JAX package does on its accelerator: the backbone through
+swin_block_fused (13 launches), layer_norm_chain (4) and patch_expand_ln (3),
+the coarse transformer through coarse_transformer_fused (once, 8 layers),
+the coarse matching through dual_softmax_match_stats (once) and the fine
+stage through fine_stage_fused in its fold mode (once). Where a
+configuration fails the fused gates (`use_fused_coarse`, `use_fused_fine`:
+pure functions of the config and the shapes), the plain
+LocalFeatureTransformer, window mix and fine_soft_argmax run instead, as the
+JAX package's plain branches do.
 
 `FastMatcher(cfg)` runs on `cuda` and raises when no GPU is present;
 `device="cpu"` runs every kernel's plain version instead. Inputs and outputs
@@ -31,7 +36,12 @@ from featurematching_tpu_torch.matching.coarse import (
     extract_matches_from_stats,
     ids_to_keypoints,
 )
-from featurematching_tpu_torch.matching.fine import fine_soft_argmax, gather_fine_windows
+from featurematching_tpu_torch.matching.fine import (
+    FineMatches,
+    fine_from_heatmaps,
+    fine_soft_argmax,
+    gather_fine_windows,
+)
 from featurematching_tpu_torch.models.backbone_swin import (
     PatchExpandParams,
     PatchMergingParams,
@@ -42,7 +52,17 @@ from featurematching_tpu_torch.models.backbone_swin import (
 )
 from featurematching_tpu_torch.models.matcher import MatcherOutput
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    coarse_transformer_fused,
+    coarse_transformer_supported,
+    pack_layers,
+)
 from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
+from featurematching_tpu_torch.ops.fine_stage import (
+    fine_stage_fused,
+    fine_stage_supported,
+    window_mix,
+)
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
 from featurematching_tpu_torch.ops.swin_block import swin_block_fused
@@ -200,12 +220,6 @@ class SwinBackbone(nn.Module):
         return out_c, out_f
 
 
-def _mix(w: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """Learned 49 -> 1 window mix: [B, K, ww, C] -> [B, K, C]."""
-    y = torch.einsum("bkrc,r->bkc", w.float(), lin.weight[0].to(w.dtype).float()).to(w.dtype)
-    return y + lin.bias[0].to(w.dtype)
-
-
 class FastMatcher(nn.Module):
     """The serving forward over the Matcher's weights (eval only).
 
@@ -234,41 +248,54 @@ class FastMatcher(nn.Module):
         self.to(dev)
         self.eval()
 
-    @torch.no_grad()
-    def forward(self, image0: torch.Tensor, image1: torch.Tensor) -> MatcherOutput:
-        """image*: [B, H, W, C_in] NHWC, H and W divisible by the coarse stride."""
-        cfg = self.cfg
-        dev = self.mix_feat_0.weight.device
-        B, H, W, _ = image0.shape
-        if image1.shape != image0.shape:
-            raise ValueError(f"image shapes differ: {tuple(image0.shape)} vs {tuple(image1.shape)}")
-        sc, sf = cfg.resolution
-        if H % sc or W % sc:
-            raise ValueError(f"image size {H}x{W} must be divisible by {sc}")
-        hc, wc = H // sc, W // sc
+    def use_fused_coarse(self, n_tokens: int) -> bool:
+        c = self.cfg.coarse
+        return c.attention == "linear" and coarse_transformer_supported(
+            c.layer_names, c.d_model, c.nhead, n_tokens)
 
-        imgs = torch.cat([image0, image1], dim=0).to(device=dev, dtype=self.dtype)
-        feat_c, feat_f = self.backbone(imgs)
-        Cc, Cf = feat_c.shape[-1], feat_f.shape[-1]
-        feat_c0 = feat_c[:B].reshape(B, hc * wc, Cc)
-        feat_c1 = feat_c[B:].reshape(B, hc * wc, Cc)
-        feat_f0, feat_f1 = feat_f[:B], feat_f[B:]
-        feat_c0, feat_c1 = self.coarse_transformer(feat_c0, feat_c1)
+    def use_fused_fine(self) -> bool:
+        f = self.cfg.fine
+        return f.attention == "linear" and fine_stage_supported(
+            f.layer_names, f.d_model, f.nhead)
 
-        mc = cfg.match_coarse
+    def coarse_stage(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor):
+        """The coarse transformer on [B, L, C] tokens: the fused kernels when
+        the gate holds, else the plain LocalFeatureTransformer."""
+        if not self.use_fused_coarse(feat_c0.shape[1]):
+            return self.coarse_transformer(feat_c0, feat_c1)
+        c = self.cfg.coarse
+        return coarse_transformer_fused(
+            feat_c0, feat_c1, pack_layers(self.coarse_transformer, feat_c0.dtype),
+            c.layer_names, c.nhead)
+
+    def coarse_matching(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor,
+                        grid_c: Tuple[int, int]) -> CoarseMatches:
+        """Dual-softmax mutual nearest neighbours, a fixed top-K with a mask."""
+        mc = self.cfg.match_coarse
+        sc = float(self.cfg.resolution[0])
         stats = dual_softmax_match_stats(feat_c0, feat_c1, temperature=mc.dsmax_temperature)
         i_ids, j_ids, mask, mconf = extract_matches_from_stats(
-            stats, (hc, wc), (hc, wc), mc.thr, mc.border_rm, mc.max_matches
+            stats, grid_c, grid_c, mc.thr, mc.border_rm, mc.max_matches
         )
-        mkpts0_c = ids_to_keypoints(i_ids, wc, float(sc))
-        mkpts1_c = ids_to_keypoints(j_ids, wc, float(sc))
-        matches = CoarseMatches(i_ids=i_ids, j_ids=j_ids, mask=mask, mconf=mconf,
-                                mkpts0_c=mkpts0_c, mkpts1_c=mkpts1_c)
+        return CoarseMatches(i_ids=i_ids, j_ids=j_ids, mask=mask, mconf=mconf,
+                             mkpts0_c=ids_to_keypoints(i_ids, grid_c[1], sc),
+                             mkpts1_c=ids_to_keypoints(j_ids, grid_c[1], sc))
 
+    def fine_stage(self, feat_f0: torch.Tensor, feat_f1: torch.Tensor,
+                   feat_c0: torch.Tensor, feat_c1: torch.Tensor,
+                   matches: CoarseMatches, grid_c: Tuple[int, int]) -> FineMatches:
+        """Gather the windows at the coarse matches, merge in the coarse
+        context, refine (the fused kernel in fold mode when the gate holds)
+        and take the soft-argmax. feat_f*: [B, Hf, Wf, Cf]; grid_c: (hc, wc)."""
+        cfg = self.cfg
+        sc, sf = cfg.resolution
+        B = feat_f0.shape[0]
+        Cc, Cf = feat_c0.shape[-1], feat_f0.shape[-1]
+        i_ids, j_ids = matches.i_ids, matches.j_ids
         Wf = cfg.fine.window_size
         stride = sc // sf
-        win0 = gather_fine_windows(feat_f0, i_ids, (hc, wc), Wf, stride)
-        win1 = gather_fine_windows(feat_f1, j_ids, (hc, wc), Wf, stride)
+        win0 = gather_fine_windows(feat_f0, i_ids, grid_c, Wf, stride)
+        win1 = gather_fine_windows(feat_f1, j_ids, grid_c, Wf, stride)
         # coarse context: down-projected coarse feature at the match, merged into each tap
         c0 = torch.gather(feat_c0, 1, i_ids[..., None].expand(-1, -1, Cc))
         c1 = torch.gather(feat_c1, 1, j_ids[..., None].expand(-1, -1, Cc))
@@ -278,14 +305,50 @@ class FastMatcher(nn.Module):
         win1 = _dense(torch.cat([win1, c1.expand_as(win1)], dim=-1), self.fine_merge)
         K = win0.shape[1]
         ww = Wf * Wf
-        w0, w1 = self.fine_transformer(win0.reshape(B * K, ww, Cf), win1.reshape(B * K, ww, Cf))
-        w0 = w0.reshape(B, K, ww, Cf)
-        w1 = w1.reshape(B, K, ww, Cf)
-        fine = fine_soft_argmax(
-            _mix(w0, self.mix_feat_0).float(), _mix(w1, self.mix_feat_1).float(),
-            w0.float(), w1.float(), mkpts0_c, mkpts1_c, Wf, float(sf),
+        w0, w1 = win0.reshape(B * K, ww, Cf), win1.reshape(B * K, ww, Cf)
+        mix0 = (self.mix_feat_0.weight[0], self.mix_feat_0.bias)
+        mix1 = (self.mix_feat_1.weight[0], self.mix_feat_1.bias)
+        if self.use_fused_fine():
+            f = cfg.fine
+            heat0, heat1 = fine_stage_fused(
+                w0, w1, pack_layers(self.fine_transformer, w0.dtype), mix0, mix1,
+                f.layer_names, f.nhead, fold_softargmax=True,
+            )
+            return fine_from_heatmaps(
+                heat0.reshape(B, K, ww), heat1.reshape(B, K, ww),
+                matches.mkpts0_c, matches.mkpts1_c, Wf, float(sf),
+            )
+        w0, w1 = self.fine_transformer(w0, w1)
+        m0, m1 = window_mix(w0, mix0), window_mix(w1, mix1)
+        return fine_soft_argmax(
+            m0.reshape(B, K, Cf).float(), m1.reshape(B, K, Cf).float(),
+            w0.reshape(B, K, ww, Cf).float(), w1.reshape(B, K, ww, Cf).float(),
+            matches.mkpts0_c, matches.mkpts1_c, Wf, float(sf),
         )
+
+    @torch.no_grad()
+    def forward(self, image0: torch.Tensor, image1: torch.Tensor) -> MatcherOutput:
+        """image*: [B, H, W, C_in] NHWC, H and W divisible by the coarse stride."""
+        cfg = self.cfg
+        dev = self.mix_feat_0.weight.device
+        B, H, W, _ = image0.shape
+        if image1.shape != image0.shape:
+            raise ValueError(f"image shapes differ: {tuple(image0.shape)} vs {tuple(image1.shape)}")
+        sc, _ = cfg.resolution
+        if H % sc or W % sc:
+            raise ValueError(f"image size {H}x{W} must be divisible by {sc}")
+        hc, wc = H // sc, W // sc
+
+        imgs = torch.cat([image0, image1], dim=0).to(device=dev, dtype=self.dtype)
+        feat_c, feat_f = self.backbone(imgs)
+        Cc = feat_c.shape[-1]
+        feat_c0 = feat_c[:B].reshape(B, hc * wc, Cc)
+        feat_c1 = feat_c[B:].reshape(B, hc * wc, Cc)
+        feat_c0, feat_c1 = self.coarse_stage(feat_c0, feat_c1)
+
+        matches = self.coarse_matching(feat_c0, feat_c1, (hc, wc))
+        fine = self.fine_stage(feat_f[:B], feat_f[B:], feat_c0, feat_c1, matches, (hc, wc))
         return MatcherOutput(
-            coarse=matches, fine=fine, conf_matrix=None,
-            feat_c0=feat_c0, feat_c1=feat_c1, fine_ids=(i_ids, j_ids, mask),
+            coarse=matches, fine=fine, conf_matrix=None, feat_c0=feat_c0, feat_c1=feat_c1,
+            fine_ids=(matches.i_ids, matches.j_ids, matches.mask),
         )

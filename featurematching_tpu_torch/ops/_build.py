@@ -23,7 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("layer_norm", "swin_block", "patch_expand", "dual_softmax")
+SOURCES = (
+    "layer_norm", "swin_block", "patch_expand", "dual_softmax", "coarse_transformer", "fine_stage",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

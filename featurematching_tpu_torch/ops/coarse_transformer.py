@@ -1,0 +1,270 @@
+"""The coarse LoFTR transformer as two kernels a layer: stats, then apply.
+
+Port of `featurematching_tpu/ops/pallas_coarse_transformer.py ·
+coarse_transformer_fused`. Linear attention factorises over tokens, so each
+encoder layer (models/transformer.EncoderLayer) is
+
+  stats — K = elu(src·wk)+1 and V = src·wv / S per token, reduced to each
+          head's KᵀV [D, D] and K_sum [C];
+  apply — per query token: Q = elu(x·wq)+1, the per-head normaliser and
+          output from the stats, merge + LN1, the split-weight FFN
+          x·wmlp1[:C] + msg·wmlp1[C:], ReLU, ·wmlp2, LN2, residual.
+
+On a CUDA tensor `coarse_transformer_fused` launches `csrc/coarse_transformer.cu`
+for every layer (stats over token tiles with per-tile partials, a merge in a
+fixed order, then apply over 64-token row tiles; bf16 tensor cores, bound by
+tensor-core operations); on a CPU tensor it runs `coarse_transformer_reference`.
+
+Both follow the TPU kernel's rounding points, which differ from the flax
+stack's in bf16 only: K and V/S are rounded after the f32 product and its
+feature map, K_sum is rounded to the activation dtype before the normaliser
+product, and o·(S / (Z + eps)) is formed in f32 and rounded once.
+
+Self layers run both images as one batch of 2B; cross layers run in turn,
+so feat1 attends the UPDATED feat0, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from featurematching_tpu_torch.ops import _build
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
+
+EPS = 1e-6
+ROW_TILE = 64  # token rows of one stats tile and one apply block
+WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))  # (C, head dim) the kernel takes
+_STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
+_APPLY_ARGTYPES = [_build.PTR] * 12 + [_build.INT] * 5 + [_build.PTR]
+
+
+def _frag_index(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) within a 16x16 tile of each lane's 8 values of a
+    tensor-core B fragment (mma.m16n8k16, csrc/tiles.cuh): [32, 8] each."""
+    lane = torch.arange(32, device=device)[:, None]
+    e = torch.arange(8, device=device)[None, :]
+    return 2 * (lane % 4) + (e & 1) + 8 * ((e >> 1) & 1), lane // 4 + 8 * (e >> 2)
+
+
+def frag_pack(w: torch.Tensor) -> torch.Tensor:
+    """A weight [K, N] ([in, out]) in fragment order, [N/16, K/16, 32, 8]:
+    16-column strips of 16-row tiles, each lane's 8 values of a tile
+    contiguous, so a warp loads a tile with one 16-byte load a lane."""
+    K, N = w.shape
+    tiles = w.reshape(K // 16, 16, N // 16, 16).permute(2, 0, 1, 3)  # [nt, kt, 16, 16]
+    rows, cols = _frag_index(w.device)
+    return tiles[:, :, rows, cols].contiguous()
+
+
+def frag_unpack(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of `frag_pack`: [N/16, K/16, 32, 8] -> [K, N]."""
+    NT, KT = p.shape[:2]
+    tiles = torch.empty(NT, KT, 16, 16, dtype=p.dtype, device=p.device)
+    rows, cols = _frag_index(p.device)
+    tiles[:, :, rows, cols] = p
+    return tiles.permute(1, 2, 0, 3).reshape(KT * 16, NT * 16)
+
+
+class LayerValues(NamedTuple):
+    """One EncoderLayer as kernel operands: weights [in, out] in the
+    activation dtype and in fragment order (`frag_pack`; wkv = wk ‖ wv,
+    [C, 2C]), LN parameters in float32. Build with `layer_values`."""
+
+    wq: torch.Tensor
+    wkv: torch.Tensor
+    wmerge: torch.Tensor
+    n1s: torch.Tensor
+    n1b: torch.Tensor
+    wmlp1: torch.Tensor
+    wmlp2: torch.Tensor
+    n2s: torch.Tensor
+    n2b: torch.Tensor
+
+
+def layer_values(wq, wkv, wmerge, n1s, n1b, wmlp1, wmlp2, n2s, n2b) -> LayerValues:
+    """LayerValues from weights [in, out] (packed here, in their dtype) and
+    LN parameters."""
+    return LayerValues(frag_pack(wq), frag_pack(wkv), frag_pack(wmerge), n1s, n1b,
+                       frag_pack(wmlp1), frag_pack(wmlp2), n2s, n2b)
+
+
+def pack_layer(layer, dtype: torch.dtype) -> LayerValues:
+    """The counterpart of the JAX package's `_layer_values` for one
+    `models.transformer.EncoderLayer` (torch weights are [out, in]); the
+    operands are copies, detached from the parameters."""
+
+    def w(lin):
+        return lin.weight.detach().t().to(dtype).contiguous()
+
+    def f(t):
+        return t.detach().float().clone()
+
+    wkv = torch.cat([layer.k_proj.weight.detach().t(), layer.v_proj.weight.detach().t()], dim=1)
+    return layer_values(
+        w(layer.q_proj), wkv.to(dtype), w(layer.merge),
+        f(layer.norm1.weight), f(layer.norm1.bias), w(layer.mlp1), w(layer.mlp2),
+        f(layer.norm2.weight), f(layer.norm2.bias),
+    )
+
+
+def pack_layers(tf, dtype: torch.dtype) -> Tuple[LayerValues, ...]:
+    """`pack_layer` of every layer of a `LocalFeatureTransformer`, cached on
+    it. The cache is keyed on each parameter's storage and version counter,
+    which every in-place write bumps (`load_jax_params`, `load_state_dict`,
+    an optimizer step), so new weights are never served stale."""
+    key = (dtype, tuple((p.data_ptr(), p._version) for p in tf.parameters()))
+    cached = getattr(tf, "_packed", None)
+    if cached is None or cached[0] != key:
+        values = tuple(pack_layer(getattr(tf, f"layer_{i}"), dtype)
+                       for i in range(len(tf.layer_names)))
+        tf._packed = cached = (key, values)
+    return cached[1]
+
+
+def coarse_transformer_supported(
+    layer_names: Sequence[str], d_model: int, nhead: int, n_tokens: int
+) -> bool:
+    """The JAX gate's conditions, without its Mosaic chunk-divisibility rule
+    (CUDA blocks mask their ragged last tile)."""
+    return (
+        d_model % 128 == 0
+        and nhead >= 1
+        and d_model % nhead == 0
+        and (d_model // nhead) % 8 == 0
+        and all(n in ("self", "cross") for n in layer_names)
+        and n_tokens >= 1
+    )
+
+
+def _elu1(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > 0, x + 1.0, torch.exp(x))
+
+
+def encoder_reference(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                      nhead: int) -> torch.Tensor:
+    """One encoder layer with the TPU kernel's rounding points.
+    x: [G, L, C] queries, src: [G, S, C] keys/values; every product
+    accumulates in f32 and is rounded to x's dtype where the kernel rounds."""
+    G, L, C = x.shape
+    S = src.shape[1]
+    D = C // nhead
+    dt = x.dtype
+    wq, wkv, wmerge, wmlp1, wmlp2 = (frag_unpack(w).float() for w in (
+        lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2))
+    Q = _elu1(x.float() @ wq).to(dt)
+    kv = src.float() @ wkv
+    K = _elu1(kv[..., :C]).to(dt)
+    V = (kv[..., C:] * (1.0 / S)).to(dt)
+    KV = torch.einsum("gshd,gshv->ghdv", K.float().view(G, S, nhead, D),
+                      V.float().view(G, S, nhead, D)).to(dt)
+    ksum = K.float().sum(dim=1).to(dt).view(G, nhead, D)
+    Qh = Q.float().view(G, L, nhead, D)
+    Z = torch.einsum("glhd,ghd->glh", Qh, ksum.float())
+    o = torch.einsum("glhd,ghdv->glhv", Qh, KV.float())
+    o = (o * (float(S) / (Z + EPS))[..., None]).reshape(G, L, C).to(dt)
+    msg = layer_norm_chain_plain((o.float() @ wmerge).to(dt), lv.n1s, lv.n1b)
+    y = x.float() @ wmlp1[:C] + msg.float() @ wmlp1[C:]
+    y = (torch.relu(y).to(dt).float() @ wmlp2).to(dt)
+    return x + layer_norm_chain_plain(y, lv.n2s, lv.n2b)
+
+
+def _run_stack(feat0, feat1, layers, layer_names, layer_fn):
+    """The layer order of the JAX kernel: self layers on both images at once
+    (one batch of 2B), cross layers in turn on the updated feat0."""
+    B = feat0.shape[0]
+    for lv, name in zip(layers, layer_names, strict=True):
+        if name == "self":
+            if feat0.shape == feat1.shape:
+                both = torch.cat([feat0, feat1], dim=0)
+                out = layer_fn(both, both, lv)
+                feat0, feat1 = out[:B], out[B:]
+            else:
+                feat0, feat1 = layer_fn(feat0, feat0, lv), layer_fn(feat1, feat1, lv)
+        elif name == "cross":
+            feat0 = layer_fn(feat0, feat1, lv)
+            feat1 = layer_fn(feat1, feat0, lv)
+        else:
+            raise ValueError(f"unknown layer name {name!r}")
+    return feat0, feat1
+
+
+def coarse_transformer_reference(feat0, feat1, layers: Sequence[LayerValues],
+                                 layer_names: Sequence[str], nhead: int):
+    """Plain version of the whole stack. feat*: [B, N, C]."""
+    return _run_stack(feat0, feat1, layers, layer_names,
+                      lambda x, s, lv: encoder_reference(x, s, lv, nhead))
+
+
+def check_layer_values(lv: LayerValues, C: int) -> None:
+    """Raise unless lv holds a layer of width C as the kernels take it."""
+    for t, name, (k, n) in zip(lv, LayerValues._fields, [
+            (C, C), (C, 2 * C), (C, C), (1, C), (1, C), (2 * C, 2 * C), (2 * C, C), (1, C), (1, C)]):
+        if name[0] == "n":
+            _build.check_cuda(t, name, torch.float32, (n,))
+        else:
+            _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
+
+
+def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int) -> None:
+    G, L, C = x.shape
+    if C % nhead or (C, C // nhead) not in WIDTHS:
+        raise ValueError(
+            f"coarse_transformer kernel takes (C, head dim) in {WIDTHS}; got C={C}, "
+            f"heads={nhead}"
+        )
+    _build.check_cuda(x, "x", torch.bfloat16)
+    _build.check_cuda(src, "src", torch.bfloat16, (G, src.shape[1], C))
+    check_layer_values(lv, C)
+
+
+def coarse_layer_fused(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                       nhead: int) -> torch.Tensor:
+    """One encoder layer on the card: the stats kernel over src (with its
+    merge), then the apply kernel over x. x: [G, L, C], src: [G, S, C] bf16."""
+    _check_layer(x, src, lv, nhead)
+    G, L, C = x.shape
+    S = src.shape[1]
+    D = C // nhead
+    tiles = -(-S // ROW_TILE)
+    # about two stats blocks an SM: each block reduces `per_chunk` tiles
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    per_chunk = -(-tiles * G // (2 * sms))
+    chunks = -(-tiles // per_chunk)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    part_kv = torch.empty(G, chunks, C * D, **f32)
+    part_ks = torch.empty(G, chunks, C, **f32)
+    kv = torch.empty(G, C * D, device=x.device, dtype=torch.bfloat16)
+    ks = torch.empty(G, C, device=x.device, dtype=torch.bfloat16)
+    st = _build.stream()
+    _build.launch(
+        "coarse_transformer", "fm_coarse_stats", _STATS_ARGTYPES,
+        src.data_ptr(), lv.wkv.data_ptr(), part_kv.data_ptr(), part_ks.data_ptr(),
+        kv.data_ptr(), ks.data_ptr(), G, S, C, D, per_chunk, chunks, st,
+    )
+    out = torch.empty_like(x)
+    _build.launch(
+        "coarse_transformer", "fm_coarse_apply", _APPLY_ARGTYPES,
+        x.data_ptr(), kv.data_ptr(), ks.data_ptr(), lv.wq.data_ptr(), lv.wmerge.data_ptr(),
+        lv.n1s.data_ptr(), lv.n1b.data_ptr(), lv.wmlp1.data_ptr(), lv.wmlp2.data_ptr(),
+        lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D, st,
+    )
+    return out
+
+
+def coarse_transformer_fused(feat0, feat1, layers: Sequence[LayerValues],
+                             layer_names: Sequence[str], nhead: int):
+    """The whole stack. feat*: [B, N, C]; `layers` from `pack_layer(s)` or
+    `layer_values` in feat0's dtype. Returns the updated (feat0, feat1)."""
+    if feat0.device.type == "cpu":
+        return coarse_transformer_reference(feat0, feat1, layers, layer_names, nhead)
+    if len(layers) != len(layer_names):
+        raise ValueError(f"{len(layers)} layers for {len(layer_names)} layer names")
+    out = _run_stack(feat0.contiguous(), feat1.contiguous(), layers, layer_names,
+                     lambda x, s, lv: coarse_layer_fused(x, s, lv, nhead))
+    coarse_transformer_fused.launches += 1
+    return out
+
+
+coarse_transformer_fused.launches = 0

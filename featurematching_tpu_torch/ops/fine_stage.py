@@ -1,0 +1,126 @@
+"""The fine stage in one kernel: both fine encoder layers over each pair of
+match windows, the learned 49 -> 1 mix, and optionally the heatmaps.
+
+Port of `featurematching_tpu/ops/pallas_fine_stage.py · fine_stage_fused`:
+
+    for each layer: self  -> w0 = enc(w0, w0); w1 = enc(w1, w1)
+                    cross -> w0 = enc(w0, w1); w1 = enc(w1, w0)   (updated w0)
+    m0 = mix0(w0); m1 = mix1(w1)
+    fold mode:  heat0 = softmax(m0·w1ᵀ/√C), heat1 = softmax(m1·w0ᵀ/√C)
+
+`enc` is `coarse_transformer.encoder_reference` with its rounding points.
+On a CUDA tensor `fine_stage_fused` launches `csrc/fine_stage.cu` (three
+blocks an SM, each looping over window pairs with the pair's intermediates in
+shared memory and the weights read from L1/L2, taps padded to 64 rows and
+masked out of every attention sum; bound by tensor-core operations); on a CPU tensor it runs
+`fine_stage_reference`, which works on the unpadded taps.
+
+`mix*` is (weight [N], bias [1]) of the `mix_feat_*` layers.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from featurematching_tpu_torch.matching.fine import window_heatmaps
+from featurematching_tpu_torch.ops import _build
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    LayerValues,
+    _run_stack,
+    check_layer_values,
+    encoder_reference,
+)
+
+MAX_TAPS = 64  # taps are padded to four 16-row tensor-core tiles
+C_KERNEL = 64
+HEAD_DIMS = (8, 16)  # head dims the kernel takes (heads tile 16-column blocks)
+MAX_LAYERS = 2
+# windows, 9 operands per layer, the mixes, the outputs; then the ints and the stream
+_ARGTYPES = [_build.PTR] * (2 + 9 * 2 + 4 + 4) + [_build.INT] * 7 + [_build.PTR]
+
+
+def fine_stage_supported(layer_names: Sequence[str], d_model: int, nhead: int) -> bool:
+    """The JAX gate's conditions: 64-aligned channels, whole heads."""
+    return (
+        d_model % 64 == 0
+        and nhead >= 1
+        and d_model % nhead == 0
+        and len(layer_names) >= 1
+        and all(n in ("self", "cross") for n in layer_names)
+    )
+
+
+def window_mix(w: torch.Tensor, mix: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The learned taps -> 1 mix, [B_, N, C] -> [B_, C]: operands in the
+    activation dtype, f32 sum, rounded, then the bias added in that dtype."""
+    weight, bias = mix
+    dt = w.dtype
+    acc = torch.einsum("brc,r->bc", w.float(), weight.to(dt).float()).to(dt)
+    return acc + bias.reshape(()).to(dt)
+
+
+def fine_stage_reference(w0, w1, layers: Sequence[LayerValues], mix0, mix1,
+                         layer_names: Sequence[str], nhead: int,
+                         fold_softargmax: bool = False):
+    """Plain version. w*: [B_, N, C]. Returns (heat0, heat1) [B_, N] f32 in
+    fold mode, else (w0, w1 [B_, N, C], m0, m1 [B_, C])."""
+    a0, a1 = _run_stack(w0, w1, layers, layer_names,
+                        lambda x, s, lv: encoder_reference(x, s, lv, nhead))
+    m0, m1 = window_mix(a0, mix0), window_mix(a1, mix1)
+    if fold_softargmax:
+        return window_heatmaps(m0, a1), window_heatmaps(m1, a0)
+    return a0, a1, m0, m1
+
+
+def fine_stage_fused(w0, w1, layers: Sequence[LayerValues], mix0, mix1,
+                     layer_names: Sequence[str], nhead: int,
+                     fold_softargmax: bool = False):
+    """Fused fine transformer + window mix (+ the heatmaps in fold mode).
+    w*: [B_, N, C] in the compute dtype; `layers` from `pack_layer(s)` or
+    `layer_values`."""
+    if w0.device.type == "cpu":
+        return fine_stage_reference(w0, w1, layers, mix0, mix1, layer_names, nhead,
+                                    fold_softargmax)
+    B_, N, C = w0.shape
+    nl = len(layer_names)
+    if C != C_KERNEL or C % nhead or C // nhead not in HEAD_DIMS or not 1 <= N <= MAX_TAPS:
+        raise ValueError(
+            f"fine_stage kernel takes C={C_KERNEL}, head dim in {HEAD_DIMS} and at most "
+            f"{MAX_TAPS} taps; got C={C}, heads={nhead}, N={N}"
+        )
+    if not 1 <= nl <= MAX_LAYERS or len(layers) != nl:
+        raise ValueError(f"fine_stage kernel takes 1 to {MAX_LAYERS} layers, got {nl}")
+    if any(n not in ("self", "cross") for n in layer_names):
+        raise ValueError(f"unknown layer name in {layer_names}")
+    _build.check_cuda(w0, "w0", torch.bfloat16)
+    _build.check_cuda(w1, "w1", torch.bfloat16, (B_, N, C))
+    for lv in layers:
+        check_layer_values(lv, C)
+    mixes = []
+    for weight, bias in (mix0, mix1):
+        mixes += [_build.f32(weight.reshape(-1)), _build.f32(bias.reshape(-1))]
+        _build.check_cuda(mixes[-2], "mix weight", torch.float32, (N,))
+    ptrs = [t.data_ptr() for lv in layers for t in lv]
+    ptrs += [None] * (9 * MAX_LAYERS - len(ptrs))
+    cross = sum(1 << i for i, n in enumerate(layer_names) if n == "cross")
+    f32 = dict(device=w0.device, dtype=torch.float32)
+    if fold_softargmax:
+        outs = [torch.empty(B_, N, **f32), torch.empty(B_, N, **f32), None, None]
+    else:
+        outs = [torch.empty_like(w0), torch.empty_like(w1),
+                torch.empty(B_, C, device=w0.device, dtype=w0.dtype),
+                torch.empty(B_, C, device=w0.device, dtype=w0.dtype)]
+    sms = torch.cuda.get_device_properties(w0.device).multi_processor_count
+    _build.launch(
+        "fine_stage", "fm_fine_stage", _ARGTYPES,
+        w0.data_ptr(), w1.data_ptr(), *ptrs, *[t.data_ptr() for t in mixes],
+        *[t.data_ptr() if t is not None else None for t in outs],
+        B_, N, C // nhead, nl, cross, int(fold_softargmax), sms, _build.stream(),
+    )
+    fine_stage_fused.launches += 1
+    return tuple(outs[:2]) if fold_softargmax else tuple(outs)
+
+
+fine_stage_fused.launches = 0

@@ -89,6 +89,36 @@ def encoder_work(tokens: int, C: int, heads: int, layers: int) -> Work:
     return 2 * tokens * C * BF16 + layers * (10 * C * C * BF16 + 4 * C * F32), flops
 
 
+def coarse_stats_work(G: int, N: int, C: int, heads: int) -> Work:
+    """K5's stats launch over G images of N source tokens: bf16 tokens and
+    [wk | wv] in, each head's f32 KᵀV [D, D] and K_sum out; the K, V
+    projection and the heads' diagonal KᵀV blocks."""
+    D = C // heads
+    nbytes = G * N * C * BF16 + 2 * C * C * BF16 + G * (C * D + C) * F32
+    return nbytes, G * N * (2 * 2 * C * C + 2 * C * D)
+
+
+def coarse_apply_work(G: int, N: int, C: int, heads: int) -> Work:
+    """K5's apply launch over G images of N query tokens: bf16 tokens and
+    the stats in, bf16 tokens out; the q, merge, 2C->2C and 2C->C products
+    and Q.KV."""
+    D = C // heads
+    nbytes = (2 * G * N * C * BF16 + G * (C * D + C) * BF16 + 8 * C * C * BF16
+              + 4 * C * F32)
+    return nbytes, G * N * (2 * 8 * C * C + 2 * C * D)
+
+
+def fine_stage_work(windows: int, taps: int, C: int, heads: int, layers: int) -> Work:
+    """K6 `fine_stage_fused` in fold mode on `windows` pairs of [taps, C]
+    windows: both windows, the layers' weights and the two mixes in, f32
+    heatmaps out. Operations: every layer on both windows, the two mixes and
+    the two centre-window correlations."""
+    enc_bytes, enc_flops = encoder_work(2 * windows * taps, C, heads, layers)
+    nbytes = enc_bytes - 2 * windows * taps * C * BF16 + 2 * (taps + 1) * F32 \
+        + 2 * windows * taps * F32
+    return nbytes, enc_flops + 2 * 2 * windows * taps * C * 2
+
+
 def sparse_focal_backward_work(B: int, L: int, S: int, C: int, G: int) -> Work:
     """K7: bf16 features, f32 row/column log-sum-exps and G GT pairs a pair
     in, bf16 df0 and df1 out; it recomputes sim, then df0 = dsim f1 and

@@ -1,0 +1,132 @@
+"""K5: the port's coarse transformer against the JAX package's.
+
+`coarse_transformer_reference` (what `coarse_transformer_fused` runs on the
+CPU) against `ops/pallas_coarse_transformer.coarse_transformer_fused` in
+interpret mode and against the flax `LocalFeatureTransformer.apply`, on the
+same flax weights carried across by `load_jax_params`, at float32 (JAX at
+`highest` matmul precision, tests/conftest.py). In float32 the TPU kernel's
+rounding points are no-ops, so all three compute one function.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from featurematching_tpu.models.transformer import (
+    LocalFeatureTransformer as JaxLocalFeatureTransformer,
+)
+from featurematching_tpu.ops.pallas_coarse_transformer import (
+    coarse_transformer_fused as jax_coarse_transformer_fused,
+)
+from featurematching_tpu.ops.pallas_coarse_transformer import (
+    coarse_transformer_supported as jax_coarse_transformer_supported,
+)
+from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer_values
+from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    coarse_transformer_fused,
+    coarse_transformer_reference,
+    coarse_transformer_supported,
+    frag_pack,
+    frag_unpack,
+    pack_layer,
+    pack_layers,
+)
+from featurematching_tpu_torch.utils.weights import load_jax_params
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _make(rng, B, N, C, nhead, layer_names):
+    f0 = rng.standard_normal((B, N, C)).astype(np.float32)
+    f1 = rng.standard_normal((B, N, C)).astype(np.float32)
+    jm = JaxLocalFeatureTransformer(C, nhead, layer_names)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(f0), jnp.asarray(f1))["params"]
+    port = LocalFeatureTransformer(C, nhead, layer_names)
+    load_jax_params(port, params)
+    return jm, params, port, f0, f1
+
+
+@pytest.mark.parametrize(
+    "B,N,C,nhead,layer_names,chunk",
+    [
+        (2, 64, 128, 8, ("self", "cross", "self", "cross"), 32),
+        (1, 96, 128, 4, ("cross", "self"), 32),
+        # N > 256 routes flax to its plain (unpacked) linear attention
+        (1, 320, 128, 8, ("self", "cross"), 64),
+    ],
+)
+def test_reference_matches_pallas_and_flax_f32(rng, B, N, C, nhead, layer_names, chunk):
+    jm, params, port, f0, f1 = _make(rng, B, N, C, nhead, layer_names)
+    j0, j1 = jnp.asarray(f0), jnp.asarray(f1)
+    fused = jax_coarse_transformer_fused(j0, j1, params, layer_names, nhead,
+                                         chunk=chunk, interpret=True)
+    flax = jm.apply({"params": params}, j0, j1)
+    layers = pack_layers(port, torch.float32)
+    got = coarse_transformer_reference(_t(f0), _t(f1), layers, layer_names, nhead)
+    # the wrapper runs the plain version for CPU tensors
+    wrapped = coarse_transformer_fused(_t(f0), _t(f1), layers, layer_names, nhead)
+    for i in range(2):
+        np.testing.assert_array_equal(wrapped[i].numpy(), got[i].numpy())
+        for ref in (fused, flax):
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(ref[i]), rtol=2e-4, atol=2e-4)
+
+
+def test_pack_layer_matches_jax_layer_values(rng):
+    _, params, port, _, _ = _make(rng, 1, 16, 128, 8, ("self",))
+    got = pack_layer(port.layer_0, torch.float32)
+    ref = jax_layer_values(params["layer_0"], jnp.float32)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        g = frag_unpack(g) if g.ndim == 4 else g  # weights are in fragment order
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_frag_pack_layout():
+    """Lane l = 4g + t holds, of each 16x16 tile, rows 2t, 2t+1, 2t+8, 2t+9
+    of column g, then the same of column g + 8 (the mma.m16n8k16 B operand);
+    strips of 16 columns are outermost."""
+    K, N = 32, 48
+    w = torch.arange(K * N, dtype=torch.float32).reshape(K, N)
+    p = frag_pack(w)
+    assert p.shape == (N // 16, K // 16, 32, 8)
+    nt, kt, g, t = 2, 1, 3, 1
+    rows = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9] * 2
+    cols = [g] * 4 + [g + 8] * 4
+    want = [w[kt * 16 + r, nt * 16 + c] for r, c in zip(rows, cols)]
+    assert p[nt, kt, 4 * g + t].tolist() == [float(v) for v in want]
+    assert torch.equal(frag_unpack(p), w)
+
+
+def test_pack_layers_sees_new_weights(rng):
+    """The packed operands are cached on the transformer; loading new
+    weights in place must replace them."""
+    _, params, port, _, _ = _make(rng, 1, 16, 128, 8, ("self", "cross"))
+    first = pack_layers(port, torch.float32)
+    assert pack_layers(port, torch.float32) is first
+    new = jax.tree_util.tree_map(lambda a: np.asarray(a) * 2.0, params)
+    load_jax_params(port, new)
+    second = pack_layers(port, torch.float32)
+    assert second is not first
+    np.testing.assert_array_equal(frag_unpack(second[1].wq).numpy(),
+                                  2.0 * np.asarray(params["layer_1"]["q_proj"]["kernel"]))
+    assert pack_layers(port, torch.bfloat16)[0].wq.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "case", [(("self", "cross") * 4, 256, 8, 4800), (("self",), 64, 8, 4800),
+             (("swap",), 256, 8, 4800), (("self",), 256, 8, 7)],
+)
+def test_gate_agrees_with_jax(case):
+    """The JAX gate's cases. The one difference is the Mosaic rule that the
+    token count have a multiple-of-8 divisor (N = 7): CUDA blocks mask their
+    ragged last tile, so the port takes it."""
+    got = coarse_transformer_supported(*case)
+    if case[3] == 7:
+        assert got and not jax_coarse_transformer_supported(*case)
+    else:
+        assert got == jax_coarse_transformer_supported(*case)

@@ -2,9 +2,10 @@
 
 These tests need an NVIDIA GPU (`sm_90a`) and `nvcc`; without them they skip.
 They cover what the serving shapes of `chip_smoke.py` do not reach: ragged
-edges (row counts and token counts that are no multiple of a tile), argmax
-ties across tiles, and the wrappers' refusal of tensors the kernels do not
-take. They import neither JAX nor the JAX package, so on a machine without
+edges (row counts, token counts and window counts that are no multiple of a
+tile or of the grid), argmax ties across tiles, other widths of the
+transformer kernels, weights loaded after a first forward, and the
+wrappers' refusal of tensors the kernels do not take. They import neither JAX nor the JAX package, so on a machine without
 JAX run them without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -13,11 +14,21 @@ JAX run them without the repository's conftest:
 import pytest
 import torch
 
+from featurematching_tpu_torch.config import ModelConfig
 from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
+from featurematching_tpu_torch.models.fast_inference import FastMatcher
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    coarse_layer_fused,
+    coarse_transformer_fused,
+    encoder_reference,
+    layer_values,
+)
 from featurematching_tpu_torch.ops.dual_softmax import (
     _stats_reference,
     dual_softmax_match_stats,
 )
+from featurematching_tpu_torch.matching.fine import window_heatmaps
+from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_reference
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln, patch_expand_ln_plain
 from featurematching_tpu_torch.ops.swin_block import swin_block_fused, swin_block_reference
@@ -132,6 +143,69 @@ def test_dual_softmax_ties_keep_the_lowest_index(gen):
     assert int(got.col_argmax[0, 5]) == 3 and int(got.col_argmax[0, 100]) == 3
 
 
+def _layer_values(g, C):
+    def w(i, o):
+        return _rnd(g, i, o, scale=i**-0.5, dtype=torch.bfloat16)
+
+    def ln():
+        return _rnd(g, C, scale=0.1, shift=1.0), _rnd(g, C, scale=0.1)
+
+    return layer_values(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C), *ln())
+
+
+@pytest.mark.parametrize("C,heads", [(128, 4), (128, 8), (256, 8), (256, 16)])
+@pytest.mark.parametrize("N", [100, 1200])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_coarse_layer_ragged_tokens(gen, C, heads, N, kind):
+    """Token counts that are no multiple of the 64-row tile; a cross layer's
+    source has another count than its queries."""
+    G = 3
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, N + 37, C, dtype=torch.bfloat16)
+    got = coarse_layer_fused(x, src, lv, heads)
+    # bf16 intermediates rounded in another order (the tolerance of chip_smoke.py)
+    _assert_close(got, encoder_reference(x, src, lv, heads), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("N", [25, 49])
+@pytest.mark.parametrize("heads,names", [(8, ("self", "cross")), (4, ("cross",))])
+def test_fine_stage_ragged_windows(gen, N, heads, names):
+    """300 window pairs: not a multiple of the persistent grid's 132 blocks."""
+    B_, C = 300, 64
+    layers = [_layer_values(gen, C) for _ in names]
+    mixes = [(_rnd(gen, N, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
+    w0, w1 = _rnd(gen, B_, N, C, dtype=torch.bfloat16), _rnd(gen, B_, N, C, dtype=torch.bfloat16)
+    args = (w0, w1, layers, *mixes, names, heads)
+    heat = fine_stage_fused(*args, fold_softargmax=True)
+    got = fine_stage_fused(*args)
+    own = (window_heatmaps(got[2], got[1]), window_heatmaps(got[3], got[0]))
+    ref = fine_stage_reference(*args, fold_softargmax=True)
+    for h, o, r in zip(heat, own, ref, strict=True):
+        assert h.shape == (B_, N)
+        _assert_close(h, o, 1e-5, 0.0)  # the fold's math on the kernel's own windows
+        _assert_close(h, r, 5e-2, 0.0)  # chip_smoke.py's HEAT_ATOL, with its reason
+        _assert_close(h.sum(-1), torch.ones(B_, device="cuda"), 1e-5, 0.0)
+    for i, (a, r) in enumerate(zip(got, fine_stage_reference(*args), strict=True)):
+        assert a.shape == r.shape
+        _assert_close(a, r, *((5e-2, 2e-2) if i < 2 else (0.13, 0.05)))
+
+
+def test_forward_sees_new_weights(gen):
+    """The packed transformer operands are cached between forwards; weights
+    loaded in place after a first forward must be used by the next one."""
+    a = torch.rand(1, 64, 64, 3, generator=gen, device="cuda")
+    b = torch.roll(a, shifts=8, dims=2)
+    model = FastMatcher(ModelConfig(), device="cuda", seed=0)
+    first = model(a, b)
+    fresh = FastMatcher(ModelConfig(), device="cuda", seed=1)
+    model.load_state_dict(fresh.state_dict())
+    again, ref = model(a, b), fresh(a, b)
+    assert not torch.equal(first.feat_c0, again.feat_c0)
+    assert torch.equal(again.feat_c0, ref.feat_c0)
+    assert torch.equal(again.fine.mkpts0_f, ref.fine.mkpts0_f)
+
+
 def test_wrappers_raise_rather_than_fall_back(gen):
     """A CUDA tensor the kernels do not take raises; no plain fallback runs."""
     x = _rnd(gen, 4, 64)  # float32, not bfloat16
@@ -145,3 +219,22 @@ def test_wrappers_raise_rather_than_fall_back(gen):
     with pytest.raises(ValueError, match="bfloat16"):
         dual_softmax_match_stats(f, f, 0.1)
     assert layer_norm_chain.launches == before
+    c_before, f_before = coarse_transformer_fused.launches, fine_stage_fused.launches
+    lv = _layer_values(gen, 256)
+    x = _rnd(gen, 1, 80, 256)
+    with pytest.raises(ValueError, match="bfloat16"):
+        coarse_transformer_fused(x, x, [lv], ("self",), 8)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        coarse_transformer_fused(xb, xb, [lv], ("self",), 32)  # head dim 8
+    fl = _layer_values(gen, 64)
+    mix = (_rnd(gen, 49), _rnd(gen, 1))
+    w = _rnd(gen, 4, 49, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fine_stage_fused(w, w, [fl], mix, mix, ("cross",), 8)
+    wb = w.bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        fine_stage_fused(wb, wb, [fl], mix, mix, ("cross",), 2)  # head dim 32
+    with pytest.raises(ValueError, match="layers"):
+        fine_stage_fused(wb, wb, [fl] * 3, mix, mix, ("self", "cross", "self"), 8)
+    assert (coarse_transformer_fused.launches, fine_stage_fused.launches) == (c_before, f_before)

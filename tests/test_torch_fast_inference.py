@@ -101,6 +101,21 @@ class TestSlice:
         np.testing.assert_allclose(_np(got.fine.mkpts1_f)[gm], np.asarray(ref.fine.mkpts1_f)[rm],
                                    atol=5e-2, rtol=1e-2)
 
+    def test_plain_branches_match_fused(self, slice_setup, monkeypatch):
+        """Where the fused gates fail, the plain LocalFeatureTransformer,
+        window mix and fine_soft_argmax run; in f32 they compute what the
+        fused branches' plain versions do."""
+        _, _, _, port = slice_setup
+        a, b = _pair(4, 2)
+        fused = port(_t(a), _t(b))
+        monkeypatch.setattr(FastMatcher, "use_fused_coarse", lambda self, n: False)
+        monkeypatch.setattr(FastMatcher, "use_fused_fine", lambda self: False)
+        plain = port(_t(a), _t(b))
+        np.testing.assert_allclose(_np(plain.feat_c0), _np(fused.feat_c0), atol=1e-4, rtol=1e-4)
+        assert torch.equal(plain.coarse.mask, fused.coarse.mask)
+        np.testing.assert_allclose(_np(plain.fine.mkpts0_f), _np(fused.fine.mkpts0_f),
+                                   atol=1e-3, rtol=1e-4)
+
     def test_backbone_matches_jax(self, slice_setup):
         mcfg, variables, _, port = slice_setup
         a, _ = _pair(1, 2)

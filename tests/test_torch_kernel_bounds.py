@@ -1,7 +1,14 @@
 """The work counts behind the kernels' bounds in chip_smoke.py and PERF.md."""
 
 from featurematching_tpu_torch.config import ModelConfig
-from featurematching_tpu_torch.utils.kernel_bounds import all_kernels, bound_ms, swin_sites
+from featurematching_tpu_torch.utils.kernel_bounds import (
+    all_kernels,
+    bound_ms,
+    coarse_apply_work,
+    coarse_stats_work,
+    fine_stage_work,
+    swin_sites,
+)
 
 
 def test_swin_sites_are_the_backbones_blocks():
@@ -19,3 +26,20 @@ def test_every_kernel_has_a_bound():
     for _, _, (nbytes, flops) in rows:
         ms, by = bound_ms(nbytes, flops)
         assert ms > 0 and by in ("bytes", "operations")
+
+
+def test_per_call_work_sums_to_the_kernel_totals():
+    """K5: 4 self layers (stats + apply over both images) and 8 cross
+    launches (one image each) do the operations of the whole stack; K6: one
+    fold call does the operations of its row."""
+    cfg = ModelConfig()
+    rows = {r[0]: r[2] for r in all_kernels(cfg)}
+    c, f = cfg.coarse, cfg.fine
+    L = 60 * 80
+    launches = [(8, 4), (4, 8)]  # (images, launches) per forward
+    flops = sum(n * (coarse_stats_work(G, L, c.d_model, c.nhead)[1]
+                     + coarse_apply_work(G, L, c.d_model, c.nhead)[1]) for G, n in launches)
+    assert flops == rows["K5"][1]
+    fine = fine_stage_work(4 * 1024, f.window_size**2, f.d_model, f.nhead, len(f.layer_names))
+    assert fine[1] == rows["K6"][1]
+    assert fine[0] < rows["K6"][0]  # the fold mode writes heatmaps, not windows
