@@ -19,27 +19,57 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   4. semantic check: identical images with thr=1e-8 give matches on the
      coarse-grid diagonal; and the forward on the card agrees with the plain
      path on the CPU at 64x64 (feat_c0, and mkpts0_f over the matches both
-     find).
+     find);
+  5. hold the training kernels against their plain versions at the shapes of
+     the training step: swin_block_train's forward and backward (K8) at the
+     three widths of the backbone, with and without the shift mask and
+     drop-path scales (out, dx and all 13 parameter gradients against the
+     plain twin's autograd), and the sparse focal loss: the pass-1
+     log-sum-exps (dual_softmax_lse, K1's pass 1), the backward's softmax
+     terms (K7) and the whole loss and its gradients against the
+     materialised loss, at [4, 4800, 256] with 1024 GT pairs and at a ragged
+     size; time each kernel and its plain version;
+  6. run the training step (`default_config()` with `coarse.fused_train` and
+     `fine.fused_train` 'off', 640x480, batch 4, bf16, sparse focal loss,
+     AdamW) with the launch counters set to 0 just before the timed steps and
+     read just after: K8 forward and backward 13 times a step, K1's pass 1
+     and K7 once, no K1 match statistics and no serving kernel; print the
+     step time, training pairs/s, the device time of the forward, backward
+     and optimizer, the device's busy share and the largest kernels, and
+     check the loss, the gradient norm and every parameter are finite;
+  7. training semantic check: one step on the card against the plain path on
+     the CPU at 128x128, batch 2 (`training_agreement`, bounded by LIMITS:
+     the loss, every gradient leaf's cosine and the coarse features'
+     gradient, card against CPU; each of the step's K8 calls run again from
+     its inputs and upstream gradient, and the step's K7 call, against their
+     plain versions on the card), ten steps on one batch at lr 1e-4 lower
+     the loss, and the evaluation step takes its matches from K1's
+     statistics (one launch) with finite outputs.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
 layers' stats and apply launches), dual_softmax_match_stats (K1) and
-fine_stage_fused (K6, fold mode).
+fine_stage_fused (K6, fold mode). The four of the training step:
+swin_block_train_fwd and swin_block_train_bwd (K8), dual_softmax_lse (K1's
+pass 1, K7's forward) and sparse_focal_backward (K7).
 
-Per-kernel numbers in the JSON line are totals over one forward: each call
-site's time times its launches per forward, summed. `bound_ms` is the larger
+Per-kernel numbers in the JSON line are totals over one forward (serving
+kernels) or one training step (training kernels): each call site's time
+times its launches, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
 989 TFLOP/s (the published H100 SXM figures), counted from this run's
 inputs by `featurematching_tpu_torch/utils/kernel_bounds.py`. Stdout ends
 with the card line, the kernels JSON line, and {"ok": true, "device": {...}}.
-Without a GPU it exits non-zero and prints no result.
+Without a GPU it exits non-zero and prints no result. It takes no arguments:
+every run drives every phase.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,16 +81,21 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
+    dual_softmax_lse_work,
     dual_softmax_work,
     fine_stage_work,
     layer_norm_work,
     patch_expand_work,
+    sparse_focal_backward_work,
+    swin_block_train_bwd_work,
+    swin_block_train_fwd_work,
     swin_block_work,
     total,
 )
 
 B, H, W = 4, 480, 640
 N_FORWARD = 10
+N_STEPS = 5
 # K6 heatmaps against the plain version: the two sides' windows differ by
 # bf16 roundings taken in another order (within 5e-2 + 2e-2 |x|); over the
 # 64 channels of a logit m . w / 8 that moves a logit by up to about 0.2,
@@ -79,7 +114,26 @@ SOURCES = {
     "coarse_transformer_fused": (
         "coarse_transformer.cu", "featurematching_tpu/ops/pallas_coarse_transformer.py:168,194"),
     "fine_stage_fused": ("fine_stage.cu", "featurematching_tpu/ops/pallas_fine_stage.py:378"),
+    "swin_block_train_fwd": (
+        "swin_block_train.cu", "featurematching_tpu/ops/pallas_swin_block_grad.py:567"),
+    "swin_block_train_bwd": (
+        "swin_block_train.cu", "featurematching_tpu/ops/pallas_swin_block_grad.py:629"),
+    "dual_softmax_lse": (
+        "dual_softmax.cu", "featurematching_tpu/ops/sparse_focal_loss.py:140 (pallas_dual_softmax.py:216)"),
+    "sparse_focal_backward": (
+        "sparse_focal_loss.cu", "featurematching_tpu/ops/sparse_focal_loss.py:269"),
 }
+# launches a training step (K2-K6 and the K1 match statistics: none)
+EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
+    "swin_block_train_fwd": 13, "swin_block_train_bwd": 13, "dual_softmax_lse": 1,
+    "sparse_focal_backward": 1,
+}
+# K8 against the plain twin's autograd, max |kernel - plain| <= K8_TOL max |plain|
+# per tensor: both take the same bf16 activations and bf16-valued weights and
+# accumulate in f32; they round activations and activation gradients to bf16
+# at other points (about ten roundings of 2^-9 along the chain) and sum over
+# up to 153,600 tokens in another order
+K8_TOL = 5e-2
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -106,8 +160,15 @@ def kernel_times(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in prof.key_averages() if is_kernel(e)]
     return sorted(((e.device_time_total / 1e3, e.count, e.key) for e in kern), reverse=True)
+
+
+def is_kernel(event) -> bool:
+    """A device event of the profiler that is a kernel, not a user-annotated
+    range (such as the optimizer's step) whose time its kernels already count."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
 
 
 def close(got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
@@ -122,10 +183,11 @@ class Record:
 
     def __init__(self):
         self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
-                  for n in EXPECTED_PER_FORWARD}
+                  for n in SOURCES}
 
     def site(self, name, count, ms, plain_ms, work, err, lib_ms=None):
-        """One call site: `count` launches per forward; work = (bytes, operations)."""
+        """One call site: `count` launches per forward or training step;
+        work = (bytes, operations)."""
         nbytes, flops = work
         k = self.k[name]
         k["ms"] += count * ms
@@ -404,6 +466,442 @@ def check_fine_stage(rec: Record, g) -> None:
     )
 
 
+def block_params(g, C, h):
+    """A Swin block's operands in the kernels' layouts: LN scales near 1,
+    biases near 0, weights at lecun scale holding bf16 values (f32 tensors,
+    so the kernels and the plain twin see the same weights)."""
+    hid = 4 * C
+
+    def w(i, o):
+        return rnd(g, i, o, scale=i**-0.5).bfloat16().float()
+
+    return {
+        "ln1_scale": rnd(g, C, scale=0.1, shift=1.0), "ln1_bias": rnd(g, C, scale=0.1),
+        "w_qkv": w(C, 3 * C), "b_qkv": rnd(g, 3 * C, scale=0.02),
+        "rel_bias": rnd(g, h, 64, 64, scale=0.02), "w_proj": w(C, C),
+        "b_proj": rnd(g, C, scale=0.02), "ln2_scale": rnd(g, C, scale=0.1, shift=1.0),
+        "ln2_bias": rnd(g, C, scale=0.1), "w_mlp1": w(C, hid), "b_mlp1": rnd(g, hid, scale=0.02),
+        "w_mlp2": w(hid, C), "b_mlp2": rnd(g, C, scale=0.02),
+    }
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|."""
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def check_swin_block_train(rec: Record, g) -> None:
+    from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
+    from featurematching_tpu_torch.ops.swin_block_train import (
+        PARAM_KEYS,
+        _kernel_params,
+        swin_block_train_bwd,
+        swin_block_train_fwd,
+        swin_block_train_reference,
+    )
+
+    # the training step's blocks: (windows, C, heads, padded map, launches a
+    # step without / with the shift mask), as the serving forward's
+    sites = [(2400, 64, 4, (120, 160), 2, 1), (640, 128, 8, (64, 80), 2, 1),
+             (160, 256, 16, (32, 40), 4, 3)]
+    print(f"  tolerance per tensor (out, dx, 13 gradients): max |kernel - plain| <= {K8_TOL} "
+          f"max |plain|")
+    for nwin, C, h, (Hp, Wp), n_plain, n_mask in sites:
+        x = rnd(g, nwin, 64, C, dtype=torch.bfloat16)
+        gout = rnd(g, nwin, 64, C, dtype=torch.bfloat16)
+        p = block_params(g, C, h)
+        mask = torch.as_tensor(_shift_attn_mask(Hp, Wp, 8, 4), device="cuda")
+        per_img = mask.shape[0]
+        keep = 0.8  # drop-path scales per image: 0 or 1/keep, at least one of each
+        draws = torch.rand(2, nwin // per_img, generator=g, device="cuda") < keep
+        draws[:, 0], draws[:, 1] = False, True
+        s1, s2 = (draws.float() / keep).repeat_interleave(per_img, dim=1)
+        kp = _kernel_params(p, C, h)
+        for m, a, b, count in ((None, None, None, n_plain), (mask, s1, s2, n_mask)):
+            out, probs, x1 = swin_block_train_fwd(x, m, a, b, kp, h)
+            dx, grads = swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h)
+            torch.cuda.synchronize()
+            xr = x.detach().requires_grad_(True)
+            pr = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            ref = swin_block_train_reference(xr, m, a, b, pr, h)
+            ref.backward(gout)
+            errs = {"out": rel_err(out, ref), "dx": rel_err(dx, xr.grad)}
+            errs |= {k: rel_err(gr, pr[k].grad) for k, gr in zip(PARAM_KEYS, grads)}
+            worst = max(errs, key=errs.get)
+            print(f"  C={C} mask={m is not None}: relative errors out {errs['out']:.2e}, dx "
+                  f"{errs['dx']:.2e}, worst {worst} {errs[worst]:.2e}")
+            bad = {k: v for k, v in errs.items() if not v <= K8_TOL}
+            if bad:
+                raise AssertionError(f"swin_block_train C={C} mask={m is not None}: {bad}")
+
+            def plain_fb():
+                xx = x.detach().requires_grad_(True)
+                pp = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+                swin_block_train_reference(xx, m, a, b, pp, h).backward(gout)
+
+            _, rows = profile_ms(lambda: swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h))
+            split = {}
+            for ms, _, name in rows:  # by kernel: mlp_bwd, attn_bwd, wgrad, sum_parts
+                bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
+                k = re.split(r"[<(]", bare)[0]
+                split[k] = split.get(k, 0.0) + ms
+            print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+            pf = cuda_ms(lambda: swin_block_train_reference(x, m, a, b, p, h), iters=3)
+            pfb = cuda_ms(plain_fb, iters=3)
+            nw = 0 if m is None else m.shape[0]
+            rec.site("swin_block_train_fwd", count,
+                     cuda_ms(lambda: swin_block_train_fwd(x, m, a, b, kp, h)), pf,
+                     swin_block_train_fwd_work(nwin, C, h, nw),
+                     err=float((out.float() - ref.detach().float()).abs().max()))
+            rec.site("swin_block_train_bwd", count,
+                     cuda_ms(lambda: swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h),
+                             iters=10),
+                     pfb - pf, swin_block_train_bwd_work(nwin, C, h, nw),
+                     err=float((dx.float() - xr.grad.float()).abs().max()))
+
+
+def gt_pairs(g, Bp, L, S, G, perm=None):
+    """[Bp, G] GT pairs: true matches where `perm` maps columns to rows, 10
+    duplicated pairs and about a tenth masked out."""
+    gj = torch.randint(0, S, (Bp, G), generator=g, device="cuda")
+    gi = perm[gj] if perm is not None else torch.randint(0, L, (Bp, G), generator=g, device="cuda")
+    gi[:, 10:20], gj[:, 10:20] = gi[:, :10], gj[:, :10]
+    mask = torch.rand(Bp, G, generator=g, device="cuda") < 0.9
+    return gi, gj, mask
+
+
+def check_sparse_focal_loss(rec: Record, g) -> None:
+    from featurematching_tpu_torch.ops.dual_softmax import _lse_reference, dual_softmax_lse
+    from featurematching_tpu_torch.ops.sparse_focal_loss import (
+        _scatter_rows,
+        naive_sparse_focal_loss,
+        sparse_focal_backward,
+        sparse_focal_backward_reference,
+        sparse_focal_loss,
+    )
+
+    lse_atol, k7_tol, loss_rtol, grad_tol = 1e-3, 1e-2, 2e-2, 5e-2
+    print(f"  tolerance: log-sum-exps within {lse_atol} (f32 sums in another order, |lse| ~ 10); "
+          f"K7's softmax terms max |kernel - plain| <= {k7_tol} max |plain| (dsim rounded to "
+          f"bf16 on both sides, f32 sums in another order); the whole loss within {loss_rtol} "
+          f"and its gradients within {grad_tol} max |plain| of the materialised loss (the "
+          f"kernels fold inv_temp into bf16 f0, as the TPU kernels do; the materialised loss "
+          f"scales in f32)")
+    for Bp, L, S, C, G, timed in ((B, 4800, 4800, 256, 1024, True), (2, 1000, 777, 256, 300, False)):
+        inv_temp = 1.0 / (C * 0.1)
+        f0 = rnd(g, Bp, L, C)
+        perm = torch.randperm(L, generator=g, device="cuda")[:S]
+        f1 = (0.8 * f0[:, perm] + 0.6 * rnd(g, Bp, S, C)).bfloat16()
+        f0 = f0.bfloat16()
+        gi, gj, gm = gt_pairs(g, Bp, L, S, G, perm)
+        lr, lc = dual_softmax_lse(f0, f1, inv_temp)
+        torch.cuda.synchronize()
+        rr, rc = _lse_reference(f0, f1, inv_temp)
+        e_lse = max(float((lr - rr).abs().max()), float((lc - rc).abs().max()))
+        gbar = torch.rand(Bp, G, generator=g, device="cuda") * gm
+        a_r, a_c = _scatter_rows(L, gi, gbar), _scatter_rows(S, gj, gbar)
+        d0, d1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
+        torch.cuda.synchronize()
+        r0, r1 = sparse_focal_backward_reference(f0, f1, a_r, lr, a_c, lc, inv_temp)
+        e_k7 = max(rel_err(d0, r0), rel_err(d1, r1))
+        t0, t1 = f0.detach().requires_grad_(True), f1.detach().requires_grad_(True)
+        loss = sparse_focal_loss(t0, t1, gi, gj, gm, inv_temp)
+        loss.backward()
+        n0, n1 = f0.detach().requires_grad_(True), f1.detach().requires_grad_(True)
+        ref = naive_sparse_focal_loss(n0, n1, gi, gj, gm, inv_temp)
+        ref.backward()
+        loss, ref = float(loss.detach()), float(ref.detach())
+        e_loss = abs(loss - ref) / abs(ref)
+        e_grad = max(rel_err(t0.grad, n0.grad), rel_err(t1.grad, n1.grad))
+        print(f"  [{Bp}, {L}, {C}] x [{Bp}, {S}, {C}], {G} pairs: lse err {e_lse:.2e}, K7 "
+              f"relative err {e_k7:.2e}, loss {loss:.6f} vs {ref:.6f} (rel "
+              f"{e_loss:.2e}), gradients rel err {e_grad:.2e}")
+        if not (e_lse <= lse_atol and e_k7 <= k7_tol and e_loss <= loss_rtol
+                and e_grad <= grad_tol):
+            raise AssertionError(f"sparse focal loss [{Bp}, {L}, {S}]: errors {e_lse:.2e} "
+                                 f"{e_k7:.2e} {e_loss:.2e} {e_grad:.2e}")
+        if not timed:
+            continue
+        del ref, n0, n1
+        rec.site("dual_softmax_lse", 1, cuda_ms(lambda: dual_softmax_lse(f0, f1, inv_temp)),
+                 cuda_ms(lambda: _lse_reference(f0, f1, inv_temp), iters=3),
+                 dual_softmax_lse_work(Bp, L, S, C), err=e_lse)
+        rec.site("sparse_focal_backward", 1,
+                 cuda_ms(lambda: sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp), iters=5),
+                 cuda_ms(lambda: sparse_focal_backward_reference(f0, f1, a_r, lr, a_c, lc, inv_temp),
+                         iters=3),
+                 sparse_focal_backward_work(Bp, L, S, C),
+                 err=max(float((d0 - r0).abs().max()), float((d1 - r1).abs().max())))
+
+
+def training_config(drop_path_rate=None, fused_block=None):
+    """default_config() with K9 and K10 off (the per-op coarse and fine
+    transformers), optionally another drop-path rate or block switch."""
+    from featurematching_tpu_torch.config import default_config
+
+    cfg = default_config()
+    m = cfg.model
+    swin = m.swin
+    if drop_path_rate is not None:
+        swin = dataclasses.replace(swin, drop_path_rate=drop_path_rate)
+    if fused_block is not None:
+        swin = dataclasses.replace(swin, fused_block=fused_block)
+    model = dataclasses.replace(
+        m, swin=swin, coarse=dataclasses.replace(m.coarse, fused_train="off"),
+        fine=dataclasses.replace(m.fine, fused_train="off"))
+    return dataclasses.replace(cfg, model=model)
+
+
+def profile_ms(fn):
+    """(device ms of the kernels fn() launches, [(ms, launches, name)]) from
+    the profiler, fn run once inside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if is_kernel(e)]
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in kern), reverse=True)
+    return sum(r[0] for r in rows), rows
+
+
+def training_step(wrappers, launches) -> None:
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.train.step import (
+        create_train_state,
+        forward_with_loss,
+        train_step,
+    )
+
+    cfg = training_config()
+    state = create_train_state(cfg, device="cuda", seed=0)
+    t = time.time()
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    print(f"  batch: {B} pairs {W}x{H}, {int(batch['gt_mask'].sum())} GT pairs "
+          f"({time.time() - t:.1f} s to make)")
+    torch.cuda.reset_peak_memory_stats()
+    state, met = train_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    for _ in range(N_STEPS):
+        state, met = train_step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    print(f"  launches over {N_STEPS} steps: {launches}")
+    for n, per in EXPECTED_PER_STEP.items():
+        if launches[n] != per * N_STEPS:
+            raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_STEPS}")
+    vals = {k: float(v) for k, v in met.items()}
+    print(f"  last step: {vals}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(map(np.isfinite, vals.values())):
+        raise AssertionError("non-finite loss or gradient norm")
+    for name, p in state.model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"non-finite parameter {name}")
+    step_ms = dt / N_STEPS * 1e3
+    print(f"  training step: {step_ms:.3f} ms, {B * N_STEPS / dt:.3f} training pairs/s "
+          f"(batch {B}, {W}x{H}, bf16)", flush=True)
+    model = state.model
+    fwd_ms, _ = profile_ms(lambda: forward_with_loss(model, cfg, batch, train=True))
+    losses, _ = forward_with_loss(model, cfg, batch, train=True)
+    bwd_ms, _ = profile_ms(lambda: losses.loss.backward())
+    opt_ms, _ = profile_ms(state.optimizer.step)
+    busy, rows = profile_ms(lambda: train_step(state, batch))
+    print(f"  stages (device ms of their kernels, each run alone): forward {fwd_ms:.3f}, "
+          f"backward {bwd_ms:.3f}, optimizer {opt_ms:.3f}; the step: {busy:.3f} ms busy = "
+          f"{busy / step_ms:.3f} of the {step_ms:.3f} ms step")
+    print(f"  profiler: {len(rows)} kernel names, {sum(r[1] for r in rows)} launches a step")
+    for ms, count, name in rows[:15]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+
+
+# The card's training step against the plain path on the CPU (both bf16,
+# 128x128, batch 2, drop-path 0, the same weights and batch), and each K8
+# call of that step against the plain twin on the card: limits on the
+# readings of `training_agreement`, set from a sound run's readings and from
+# runs with a fault injected into K8's or K7's output
+# (tests/test_torch_cuda.py::test_training_agreement_sees_kernel_faults;
+# both readings in PERF.md)
+LIMITS = {
+    "loss": 5e-3,  # relative difference of the loss
+    # every leaf of the gradient: cosine at least this. The eager bf16 coarse
+    # and fine transformers round at other points on the two sides, and their
+    # weight gradients are sums that mostly cancel, so this cannot be tight
+    "min_cos": 0.95,
+    # the coarse loss's gradient at the coarse features, card against CPU:
+    # 1 - cosine and |norm ratio - 1|
+    "feat_sin": 3e-3, "feat_norm": 1e-2,
+    # K8: each call of the step run again from its inputs and upstream
+    # gradient, kernel against plain twin on the card, over out, dx and the
+    # 13 gradients; K7: the step's call, its softmax terms df0 and df1 against
+    # the plain version on the same inputs. 1 - cosine and |norm ratio - 1|
+    "k8_sin": 5e-3, "k8_norm": 1e-2, "k7_sin": 1e-4, "k7_norm": 1e-3,
+}
+
+
+class _Recorder:
+    """Calls fn and keeps each call's arguments and result; its `launches`
+    is fn's, so a wrapper that counts on the name it is called by still
+    counts."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.calls.append((args, out))
+        return out
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, v: setattr(self.fn, "launches", v))
+
+
+def semantic_setup():
+    """(cfg, card state, CPU state with the card's weights, batch) of the
+    training semantic check."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.train.step import create_train_state
+
+    cfg = training_config(drop_path_rate=0.0, fused_block="on")
+    card = create_train_state(cfg, device="cuda", seed=0, global_batch_size=2)
+    cpu = create_train_state(cfg, device="cpu", seed=0, global_batch_size=2)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    batch = synthetic_batch(np.random.default_rng(1), batch_size=2, image_size=(128, 128),
+                            num_gt=128)
+    return cfg, card, cpu, batch
+
+
+def _cos_norm(a: torch.Tensor, b: torch.Tensor):
+    """(1 - cosine, |norm(a) / norm(b) - 1|) of two gradients."""
+    a, b = a.detach().float().flatten(), b.detach().float().flatten().to(a.device)
+    na, nb = a.norm(), b.norm().clamp_min(1e-30)
+    return float(1 - a @ b / (na * nb).clamp_min(1e-30)), float((na / nb - 1).abs())
+
+
+def _block_grads(fn, x, mask, s1, s2, params, h, g) -> dict:
+    """out, dx and the 13 parameter gradients of fn (swin_block_train or its
+    plain twin) under autograd, with upstream gradient g."""
+    xx = x.detach().requires_grad_(True)
+    pp = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    out = fn(xx, mask, s1, s2, pp, h)
+    out.backward(g)
+    return {"out": out.detach(), "dx": xx.grad} | {k: pp[k].grad for k in pp}
+
+
+def training_agreement(cfg, card, cpu, batch) -> dict:
+    """One forward and backward on the card and on the CPU, recording the
+    card's K8 and K7 calls: the readings that LIMITS bound, with where the
+    worst of each is."""
+    import featurematching_tpu_torch.models.backbone_swin as bs
+    import featurematching_tpu_torch.ops.sparse_focal_loss as sfl
+    from featurematching_tpu_torch.ops.swin_block_train import (
+        swin_block_train,
+        swin_block_train_reference,
+    )
+    from featurematching_tpu_torch.train.step import forward_with_loss
+
+    k8, k7 = _Recorder(swin_block_train), _Recorder(sfl.sparse_focal_backward)
+    got = {}
+    for side, st in (("card", card), ("cpu", cpu)):
+        st.model.zero_grad(set_to_none=True)
+        if side == "card":
+            bs.swin_block_train, sfl.sparse_focal_backward = k8, k7
+        try:
+            losses, out = forward_with_loss(st.model, cfg, batch, train=True)
+            for _, y in k8.calls:
+                y.retain_grad()  # the upstream gradient of each K8 call
+            feats = torch.autograd.grad(losses.loss_c, [out.feat_c0, out.feat_c1],
+                                        retain_graph=True)
+            losses.loss.backward()
+        finally:
+            bs.swin_block_train, sfl.sparse_focal_backward = k8.fn, k7.fn
+        got[side] = (float(losses.loss.detach()),
+                     {n: p.grad for n, p in st.model.named_parameters()}, feats)
+    (gl, g_all, g_f), (rl, r_all, r_f) = got["card"], got["cpu"]
+    r = {"loss": abs(gl - rl) / abs(rl), "card_loss": gl, "cpu_loss": rl}
+    cos = {n: 1 - _cos_norm(g_all[n], r_all[n])[0] for n in g_all}
+    r["min_cos"] = min(cos.values())
+    r["min_cos_at"] = min(cos, key=cos.get)
+    r["leaves"] = len(cos)
+    pairs = {"feat": [(n, a, b) for n, a, b in zip(("feat_c0", "feat_c1"), g_f, r_f)], "k8": [],
+             "k7": []}
+    for i, ((x, mask, s1, s2, p, h), y) in enumerate(k8.calls):
+        args = (x.detach(), mask, s1, s2, {k: v.detach() for k, v in p.items()}, h, y.grad)
+        kern = _block_grads(swin_block_train, *args)
+        plain = _block_grads(swin_block_train_reference, *args)
+        at = f"call {i} (C={x.shape[-1]}, {x.shape[0]} windows)"
+        pairs["k8"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
+    for args, got_k7 in k7.calls:  # the coarse loss's backward: twice, same inputs
+        ref = sfl.sparse_focal_backward_reference(*args)
+        pairs["k7"] += [(n, a, b) for n, a, b in zip(("df0", "df1"), got_k7, ref)]
+    for key, items in pairs.items():
+        vals = {n: _cos_norm(a, b) for n, a, b in items}
+        for i, what in enumerate(("sin", "norm")):
+            at = max(vals, key=lambda n: vals[n][i])
+            r[f"{key}_{what}"], r[f"{key}_{what}_at"] = vals[at][i], at
+    r["k8_calls"], r["k7_calls"] = len(k8.calls), len(k7.calls)
+    return r
+
+
+def agreement_failures(r: dict) -> list:
+    """The readings of `training_agreement` outside LIMITS."""
+    bad = [k for k in LIMITS if k != "min_cos" and not r[k] <= LIMITS[k]]
+    return bad + ([] if r["min_cos"] >= LIMITS["min_cos"] else ["min_cos"])
+
+
+def training_semantic() -> None:
+    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
+    from featurematching_tpu_torch.train.optimizer import build_optimizer
+    from featurematching_tpu_torch.train.step import eval_step, train_step
+
+    cfg, card, cpu, batch = semantic_setup()
+    r = training_agreement(cfg, card, cpu, batch)
+    print(f"  limits: {LIMITS}")
+    print(f"  128x128 card vs CPU plain (bf16 both): loss {r['card_loss']:.6f} vs "
+          f"{r['cpu_loss']:.6f} (rel {r['loss']:.3e}); gradient cosine min {r['min_cos']:.5f} "
+          f"over {r['leaves']} leaves (at {r['min_cos_at']})")
+    for key, what in (("feat", "coarse-loss gradient at the coarse features, card vs CPU"),
+                      ("k8", f"the step's {r['k8_calls']} K8 calls vs the plain twin on the card"),
+                      ("k7", f"the step's {r['k7_calls']} K7 calls vs the plain version")):
+        print(f"  {what}: 1 - cosine max {r[key + '_sin']:.3e} (at {r[key + '_sin_at']}), "
+              f"|norm ratio - 1| max {r[key + '_norm']:.3e} (at {r[key + '_norm_at']})")
+    bad = agreement_failures(r)
+    if bad:
+        raise AssertionError(f"the card's training step disagrees with the plain path: {bad}")
+    # ten steps on one batch, warmup off, lr 1e-4 (canonical_lr 0.0032 at batch 2)
+    ocfg = dataclasses.replace(cfg.trainer.optimizer, warmup_steps=0, canonical_lr=0.0032)
+    card.optimizer = build_optimizer(card.model.parameters(), ocfg, 2, cfg.trainer.steps_per_epoch)
+    losses = []
+    for _ in range(10):
+        card, met = train_step(card, batch)
+        losses.append(float(met["loss"]))
+    print("  ten steps at lr 1e-4: loss " + " ".join(f"{v:.4f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall over ten steps on one batch")
+    # the evaluation step takes the coarse matches from K1's statistics
+    before = dual_softmax_match_stats.launches
+    out, ev = eval_step(card, batch)
+    torch.cuda.synchronize()
+    n_stats = dual_softmax_match_stats.launches - before
+    print(f"  eval step: loss {float(ev.loss):.4f}, {int(out.coarse.mask.sum())} matches, "
+          f"{n_stats} dual_softmax_match_stats launch")
+    if n_stats != 1 or not all(torch.isfinite(t).all() for t in (
+            ev.loss, out.feat_c0.float(), out.fine.mkpts0_f, out.fine.mkpts1_f)):
+        raise AssertionError("the evaluation step failed")
+
+
 @torch.no_grad()
 def breakdown(model, img0, img1, forward_ms: float) -> None:
     """Where one forward's time goes: the device time of each stage's kernels
@@ -443,16 +941,23 @@ def main() -> int:
     from featurematching_tpu_torch.models.fast_inference import FastMatcher
     from featurematching_tpu_torch.ops import _build
     from featurematching_tpu_torch.ops.coarse_transformer import coarse_transformer_fused
-    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
+    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_lse, dual_softmax_match_stats
     from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused
     from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
     from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
+    from featurematching_tpu_torch.ops.sparse_focal_loss import sparse_focal_backward
     from featurematching_tpu_torch.ops.swin_block import swin_block_fused
+    from featurematching_tpu_torch.ops.swin_block_train import (
+        swin_block_train_bwd,
+        swin_block_train_fwd,
+    )
 
     wrappers = {
         "swin_block_fused": swin_block_fused, "layer_norm_chain": layer_norm_chain,
         "patch_expand_ln": patch_expand_ln, "dual_softmax_match_stats": dual_softmax_match_stats,
         "coarse_transformer_fused": coarse_transformer_fused, "fine_stage_fused": fine_stage_fused,
+        "swin_block_train_fwd": swin_block_train_fwd, "swin_block_train_bwd": swin_block_train_bwd,
+        "dual_softmax_lse": dual_softmax_lse, "sparse_focal_backward": sparse_focal_backward,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -490,9 +995,12 @@ def main() -> int:
     phase("check dual_softmax_match_stats", lambda: check_dual_softmax(rec, g))
     phase("check coarse_transformer_fused", lambda: check_coarse_transformer(rec, g))
     phase("check fine_stage_fused", lambda: check_fine_stage(rec, g))
+    phase("check swin_block_train", lambda: check_swin_block_train(rec, g))
+    phase("check sparse_focal_loss", lambda: check_sparse_focal_loss(rec, g))
 
     cfg = default_config().model
-    launches = {}
+    launches = {}  # of the serving forward
+    train_launches = {}  # of the training step
 
     def forward():
         model = FastMatcher(cfg, device="cuda", seed=0)
@@ -510,7 +1018,8 @@ def main() -> int:
         dt = time.perf_counter() - t
         launches.update({n: w.launches for n, w in wrappers.items()})
         print(f"  launches over {N_FORWARD} forwards: {launches}")
-        for n, per in EXPECTED_PER_FORWARD.items():
+        for n in wrappers:  # the training kernels: none
+            per = EXPECTED_PER_FORWARD.get(n, 0)
             if launches[n] != per * N_FORWARD:
                 raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_FORWARD}")
         m = out.coarse.mask
@@ -562,14 +1071,18 @@ def main() -> int:
             raise AssertionError("the card's fine keypoints disagree with the plain path")
 
     phase("semantic checks", semantic)
+    phase(f"training step {W}x{H} batch {B} bf16",
+          lambda: training_step(wrappers, train_launches))
+    phase("training semantic checks", training_semantic)
 
     kernels = []
     for n, k in rec.k.items():
         src, replaces = SOURCES[n]
         b, by = bound_ms(k["nbytes"], k["flops"])
+        runs = launches if n in EXPECTED_PER_FORWARD else train_launches
         kernels.append({
             "name": n, "route": "cuda", "source": f"featurematching_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches.get(n, 0), "max_abs_err": k["err"],
+            "replaces": replaces, "launches": runs.get(n, 0), "max_abs_err": k["err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": k["lib"],
         })

@@ -15,6 +15,7 @@ namespace wmma = nvcuda::wmma;
 
 // 16x16x16 bf16 tensor-core tiles with f32 accumulation
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -96,6 +97,18 @@ __device__ __forceinline__ void copy_rows_to_smem(bf16* dst, int sld, const bf16
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * gld + c);
     *reinterpret_cast<uint4*>(dst + r * sld + c) = val;
+  }
+}
+
+// Copy `rows` rows of `cols` bf16 (cols % 8 == 0) from shared memory (row
+// stride `sld`) to global (row stride `gld`) with 16-byte accesses.
+__device__ __forceinline__ void copy_rows_from_smem(bf16* dst, int gld, const bf16* src,
+                                                    int sld, int rows, int cols) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    const int r = e / per_row, c = (e % per_row) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * gld + c) =
+        *reinterpret_cast<const uint4*>(src + r * sld + c);
   }
 }
 

@@ -4,7 +4,9 @@
 //
 // Replaces featurematching_tpu/ops/pallas_dual_softmax.py ·
 // dual_softmax_match_stats (_pass1_stats/_stats_kernel and
-// _pass2_conf/_conf_kernel). Bound on the H100: tensor-core operations (two
+// _pass2_conf/_conf_kernel); fm_dual_softmax_lse runs pass 1 and its
+// combines alone, as featurematching_tpu/ops/sparse_focal_loss.py ·
+// _lses_pallas runs _pass1_stats. Bound on the H100: tensor-core operations (two
 // passes of 2*L*S*C, against (L + S)*C bf16 inputs). Design: a block owns 64
 // rows of f0 (scaled by inv_temp and rounded to bf16 on load, as the TPU
 // kernel does before its product) and loops over 64-column tiles of f1,
@@ -268,6 +270,35 @@ __global__ void col_argmax_kernel(const float* __restrict__ colmax_p,
   col_arg[idx] = arg;
 }
 
+__global__ void row_lse_kernel(const float* __restrict__ rowm, const float* __restrict__ rowz,
+                               int n, float* __restrict__ lse_r) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) lse_r[i] = rowm[i] + logf(rowz[i]);
+}
+
+// Pass 1 and the combines alone: the row and column log-sum-exps of sim
+// (the sparse focal loss's forward). w: rowm, rowz, colm_p, colz_p, lse_r, lse_c.
+template <int C>
+cudaError_t launch_lse(const void* f0, const void* f1, float inv_temp, int B, int L, int S,
+                       void* const* w, cudaStream_t st) {
+  const size_t smem = Smem<C>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(pass1_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int nT = (L + TM - 1) / TM, BS = B * S, BL = B * L;
+  float* rowm = static_cast<float*>(w[0]);
+  float* rowz = static_cast<float*>(w[1]);
+  float* colm_p = static_cast<float*>(w[2]);
+  float* colz_p = static_cast<float*>(w[3]);
+  pass1_kernel<C><<<dim3(nT, B), kThreads, smem, st>>>(static_cast<const bf16*>(f0),
+                                                       static_cast<const bf16*>(f1), inv_temp,
+                                                       L, S, rowm, rowz, colm_p, colz_p);
+  col_lse_kernel<<<(BS + 255) / 256, 256, 0, st>>>(colm_p, colz_p, nT, S, BS,
+                                                    static_cast<float*>(w[5]));
+  row_lse_kernel<<<(BL + 255) / 256, 256, 0, st>>>(rowm, rowz, BL, static_cast<float*>(w[4]));
+  return cudaGetLastError();
+}
+
 template <int C>
 cudaError_t launch(const void* f0, const void* f1, float inv_temp, int B, int L, int S,
                    void* const* w, cudaStream_t st) {
@@ -323,6 +354,24 @@ extern "C" int fm_dual_softmax_stats(const void* f0, const void* f1, float inv_t
     case 64: e = launch<64>(f0, f1, inv_temp, B, L, S, w, st); break;
     case 128: e = launch<128>(f0, f1, inv_temp, B, L, S, w, st); break;
     case 256: e = launch<256>(f0, f1, inv_temp, B, L, S, w, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(e);
+}
+
+// The row and column log-sum-exps alone: f0, f1, inv_temp as above;
+// scratch rowm, rowz [B, L], colm_p, colz_p [B, nT, S]; out lse_r [B, L],
+// lse_c [B, S] f32.
+extern "C" int fm_dual_softmax_lse(const void* f0, const void* f1, float inv_temp, int B, int L,
+                                   int S, int C, void* rowm, void* rowz, void* colm_p,
+                                   void* colz_p, void* lse_r, void* lse_c, void* stream) {
+  void* w[6] = {rowm, rowz, colm_p, colz_p, lse_r, lse_c};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (C) {
+    case 64: e = launch_lse<64>(f0, f1, inv_temp, B, L, S, w, st); break;
+    case 128: e = launch_lse<128>(f0, f1, inv_temp, B, L, S, w, st); break;
+    case 256: e = launch_lse<256>(f0, f1, inv_temp, B, L, S, w, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);

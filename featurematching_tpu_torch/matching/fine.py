@@ -1,9 +1,11 @@
 """Fine-level window refinement: window gather + soft-argmax.
 
-Port of `featurematching_tpu/matching/fine.py` for the serving forward
-(FineMatches, window_center_offset, the gather_fine_windows forward,
-normalized_grid, spatial_expectation, window_heatmaps, fine_from_heatmaps,
-fine_soft_argmax).
+Port of `featurematching_tpu/matching/fine.py` (FineMatches,
+window_center_offset, gather_fine_windows, normalized_grid,
+spatial_expectation, window_heatmaps, fine_from_heatmaps, fine_soft_argmax).
+The JAX package gives the window gather a custom VJP in XLA (no kernel);
+here autograd differentiates the gather, which carries the gradient to the
+fine map.
 """
 
 from __future__ import annotations

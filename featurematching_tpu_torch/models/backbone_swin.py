@@ -1,20 +1,33 @@
-"""Swin-UNet window helpers and parameter modules.
+"""Swin-UNet backbone: window helpers, parameter modules and the
+differentiable forward of training.
 
-Port of the window helpers of `featurematching_tpu/models/backbone_swin.py`
+Port of `featurematching_tpu/models/backbone_swin.py`: the window helpers
 (window_partition, window_reverse, _shift_attn_mask,
-_rel_pos_bias_from_table) and of its parameter layout: the modules here hold
-a block's weights under the JAX tree's names (norm1, attn.qkv, attn.proj,
-attn.rel_pos_bias, norm2, mlp1, mlp2); `models/fast_inference` runs them.
+_rel_pos_bias_from_table), the parameter layout (a block's weights under the
+JAX tree's names: norm1, attn.qkv, attn.proj, attn.rel_pos_bias, norm2, mlp1,
+mlp2), and `SwinUNet`, the linen SwinUNet in its `fused_block` form: every
+block through `ops/swin_block_train.swin_block_train` (kernel K8 on the card),
+with drop-path, and the patch embed, PatchMerging, the linen PatchExpand
+(Dense, depth-to-space, LN), the stage LNs and the two heads as plain
+PyTorch ops under autograd, as they are plain XLA ops in the JAX package.
+`SwinUNetParams` holds the weights and the window plumbing; `SwinUNet` and
+the serving `models/fast_inference.SwinBackbone` each extend it with their
+forward.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from featurematching_tpu_torch.config import ModelConfig
+from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
+from featurematching_tpu_torch.ops.swin_block_train import swin_block_train
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -114,3 +127,188 @@ class PatchExpandParams(nn.Module):
         super().__init__()
         self.expand = nn.Linear(dim, dim_scale * dim, bias=False)
         self.norm = nn.LayerNorm(dim_scale * dim // 4, eps=1e-6)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """Product rounded to x's dtype, then the bias added in that dtype (flax
+    Dense with dtype = x's dtype)."""
+    y = F.linear(x, lin.weight.to(x.dtype))
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax LayerNorm: f32 statistics, output in x's dtype."""
+    return layer_norm_chain_plain(x, ln.weight, ln.bias)
+
+
+def patch_merge(x: torch.Tensor, H: int, W: int, p: PatchMergingParams) -> torch.Tensor:
+    """2x2 space-to-depth (odd sizes padded), LN, 4C -> 2C. x: [B, H*W, C]."""
+    B, L, C = x.shape
+    xi = x.reshape(B, H, W, C)
+    if H % 2 or W % 2:
+        xi = F.pad(xi, (0, 0, 0, W % 2, 0, H % 2))
+    cat = torch.cat(
+        [xi[:, 0::2, 0::2], xi[:, 1::2, 0::2], xi[:, 0::2, 1::2], xi[:, 1::2, 1::2]], dim=-1
+    ).reshape(B, -1, 4 * C)
+    return dense(layer_norm(cat, p.norm), p.reduction)
+
+
+def patch_expand(x: torch.Tensor, H: int, W: int, p: PatchExpandParams) -> torch.Tensor:
+    """The linen PatchExpand: Dense C -> scale*C, 2x2 depth-to-space, LN.
+    x: [B, H*W, C] -> [B, 4*H*W, scale*C/4]."""
+    B = x.shape[0]
+    y = dense(x, p.expand)
+    Ce = y.shape[-1]
+    y = y.reshape(B, H, W, Ce)
+    y0 = y[..., : Ce // 2].reshape(B, H, 2 * W, Ce // 4)
+    y1 = y[..., Ce // 2:].reshape(B, H, 2 * W, Ce // 4)
+    y = torch.stack([y0, y1], dim=2).reshape(B, 4 * H * W, Ce // 4)
+    return layer_norm(y, p.norm)
+
+
+def drop_path_rates(depths, depths_up, rate: float):
+    """(encoder rates per stage, decoder rates per stage): a linspace over the
+    encoder's blocks; the decoder takes the JAX package's slice of it (stage
+    j reads dpr[sum(depths_up[:n-1-j]) : sum(depths_up[:n-j])], 0 past its end)."""
+    dpr = list(np.linspace(0, rate, sum(depths)))
+    enc = [[float(dpr[sum(depths[:i]) + b]) for b in range(d)] for i, d in enumerate(depths)]
+    n_up = len(depths_up)
+    dec = []
+    for j in range(n_up):
+        sl = dpr[sum(depths_up[: n_up - 1 - j]): sum(depths_up[: n_up - j])]
+        dec.append([float(sl[b]) if b < len(sl) else 0.0
+                    for b in range(depths_up[n_up - 1 - j])])
+    return enc, dec
+
+
+class SwinUNetParams(nn.Module):
+    """Swin-UNet (swin_v1) weights under the JAX tree's names, the patch
+    embed and the window plumbing the forwards share; no forward of its own."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        s = cfg.swin
+        self.cfg = s
+        self.patch_embed = nn.Conv2d(
+            cfg.input_channels, s.embed_dim, s.patch_size, stride=s.patch_size
+        )
+        self.patch_norm = nn.LayerNorm(s.embed_dim, eps=1e-6)
+        n = len(s.depths)
+        for i in range(n):
+            dim = s.embed_dim * 2**i
+            for b in range(s.depths[i]):
+                self.add_module(f"enc{i}_blk{b}", SwinBlockParams(
+                    dim, s.num_heads[i], s.window_size, s.mlp_ratio))
+            if i < n - 1:
+                self.add_module(f"enc{i}_merge", PatchMergingParams(dim))
+            self.add_module(f"norm_down{i}", nn.LayerNorm(dim * (2 if i < n - 1 else 1), eps=1e-6))
+        n_up = len(s.depths_up)
+        for j in range(n_up):
+            dim = s.embed_dim * 2 ** (n_up - 1 - j)
+            for b in range(s.depths_up[n_up - 1 - j]):
+                self.add_module(f"dec{j}_blk{b}", SwinBlockParams(
+                    dim, s.num_heads[n_up - 1 - j], s.window_size, s.mlp_ratio))
+            scale = 2 if j < n_up - 1 else 4
+            self.add_module(f"dec{j}_expand", PatchExpandParams(dim, scale))
+            self.add_module(f"norm_up{j}", nn.LayerNorm(scale * dim // 4, eps=1e-6))
+            if j == 0:
+                self.linear_middle = nn.Linear(scale * dim // 4, 256, bias=False)
+            elif j == n_up - 1:
+                self.linear_end = nn.Linear(scale * dim // 4, 64, bias=False)
+        self._masks: Dict[Tuple, torch.Tensor] = {}
+
+    def _shift_mask(self, Hp: int, Wp: int, shift: int, device) -> torch.Tensor:
+        key = (Hp, Wp, shift, str(device))
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(
+                _shift_attn_mask(Hp, Wp, self.cfg.window_size, shift), device=device
+            )
+        return self._masks[key]
+
+    def _embed(self, x: torch.Tensor) -> torch.Tensor:
+        """4x4 patch-embed convolution in x's dtype; [B, H, W, C_in] -> [B, Wh, Ww, E]."""
+        dt = x.dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),
+                     stride=self.cfg.patch_size)
+        return y.permute(0, 2, 3, 1) + self.patch_embed.bias.to(dt)
+
+    def _in_windows(self, x: torch.Tensor, H: int, W: int, shift: int, fn) -> torch.Tensor:
+        """x [B, H*W, C] -> the map padded to a multiple of the window, rolled
+        by -shift, as windows [B*nW, w*w, C]; fn(windows, shift mask or None,
+        nW) runs the block on them; the result is rolled back and cropped."""
+        B, L, C = x.shape
+        w = self.cfg.window_size
+        xi = x.reshape(B, H, W, C)
+        pad_b, pad_r = (w - H % w) % w, (w - W % w) % w
+        if pad_b or pad_r:
+            xi = F.pad(xi, (0, 0, 0, pad_r, 0, pad_b))
+        Hp, Wp = H + pad_b, W + pad_r
+        mask = None
+        if shift > 0:
+            xi = torch.roll(xi, shifts=(-shift, -shift), dims=(1, 2))
+            mask = self._shift_mask(Hp, Wp, shift, x.device)
+        ow = fn(window_partition(xi, w).contiguous(), mask, (Hp // w) * (Wp // w))
+        oi = window_reverse(ow, w, Hp, Wp)
+        if shift > 0:
+            oi = torch.roll(oi, shifts=(shift, shift), dims=(1, 2))
+        return oi[:, :H, :W].reshape(B, H * W, C)
+
+
+class SwinUNet(SwinUNetParams):
+    """The differentiable forward of training over the Swin-UNet weights.
+
+    forward(x, train, generator): x [B, H, W, C_in] NHWC in the compute
+    dtype -> (coarse [B, H/8, W/8, 256], fine [B, H/2, W/2, 64]). With
+    `train` and a drop_path_rate > 0 each block draws its two drop-path
+    masks per image from `generator` (a torch.Generator on x's device)."""
+
+    def _block(self, x: torch.Tensor, H: int, W: int, blk: SwinBlockParams, shift: int,
+               rate: float, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One block in the fused form: the window padding enters before LN1
+        (inside the block); drop-path scales are drawn per image, repeated
+        over its windows and divided by keep, for both branches or neither."""
+        B = x.shape[0]
+
+        def run(xw, mask, nW):
+            s1 = s2 = None
+            if train and rate > 0:
+                keep = 1.0 - rate
+                draws = torch.rand(2, B, generator=generator, device=x.device) < keep
+                s1, s2 = (draws.float() / keep).repeat_interleave(nW, dim=1)
+            return swin_block_train(xw, mask, s1, s2, blk.kernel_params(), blk.num_heads)
+
+        return self._in_windows(x, H, W, shift, run)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        s = self.cfg
+        B = x.shape[0]
+        y = self._embed(x)
+        Wh, Ww = y.shape[1], y.shape[2]
+        y = layer_norm(y.reshape(B, Wh * Ww, s.embed_dim), self.patch_norm)
+        enc_rates, dec_rates = drop_path_rates(s.depths, s.depths_up, s.drop_path_rate)
+        n = len(s.depths)
+        for i in range(n):
+            for b in range(s.depths[i]):
+                y = self._block(y, Wh, Ww, getattr(self, f"enc{i}_blk{b}"),
+                                0 if b % 2 == 0 else s.window_size // 2,
+                                enc_rates[i][b], train, generator)
+            if i < n - 1:
+                y = patch_merge(y, Wh, Ww, getattr(self, f"enc{i}_merge"))
+                Wh, Ww = (Wh + 1) // 2, (Ww + 1) // 2
+            y = layer_norm(y, getattr(self, f"norm_down{i}"))
+        out_c = out_f = None
+        n_up = len(s.depths_up)
+        for j in range(n_up):
+            for b in range(s.depths_up[n_up - 1 - j]):
+                y = self._block(y, Wh, Ww, getattr(self, f"dec{j}_blk{b}"),
+                                0 if b % 2 == 0 else s.window_size // 2,
+                                dec_rates[j][b], train, generator)
+            y = patch_expand(y, Wh, Ww, getattr(self, f"dec{j}_expand"))
+            Wh, Ww = Wh * 2, Ww * 2
+            y = layer_norm(y, getattr(self, f"norm_up{j}"))
+            if j == 0:
+                out_c = dense(y, self.linear_middle).reshape(B, Wh, Ww, -1)
+            elif j == n_up - 1:
+                out_f = dense(y, self.linear_end).reshape(B, Wh, Ww, -1)
+        return out_c, out_f

@@ -1,27 +1,137 @@
-"""The matcher's output record.
+"""The config-driven coarse-to-fine Matcher of training and evaluation.
 
-Port of `featurematching_tpu/models/matcher.py · MatcherOutput` (same fields
-and order).
+Port of `featurematching_tpu/models/matcher.py · Matcher` for the swin_v1
+backbone. Like `fast_inference.FastMatcher` it extends
+`matcher_params.MatcherParams`, so both hold the same parameters under the
+same names and one flax `variables["params"]` tree loads into either. The
+pipeline:
+
+  1. the Swin-UNet over the stacked pair (`backbone_swin.SwinUNet`: every
+     block through `swin_block_train`, kernel K8 on the card, with drop-path
+     in training);
+  2. the coarse LoFTR transformer (the per-op `LocalFeatureTransformer`);
+  3. in a sparse-supervised training step (gt_ids given, no conf matrix
+     wanted) an empty fixed-shape match list, as the JAX package emits: the
+     coarse loss comes from `ops/sparse_focal_loss` and the fine stage reads
+     the GT ids. Otherwise the dual-softmax statistics (K1) and the top-K
+     mutual nearest neighbours, and the dense conf matrix when it is wanted;
+  4. the fine windows at the GT ids (training) or the matches, merged with
+     the down-projected coarse features, the per-op fine transformer, the
+     learned 49 -> 1 mixes and the soft-argmax.
+
+The kernel switches of the configuration hold as in the JAX package; the
+forms not ported yet raise: `swin.fused_block='off'` (the per-op SwinBlock),
+`coarse.fused_train` and `fine.fused_train` when they select K9 / K10 ('on',
+or 'auto' on the card), and the pose heads (`pose.flag` other than 'none').
+The ResNet-FPN backbone is not ported. Runs on `cuda` unless `device="cpu"`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from featurematching_tpu_torch.matching.coarse import CoarseMatches
-from featurematching_tpu_torch.matching.fine import FineMatches
+from featurematching_tpu_torch.config import ModelConfig
+from featurematching_tpu_torch.matching.coarse import CoarseMatches, ids_to_keypoints
+from featurematching_tpu_torch.models.backbone_swin import SwinUNet
+from featurematching_tpu_torch.models.matcher_params import MatcherParams
+from featurematching_tpu_torch.models.output import MatcherOutput
+from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_confidence
+
+__all__ = ["Matcher", "MatcherOutput"]
 
 
-class MatcherOutput(NamedTuple):
-    coarse: CoarseMatches  # static top-K predicted matches
-    fine: FineMatches  # refined keypoints at the ids used for the fine stage
-    conf_matrix: Optional[torch.Tensor]  # [B, L, S] (None: never materialized)
-    feat_c0: torch.Tensor  # [B, L, C] post-transformer coarse features
-    feat_c1: torch.Tensor
-    fine_ids: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (i, j, mask)
-    T_0to1_pred: Optional[torch.Tensor] = None
-    T_1to0_pred: Optional[torch.Tensor] = None
-    quat_pred: Optional[torch.Tensor] = None
-    trans_pred: Optional[torch.Tensor] = None
+def kernel_selected(switch: str, device: torch.device) -> bool:
+    """'on' selects the kernel, 'off' the per-op form, 'auto' the kernel on
+    the card and the per-op form on the CPU."""
+    if switch not in ("on", "off", "auto"):
+        raise ValueError(f"unknown switch value {switch!r}")
+    return switch == "on" or (switch == "auto" and device.type == "cuda")
+
+
+class Matcher(MatcherParams):
+    """Training and evaluation forward over the Matcher's weights.
+
+    `generator` (a torch.Generator on the model's device, seeded with
+    `seed`) draws the drop-path masks of a training forward."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+        super().__init__(cfg, SwinUNet(cfg), device, seed)
+        dev = self.mix_feat_0.weight.device
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.check_switches()
+
+    def check_switches(self) -> None:
+        cfg = self.cfg
+        dev = self.mix_feat_0.weight.device
+        if not kernel_selected(cfg.swin.fused_block, dev):
+            raise NotImplementedError(
+                "the per-op SwinBlock (swin.fused_block='off', or 'auto' on the CPU) is not "
+                "ported yet; use 'on'")
+        for sw, name, kid in ((cfg.coarse.fused_train, "coarse", "K9"),
+                              (cfg.fine.fused_train, "fine", "K10")):
+            if kernel_selected(sw, dev):
+                raise NotImplementedError(
+                    f"{name}.fused_train={sw!r} selects {kid}, not ported yet; set it to 'off'")
+        if cfg.pose.flag != "none":
+            raise NotImplementedError(f"pose heads (pose.flag={cfg.pose.flag!r}) are not ported yet")
+
+    def forward(
+        self,
+        image0: torch.Tensor,
+        image1: torch.Tensor,
+        train: bool = False,
+        gt_ids: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        want_conf_matrix: Optional[bool] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> MatcherOutput:
+        """image*: [B, H, W, C_in] NHWC, H and W divisible by the coarse
+        stride. gt_ids: (spv_i_ids, spv_j_ids, spv_mask), each [B, G]: the
+        fine stage's ids in training."""
+        cfg = self.cfg
+        self.check_switches()
+        dev = self.mix_feat_0.weight.device
+        B, H, W, _ = image0.shape
+        if image1.shape != image0.shape:
+            raise ValueError(f"image shapes differ: {tuple(image0.shape)} vs {tuple(image1.shape)}")
+        sc, _ = cfg.resolution
+        if H % sc or W % sc:
+            raise ValueError(f"image size {H}x{W} must be divisible by {sc}")
+        hc, wc = H // sc, W // sc
+        if want_conf_matrix is None:
+            want_conf_matrix = train
+
+        imgs = torch.cat([image0, image1], dim=0).to(device=dev, dtype=self.dtype)
+        feat_c, feat_f = self.backbone(imgs, train=train,
+                                       generator=generator if generator is not None
+                                       else self.generator)
+        Cc = feat_c.shape[-1]
+        feat_c0, feat_c1 = self.coarse_transformer(feat_c[:B].reshape(B, hc * wc, Cc),
+                                                   feat_c[B:].reshape(B, hc * wc, Cc))
+        mc = cfg.match_coarse
+        conf = None
+        if train and gt_ids is not None and not want_conf_matrix:
+            K = mc.max_matches
+            zi = torch.zeros(B, K, dtype=torch.long, device=dev)
+            zk = torch.zeros(B, K, 2, device=dev)
+            matches = CoarseMatches(i_ids=zi, j_ids=zi, mask=torch.zeros_like(zi, dtype=torch.bool),
+                                    mconf=torch.zeros(B, K, device=dev, dtype=feat_c0.dtype),
+                                    mkpts0_c=zk, mkpts1_c=zk)
+        else:
+            if want_conf_matrix:
+                conf = dual_softmax_confidence(feat_c0, feat_c1, 1.0 / (Cc * mc.dsmax_temperature))
+            matches = self.coarse_matching(feat_c0, feat_c1, (hc, wc))
+
+        if train and gt_ids is not None:
+            fid_i, fid_j, fid_mask = gt_ids
+            mk0 = ids_to_keypoints(fid_i, wc, float(sc))
+            mk1 = ids_to_keypoints(fid_j, wc, float(sc))
+        else:
+            fid_i, fid_j, fid_mask = matches.i_ids, matches.j_ids, matches.mask
+            mk0, mk1 = matches.mkpts0_c, matches.mkpts1_c
+        w0, w1 = self.fine_windows(feat_f[:B], feat_f[B:], feat_c0, feat_c1,
+                                   fid_i, fid_j, (hc, wc))
+        fine = self.fine_refine(w0, w1, mk0, mk1)
+        return MatcherOutput(coarse=matches, fine=fine, conf_matrix=conf,
+                             feat_c0=feat_c0, feat_c1=feat_c1, fine_ids=(fid_i, fid_j, fid_mask))

@@ -1,10 +1,12 @@
 """LoFTR-style local feature transformer (linear attention).
 
 Port of `featurematching_tpu/models/transformer.py` (EncoderLayer,
-LocalFeatureTransformer) for the serving forward: Q/K/V projections without
-bias, linear attention, merge, post-LN, concat-MLP FFN, post-LN, residual.
-Parameters are held in float32 and cast to the activation dtype at use, as
-flax does.
+LocalFeatureTransformer): Q/K/V projections without bias, linear attention
+(the head-packed form when both sequences are at most 256 tokens long, as
+flax picks it), merge, post-LN, concat-MLP FFN, post-LN, residual. It runs
+where the fused kernels do not: configurations that fail their gates, and
+the training Matcher while K9 and K10 are not ported. Parameters are held in
+float32 and cast to the activation dtype at use, as flax does.
 """
 
 from __future__ import annotations
@@ -15,12 +17,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from featurematching_tpu_torch.ops.attention import linear_attention
+from featurematching_tpu_torch.ops.attention import (
+    PACKED_MAX_LEN,
+    linear_attention,
+    linear_attention_packed,
+)
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return F.linear(x, lin.weight.to(x.dtype))
+
+
+def attention_form(L: int, S: int):
+    """flax's rule: the packed form when both lengths are at most
+    PACKED_MAX_LEN, else the per-head form."""
+    short = L <= PACKED_MAX_LEN and S <= PACKED_MAX_LEN
+    return linear_attention_packed if short else linear_attention
 
 
 class EncoderLayer(nn.Module):
@@ -46,7 +59,7 @@ class EncoderLayer(nn.Module):
         q = _linear(x, self.q_proj).reshape(bs, -1, h, C // h)
         k = _linear(source, self.k_proj).reshape(bs, -1, h, C // h)
         v = _linear(source, self.v_proj).reshape(bs, -1, h, C // h)
-        msg = linear_attention(q, k, v).reshape(bs, -1, C)
+        msg = attention_form(x.shape[1], source.shape[1])(q, k, v).reshape(bs, -1, C)
         msg = layer_norm_chain_plain(_linear(msg, self.merge), self.norm1.weight, self.norm1.bias)
         y = torch.relu(_linear(torch.cat([x, msg], dim=-1), self.mlp1))
         y = layer_norm_chain_plain(_linear(y, self.mlp2), self.norm2.weight, self.norm2.bias)

@@ -9,6 +9,10 @@ combine kernels; bound by tensor-core operations); on a CPU tensor it runs
 Both forms fold inv_temp = 1 / (C * T) into f0 in f0's dtype before the
 product, as the TPU kernel does (the JAX package's `_stats_reference` scales
 after it; in float32 the two agree to rounding).
+
+`dual_softmax_lse` launches pass 1 and a combine kernel alone: the row and
+column log-sum-exps of sim, the forward of the sparse focal loss (the JAX
+package's `sparse_focal_loss._lses_pallas`, which runs `_pass1_stats`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ ROW_TILE = 64
 _ARGTYPES = (
     [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 12
 )
+_LSE_ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 7
 
 
 class MatchStats(NamedTuple):
@@ -92,3 +97,37 @@ def dual_softmax_match_stats(
 
 
 dual_softmax_match_stats.launches = 0
+
+
+def _lse_reference(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float):
+    f0 = (feat0.float() * inv_temp).to(feat0.dtype)
+    sim = f0.float() @ feat1.float().transpose(1, 2)
+    return torch.logsumexp(sim, dim=2), torch.logsumexp(sim, dim=1)
+
+
+def dual_softmax_lse(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float):
+    """(lse_r [B, L], lse_c [B, S]) f32: the row and column log-sum-exps of
+    sim = (feat0 * inv_temp, rounded to feat0's dtype) feat1ᵀ."""
+    B, L, C = feat0.shape
+    S = feat1.shape[1]
+    if feat0.device.type == "cpu":
+        return _lse_reference(feat0, feat1, inv_temp)
+    if C not in (64, 128, 256):
+        raise ValueError(f"dual_softmax_lse kernel takes C in (64, 128, 256), got {C}")
+    _build.check_cuda(feat0, "feat0", torch.bfloat16)
+    _build.check_cuda(feat1, "feat1", torch.bfloat16, (B, S, C))
+    n_tiles = -(-L // ROW_TILE)
+    f32 = dict(device=feat0.device, dtype=torch.float32)
+    scratch = [torch.empty(B, L, **f32), torch.empty(B, L, **f32),
+               torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **f32)]
+    lse_r, lse_c = torch.empty(B, L, **f32), torch.empty(B, S, **f32)
+    _build.launch(
+        "dual_softmax", "fm_dual_softmax_lse", _LSE_ARGTYPES,
+        feat0.data_ptr(), feat1.data_ptr(), float(inv_temp), B, L, S, C,
+        *[t.data_ptr() for t in scratch], lse_r.data_ptr(), lse_c.data_ptr(), _build.stream(),
+    )
+    dual_softmax_lse.launches += 1
+    return lse_r, lse_c
+
+
+dual_softmax_lse.launches = 0

@@ -16,7 +16,11 @@ is also 4 pairs at 640x480, with `max_gt_matches` = 1024 fine windows a
 pair). A forward and its backward count together: the backward does twice
 the forward's products, reads the forward's inputs and the output gradient,
 writes the input gradient and f32 weight gradients, and what the forward
-saves for it is written once and read once.
+saves for it is written once and read once. K8 and K7, which the port has,
+are counted per launch as their kernels run: K8's forward (K2's work plus
+the probabilities and the residual stream it keeps) and backward apart, and
+K7 as the backward's softmax terms plus the pass-1 log-sum-exps of its
+forward.
 """
 
 from __future__ import annotations
@@ -119,12 +123,39 @@ def fine_stage_work(windows: int, taps: int, C: int, heads: int, layers: int) ->
     return nbytes, enc_flops + 2 * 2 * windows * taps * C * 2
 
 
-def sparse_focal_backward_work(B: int, L: int, S: int, C: int, G: int) -> Work:
-    """K7: bf16 features, f32 row/column log-sum-exps and G GT pairs a pair
-    in, bf16 df0 and df1 out; it recomputes sim, then df0 = dsim f1 and
-    df1 = dsim^T f0."""
-    nbytes = 2 * B * (L + S) * C * BF16 + B * (L + S) * F32 + B * G * 3 * F32
+def sparse_focal_backward_work(B: int, L: int, S: int, C: int) -> Work:
+    """K7's backward kernel: bf16 f0s and f1, f32 a_r, lse_r, a_c, lse_c in;
+    f32 df0 and df1 out; the products sim, dsim f1 and dsimᵀ f0s."""
+    nbytes = B * (L + S) * C * (BF16 + F32) + 2 * B * (L + S) * F32
     return nbytes, 3 * 2 * B * L * S * C
+
+
+def dual_softmax_lse_work(B: int, L: int, S: int, C: int) -> Work:
+    """K1's pass 1 alone (K7's forward): bf16 features in, f32 row and
+    column log-sum-exps out; one pass of the L x S products."""
+    return B * (L + S) * C * BF16 + B * (L + S) * F32, 2 * B * L * S * C
+
+
+def swin_block_train_fwd_work(windows: int, C: int, heads: int, mask_windows: int) -> Work:
+    """K8's forward: K2's work, the two drop-path scales read, and the
+    probabilities [windows, heads, 64, 64] and x1 [windows, 64, C] (bf16)
+    written for the backward."""
+    nbytes, flops = swin_block_work(windows, C, heads, mask_windows)
+    return (nbytes + 2 * windows * F32 + windows * heads * WINDOW * WINDOW * BF16
+            + windows * WINDOW * C * BF16), flops
+
+
+def swin_block_train_bwd_work(windows: int, C: int, heads: int, mask_windows: int) -> Work:
+    """K8's backward: x, x1, the output gradient and the probabilities (bf16),
+    the scales and the weights in; dx (bf16) and the 13 parameter gradients
+    (f32) out; twice the forward's products (the gradients with respect to
+    the activations and to the weights)."""
+    weights = 12 * C * C * BF16 + 13 * C * F32 + heads * WINDOW * WINDOW * F32
+    grads = 12 * C * C * F32 + 13 * C * F32 + heads * WINDOW * WINDOW * F32
+    tokens = windows * WINDOW
+    nbytes = (4 * tokens * C * BF16 + windows * heads * WINDOW * WINDOW * BF16
+              + 2 * windows * F32 + weights + grads)
+    return nbytes, 2 * swin_block_work(windows, C, heads, mask_windows)[1]
 
 
 def with_backward(fwd: Work, saved_bytes: float, weight_grad_bytes: float) -> Work:
@@ -189,12 +220,12 @@ def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[s
         # + the 49->1 mix and both heatmaps (centre . window), f32 heatmaps out
         ("K6", "pallas_fine_stage.fine_stage_fused", total([
             fine_enc, (2 * nwin * taps * F32, 2 * 2 * nwin * taps * fi.d_model * 2)])),
-        ("K7", "sparse_focal_loss._sfl_bwd_pallas", sparse_focal_backward_work(
-            batch, L, L, co.d_model, cfg.match_coarse.max_matches)),
+        ("K7", "sparse_focal_loss._sfl_bwd_pallas", total([
+            dual_softmax_lse_work(batch, L, L, co.d_model),
+            sparse_focal_backward_work(batch, L, L, co.d_model)])),
         ("K8", "pallas_swin_block_grad.swin_block_train", total(
-            with_backward(swin_block_work(*st[:4]),
-                          st.windows * st.heads * WINDOW * WINDOW * BF16, 12 * st.C**2 * F32)
-            for st in sites)),
+            w for st in sites for w in (swin_block_train_fwd_work(*st[:4]),
+                                        swin_block_train_bwd_work(*st[:4])))),
         ("K9", "pallas_coarse_grad.coarse_transformer_train", with_backward(
             coarse, len(co.layer_names) * images * L * co.d_model * BF16,
             len(co.layer_names) * 10 * co.d_model**2 * F32)),

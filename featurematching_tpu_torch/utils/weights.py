@@ -1,9 +1,11 @@
-"""Weights of the port's modules: a seeded init, and loading a flax tree.
+"""Weights of the port's modules: a seeded init, and the crossing to and
+from a flax tree.
 
 The port's modules name their submodules after the JAX param tree
 (`backbone.enc0_blk0.attn.qkv`, `coarse_transformer.layer_3.merge`,
 `fine_down_proj`, `mix_feat_0`, ...), so a flax leaf `a/b/kernel` is the
-parameter `a.b.weight`, and the walk is mechanical.
+parameter `a.b.weight`, and the walk is mechanical in both directions
+(`load_jax_params`, `to_jax_tree`).
 """
 
 from __future__ import annotations
@@ -56,6 +58,33 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
     missing = sorted(set(targets) - seen)
     if missing:
         raise KeyError(f"parameters with no flax leaf: {missing}")
+
+
+def to_jax_tree(module: nn.Module, grads: bool = False) -> Dict:
+    """`module`'s parameters (or, with `grads`, their `.grad`) as a flax
+    `params` tree of float32 numpy arrays: the inverse of `load_jax_params`
+    (weights [out, in] become Dense kernels [in, out], OIHW conv weights HWIO
+    kernels, LayerNorm weights `scale`)."""
+    tree: Dict = {}
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        arr = t.detach().float().cpu()
+        if leaf == "weight" and isinstance(owner, nn.LayerNorm):
+            flax_leaf = "scale"
+        elif leaf == "weight":
+            flax_leaf = "kernel"
+            arr = arr.permute(2, 3, 1, 0) if arr.ndim == 4 else arr.t()
+        else:
+            flax_leaf = leaf
+        node = tree
+        for m in owner_name.split("."):
+            node = node.setdefault(m, {})
+        node[flax_leaf] = arr.contiguous().numpy()
+    return tree
 
 
 def _trunc_normal(p: torch.Tensor, std: float, g: torch.Generator) -> None:

@@ -1,15 +1,21 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
 These tests need an NVIDIA GPU (`sm_90a`) and `nvcc`; without them they skip.
-They cover what the serving shapes of `chip_smoke.py` do not reach: ragged
-edges (row counts, token counts and window counts that are no multiple of a
-tile or of the grid), argmax ties across tiles, other widths of the
-transformer kernels, weights loaded after a first forward, and the
-wrappers' refusal of tensors the kernels do not take. They import neither JAX nor the JAX package, so on a machine without
+They cover what the serving and training shapes of `chip_smoke.py` do not
+reach: ragged edges (row counts, token counts and window counts that are no
+multiple of a tile, of the grid or of a weight-gradient split), argmax ties
+across tiles, other widths of the transformer kernels, weights loaded after
+a first forward, bit-identical gradients across runs (the training kernels
+reduce across blocks in a fixed order), the wrappers' refusal of tensors
+the kernels do not take, and that chip_smoke.py's training semantic check
+sees faults injected into K8's and K7's outputs. They import neither JAX nor the JAX package, so on a machine without
 JAX run them without the repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -24,14 +30,27 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     layer_values,
 )
 from featurematching_tpu_torch.ops.dual_softmax import (
+    _lse_reference,
     _stats_reference,
+    dual_softmax_lse,
     dual_softmax_match_stats,
 )
 from featurematching_tpu_torch.matching.fine import window_heatmaps
 from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_reference
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln, patch_expand_ln_plain
+from featurematching_tpu_torch.ops.sparse_focal_loss import (
+    sparse_focal_backward,
+    sparse_focal_backward_reference,
+)
 from featurematching_tpu_torch.ops.swin_block import swin_block_fused, swin_block_reference
+from featurematching_tpu_torch.ops.swin_block_train import (
+    PARAM_KEYS,
+    swin_block_train,
+    swin_block_train_bwd,
+    swin_block_train_fwd,
+    swin_block_train_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +257,205 @@ def test_wrappers_raise_rather_than_fall_back(gen):
     with pytest.raises(ValueError, match="layers"):
         fine_stage_fused(wb, wb, [fl] * 3, mix, mix, ("self", "cross", "self"), 8)
     assert (coarse_transformer_fused.launches, fine_stage_fused.launches) == (c_before, f_before)
+
+
+def _block_params(g, C, h):
+    """f32 operands; the weights hold bf16 values, so the kernels and the
+    plain twin see the same weights."""
+    hid = 4 * C
+
+    def w(i, o):
+        return _rnd(g, i, o, scale=i**-0.5).bfloat16().float()
+
+    return {
+        "ln1_scale": _rnd(g, C, scale=0.1, shift=1.0), "ln1_bias": _rnd(g, C, scale=0.1),
+        "w_qkv": w(C, 3 * C), "b_qkv": _rnd(g, 3 * C, scale=0.02),
+        "rel_bias": _rnd(g, h, 64, 64, scale=0.02), "w_proj": w(C, C),
+        "b_proj": _rnd(g, C, scale=0.02), "ln2_scale": _rnd(g, C, scale=0.1, shift=1.0),
+        "ln2_bias": _rnd(g, C, scale=0.1), "w_mlp1": w(C, hid), "b_mlp1": _rnd(g, hid, scale=0.02),
+        "w_mlp2": w(hid, C), "b_mlp2": _rnd(g, C, scale=0.02),
+    }
+
+
+def _rel(got, ref):
+    torch.cuda.synchronize()
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _block_train_grads(x, mask, s1, s2, p, h, gout, plain):
+    xx = x.detach().requires_grad_(True)
+    pp = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    fn = swin_block_train_reference if plain else swin_block_train
+    out = fn(xx, mask, s1, s2, pp, h)
+    out.backward(gout)
+    return [out, xx.grad] + [pp[k].grad for k in PARAM_KEYS]
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nwin,masked", [(12, False), (12, True), (301, True)])
+def test_swin_block_train_against_autograd_of_the_plain_twin(gen, C, nwin, masked):
+    """Window counts of 12 (one window a block) and 301 (more than the
+    backward's 264 blocks, and 19,264 tokens: a ragged last weight-gradient
+    split), with the shift mask of a 16x24 map (window w takes mask[w % 6])
+    and drop-path scales of 0 and 1/keep. The output, dx and all 13
+    gradients within chip_smoke.py's K8 tolerance (5e-2 of max |plain|)."""
+    h = C // 16
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = s1 = s2 = None
+    if masked:
+        mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+        s1 = torch.where(torch.arange(nwin, device="cuda") % 3 == 0, 0.0, 1 / 0.8)
+        s2 = torch.where(torch.arange(nwin, device="cuda") % 5 == 1, 0.0, 1 / 0.8)
+    got = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+    ref = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=True)
+    for name, a, r in zip(["out", "dx", *PARAM_KEYS], got, ref, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert _rel(a, r) <= 5e-2, name
+
+
+def test_swin_block_train_gradients_are_bit_identical(gen):
+    C, h, nwin = 128, 8, 301
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    first = _block_train_grads(x, mask, None, None, p, h, gout, plain=False)
+    again = _block_train_grads(x, mask, None, None, p, h, gout, plain=False)
+    for name, a, b in zip(["out", "dx", *PARAM_KEYS], first, again, strict=True):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_sparse_focal_backward_ragged(gen, C):
+    """L = 200 rows and S = 136 columns (S != L, neither a multiple of the
+    64-row tile): the log-sum-exps within 1e-3 and K7's softmax terms within
+    1e-2 of max |plain| (chip_smoke.py's tolerances), bit-identical twice."""
+    B, L, S, inv_temp = 2, 200, 136, 1.0 / (C * 0.1)
+    f1 = _rnd(gen, B, S, C)
+    f0 = 0.5 * _rnd(gen, B, L, C)
+    f0[:, :S] += f1
+    f0, f1 = f0.bfloat16(), f1.bfloat16()
+    lr, lc = dual_softmax_lse(f0, f1, inv_temp)
+    rr, rc = _lse_reference(f0, f1, inv_temp)
+    _assert_close(lr, rr, 1e-3, 0.0)
+    _assert_close(lc, rc, 1e-3, 0.0)
+    a_r = torch.rand(B, L, generator=gen, device="cuda") * (torch.rand(B, L, generator=gen, device="cuda") < 0.2)
+    a_c = torch.rand(B, S, generator=gen, device="cuda") * (torch.rand(B, S, generator=gen, device="cuda") < 0.2)
+    d0, d1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
+    r0, r1 = sparse_focal_backward_reference(f0, f1, a_r, lr, a_c, lc, inv_temp)
+    assert d0.shape == r0.shape and d1.shape == r1.shape
+    assert _rel(d0, r0) <= 1e-2 and _rel(d1, r1) <= 1e-2
+    e0, e1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
+    assert torch.equal(d0, e0) and torch.equal(d1, e1)
+
+
+def test_training_wrappers_raise_rather_than_fall_back(gen):
+    """Head dim 8, C = 96, float32 activations, one drop-path scale alone:
+    the training wrappers raise and launch nothing."""
+    before = (swin_block_train_fwd.launches, swin_block_train_bwd.launches,
+              dual_softmax_lse.launches, sparse_focal_backward.launches)
+    p = _block_params(gen, 64, 4)
+    xb = _rnd(gen, 4, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        swin_block_train(xb, None, None, None, p, 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        swin_block_train(xb.float(), None, None, None, p, 4)
+    with pytest.raises(ValueError, match="both drop-path scales"):
+        swin_block_train(xb, None, torch.ones(4, device="cuda"), None, p, 4)
+    x96 = _rnd(gen, 4, 64, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C in"):
+        swin_block_train(x96, None, None, None, _block_params(gen, 96, 6), 6)
+    f = _rnd(gen, 1, 64, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C in"):
+        dual_softmax_lse(f, f, 0.1)
+    v = torch.zeros(1, 64, device="cuda")
+    with pytest.raises(ValueError, match="C in"):
+        sparse_focal_backward(f, f, v, v, v, v, 0.1)
+    f32 = _rnd(gen, 1, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sparse_focal_backward(f32, f32, v, v, v, v, 0.1)
+    after = (swin_block_train_fwd.launches, swin_block_train_bwd.launches,
+             dual_softmax_lse.launches, sparse_focal_backward.launches)
+    assert after == before
+
+
+def test_swin_block_train_saves_for_a_backward_only(gen, monkeypatch):
+    """Under no_grad, or when nothing requires a gradient, the forward kernel
+    writes neither the probabilities nor x1; its output is bit-identical to
+    the saving forward's."""
+    import featurematching_tpu_torch.ops.swin_block_train as sbt
+
+    C, h, nwin = 64, 4, 12
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    saved = []
+    fwd = sbt.swin_block_train_fwd
+
+    def spy(*args):
+        res = fwd(*args)
+        saved.append(res[1] is not None and res[2] is not None)
+        return res
+
+    spy.launches = 0  # the wrapper counts its launches on the name it is called by
+    monkeypatch.setattr(sbt, "swin_block_train_fwd", spy)
+    training = swin_block_train(x.detach().requires_grad_(True), mask, None, None, p, h)
+    with torch.no_grad():
+        no_grad = swin_block_train(x.detach().requires_grad_(True), mask, None, None, p, h)
+    no_leaf = swin_block_train(x, mask, None, None, p, h)
+    assert saved == [True, False, False]
+    assert torch.equal(training.detach(), no_grad) and torch.equal(no_grad, no_leaf)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_RB = PARAM_KEYS.index("rel_bias")
+# faults injected into the kernels' outputs inside the training step: a share
+# of every weight gradient lost (as a dropped block partial would lose it),
+# the rel_bias gradient's heads in the wrong order, a share of df1 lost, and
+# the last rows of df0 lost (a ragged row tile not written)
+K8_FAULTS = {
+    "k8_grads_5pc_short": lambda dx, gr: (dx, [g * 0.95 for g in gr]),
+    "k8_rel_bias_heads_rolled": lambda dx, gr: (dx, [*gr[:_RB], gr[_RB].roll(1, 0), *gr[_RB + 1:]]),
+}
+K7_FAULTS = {
+    "k7_df1_5pc_short": lambda d0, d1: (d0, d1 * 0.95),
+    "k7_last_8_rows_lost": lambda d0, d1: (torch.cat([d0[:, :-8], 0 * d0[:, -8:]], 1), d1),
+}
+
+
+@pytest.mark.parametrize("fault", [None, *K8_FAULTS, *K7_FAULTS])
+def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
+    """chip_smoke.py's training semantic check: a sound step is within its
+    LIMITS, and a step whose K8 or K7 output carries a fault is not. Prints
+    the readings (run with -s) that PERF.md records beside the limits."""
+    import featurematching_tpu_torch.ops.sparse_focal_loss as sfl
+    import featurematching_tpu_torch.ops.swin_block_train as sbt
+
+    cs = _chip_smoke()
+    for mod, name, faults in ((sbt, "swin_block_train_bwd", K8_FAULTS),
+                              (sfl, "sparse_focal_backward", K7_FAULTS)):
+        if fault in faults:
+            kernel = getattr(mod, name)
+
+            def faulty(*args, kernel=kernel, inject=faults[fault]):
+                return inject(*kernel(*args))
+
+            faulty.launches = 0  # the wrapper counts its launches on the name it is called by
+            monkeypatch.setattr(mod, name, faulty)
+    r = cs.training_agreement(*cs.semantic_setup())
+    bad = cs.agreement_failures(r)
+    keys = ("loss", "min_cos", "feat_sin", "feat_norm", "k8_sin", "k8_norm", "k7_sin", "k7_norm")
+    print(f"\nfault {fault}: " + ", ".join(f"{k} {r[k]:.3e}" for k in keys)
+          + f"; worst at {r['min_cos_at']} / {r['k8_sin_at']} / {r['k8_norm_at']} / "
+          f"{r['k7_sin_at']} / {r['k7_norm_at']}; outside the limits: {bad}")
+    assert (bad == []) if fault is None else bad

@@ -26,3 +26,10 @@ def test_no_jax_imports(path):
 
 def test_files_found():
     assert len(FILES) > 10
+
+
+def test_training_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "featurematching_tpu_torch")) for p in FILES[:-1]}
+    assert {"ops/swin_block_train.py", "ops/sparse_focal_loss.py", "matching/supervision.py",
+            "losses/loss.py", "train/optimizer.py", "train/step.py", "data/synthetic.py",
+            "models/matcher.py"} <= names

@@ -6,7 +6,12 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
+    dual_softmax_lse_work,
     fine_stage_work,
+    sparse_focal_backward_work,
+    swin_block_train_bwd_work,
+    swin_block_train_fwd_work,
+    swin_block_work,
     swin_sites,
 )
 
@@ -43,3 +48,21 @@ def test_per_call_work_sums_to_the_kernel_totals():
     fine = fine_stage_work(4 * 1024, f.window_size**2, f.d_model, f.nhead, len(f.layer_names))
     assert fine[1] == rows["K6"][1]
     assert fine[0] < rows["K6"][0]  # the fold mode writes heatmaps, not windows
+
+
+def test_training_kernels_count_their_launches():
+    """K8: 13 forward and 13 backward launches a step, the backward twice the
+    forward's products and more bytes than it; K7: the pass-1 log-sum-exps
+    and the backward's three products."""
+    cfg = ModelConfig()
+    rows = {r[0]: r[2] for r in all_kernels(cfg)}
+    sites = swin_sites(cfg, 8, 480, 640)
+    fwd = [swin_block_train_fwd_work(*st[:4]) for st in sites]
+    bwd = [swin_block_train_bwd_work(*st[:4]) for st in sites]
+    assert len(sites) == 13
+    assert sum(w[1] for w in fwd + bwd) == rows["K8"][1]
+    for st, f, b in zip(sites, fwd, bwd):
+        assert f[1] == swin_block_work(*st[:4])[1] and b[1] == 2 * f[1] and b[0] > f[0]
+    L, C = 60 * 80, cfg.coarse.d_model
+    lse, k7 = dual_softmax_lse_work(4, L, L, C), sparse_focal_backward_work(4, L, L, C)
+    assert lse[1] + k7[1] == rows["K7"][1] and k7[1] == 3 * lse[1]
