@@ -29,29 +29,40 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      terms (K7) and the whole loss and its gradients against the
      materialised loss, at [4, 4800, 256] with 1024 GT pairs and at a ragged
      size; time each kernel and its plain version;
-  6. run the training step (`default_config()` with `coarse.fused_train` and
-     `fine.fused_train` 'off', 640x480, batch 4, bf16, sparse focal loss,
-     AdamW) with the launch counters set to 0 just before the timed steps and
-     read just after: K8 forward and backward 13 times a step, K1's pass 1
-     and K7 once, no K1 match statistics and no serving kernel; print the
-     step time, training pairs/s, the device time of the forward, backward
-     and optimizer, the device's busy share and the largest kernels, and
-     check the loss, the gradient norm and every parameter are finite;
+     The differentiable coarse transformer (K9) at the step's shapes: one
+     self call (G = 8) and one cross call (G = 4) of [G, 4800, 256], 8
+     heads: the forward's output and kv/ks, and dx, dsrc and the 10
+     parameter gradients of the backward against the plain twin on the same
+     inputs; time the forward and backward and the plain twin's;
+  6. run the training step (`default_config()` with `fine.fused_train` 'off'
+     and `coarse.fused_train` as users leave it, 'auto': K9 on the card;
+     640x480, batch 4, bf16, sparse focal loss, AdamW) with the launch
+     counters set to 0 just before the timed steps and read just after: K8
+     forward and backward 13 times a step, K9 forward and backward 12 times
+     (4 self and 8 cross calls), K1's pass 1 and K7 once, no eager coarse
+     EncoderLayer, no K1 match statistics and no serving kernel (K9's
+     forward calls K5's layer kernels, not the serving stack's wrapper, so
+     K5's counter reads 0); print the step time, training pairs/s, the
+     device time of the forward, backward and optimizer, the device's busy
+     share and the largest kernels, and check the loss, the gradient norm
+     and every parameter are finite;
   7. training semantic check: one step on the card against the plain path on
-     the CPU at 128x128, batch 2 (`training_agreement`, bounded by LIMITS:
-     the loss, every gradient leaf's cosine and the coarse features'
-     gradient, card against CPU; each of the step's K8 calls run again from
-     its inputs and upstream gradient, and the step's K7 call, against their
-     plain versions on the card), ten steps on one batch at lr 1e-4 lower
-     the loss, and the evaluation step takes its matches from K1's
-     statistics (one launch) with finite outputs.
+     the CPU at 128x128, batch 2, with `coarse.fused_train` 'on' on both
+     sides (K9 on the card, its plain twin on the CPU; `training_agreement`,
+     bounded by LIMITS: the loss, every gradient leaf's cosine and the
+     coarse features' gradient, card against CPU; each of the step's K8 and
+     K9 calls run again from its inputs and upstream gradient, and the
+     step's K7 call, against their plain versions on the card), ten steps on
+     one batch at lr 1e-4 lower the loss, and the evaluation step takes its
+     matches from K1's statistics (one launch) with finite outputs.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
 layers' stats and apply launches), dual_softmax_match_stats (K1) and
-fine_stage_fused (K6, fold mode). The four of the training step:
-swin_block_train_fwd and swin_block_train_bwd (K8), dual_softmax_lse (K1's
-pass 1, K7's forward) and sparse_focal_backward (K7).
+fine_stage_fused (K6, fold mode). The six of the training step:
+swin_block_train_fwd and swin_block_train_bwd (K8), coarse_layer_forward
+and coarse_layer_backward (K9, one launch an encoder call), dual_softmax_lse
+(K1's pass 1, K7's forward) and sparse_focal_backward (K7).
 
 Per-kernel numbers in the JSON line are totals over one forward (serving
 kernels) or one training step (training kernels): each call site's time
@@ -81,6 +92,8 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
+    coarse_train_bwd_work,
+    coarse_train_fwd_work,
     dual_softmax_lse_work,
     dual_softmax_work,
     fine_stage_work,
@@ -122,11 +135,17 @@ SOURCES = {
         "dual_softmax.cu", "featurematching_tpu/ops/sparse_focal_loss.py:140 (pallas_dual_softmax.py:216)"),
     "sparse_focal_backward": (
         "sparse_focal_loss.cu", "featurematching_tpu/ops/sparse_focal_loss.py:269"),
+    "coarse_layer_forward": (
+        "coarse_transformer.cu",
+        "featurematching_tpu/ops/pallas_coarse_grad.py:333 (pallas_coarse_transformer.py:168,194)"),
+    "coarse_layer_backward": (
+        "coarse_transformer_train.cu", "featurematching_tpu/ops/pallas_coarse_grad.py:245,286"),
 }
-# launches a training step (K2-K6 and the K1 match statistics: none)
+# launches a training step (K2-K6 and the K1 match statistics: none; K9
+# once an encoder call: 4 self calls and 2 x 4 cross calls)
 EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
     "swin_block_train_fwd": 13, "swin_block_train_bwd": 13, "dual_softmax_lse": 1,
-    "sparse_focal_backward": 1,
+    "sparse_focal_backward": 1, "coarse_layer_forward": 12, "coarse_layer_backward": 12,
 }
 # K8 against the plain twin's autograd, max |kernel - plain| <= K8_TOL max |plain|
 # per tensor: both take the same bf16 activations and bf16-valued weights and
@@ -134,6 +153,17 @@ EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
 # at other points (about ten roundings of 2^-9 along the chain) and sum over
 # up to 153,600 tokens in another order
 K8_TOL = 5e-2
+# K9 against its plain twin on the same inputs, per tensor: |kernel - plain|
+# / |plain| (Euclidean norms) <= K9_TOL. Both round to bf16 at the same
+# points, but their f32 sums run in another order (over 64-token tiles and
+# weight-gradient splits against whole products), so a rounding can fall the
+# other way in a few entries. The norm, not the largest entry: where a ReLU
+# input or the Q or K feature map's input is within rounding of 0, the two
+# sides can take the two branches, and that entry's gradient differs by its
+# whole size (tests/test_torch_cuda.py holds the kernel to the twin's own
+# distance from its float32 result at small calls, where such entries weigh
+# more)
+K9_TOL = 1e-2
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -491,6 +521,12 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """|got - ref| / |ref| in the Euclidean norm."""
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
 def check_swin_block_train(rec: Record, g) -> None:
     from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
     from featurematching_tpu_torch.ops.swin_block_train import (
@@ -635,21 +671,95 @@ def check_sparse_focal_loss(rec: Record, g) -> None:
                  err=max(float((d0 - r0).abs().max()), float((d1 - r1).abs().max())))
 
 
-def training_config(drop_path_rate=None, fused_block=None):
-    """default_config() with K9 and K10 off (the per-op coarse and fine
-    transformers), optionally another drop-path rate or block switch."""
+K9_GRADS = ("q_proj", "k_proj", "v_proj", "merge", "norm1.weight", "norm1.bias", "mlp1", "mlp2",
+            "norm2.weight", "norm2.bias")
+
+
+def k9_tensors(out, grads) -> dict:
+    """A K9 call's (dx, dsrc, (dwq, dwkv, ...)) by name, the [C, 2C] K | V
+    gradient in its two halves, as the layer's 10 parameters take them."""
+    dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b) = grads
+    C = dwq.shape[0]
+    vals = (dwq, dwkv[:, :C], dwkv[:, C:], dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+    named = {"dx": dx, "dsrc": dsrc} | dict(zip(K9_GRADS, vals))
+    return named if out is None else {"out": out} | named
+
+
+def check_coarse_train(rec: Record, g) -> None:
+    from featurematching_tpu_torch.ops.coarse_transformer import encoder_reference_with_stats
+    from featurematching_tpu_torch.ops.coarse_transformer_train import (
+        coarse_layer_backward,
+        coarse_layer_backward_reference,
+        coarse_layer_forward,
+        train_values,
+    )
+
+    N, C, h = (H // 8) * (W // 8), 256, 8
+    print(f"  tolerance per tensor (out, kv, ks, dx, dsrc, 10 gradients): |kernel - plain| <= "
+          f"{K9_TOL} |plain| (norms); max |kernel - plain| / max |plain| printed")
+    # the step's calls: 4 self calls on both images (G = 2B), 8 cross calls (G = B)
+    for G, kind, count in ((2 * B, "self", 4), (B, "cross", 8)):
+        lv = layer_values(g, C)
+        lt = train_values(lv)
+        x = rnd(g, G, N, C, dtype=torch.bfloat16)
+        src = x if kind == "self" else rnd(g, G, N, C, dtype=torch.bfloat16)
+        gout = rnd(g, G, N, C, dtype=torch.bfloat16)
+        out, kv, ks = coarse_layer_forward(x, src, lv, h)
+        got = k9_tensors(out, coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h))
+        torch.cuda.synchronize()
+        ref_out, ref_kv, ref_ks = encoder_reference_with_stats(x, src, lv, h)
+        ref = k9_tensors(ref_out, coarse_layer_backward_reference(x, src, kv, ks, gout, lv, h))
+        pairs = dict(got, kv=kv, ks=ks)
+        refs = dict(ref, kv=ref_kv, ks=ref_ks)
+        errs = {n: norm_err(pairs[n], refs[n]) for n in pairs}
+        worst = max(errs, key=errs.get)
+        peak = {n: rel_err(pairs[n], refs[n]) for n in pairs}
+        wpeak = max(peak, key=peak.get)
+        print(f"  {kind} call, G={G}: norm errors out {errs['out']:.2e}, dx {errs['dx']:.2e}, "
+              f"dsrc {errs['dsrc']:.2e}, worst {worst} {errs[worst]:.2e}; largest entry error / "
+              f"max |plain|: {wpeak} {peak[wpeak]:.2e}")
+        bad = {k: v for k, v in errs.items() if not v <= K9_TOL}
+        if bad:
+            raise AssertionError(f"coarse_transformer_train ({kind}, G={G}): {bad}")
+        bwd = lambda: coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h)  # noqa: E731
+        profile_ms(bwd)  # a first session here has dropped the first kernel's record
+        _, rows = profile_ms(bwd)
+        split = {}
+        for ms, _, name in rows:  # by kernel: apply_bwd, bwd_merge, stats_bwd, wgrad, sum_parts
+            bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
+            k = re.split(r"[<(]", bare)[0].split("::")[-1]
+            split[k] = split.get(k, 0.0) + ms
+        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        rec.site("coarse_layer_forward", count,
+                 cuda_ms(lambda: coarse_layer_forward(x, src, lv, h)),
+                 cuda_ms(lambda: encoder_reference_with_stats(x, src, lv, h), iters=3),
+                 coarse_train_fwd_work(G, N, N, C, h),
+                 err=float((out.float() - ref_out.float()).abs().max()))
+        rec.site("coarse_layer_backward", count,
+                 cuda_ms(lambda: coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h), iters=10),
+                 cuda_ms(lambda: coarse_layer_backward_reference(x, src, kv, ks, gout, lv, h),
+                         iters=3),
+                 coarse_train_bwd_work(G, N, N, C, h, kind == "self"),
+                 err=float((got["dx"].float() - ref["dx"].float()).abs().max()))
+
+
+def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None):
+    """default_config() with K10 off (the per-op fine transformer; the JAX
+    config's own switch), optionally another drop-path rate, block switch or
+    coarse.fused_train (K9: 'auto' by default, the kernel on the card)."""
     from featurematching_tpu_torch.config import default_config
 
     cfg = default_config()
     m = cfg.model
-    swin = m.swin
+    swin, coarse = m.swin, m.coarse
     if drop_path_rate is not None:
         swin = dataclasses.replace(swin, drop_path_rate=drop_path_rate)
     if fused_block is not None:
         swin = dataclasses.replace(swin, fused_block=fused_block)
-    model = dataclasses.replace(
-        m, swin=swin, coarse=dataclasses.replace(m.coarse, fused_train="off"),
-        fine=dataclasses.replace(m.fine, fused_train="off"))
+    if coarse_fused is not None:
+        coarse = dataclasses.replace(coarse, fused_train=coarse_fused)
+    model = dataclasses.replace(m, swin=swin, coarse=coarse,
+                                fine=dataclasses.replace(m.fine, fused_train="off"))
     return dataclasses.replace(cfg, model=model)
 
 
@@ -688,6 +798,9 @@ def training_step(wrappers, launches) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, met = train_step(state, batch)  # warm-up
     torch.cuda.synchronize()
+    eager = []  # calls of the per-op coarse EncoderLayers: K9 runs the stack
+    hooks = [layer.register_forward_hook(lambda *_: eager.append(1))
+             for layer in state.model.coarse_transformer.children()]
     for w in wrappers.values():
         w.launches = 0
     t = time.perf_counter()
@@ -696,10 +809,15 @@ def training_step(wrappers, launches) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches.update({n: w.launches for n, w in wrappers.items()})
-    print(f"  launches over {N_STEPS} steps: {launches}")
+    for hk in hooks:
+        hk.remove()
+    print(f"  launches over {N_STEPS} steps: {launches}; eager coarse EncoderLayer calls: "
+          f"{len(eager)}")
     for n, per in EXPECTED_PER_STEP.items():
         if launches[n] != per * N_STEPS:
             raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_STEPS}")
+    if eager:
+        raise AssertionError(f"{len(eager)} eager coarse EncoderLayer calls in the step")
     vals = {k: float(v) for k, v in met.items()}
     print(f"  last step: {vals}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -726,10 +844,11 @@ def training_step(wrappers, launches) -> None:
 
 
 # The card's training step against the plain path on the CPU (both bf16,
-# 128x128, batch 2, drop-path 0, the same weights and batch), and each K8
-# call of that step against the plain twin on the card: limits on the
-# readings of `training_agreement`, set from a sound run's readings and from
-# runs with a fault injected into K8's or K7's output
+# 128x128, batch 2, drop-path 0, the same weights and batch; K9 on the card,
+# its plain twin on the CPU), and each K8 and K9 call of that step against
+# the plain twin on the card: limits on the readings of
+# `training_agreement`, set from a sound run's readings and from runs with a
+# fault injected into K8's, K9's or K7's output
 # (tests/test_torch_cuda.py::test_training_agreement_sees_kernel_faults;
 # both readings in PERF.md)
 LIMITS = {
@@ -746,6 +865,10 @@ LIMITS = {
     # 13 gradients; K7: the step's call, its softmax terms df0 and df1 against
     # the plain version on the same inputs. 1 - cosine and |norm ratio - 1|
     "k8_sin": 5e-3, "k8_norm": 1e-2, "k7_sin": 1e-4, "k7_norm": 1e-3,
+    # K9: each call of the step run again from its inputs and upstream
+    # gradient, kernel against plain twin on the card, over dx, dsrc and the
+    # 10 gradients; 1 - cosine and |norm ratio - 1|
+    "k9_sin": 1e-3, "k9_norm": 5e-3,
 }
 
 
@@ -774,7 +897,7 @@ def semantic_setup():
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
     from featurematching_tpu_torch.train.step import create_train_state
 
-    cfg = training_config(drop_path_rate=0.0, fused_block="on")
+    cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on")
     card = create_train_state(cfg, device="cuda", seed=0, global_batch_size=2)
     cpu = create_train_state(cfg, device="cpu", seed=0, global_batch_size=2)
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
@@ -802,9 +925,10 @@ def _block_grads(fn, x, mask, s1, s2, params, h, g) -> dict:
 
 def training_agreement(cfg, card, cpu, batch) -> dict:
     """One forward and backward on the card and on the CPU, recording the
-    card's K8 and K7 calls: the readings that LIMITS bound, with where the
-    worst of each is."""
+    card's K8, K9 and K7 calls: the readings that LIMITS bound, with where
+    the worst of each is."""
     import featurematching_tpu_torch.models.backbone_swin as bs
+    import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
     import featurematching_tpu_torch.ops.sparse_focal_loss as sfl
     from featurematching_tpu_torch.ops.swin_block_train import (
         swin_block_train,
@@ -813,11 +937,13 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
     from featurematching_tpu_torch.train.step import forward_with_loss
 
     k8, k7 = _Recorder(swin_block_train), _Recorder(sfl.sparse_focal_backward)
+    k9 = _Recorder(ctt.coarse_layer_backward)
     got = {}
     for side, st in (("card", card), ("cpu", cpu)):
         st.model.zero_grad(set_to_none=True)
         if side == "card":
             bs.swin_block_train, sfl.sparse_focal_backward = k8, k7
+            ctt.coarse_layer_backward = k9
         try:
             losses, out = forward_with_loss(st.model, cfg, batch, train=True)
             for _, y in k8.calls:
@@ -827,6 +953,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
             losses.loss.backward()
         finally:
             bs.swin_block_train, sfl.sparse_focal_backward = k8.fn, k7.fn
+            ctt.coarse_layer_backward = k9.fn
         got[side] = (float(losses.loss.detach()),
                      {n: p.grad for n, p in st.model.named_parameters()}, feats)
     (gl, g_all, g_f), (rl, r_all, r_f) = got["card"], got["cpu"]
@@ -836,13 +963,18 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
     r["min_cos_at"] = min(cos, key=cos.get)
     r["leaves"] = len(cos)
     pairs = {"feat": [(n, a, b) for n, a, b in zip(("feat_c0", "feat_c1"), g_f, r_f)], "k8": [],
-             "k7": []}
+             "k9": [], "k7": []}
     for i, ((x, mask, s1, s2, p, h), y) in enumerate(k8.calls):
         args = (x.detach(), mask, s1, s2, {k: v.detach() for k, v in p.items()}, h, y.grad)
         kern = _block_grads(swin_block_train, *args)
         plain = _block_grads(swin_block_train_reference, *args)
         at = f"call {i} (C={x.shape[-1]}, {x.shape[0]} windows)"
         pairs["k8"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
+    for i, ((x, src, kv, ks, gk, lv, lt, h), got_k9) in enumerate(k9.calls):
+        kern = k9_tensors(None, got_k9)
+        plain = k9_tensors(None, ctt.coarse_layer_backward_reference(x, src, kv, ks, gk, lv, h))
+        at = f"call {i} ({'self' if src is x else 'cross'}, G={x.shape[0]})"
+        pairs["k9"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
     for args, got_k7 in k7.calls:  # the coarse loss's backward: twice, same inputs
         ref = sfl.sparse_focal_backward_reference(*args)
         pairs["k7"] += [(n, a, b) for n, a, b in zip(("df0", "df1"), got_k7, ref)]
@@ -851,7 +983,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
         for i, what in enumerate(("sin", "norm")):
             at = max(vals, key=lambda n: vals[n][i])
             r[f"{key}_{what}"], r[f"{key}_{what}_at"] = vals[at][i], at
-    r["k8_calls"], r["k7_calls"] = len(k8.calls), len(k7.calls)
+    r["k8_calls"], r["k9_calls"], r["k7_calls"] = len(k8.calls), len(k9.calls), len(k7.calls)
     return r
 
 
@@ -874,6 +1006,7 @@ def training_semantic() -> None:
           f"over {r['leaves']} leaves (at {r['min_cos_at']})")
     for key, what in (("feat", "coarse-loss gradient at the coarse features, card vs CPU"),
                       ("k8", f"the step's {r['k8_calls']} K8 calls vs the plain twin on the card"),
+                      ("k9", f"the step's {r['k9_calls']} K9 calls vs the plain twin on the card"),
                       ("k7", f"the step's {r['k7_calls']} K7 calls vs the plain version")):
         print(f"  {what}: 1 - cosine max {r[key + '_sin']:.3e} (at {r[key + '_sin_at']}), "
               f"|norm ratio - 1| max {r[key + '_norm']:.3e} (at {r[key + '_norm_at']})")
@@ -941,6 +1074,10 @@ def main() -> int:
     from featurematching_tpu_torch.models.fast_inference import FastMatcher
     from featurematching_tpu_torch.ops import _build
     from featurematching_tpu_torch.ops.coarse_transformer import coarse_transformer_fused
+    from featurematching_tpu_torch.ops.coarse_transformer_train import (
+        coarse_layer_backward,
+        coarse_layer_forward,
+    )
     from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_lse, dual_softmax_match_stats
     from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused
     from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
@@ -958,6 +1095,8 @@ def main() -> int:
         "coarse_transformer_fused": coarse_transformer_fused, "fine_stage_fused": fine_stage_fused,
         "swin_block_train_fwd": swin_block_train_fwd, "swin_block_train_bwd": swin_block_train_bwd,
         "dual_softmax_lse": dual_softmax_lse, "sparse_focal_backward": sparse_focal_backward,
+        "coarse_layer_forward": coarse_layer_forward,
+        "coarse_layer_backward": coarse_layer_backward,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -997,6 +1136,7 @@ def main() -> int:
     phase("check fine_stage_fused", lambda: check_fine_stage(rec, g))
     phase("check swin_block_train", lambda: check_swin_block_train(rec, g))
     phase("check sparse_focal_loss", lambda: check_sparse_focal_loss(rec, g))
+    phase("check coarse_transformer_train", lambda: check_coarse_train(rec, g))
 
     cfg = default_config().model
     launches = {}  # of the serving forward

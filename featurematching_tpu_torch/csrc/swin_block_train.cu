@@ -28,9 +28,9 @@
 //   3. the weight gradients are products over all tokens, dW = Aᵀ B: both
 //      kernels write their bf16 operands (h1, dqkv, o, do, h2, dy1, gelu(y1),
 //      dm; exactly the operands the TPU kernel feeds its bf16 products), and
-//      wgrad_kernel forms each 64x64 tile over a run of tokens into a
-//      per-split partial (raw mma.sync on ldmatrix fragments, double-buffered
-//      cp.async stages);
+//      wgrad_kernel (wgrad.cuh, shared with K9) forms each 64x64 tile over a
+//      run of tokens into a per-split partial (raw mma.sync on ldmatrix
+//      fragments, double-buffered cp.async stages);
 //   4. every reduction across blocks (the weight-gradient splits, the
 //      per-block sums of the bias, LN and rel_bias gradients) is a second
 //      pass that adds the partials in a fixed order: the gradients are
@@ -40,6 +40,7 @@
 
 #include "swin_block.cuh"
 #include "tiles.cuh"
+#include "wgrad.cuh"
 
 namespace {
 
@@ -51,6 +52,8 @@ using swin::kWarps;
 using swin::N;
 using swin::rows_per_unit;
 using swin::tile_epilogue;
+using fm::sum_parts;
+using fm::wgrad;
 
 constexpr int HC = 128;        // hidden columns per chunk in mlp_bwd
 constexpr int LDY = HC + 4;    // f32 hidden-chunk row stride
@@ -522,108 +525,6 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
   __syncthreads();
   for (int i = threadIdx.x; i < 6 * C; i += blockDim.x)
     part[(size_t)blockIdx.x * P::stride + P::dbqkv + i] = acc[i];
-}
-
-// ---------------------------------------------------------------------------
-// 3. weight gradients dW = Aᵀ B over the tokens, and 4. the fixed-order sums
-// ---------------------------------------------------------------------------
-
-constexpr int WG_T = 64;  // tokens a stage
-constexpr int WG_LD = 64 + 8;
-constexpr int WG_THREADS = 128;  // 4 warps, each a 32x32 quarter of the 64x64 tile
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// part[split][M][N] = sum over the split's tokens t of A[t][m] B[t][n].
-// A [T][M] (row stride lda), B [T][Nn] (row stride ldb), bf16. Grid (M/64,
-// Nn/64, splits); tokens_per_split is a multiple of 64. Stages of 64 tokens
-// of A and B are double-buffered with cp.async; Aᵀ and B fragments come
-// from shared memory through ldmatrix (tiles.cuh) into raw mma.sync.
-__global__ void __launch_bounds__(WG_THREADS)
-wgrad_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b, int ldb, int T,
-             int tokens_per_split, int M, int Nn, float* __restrict__ part) {
-  __shared__ __align__(128) bf16 as[2][WG_T * WG_LD];
-  __shared__ __align__(128) bf16 bs[2][WG_T * WG_LD];
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64, split = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  fm::Acc16 acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) fm::zero(acc[i][j]);
-  const int t_begin = split * tokens_per_split;
-  const int steps = max(0, (min(T, t_begin + tokens_per_split) - t_begin) / WG_T);
-  auto load = [&](int stage, int t0) {
-    for (int e = threadIdx.x; e < WG_T * 8; e += WG_THREADS) {
-      const int r = e / 8, c = (e % 8) * 8;
-      cp_async16(as[stage] + r * WG_LD + c, a + (size_t)(t0 + r) * lda + m0 + c);
-      cp_async16(bs[stage] + r * WG_LD + c, b + (size_t)(t0 + r) * ldb + n0 + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  if (steps > 0) load(0, t_begin);
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      load((s + 1) & 1, t_begin + (s + 1) * WG_T);  // its buffer was freed by the last sync
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const bf16* A = as[s & 1];
-    const bf16* B = bs[s & 1];
-#pragma unroll
-    for (int k = 0; k < WG_T / 16; ++k) {
-      uint32_t fa[2][4], fb[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) fm::load_a_trans(fa[i], A + k * 16 * WG_LD + wm + i * 16, WG_LD, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) fm::load_b(fb[j], B + k * 16 * WG_LD + wn + j * 16, WG_LD, lane);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) fm::mma16(acc[i][j], fa[i], fb[j]);
-    }
-    __syncthreads();  // every warp is done with this stage before it is loaded again
-  }
-  float* out = part + ((size_t)split * M + m0) * Nn + n0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      fm::tile_epilogue(acc[i][j], wm + i * 16, wn + j * 16, lane,
-                        [&](int r, int c, float v) { out[(size_t)r * Nn + c] = v; });
-}
-
-// out[j] = sum over p < nparts of part[p * stride + j], in order of p
-__global__ void sum_parts_kernel(const float* __restrict__ part, int nparts, size_t stride,
-                                 int len, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= len) return;
-  float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += part[(size_t)p * stride + j];
-  out[j] = s;
-}
-
-cudaError_t sum_parts(const float* part, int nparts, size_t stride, int len, void* out,
-                      cudaStream_t st) {
-  sum_parts_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, nparts, stride, len,
-                                                       static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
-cudaError_t wgrad(const bf16* a, int lda, const bf16* b, int ldb, int T, int splits, int M, int Nn,
-                  float* part, void* out, cudaStream_t st) {
-  const int tps = ((T + splits - 1) / splits + WG_T - 1) / WG_T * WG_T;
-  wgrad_kernel<<<dim3(M / 64, Nn / 64, splits), WG_THREADS, 0, st>>>(a, lda, b, ldb, T, tps, M,
-                                                                      Nn, part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return sum_parts(part, splits, (size_t)M * Nn, M * Nn, out, st);
 }
 
 template <int C>

@@ -9,7 +9,9 @@ pipeline:
   1. the Swin-UNet over the stacked pair (`backbone_swin.SwinUNet`: every
      block through `swin_block_train`, kernel K8 on the card, with drop-path
      in training);
-  2. the coarse LoFTR transformer (the per-op `LocalFeatureTransformer`);
+  2. the coarse LoFTR transformer: K9 (`ops/coarse_transformer_train`)
+     where `coarse.fused_train` selects it, else the per-op
+     `LocalFeatureTransformer`;
   3. in a sparse-supervised training step (gt_ids given, no conf matrix
      wanted) an empty fixed-shape match list, as the JAX package emits: the
      coarse loss comes from `ops/sparse_focal_loss` and the fine stage reads
@@ -21,8 +23,8 @@ pipeline:
 
 The kernel switches of the configuration hold as in the JAX package; the
 forms not ported yet raise: `swin.fused_block='off'` (the per-op SwinBlock),
-`coarse.fused_train` and `fine.fused_train` when they select K9 / K10 ('on',
-or 'auto' on the card), and the pose heads (`pose.flag` other than 'none').
+`fine.fused_train` when it selects K10 ('on', or 'auto' on the card), and
+the pose heads (`pose.flag` other than 'none').
 The ResNet-FPN backbone is not ported. Runs on `cuda` unless `device="cpu"`.
 """
 
@@ -60,6 +62,9 @@ class Matcher(MatcherParams):
         super().__init__(cfg, SwinUNet(cfg), device, seed)
         dev = self.mix_feat_0.weight.device
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # as flax's Matcher builds its transformers (use_fused_train)
+        self.coarse_transformer.use_fused_train = kernel_selected(cfg.coarse.fused_train, dev)
+        self.fine_transformer.use_fused_train = kernel_selected(cfg.fine.fused_train, dev)
         self.check_switches()
 
     def check_switches(self) -> None:
@@ -69,11 +74,10 @@ class Matcher(MatcherParams):
             raise NotImplementedError(
                 "the per-op SwinBlock (swin.fused_block='off', or 'auto' on the CPU) is not "
                 "ported yet; use 'on'")
-        for sw, name, kid in ((cfg.coarse.fused_train, "coarse", "K9"),
-                              (cfg.fine.fused_train, "fine", "K10")):
-            if kernel_selected(sw, dev):
-                raise NotImplementedError(
-                    f"{name}.fused_train={sw!r} selects {kid}, not ported yet; set it to 'off'")
+        if kernel_selected(cfg.fine.fused_train, dev):
+            raise NotImplementedError(
+                f"fine.fused_train={cfg.fine.fused_train!r} selects K10, not ported yet; set it "
+                "to 'off'")
         if cfg.pose.flag != "none":
             raise NotImplementedError(f"pose heads (pose.flag={cfg.pose.flag!r}) are not ported yet")
 

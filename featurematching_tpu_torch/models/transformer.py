@@ -3,10 +3,17 @@
 Port of `featurematching_tpu/models/transformer.py` (EncoderLayer,
 LocalFeatureTransformer): Q/K/V projections without bias, linear attention
 (the head-packed form when both sequences are at most 256 tokens long, as
-flax picks it), merge, post-LN, concat-MLP FFN, post-LN, residual. It runs
-where the fused kernels do not: configurations that fail their gates, and
-the training Matcher while K9 and K10 are not ported. Parameters are held in
-float32 and cast to the activation dtype at use, as flax does.
+flax picks it), merge, post-LN, concat-MLP FFN, post-LN, residual.
+Parameters are held in float32 and cast to the activation dtype at use, as
+flax does.
+
+`use_fused_train` is flax's switch of the same name: when it is set, the
+features have one shape and `coarse_train_supported` holds, the stack runs
+as the differentiable kernel K9 (`ops/coarse_transformer_train`; its plain
+twin on the CPU); where the coarse gate fails and the fine gate
+(`fine_train_supported`) holds, flax would run K10, which is not ported yet,
+so it raises. Otherwise, and always without the switch, the per-op stack
+runs (the serving forward's fallback where its fused kernels do not apply).
 """
 
 from __future__ import annotations
@@ -22,6 +29,11 @@ from featurematching_tpu_torch.ops.attention import (
     linear_attention,
     linear_attention_packed,
 )
+from featurematching_tpu_torch.ops.coarse_transformer_train import (
+    coarse_train_supported,
+    coarse_transformer_train,
+)
+from featurematching_tpu_torch.ops.fine_stage import fine_train_supported
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 
@@ -70,18 +82,28 @@ class LocalFeatureTransformer(nn.Module):
     """Alternating self/cross stack; layer i is `layer_{i}`."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
-                 attention: str = "linear"):
+                 attention: str = "linear", use_fused_train: bool = False):
         super().__init__()
         if attention != "linear":
             raise ValueError(f"only linear attention is ported, got {attention!r}")
         for name in layer_names:
             if name not in ("self", "cross"):
                 raise ValueError(f"unknown layer name {name!r}")
+        self.d_model, self.nhead = d_model, nhead
         self.layer_names = tuple(layer_names)
+        self.use_fused_train = use_fused_train
         for i in range(len(layer_names)):
             self.add_module(f"layer_{i}", EncoderLayer(d_model, nhead))
 
     def forward(self, feat0: torch.Tensor, feat1: torch.Tensor):
+        if self.use_fused_train and feat0.shape == feat1.shape:
+            args = (self.layer_names, self.d_model, self.nhead, feat0.shape[1])
+            if coarse_train_supported(*args):
+                return coarse_transformer_train(feat0, feat1, self, self.layer_names, self.nhead)
+            if fine_train_supported(*args):
+                raise NotImplementedError(
+                    "use_fused_train selects the differentiable fine transformer (K10), not "
+                    "ported yet")
         for i, name in enumerate(self.layer_names):
             layer = getattr(self, f"layer_{i}")
             if name == "self":

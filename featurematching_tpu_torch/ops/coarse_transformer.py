@@ -26,6 +26,7 @@ so feat1 attends the UPDATED feat0, as the reference does.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -40,6 +41,7 @@ _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
 _APPLY_ARGTYPES = [_build.PTR] * 12 + [_build.INT] * 5 + [_build.PTR]
 
 
+@functools.lru_cache(maxsize=None)
 def _frag_index(device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(row, column) within a 16x16 tile of each lane's 8 values of a
     tensor-core B fragment (mma.m16n8k16, csrc/tiles.cuh): [32, 8] each."""
@@ -111,9 +113,11 @@ def pack_layer(layer, dtype: torch.dtype) -> LayerValues:
 
 def pack_layers(tf, dtype: torch.dtype) -> Tuple[LayerValues, ...]:
     """`pack_layer` of every layer of a `LocalFeatureTransformer`, cached on
-    it. The cache is keyed on each parameter's storage and version counter,
-    which every in-place write bumps (`load_jax_params`, `load_state_dict`,
-    an optimizer step), so new weights are never served stale."""
+    it for the serving forward. The cache is keyed on each parameter's
+    storage and version counter, which `load_jax_params` and
+    `load_state_dict` bump; a fused optimizer step (AdamW with `fused=True`)
+    writes the parameters without bumping it, so a module being trained
+    packs its weights anew each call (`coarse_transformer_train`)."""
     key = (dtype, tuple((p.data_ptr(), p._version) for p in tf.parameters()))
     cached = getattr(tf, "_packed", None)
     if cached is None or cached[0] != key:
@@ -142,32 +146,82 @@ def _elu1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x + 1.0, torch.exp(x))
 
 
-def encoder_reference(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
-                      nhead: int) -> torch.Tensor:
-    """One encoder layer with the TPU kernel's rounding points.
-    x: [G, L, C] queries, src: [G, S, C] keys/values; every product
-    accumulates in f32 and is rounded to x's dtype where the kernel rounds."""
-    G, L, C = x.shape
-    S = src.shape[1]
+def pack_heads(kv: torch.Tensor) -> torch.Tensor:
+    """Each head's K^T V block [G, H, D, D] in the fragment order the stats
+    kernel's merge writes (`frag_pack` of every block): [G, H * D * D]."""
+    G, H, D, _ = kv.shape
+    DT = D // 16
+    tiles = kv.reshape(G, H, DT, 16, DT, 16).permute(0, 1, 4, 2, 3, 5)  # [.., nt, kt, 16, 16]
+    rows, cols = _frag_index(kv.device)
+    return tiles[..., rows, cols].reshape(G, H * D * D)
+
+
+def unpack_heads(kv: torch.Tensor, nhead: int) -> torch.Tensor:
+    """The inverse of `pack_heads`: [G, H * D * D] -> [G, H, D, D]."""
+    G = kv.shape[0]
+    D = int(round((kv.shape[1] // nhead) ** 0.5))
+    DT = D // 16
+    tiles = torch.empty(G, nhead, DT, DT, 16, 16, dtype=kv.dtype, device=kv.device)
+    rows, cols = _frag_index(kv.device)
+    tiles[..., rows, cols] = kv.reshape(G, nhead, DT, DT, 32, 8)
+    return tiles.permute(0, 1, 3, 4, 2, 5).reshape(G, nhead, D, D)
+
+
+def stats_reference(src: torch.Tensor, lv: LayerValues, nhead: int):
+    """The stats step with the TPU kernel's rounding points. src: [G, S, C].
+    Returns (kv, ks) in src's dtype: each head's K^T V (V pre-scaled by 1/S)
+    [G, H, D, D] and K_sum [G, C]."""
+    G, S, C = src.shape
     D = C // nhead
-    dt = x.dtype
-    wq, wkv, wmerge, wmlp1, wmlp2 = (frag_unpack(w).float() for w in (
-        lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2))
-    Q = _elu1(x.float() @ wq).to(dt)
-    kv = src.float() @ wkv
+    dt = src.dtype
+    kv = src.float() @ frag_unpack(lv.wkv).float()
     K = _elu1(kv[..., :C]).to(dt)
     V = (kv[..., C:] * (1.0 / S)).to(dt)
     KV = torch.einsum("gshd,gshv->ghdv", K.float().view(G, S, nhead, D),
                       V.float().view(G, S, nhead, D)).to(dt)
-    ksum = K.float().sum(dim=1).to(dt).view(G, nhead, D)
+    return KV, K.float().sum(dim=1).to(dt)
+
+
+def apply_reference(x: torch.Tensor, kv: torch.Tensor, ks: torch.Tensor, S: int,
+                    lv: LayerValues, nhead: int) -> torch.Tensor:
+    """The apply step over queries x [G, L, C] from `stats_reference`'s (kv,
+    ks) of S source tokens; every product accumulates in f32 and is rounded
+    to x's dtype where the kernel rounds."""
+    G, L, C = x.shape
+    D = C // nhead
+    dt = x.dtype
+    wq, wmerge, wmlp1, wmlp2 = (frag_unpack(w).float() for w in (
+        lv.wq, lv.wmerge, lv.wmlp1, lv.wmlp2))
+    Q = _elu1(x.float() @ wq).to(dt)
+    KV = kv.float()
+    ksum = ks.float().view(G, nhead, D)
     Qh = Q.float().view(G, L, nhead, D)
-    Z = torch.einsum("glhd,ghd->glh", Qh, ksum.float())
-    o = torch.einsum("glhd,ghdv->glhv", Qh, KV.float())
+    Z = torch.einsum("glhd,ghd->glh", Qh, ksum)
+    o = torch.einsum("glhd,ghdv->glhv", Qh, KV)
     o = (o * (float(S) / (Z + EPS))[..., None]).reshape(G, L, C).to(dt)
     msg = layer_norm_chain_plain((o.float() @ wmerge).to(dt), lv.n1s, lv.n1b)
     y = x.float() @ wmlp1[:C] + msg.float() @ wmlp1[C:]
     y = (torch.relu(y).to(dt).float() @ wmlp2).to(dt)
     return x + layer_norm_chain_plain(y, lv.n2s, lv.n2b)
+
+
+def encoder_reference_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                                 nhead: int):
+    """(out, kv, ks) of one encoder layer: `stats_reference` over src, then
+    `apply_reference` over x; kv in the stats kernel's layout (`pack_heads`,
+    head dims that are multiples of 16), as `coarse_layer_with_stats`
+    returns it."""
+    kv, ks = stats_reference(src, lv, nhead)
+    return apply_reference(x, kv, ks, src.shape[1], lv, nhead), pack_heads(kv), ks
+
+
+def encoder_reference(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                      nhead: int) -> torch.Tensor:
+    """One encoder layer with the TPU kernel's rounding points.
+    x: [G, L, C] queries, src: [G, S, C] keys/values; every product
+    accumulates in f32 and is rounded to x's dtype where the kernel rounds."""
+    kv, ks = stats_reference(src, lv, nhead)
+    return apply_reference(x, kv, ks, src.shape[1], lv, nhead)
 
 
 def _run_stack(feat0, feat1, layers, layer_names, layer_fn):
@@ -219,10 +273,12 @@ def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int
     check_layer_values(lv, C)
 
 
-def coarse_layer_fused(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
-                       nhead: int) -> torch.Tensor:
+def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                            nhead: int):
     """One encoder layer on the card: the stats kernel over src (with its
-    merge), then the apply kernel over x. x: [G, L, C], src: [G, S, C] bf16."""
+    merge), then the apply kernel over x. x: [G, L, C], src: [G, S, C] bf16.
+    Returns (out, kv, ks): kv [G, C * D] (each head's K^T V in fragment
+    order, `pack_heads`) and ks [G, C], bf16, as the apply kernel read them."""
     _check_layer(x, src, lv, nhead)
     G, L, C = x.shape
     S = src.shape[1]
@@ -250,7 +306,13 @@ def coarse_layer_fused(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
         lv.n1s.data_ptr(), lv.n1b.data_ptr(), lv.wmlp1.data_ptr(), lv.wmlp2.data_ptr(),
         lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D, st,
     )
-    return out
+    return out, kv, ks
+
+
+def coarse_layer_fused(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                       nhead: int) -> torch.Tensor:
+    """One encoder layer on the card (`coarse_layer_with_stats`'s output)."""
+    return coarse_layer_with_stats(x, src, lv, nhead)[0]
 
 
 def coarse_transformer_fused(feat0, feat1, layers: Sequence[LayerValues],

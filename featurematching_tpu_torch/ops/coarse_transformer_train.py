@@ -1,0 +1,392 @@
+"""The differentiable coarse LoFTR transformer (kernel K9).
+
+Port of `featurematching_tpu/ops/pallas_coarse_grad.py ·
+coarse_transformer_train`, as a `torch.autograd.Function`:
+
+  forward  — K5's stats and apply kernels (`coarse_transformer.
+             coarse_layer_with_stats`) for every encoder call: self layers on
+             both images as one batch of 2B, cross layers in turn (feat1
+             attends the UPDATED feat0). Each call saves (x, src, kv, ks),
+             kv and ks being the merged stats the apply kernel read (tiny).
+  backward — per call in reverse (`_vjp_bwd`'s loop): the second call of a
+             cross layer first, its dsrc the extra cotangent of the updated
+             feat0; a self call splits dx + dsrc back into the two images;
+             the weight gradients of a cross layer's two calls are summed.
+             Each call runs `coarse_layer_backward`: on a CUDA tensor the
+             kernels of `csrc/coarse_transformer_train.cu` (apply backward
+             over 64-token query tiles recomputing the forward tile on chip,
+             a fixed-order merge of the per-head dKᵀV and dK_sum partials,
+             stats backward over 64-token source tiles, then the weight
+             gradients dW = Aᵀ B of `csrc/wgrad.cuh`), bound on the H100 by
+             tensor-core operations; on a CPU tensor its plain twin,
+             `coarse_layer_backward_reference`.
+
+The plain twin follows `_apply_bwd_kernel` and then `_stats_bwd_kernel`
+at their rounding points: bf16 operands with f32 accumulation; dy2, dy1,
+dm1, dopre, dZ, dqf and [dkf | dv] rounded to the activation dtype before
+their products; dKᵀV and dK_sum rounded as the stats backward reads them.
+The port keeps K_sum as [C] where the TPU kernel keeps KOnes = Kᵀ1 as
+[C, C], so the gradient of KOnes becomes its head-summed row sums dK_sum
+[G, C] (the stats backward only ever reads those row sums). In f32 the two
+are equal; in bf16 the TPU kernel rounds each of dKOnes's entries and sums
+them, the port rounds the sum once.
+
+Gradients come back in the parameters' own shapes and dtypes (the torch
+weights [out, in]; the K and V halves of the fused [C, 2C] gradient apart).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from featurematching_tpu_torch.ops import _build
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    EPS,
+    ROW_TILE,
+    WIDTHS,
+    LayerValues,
+    _check_layer,
+    _elu1,
+    coarse_layer_with_stats,
+    coarse_transformer_supported,
+    encoder_reference_with_stats,
+    frag_pack,
+    frag_unpack,
+    pack_layer,
+    unpack_heads,
+)
+
+# tokens a weight-gradient block sums over before its partial is written
+SPLIT_TOKENS = 4096
+_BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
+# the parameters of one EncoderLayer as the Function takes them
+LAYER_PARAMS = ("q_proj.weight", "k_proj.weight", "v_proj.weight", "merge.weight",
+                "norm1.weight", "norm1.bias", "mlp1.weight", "mlp2.weight", "norm2.weight",
+                "norm2.bias")
+
+
+class TrainValues(NamedTuple):
+    """The weights' transposes that the backward's dY . Wᵀ products take as
+    B operands, packed (`frag_pack`): w2ᵀ [C, 2C], w1[C:]ᵀ [2C, C], wmergeᵀ
+    [C, C], [w1[:C]ᵀ ; wqᵀ] [3C, C] (both products of dx in one) and wkvᵀ
+    [2C, C]. Build with `train_values`."""
+
+    w2t: torch.Tensor
+    w1mt: torch.Tensor
+    wmt: torch.Tensor
+    wdxt: torch.Tensor
+    wkvt: torch.Tensor
+
+
+def train_values(lv: LayerValues) -> TrainValues:
+    """The transposed operands of a layer packed as `LayerValues`."""
+    wq, wkv, wm, w1, w2 = (frag_unpack(w) for w in (lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2))
+    C = wq.shape[0]
+    return TrainValues(frag_pack(w2.t().contiguous()), frag_pack(w1[C:].t().contiguous()),
+                       frag_pack(wm.t().contiguous()),
+                       frag_pack(torch.cat([w1[:C].t(), wq.t()], dim=0).contiguous()),
+                       frag_pack(wkv.t().contiguous()))
+
+
+def coarse_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
+                           n_tokens: int) -> bool:
+    """The JAX gate (`coarse_transformer_supported`), limited to the (C, head
+    dim) pairs the CUDA kernels take."""
+    return (coarse_transformer_supported(layer_names, d_model, nhead, n_tokens)
+            and (d_model, d_model // nhead) in WIDTHS)
+
+
+def coarse_layer_forward(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int):
+    """One encoder call of the forward: (out, kv, ks) (see
+    `coarse_transformer.coarse_layer_with_stats`). On a CUDA tensor K5's
+    stats and apply kernels, counted in `launches`; on a CPU tensor
+    `encoder_reference_with_stats`."""
+    if x.device.type == "cpu":
+        return encoder_reference_with_stats(x, src, lv, nhead)
+    out = coarse_layer_with_stats(x, src, lv, nhead)
+    coarse_layer_forward.launches += 1
+    return out
+
+
+coarse_layer_forward.launches = 0
+
+
+def _ln_stats(v: torch.Tensor):
+    mu = v.mean(dim=-1, keepdim=True)
+    var = ((v - mu) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + 1e-6)
+    return (v - mu) * rstd, rstd
+
+
+def _ln_bwd(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor, scale: torch.Tensor):
+    """(dv, dscale, dbias) of a LayerNorm over the last dim; the parameter
+    gradients summed over every token."""
+    dscale = (dh * xhat).sum(dim=(0, 1))
+    dbias = dh.sum(dim=(0, 1))
+    dxhat = dh * scale
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2), dscale, dbias
+
+
+def _tok(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def apply_backward_reference(x, kv, ks, g, S: int, lv: LayerValues, nhead: int):
+    """`_apply_bwd_kernel`: the forward apply step recomputed from x and the
+    stats (kv, ks as `stats_reference` gives them, over S source tokens),
+    then its backward for the upstream gradient g. Returns (dx, dkv [G, H, D,
+    D] f32, dks [G, C] f32, dwq, dwmerge, dn1s, dn1b, dw1, dw2, dn2s, dn2b)."""
+    G, L, C = x.shape
+    H, D = nhead, C // nhead
+    dt = x.dtype
+    wq, wm, w1, w2 = (frag_unpack(w).float() for w in (lv.wq, lv.wmerge, lv.wmlp1, lv.wmlp2))
+    KV = unpack_heads(kv, nhead).float()
+    ksf = ks.float()
+    xf = x.float()
+    # the forward, in the forward's rounding
+    qf = xf @ wq
+    Q = _elu1(qf).to(dt).float()
+    Qh = Q.view(G, L, H, D)
+    Z = torch.einsum("glhd,ghd->glh", Qh, ksf.view(G, H, D))[..., None]
+    opre = torch.einsum("glhd,ghde->glhe", Qh, KV)
+    nfac = float(S) / (Z + EPS)
+    o = (opre * nfac).reshape(G, L, C).to(dt).float()
+    m1 = (o @ wm).to(dt).float()
+    xhat1, rstd1 = _ln_stats(m1)
+    msg = (xhat1 * lv.n1s + lv.n1b).to(dt).float()
+    y1 = xf @ w1[:C] + msg @ w1[C:]
+    h = torch.relu(y1).to(dt).float()
+    y2 = (h @ w2).to(dt).float()
+    xhat2, rstd2 = _ln_stats(y2)
+    # the backward
+    gf = g.float()
+    dy2, dn2s, dn2b = _ln_bwd(gf, xhat2, rstd2, lv.n2s)
+    dy2 = dy2.to(dt).float()
+    dw2 = _tok(h).t() @ _tok(dy2)
+    dh = dy2 @ w2.t()
+    dy1 = (dh * (y1 > 0.0).float()).to(dt).float()
+    dw1 = torch.cat([_tok(xf).t() @ _tok(dy1), _tok(msg).t() @ _tok(dy1)], dim=0)
+    dx_ffn = dy1 @ w1[:C].t()
+    dmsg = dy1 @ w1[C:].t()
+    dm1, dn1s, dn1b = _ln_bwd(dmsg, xhat1, rstd1, lv.n1s)
+    dm1 = dm1.to(dt).float()
+    dwm = _tok(o).t() @ _tok(dm1)
+    do = (dm1 @ wm.t()).view(G, L, H, D)
+    dopre = (do * nfac).to(dt).float()
+    dZ = (-(do * (opre * nfac)) / (Z + EPS)).to(dt).float()
+    dzh = dZ.sum(dim=-1)  # [G, L, H]: only dKOnes's row sums are read
+    dkv = torch.einsum("glhd,glhe->ghde", Qh, dopre)
+    dks = torch.einsum("glhd,glh->ghd", Qh, dzh).reshape(G, C)
+    dQ = (torch.einsum("glhe,ghde->glhd", dopre, KV)
+          + dzh[..., None] * ksf.view(G, 1, H, D)).reshape(G, L, C)
+    dqf = (dQ * torch.where(qf > 0, 1.0, torch.exp(qf))).to(dt).float()
+    dwq = _tok(xf).t() @ _tok(dqf)
+    dx = (gf + dx_ffn + dqf @ wq.t()).to(dt)
+    return dx, dkv, dks, dwq, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b
+
+
+def stats_backward_reference(src, dkv, dks, lv: LayerValues, nhead: int):
+    """`_stats_bwd_kernel`: K and V recomputed from src, dkv [G, H, D, D] and
+    dks [G, C] rounded to src's dtype as read. Returns (dsrc, dwkv [C, 2C])."""
+    G, S, C = src.shape
+    H, D = nhead, C // nhead
+    dt = src.dtype
+    wkv = frag_unpack(lv.wkv).float()
+    dkv = dkv.to(dt).float()
+    dks = dks.to(dt).float()
+    sf = src.float()
+    kv3 = sf @ wkv
+    kf = kv3[..., :C]
+    K = _elu1(kf).to(dt).float().view(G, S, H, D)
+    V = (kv3[..., C:] * (1.0 / S)).to(dt).float().view(G, S, H, D)
+    dV = torch.einsum("gshd,ghde->gshe", K, dkv).reshape(G, S, C)
+    dK = torch.einsum("gshe,ghde->gshd", V, dkv).reshape(G, S, C) + dks[:, None]
+    dkf = dK * torch.where(kf > 0, 1.0, torch.exp(kf))
+    dkv3 = torch.cat([dkf.to(dt), (dV * (1.0 / S)).to(dt)], dim=-1).float()
+    dwkv = _tok(sf).t() @ _tok(dkv3)
+    return (dkv3 @ wkv.t()).to(dt), dwkv
+
+
+def coarse_layer_backward_reference(x, src, kv, ks, g, lv: LayerValues, nhead: int):
+    """The plain twin of one call's backward: `apply_backward_reference`,
+    then `stats_backward_reference`. x: [G, L, C] queries, src: [G, S, C]
+    keys/values, (kv, ks) the forward's stats, g: the output's gradient.
+    Returns (dx, dsrc, (dwq, dwkv, dwmerge, dn1s, dn1b, dw1, dw2, dn2s,
+    dn2b)), weights [in, out] in f32."""
+    dx, dkv, dks, dwq, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b = apply_backward_reference(
+        x, kv, ks, g, src.shape[1], lv, nhead)
+    dsrc, dwkv = stats_backward_reference(src, dkv, dks, lv, nhead)
+    return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, nhead: int):
+    """One call's backward, as `coarse_layer_backward_reference` returns it.
+    On a CUDA tensor the kernels of `csrc/coarse_transformer_train.cu`
+    (raises for what they do not take: bf16, (C, head dim) in WIDTHS); on a
+    CPU tensor the plain twin."""
+    if x.device.type == "cpu":
+        return coarse_layer_backward_reference(x, src, kv, ks, g, lv, nhead)
+    _check_layer(x, src, lv, nhead)
+    G, L, C = x.shape
+    S = src.shape[1]
+    D = C // nhead
+    g = g.contiguous()
+    _build.check_cuda(g, "g", torch.bfloat16, x.shape)
+    _build.check_cuda(kv, "kv", torch.bfloat16, (G, C * D))
+    _build.check_cuda(ks, "ks", torch.bfloat16, (G, C))
+    for t, name, k, n in zip(lt, TrainValues._fields,
+                             (C, 2 * C, C, 3 * C, 2 * C), (2 * C, C, C, C, C)):
+        _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
+    dev = x.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    tiles = G * -(-L // ROW_TILE)
+    splits = max(1, -(-G * max(L, S) // SPLIT_TOKENS))
+    dx, dsrc = torch.empty_like(x), torch.empty_like(src)
+    dwq, dwm = torch.empty(C, C, **f32), torch.empty(C, C, **f32)
+    dwkv = torch.empty(C, 2 * C, **f32)
+    dln = torch.empty(4 * C, **f32)
+    dw1, dw2 = torch.empty(2 * C, 2 * C, **f32), torch.empty(2 * C, C, **f32)
+    stash = torch.empty((9 * G * L + 2 * G * S) * C, device=dev, dtype=torch.bfloat16)
+    part_ln, part_kv, part_ks = (torch.empty(tiles * n, **f32) for n in (4 * C, C * D, C))
+    dkv = torch.empty(G * C * D, device=dev, dtype=torch.bfloat16)
+    dks = torch.empty(G * C, device=dev, dtype=torch.bfloat16)
+    gemm = torch.empty(splits * 2 * C * C, **f32)
+    _build.launch(
+        "coarse_transformer_train", "fm_coarse_train_bwd", _BWD_ARGS,
+        _ptrs([x, src, kv, ks, g, *lv, *lt]),
+        _ptrs([dx, dsrc, dwq, dwkv, dwm, dln, dw1, dw2, stash, part_ln, part_kv, part_ks, dkv,
+               dks, gemm]),
+        G, L, S, C, D, splits, _build.stream(),
+    )
+    coarse_layer_backward.launches += 1
+    dn1s, dn1b, dn2s, dn2b = dln.view(4, C)
+    return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+
+
+coarse_layer_backward.launches = 0
+
+
+def _call_plan(layer_names: Sequence[str]) -> List[Tuple[str, int]]:
+    """(kind, layer index) of each forward call: a self layer is one call, a
+    cross layer two (crossA updates feat0, crossB feat1)."""
+    plan = []
+    for i, name in enumerate(layer_names):
+        plan += [("self", i)] if name == "self" else [("crossA", i), ("crossB", i)]
+    return plan
+
+
+def _forward(feat0, feat1, layers, layer_names, nhead):
+    """The stack through `coarse_layer_forward`: ((feat0, feat1), the
+    calls' (x, src, kv, ks) in forward order; src None for a self call)."""
+    B = feat0.shape[0]
+    calls = []
+    for lv, name in zip(layers, layer_names, strict=True):
+        if name == "self":
+            both = torch.cat([feat0, feat1], dim=0)
+            out, kv, ks = coarse_layer_forward(both, both, lv, nhead)
+            calls.append((both, None, kv, ks))
+            feat0, feat1 = out[:B], out[B:]
+        else:
+            f0n, kv1, ks1 = coarse_layer_forward(feat0, feat1, lv, nhead)
+            calls.append((feat0, feat1, kv1, ks1))
+            f1n, kv0, ks0 = coarse_layer_forward(feat1, f0n, lv, nhead)
+            calls.append((feat1, f0n, kv0, ks0))
+            feat0, feat1 = f0n, f1n
+    return (feat0, feat1), calls
+
+
+def _param_grads(wg, C: int, dtypes) -> List[torch.Tensor]:
+    """A layer's summed (dwq, dwkv, dwmerge, dn1s, dn1b, dw1, dw2, dn2s,
+    dn2b) as gradients of LAYER_PARAMS."""
+    dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b = wg
+    grads = [dwq.t(), dwkv[:, :C].t(), dwkv[:, C:].t(), dwm.t(), dn1s, dn1b, dw1.t(), dw2.t(),
+             dn2s, dn2b]
+    return [gr.contiguous().to(dt) for gr, dt in zip(grads, dtypes)]
+
+
+class CoarseTransformerTrain(torch.autograd.Function):
+    """(feat0, feat1) -> the stack's (feat0, feat1), differentiable in the
+    features and in every layer's LAYER_PARAMS (passed flat after the packed
+    operands)."""
+
+    @staticmethod
+    def forward(ctx, feat0, feat1, layer_names, nhead, layers, tvalues, *params):
+        (out0, out1), calls = _forward(feat0, feat1, layers, layer_names, nhead)
+        ctx.save_for_backward(*[t for call in calls for t in call])
+        ctx.layer_names, ctx.nhead, ctx.layers, ctx.tvalues = layer_names, nhead, layers, tvalues
+        ctx.shape = feat0.shape
+        ctx.param_dtypes = [p.dtype for p in params]
+        return out0, out1
+
+    @staticmethod
+    def backward(ctx, df0, df1):
+        saved = ctx.saved_tensors
+        calls = [saved[i:i + 4] for i in range(0, len(saved), 4)]
+        x0 = calls[0][0]
+        dt, B, C = x0.dtype, ctx.shape[0], ctx.shape[-1]
+        df0, df1 = (torch.zeros(ctx.shape, dtype=dt, device=x0.device) if d is None
+                    else d.to(dt).contiguous() for d in (df0, df1))
+        wgrads = [None] * len(ctx.layer_names)
+        pending = None  # dsrc of a crossB call: the extra cotangent of the updated feat0
+        for (x, src, kv, ks), (kind, li) in zip(reversed(calls),
+                                                reversed(_call_plan(ctx.layer_names))):
+            lv, lt = ctx.layers[li], ctx.tvalues[li]
+            if kind == "self":
+                dx, dsrc, wg = coarse_layer_backward(x, x, kv, ks, torch.cat([df0, df1]), lv, lt,
+                                                     ctx.nhead)
+                df0, df1 = (dx + dsrc).split(B)
+            elif kind == "crossB":
+                dx, dsrc, wg = coarse_layer_backward(x, src, kv, ks, df1, lv, lt, ctx.nhead)
+                df1, pending = dx, dsrc
+            else:
+                dout = df0 if pending is None else df0 + pending
+                pending = None
+                dx, dsrc, wg = coarse_layer_backward(x, src, kv, ks, dout, lv, lt, ctx.nhead)
+                df0, df1 = dx, df1 + dsrc
+            acc = wgrads[li]
+            wgrads[li] = wg if acc is None else tuple(a + b for a, b in zip(acc, wg))
+        n = len(LAYER_PARAMS)
+        grads = [gr for i, wg in enumerate(wgrads)
+                 for gr in _param_grads(wg, C, ctx.param_dtypes[i * n:(i + 1) * n])]
+        return (df0, df1, None, None, None, None, *grads)
+
+
+def layer_params(tf) -> List[torch.Tensor]:
+    """LAYER_PARAMS of every layer of a `LocalFeatureTransformer`, flat."""
+    out = []
+    for i in range(len(tf.layer_names)):
+        layer = getattr(tf, f"layer_{i}")
+        out += [layer.get_parameter(name) for name in LAYER_PARAMS]
+    return out
+
+
+def coarse_transformer_train(feat0: torch.Tensor, feat1: torch.Tensor, tf,
+                             layer_names: Sequence[str], nhead: int):
+    """The differentiable stack over `tf` (a `models.transformer.
+    LocalFeatureTransformer`). feat*: [B, N, C]. Without a gradient to
+    compute (no_grad, or nothing requiring one) it runs the same forward and
+    saves nothing. The weights are packed anew every call, not through
+    `pack_layers`' cache: the fused optimizer step writes them without
+    bumping the version counters that cache is keyed on."""
+    layer_names = tuple(layer_names)
+    if len(tf.layer_names) != len(layer_names):
+        raise ValueError(f"{len(tf.layer_names)} layers for {len(layer_names)} layer names")
+    params = layer_params(tf)
+    feat0, feat1 = feat0.contiguous(), feat1.contiguous()
+    layers = tuple(pack_layer(getattr(tf, f"layer_{i}"), feat0.dtype)
+                   for i in range(len(layer_names)))
+    wants = feat0.requires_grad or feat1.requires_grad or any(p.requires_grad for p in params)
+    if not (torch.is_grad_enabled() and wants):
+        return _forward(feat0, feat1, layers, layer_names, nhead)[0]
+    tvalues = tuple(train_values(lv) for lv in layers)
+    return CoarseTransformerTrain.apply(feat0, feat1, layer_names, nhead, layers, tvalues,
+                                        *params)

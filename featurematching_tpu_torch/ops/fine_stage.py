@@ -52,6 +52,13 @@ def fine_stage_supported(layer_names: Sequence[str], d_model: int, nhead: int) -
     )
 
 
+def fine_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
+                         n_tokens: int) -> bool:
+    """The JAX package's gate of its differentiable fine transformer (K10):
+    the kernel's conditions, on windows of at most 128 tokens."""
+    return fine_stage_supported(layer_names, d_model, nhead) and n_tokens <= 128
+
+
 def window_mix(w: torch.Tensor, mix: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """The learned taps -> 1 mix, [B_, N, C] -> [B_, C]: operands in the
     activation dtype, f32 sum, rounded, then the bias added in that dtype."""

@@ -16,11 +16,13 @@ is also 4 pairs at 640x480, with `max_gt_matches` = 1024 fine windows a
 pair). A forward and its backward count together: the backward does twice
 the forward's products, reads the forward's inputs and the output gradient,
 writes the input gradient and f32 weight gradients, and what the forward
-saves for it is written once and read once. K8 and K7, which the port has,
-are counted per launch as their kernels run: K8's forward (K2's work plus
-the probabilities and the residual stream it keeps) and backward apart, and
-K7 as the backward's softmax terms plus the pass-1 log-sum-exps of its
-forward.
+saves for it is written once and read once. K8, K7 and K9, which the port
+has, are counted per launch as their kernels run: K8's forward (K2's work
+plus the probabilities and the residual stream it keeps) and backward
+apart, K7 as the backward's softmax terms plus the pass-1 log-sum-exps of
+its forward, and K9 per encoder call, its forward (K5's stats and apply
+work) and backward apart; the command line prints K9's forward and
+backward on rows of their own.
 """
 
 from __future__ import annotations
@@ -158,6 +160,35 @@ def swin_block_train_bwd_work(windows: int, C: int, heads: int, mask_windows: in
     return nbytes, 2 * swin_block_work(windows, C, heads, mask_windows)[1]
 
 
+def coarse_train_fwd_work(G: int, L: int, S: int, C: int, heads: int) -> Work:
+    """K9's forward for one encoder call (L query tokens of G images over S
+    source tokens): K5's stats and apply launches."""
+    return total([coarse_stats_work(G, S, C, heads), coarse_apply_work(G, L, C, heads)])
+
+
+def coarse_train_bwd_work(G: int, L: int, S: int, C: int, heads: int, self_call: bool) -> Work:
+    """K9's backward for one encoder call: x and src (one tensor for a self
+    call), the output gradient, the merged stats (bf16) and the weights in;
+    dx and dsrc (bf16) and the layer's gradients (f32) out; twice the
+    forward's products."""
+    D = C // heads
+    tokens = G * L + (0 if self_call else G * S)
+    nbytes = ((tokens + G * L) * C * BF16 + G * (C * D + C) * BF16
+              + 10 * C * C * BF16 + 4 * C * F32
+              + (G * L + G * S) * C * BF16 + 10 * C * C * F32 + 4 * C * F32)
+    return nbytes, 2 * coarse_train_fwd_work(G, L, S, C, heads)[1]
+
+
+def coarse_train_calls(cfg, images: int, L: int) -> List[Tuple[int, bool]]:
+    """(images G, self call) of each K9 encoder call of the coarse stack over
+    `images` images of L tokens: a self layer is one call on all of them, a
+    cross layer two calls on half of them each."""
+    calls = []
+    for name in cfg.coarse.layer_names:
+        calls += [(images, True)] if name == "self" else [(images // 2, False)] * 2
+    return calls
+
+
 def with_backward(fwd: Work, saved_bytes: float, weight_grad_bytes: float) -> Work:
     return 2 * fwd[0] + 2 * saved_bytes + weight_grad_bytes, 3 * fwd[1]
 
@@ -226,9 +257,10 @@ def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[s
         ("K8", "pallas_swin_block_grad.swin_block_train", total(
             w for st in sites for w in (swin_block_train_fwd_work(*st[:4]),
                                         swin_block_train_bwd_work(*st[:4])))),
-        ("K9", "pallas_coarse_grad.coarse_transformer_train", with_backward(
-            coarse, len(co.layer_names) * images * L * co.d_model * BF16,
-            len(co.layer_names) * 10 * co.d_model**2 * F32)),
+        ("K9", "pallas_coarse_grad.coarse_transformer_train", total(
+            w for G, self_call in coarse_train_calls(cfg, images, L)
+            for w in (coarse_train_fwd_work(G, L, L, co.d_model, co.nhead),
+                      coarse_train_bwd_work(G, L, L, co.d_model, co.nhead, self_call)))),
         ("K10", "pallas_fine_grad.fine_transformer_train", with_backward(
             fine_enc, len(fi.layer_names) * 2 * nwin * taps * fi.d_model * BF16,
             len(fi.layer_names) * 10 * fi.d_model**2 * F32)),
@@ -246,9 +278,18 @@ def main() -> None:
           "TFLOP/s bf16 (700 W); default_config(), 640x480, batch 4")
     print("| Id | Kernel | MB moved | GFLOP | bound ms | bound by |")
     print("|---|---|---|---|---|---|")
-    for kid, name, (nbytes, flops) in all_kernels(default_config().model):
-        b, by = bound_ms(nbytes, flops)
-        print(f"| {kid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    cfg = default_config().model
+    L = (480 // cfg.resolution[0]) * (640 // cfg.resolution[0])
+    co = cfg.coarse
+    calls = coarse_train_calls(cfg, 8, L)
+    k9 = {"K9 fwd": total(coarse_train_fwd_work(G, L, L, co.d_model, co.nhead) for G, _ in calls),
+          "K9 bwd": total(coarse_train_bwd_work(G, L, L, co.d_model, co.nhead, s)
+                          for G, s in calls)}
+    for kid, name, work in all_kernels(cfg):
+        rows = k9.items() if kid == "K9" else [(kid, work)]
+        for rid, (nbytes, flops) in rows:
+            b, by = bound_ms(nbytes, flops)
+            print(f"| {rid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,231 @@
+"""K9: the port's differentiable coarse transformer against the JAX package's.
+
+On the CPU, where `coarse_transformer_train` runs its plain twin, with
+inputs made by numpy from a seed and flax weights carried across by
+`load_jax_params` (JAX at `highest` matmul precision, tests/conftest.py):
+
+- the stack's value, both input gradients and every parameter gradient
+  against flax autodiff of the per-op `LocalFeatureTransformer` at f32, in
+  the cases of tests/test_pallas_coarse_grad.py, within 2e-4 of each leaf's
+  max as that test holds the TPU kernel;
+- one call's backward (`apply_backward_reference`, then
+  `stats_backward_reference`) against `pallas_coarse_grad._apply_bwd` and
+  `_stats_bwd` in interpret mode, fed the same stats, in f32 and in bf16;
+- the gate and the `use_fused_train` dispatch.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from featurematching_tpu.models.transformer import (
+    LocalFeatureTransformer as JaxLocalFeatureTransformer,
+)
+from featurematching_tpu.ops.pallas_coarse_grad import _apply_bwd, _blockmask, _stats_bwd
+from featurematching_tpu.ops.pallas_coarse_transformer import _layer_stats
+from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer_values
+from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
+from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
+from featurematching_tpu_torch.ops.coarse_transformer import pack_heads, pack_layer
+from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _make(rng, B, N, C, nhead, layer_names):
+    f0 = (rng.standard_normal((B, N, C)) * 0.5).astype(np.float32)
+    f1 = (rng.standard_normal((B, N, C)) * 0.5).astype(np.float32)
+    jm = JaxLocalFeatureTransformer(C, nhead, layer_names)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(f0), jnp.asarray(f1))["params"]
+    port = LocalFeatureTransformer(C, nhead, layer_names, use_fused_train=True)
+    load_jax_params(port, params)
+    return jm, params, port, f0, f1
+
+
+@pytest.fixture
+def backward_calls(monkeypatch):
+    """The calls of the plain twin's backward made through the K9 wrapper."""
+    calls = []
+    twin = ctt.coarse_layer_backward_reference
+
+    def spy(*args):
+        calls.append(args)
+        return twin(*args)
+
+    monkeypatch.setattr(ctt, "coarse_layer_backward_reference", spy)
+    return calls
+
+
+@pytest.mark.parametrize("B,N,C,nhead,layer_names", [
+    (2, 64, 128, 8, ("self", "cross")),
+    (1, 96, 128, 4, ("cross", "self", "cross")),
+])
+def test_stack_gradients_match_flax_autodiff(rng, backward_calls, B, N, C, nhead, layer_names):
+    """Value, both input gradients and every weight gradient vs flax
+    autodiff of the per-op stack (f32), through the K9 path."""
+    jm, params, port, f0, f1 = _make(rng, B, N, C, nhead, layer_names)
+    w0 = rng.standard_normal((B, N, C)).astype(np.float32)
+    w1 = rng.standard_normal((B, N, C)).astype(np.float32)
+
+    def loss_ref(p, a, b):
+        r0, r1 = jm.apply({"params": p}, a, b)
+        return jnp.sum(r0 * w0) + 2.0 * jnp.sum(r1 * w1)
+
+    vr, (gp, g0, g1) = jax.value_and_grad(loss_ref, argnums=(0, 1, 2))(
+        params, jnp.asarray(f0), jnp.asarray(f1))
+    a, b = _t(f0).requires_grad_(), _t(f1).requires_grad_()
+    o0, o1 = port(a, b)
+    loss = (o0 * _t(w0)).sum() + 2.0 * (o1 * _t(w1)).sum()
+    loss.backward()
+    calls = sum(1 if n == "self" else 2 for n in layer_names)
+    assert len(backward_calls) == calls  # one twin backward an encoder call
+    np.testing.assert_allclose(float(loss), float(vr), rtol=1e-4)
+    got = _leaves({"params": to_jax_tree(port, grads=True), "f0": a.grad.numpy(),
+                   "f1": b.grad.numpy()})
+    ref = _leaves({"params": gp, "f0": g0, "f1": g1})
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(got[k], r, rtol=2e-4, atol=2e-4 * scale, err_msg=k)
+
+
+# One call's backward against the TPU kernels, given the same stats. In f32
+# the rounding points are no-ops: only the order of f32 sums differs. In bf16
+# both sides round at the same points; a sum taken in another order can put
+# a value on the other side of a bf16 rounding (2^-8 relative), and the
+# port rounds dK_sum once where the TPU kernel rounds dKOnes's entries and
+# sums them, so each tensor is held within 2e-2 of its max (a few bf16 ulps).
+BF16_REL = 2e-2
+
+
+def _close(got, ref, rel, name):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    np.testing.assert_allclose(got, ref, rtol=rel, atol=rel * float(np.abs(ref).max()),
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_call_backward_matches_pallas_kernels(rng, kind, dtype):
+    G, N, C, nhead = 2, 64, 128, 8
+    D = C // nhead
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, params, port, _, _ = _make(rng, 1, N, C, nhead, ("self",))
+    p0 = params["layer_0"]
+    x = rng.standard_normal((G, N, C)).astype(np.float32)
+    src = x if kind == "self" else rng.standard_normal((G, N, C)).astype(np.float32)
+    g = rng.standard_normal((G, N, C)).astype(np.float32)
+    jx, jsrc, jg = (jnp.asarray(a).astype(jdt) for a in (x, src, g))
+    wvals = jax_layer_values(p0, jdt)
+    kv, ko = _layer_stats(jsrc, wvals[1], 32, True)
+    bm = _blockmask(C, nhead)
+    (jdx, jdkv, jdko, dwq, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b) = _apply_bwd(
+        jx, jg, kv, ko, bm, wvals, 32, True)
+    jdsrc, jdwkv = _stats_bwd(jsrc, jdkv, jdko, wvals[1], 32, True)
+
+    def blocks(m):  # each head's diagonal [D, D] block of [G, C, C]
+        m = np.asarray(m, np.float32).reshape(G, nhead, D, nhead, D)
+        return np.stack([m[:, h, :, h] for h in range(nhead)], axis=1)
+
+    lv = pack_layer(port.layer_0, tdt)
+    tx, tsrc, tg = (_t(np.asarray(a, np.float32)).to(tdt) for a in (jx, jsrc, jg))
+    tkv = pack_heads(_t(blocks(kv)).to(tdt))
+    tks = _t(np.asarray(ko)[:, :, 0]).to(tdt)
+    rel = 1e-5 if dtype == "float32" else BF16_REL
+    got = ctt.apply_backward_reference(tx, tkv, tks, tg, N, lv, nhead)
+    ref = (jdx, blocks(jdkv), np.asarray(jdko, np.float32).sum(-1),
+           dwq, dwm, dn1s[0], dn1b[0], dw1, dw2, dn2s[0], dn2b[0])
+    names = ("dx", "dkv", "dks", "dwq", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s", "dn2b")
+    for name, a, r in zip(names, got, ref, strict=True):
+        _close(a.float().numpy(), r, rel, name)
+    # the stats backward on the TPU kernel's own dKV and dKOnes
+    dsrc, dwkv = ctt.stats_backward_reference(
+        tsrc, _t(blocks(jdkv)), _t(np.asarray(jdko, np.float32).sum(-1)), lv, nhead)
+    _close(dsrc.float().numpy(), jdsrc, rel, "dsrc")
+    _close(dwkv.numpy(), jdwkv, rel, "dwkv")
+    # and the whole call through the wrapper, which runs the twin on the CPU
+    dx, dsrc2, wg = ctt.coarse_layer_backward(tx, tsrc, tkv, tks, tg, lv,
+                                              ctt.train_values(lv), nhead)
+    assert torch.equal(dx, got[0]) and len(wg) == 9
+    assert dsrc2.shape == tsrc.shape and dsrc2.dtype == tdt
+
+
+def test_gate():
+    assert ctt.coarse_train_supported(("self", "cross") * 4, 256, 8, 4800)
+    assert ctt.coarse_train_supported(("cross",), 128, 4, 7)  # ragged tiles are masked
+    assert not ctt.coarse_train_supported(("self",), 64, 8, 4800)  # C % 128
+    assert not ctt.coarse_train_supported(("self",), 256, 4, 4800)  # head dim 64
+    assert not ctt.coarse_train_supported(("swap",), 256, 8, 4800)
+
+
+def _grads_through(tf, f0, f1):
+    a, b = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+    o0, o1 = tf(a, b)
+    (o0.square().sum() + o1.square().sum()).backward()
+    return [a.grad, b.grad] + [p.grad for p in tf.parameters()]
+
+
+@pytest.mark.parametrize("C,N0,N1", [(64, 160, 160), (128, 64, 80)])
+def test_dispatch_falls_back_to_the_per_op_stack(rng, backward_calls, C, N0, N1):
+    """C = 64 (the coarse gate fails; 160 tokens, too many for the fine
+    gate) and features of unequal shapes take the per-op stack: no K9 call,
+    and the gradients equal those of the stack with the switch off."""
+    names = ("self", "cross")
+    f0 = _t(rng.standard_normal((1, N0, C)).astype(np.float32))
+    f1 = _t(rng.standard_normal((1, N1, C)).astype(np.float32))
+    on = LocalFeatureTransformer(C, 8, names, use_fused_train=True)
+    off = LocalFeatureTransformer(C, 8, names)
+    off.load_state_dict(on.state_dict())
+    got, ref = _grads_through(on, f0, f1), _grads_through(off, f0, f1)
+    assert backward_calls == []
+    for a, r in zip(got, ref, strict=True):
+        assert torch.isfinite(a).all() and torch.equal(a, r)
+
+
+def test_dispatch_raises_where_flax_takes_the_fine_kernel(rng):
+    """Fine windows (C = 64, 49 tokens) pass the JAX fine gate: flax would
+    run K10, which is not ported, so the switch raises."""
+    tf = LocalFeatureTransformer(64, 8, ("self", "cross"), use_fused_train=True)
+    w = torch.zeros(4, 49, 64)
+    with pytest.raises(NotImplementedError, match="K10"):
+        tf(w, w)
+
+
+def test_no_grad_saves_nothing(rng, monkeypatch):
+    """Under no_grad the stack runs the same forward without the Function."""
+    _, _, port, f0, f1 = _make(rng, 1, 64, 128, 8, ("self", "cross"))
+    def applied(*args):
+        raise AssertionError("the autograd Function ran under no_grad")
+
+    monkeypatch.setattr(ctt.CoarseTransformerTrain, "apply", applied)
+    with torch.no_grad():
+        o0, o1 = port(_t(f0), _t(f1))
+    assert o0.shape == (1, 64, 128) and torch.isfinite(o1).all()
+
+
+def test_forward_sees_weights_the_optimizer_wrote(rng):
+    """The fused AdamW step writes the parameters without bumping their
+    version counters: the next forward must still use the new weights."""
+    _, _, port, f0, f1 = _make(rng, 1, 64, 128, 8, ("self", "cross"))
+    a, b = _t(f0), _t(f1)
+    o0, o1 = port(a, b)
+    (o0.square().sum() + o1.square().sum()).backward()
+    versions = [p._version for p in port.parameters()]
+    torch.optim.AdamW(port.parameters(), lr=0.1, fused=True).step()
+    assert [p._version for p in port.parameters()] == versions  # the trap
+    fresh = LocalFeatureTransformer(128, 8, ("self", "cross"), use_fused_train=True)
+    fresh.load_state_dict(port.state_dict())
+    got, ref = port(a, b), fresh(a, b)
+    assert not torch.equal(got[0], o0)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)

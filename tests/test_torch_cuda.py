@@ -7,9 +7,11 @@ multiple of a tile, of the grid or of a weight-gradient split), argmax ties
 across tiles, other widths of the transformer kernels, weights loaded after
 a first forward, bit-identical gradients across runs (the training kernels
 reduce across blocks in a fixed order), the wrappers' refusal of tensors
-the kernels do not take, and that chip_smoke.py's training semantic check
-sees faults injected into K8's and K7's outputs. They import neither JAX nor the JAX package, so on a machine without
-JAX run them without the repository's conftest:
+the kernels do not take, K9 at a ragged token count for each width it takes
+and through a whole stack, and that chip_smoke.py's training semantic check
+sees faults injected into K8's, K9's and K7's outputs. They import neither
+JAX nor the JAX package, so on a machine without JAX run them without the
+repository's conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
@@ -23,10 +25,14 @@ import torch
 from featurematching_tpu_torch.config import ModelConfig
 from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
 from featurematching_tpu_torch.models.fast_inference import FastMatcher
+from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
+from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
 from featurematching_tpu_torch.ops.coarse_transformer import (
+    WIDTHS,
     coarse_layer_fused,
     coarse_transformer_fused,
     encoder_reference,
+    encoder_reference_with_stats,
     layer_values,
 )
 from featurematching_tpu_torch.ops.dual_softmax import (
@@ -410,6 +416,126 @@ def test_swin_block_train_saves_for_a_backward_only(gen, monkeypatch):
     assert torch.equal(training.detach(), no_grad) and torch.equal(no_grad, no_leaf)
 
 
+def _k9_close(got, ref, exact, name):
+    """K9 against its bf16 twin, given the twin in float32 arithmetic on the
+    same inputs (`exact`), for the stats and the gradients: the kernel is as
+    close to the float32 result as the twin is, |kernel - exact| <= 1.25
+    |twin - exact| + 1e-5 |twin| (norms). Both sides round to bf16 at the
+    same points but sum in another order, so a rounding can fall the other
+    way, and where a ReLU or feature-map input is within rounding of 0 the
+    two take the two branches: a few entries differ by their whole size,
+    which weighs more in a small call than in the step's (where
+    chip_smoke.py holds the kernel to 1e-2 of the twin's norm, its K9_TOL),
+    and through a stack the two drift apart as far as each is from the
+    float32 result. A kernel fault moves the kernel away from that result
+    (the twin's own error is 0.2-5% of a tensor's norm in these calls). A
+    forward output ends in a LayerNorm and a bf16 rounding, so a rounding
+    that falls the other way upstream moves its whole row: it is held by
+    K5's tolerance instead."""
+    torch.cuda.synchronize()
+    got, ref, exact = (t.detach().float() for t in (got, ref, exact))
+    own = float((ref - exact).norm()) + 1e-5 * float(ref.norm())
+    err = float((got - exact).norm())
+    assert err <= 1.25 * own, f"{name}: {err:.3e} vs {own:.3e}"
+
+
+def _k9_call(x, src, lv, heads, gout, plain):
+    if plain:
+        out, kv, ks = encoder_reference_with_stats(x, src, lv, heads)
+        dx, dsrc, wg = ctt.coarse_layer_backward_reference(x, src, kv, ks, gout, lv, heads)
+    else:
+        out, kv, ks = ctt.coarse_layer_forward(x, src, lv, heads)
+        dx, dsrc, wg = ctt.coarse_layer_backward(x, src, kv, ks, gout, lv,
+                                                 ctt.train_values(lv), heads)
+    return [out, kv, ks, dx, dsrc, *wg]
+
+
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_coarse_train_call_ragged_tokens(gen, C, heads, kind):
+    """200 query tokens (no multiple of the 64-row tile), and 237 source
+    tokens for a cross call: the forward's out (K5's tolerance), kv and ks
+    and the backward's dx, dsrc and 9 gradients against the plain twin on the
+    same inputs, by `_k9_close` against the twin in bf16 and in float32
+    arithmetic; twice, bit for bit."""
+    G, N = 3, 200
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, N + 37, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    got = _k9_call(x, src, lv, heads, gout, plain=False)
+    ref = _k9_call(x, src, lv, heads, gout, plain=True)
+    x32 = x.float()
+    src32 = x32 if kind == "self" else src.float()
+    exact = _k9_call(x32, src32, type(lv)(*[t.float() for t in lv]), heads, gout.float(),
+                     plain=True)
+    names = ["out", "kv", "ks", "dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1",
+             "dw2", "dn2s", "dn2b"]
+    for name, a, r, e in zip(names, got, ref, exact, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        if name == "out":  # K5's output: its own tolerance (test_coarse_layer_ragged_tokens)
+            _assert_close(a, r, 5e-2, 2e-2)
+        else:
+            _k9_close(a, r, e, name)
+    again = _k9_call(x, src, lv, heads, gout, plain=False)
+    for name, a, b in zip(names, got, again, strict=True):
+        assert torch.equal(a, b), name  # fixed-order sums: bit for bit
+
+
+def _stack_grads(tf, f0, f1, w0, w1):
+    tf.zero_grad(set_to_none=True)
+    a, b = f0.detach().requires_grad_(True), f1.detach().requires_grad_(True)
+    o0, o1 = tf(a, b)
+    ((o0.float() * w0).sum() + (o1.float() * w1).sum()).backward()
+    return [o0, o1, a.grad, b.grad] + [p.grad for p in tf.parameters()]
+
+
+def test_coarse_train_stack_against_the_twin(gen, monkeypatch):
+    """A self + cross stack (C = 256, 8 heads, 2 x 300 tokens of 2 images)
+    through coarse_transformer_train: the outputs, both feature gradients
+    and all 20 parameter gradients against the same Function run on the
+    plain twins on the card (the outputs at K5's tolerance, the gradients by
+    `_k9_close` against the twins in bf16 and in float32); K9 launches 3 + 3
+    times."""
+    torch.manual_seed(0)
+    tf = LocalFeatureTransformer(256, 8, ("self", "cross"), use_fused_train=True).cuda()
+    f0, f1 = (_rnd(gen, 2, 300, 256, scale=0.5, dtype=torch.bfloat16) for _ in range(2))
+    w0, w1 = _rnd(gen, 2, 300, 256), _rnd(gen, 2, 300, 256)
+    before = (ctt.coarse_layer_forward.launches, ctt.coarse_layer_backward.launches)
+    got = _stack_grads(tf, f0, f1, w0, w1)
+    after = (ctt.coarse_layer_forward.launches, ctt.coarse_layer_backward.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (3, 3)
+    monkeypatch.setattr(ctt, "coarse_layer_forward", encoder_reference_with_stats)
+    monkeypatch.setattr(ctt, "coarse_layer_backward",
+                        lambda x, s, kv, ks, g, lv, lt, h:
+                        ctt.coarse_layer_backward_reference(x, s, kv, ks, g, lv, h))
+    ref = _stack_grads(tf, f0, f1, w0, w1)
+    exact = _stack_grads(tf, f0.float(), f1.float(), w0, w1)
+    for i, (a, r, e) in enumerate(zip(got, ref, exact, strict=True)):
+        assert a.shape == r.shape and a.dtype == r.dtype, i
+        if i < 2:  # the stack's outputs: K5's layer tolerance
+            _assert_close(a, r, 5e-2, 2e-2)
+        else:
+            _k9_close(a, r, e, i)
+
+
+def test_coarse_train_wrapper_raises_rather_than_fall_back(gen):
+    """float32 activations, head dim 64, a float32 upstream gradient: the K9
+    wrapper raises and launches nothing."""
+    lv = _layer_values(gen, 256)
+    x = _rnd(gen, 1, 64, 256, dtype=torch.bfloat16)
+    out, kv, ks = ctt.coarse_layer_forward(x, x, lv, 8)
+    lt = ctt.train_values(lv)
+    before = ctt.coarse_layer_backward.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        ctt.coarse_layer_backward(x.float(), x.float(), kv, ks, x, lv, lt, 8)
+    with pytest.raises(ValueError, match="head dim"):
+        ctt.coarse_layer_backward(x, x, kv, ks, x, lv, lt, 4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ctt.coarse_layer_backward(x, x, kv, ks, x.float(), lv, lt, 8)
+    assert ctt.coarse_layer_backward.launches == before
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -431,9 +557,15 @@ K7_FAULTS = {
     "k7_df1_5pc_short": lambda d0, d1: (d0, d1 * 0.95),
     "k7_last_8_rows_lost": lambda d0, d1: (torch.cat([d0[:, :-8], 0 * d0[:, -8:]], 1), d1),
 }
+# K9: a share of the K | V weight gradient lost; dsrc's heads in the wrong order
+K9_FAULTS = {
+    "k9_dwkv_5pc_short": lambda dx, dsrc, wg: (dx, dsrc, (wg[0], wg[1] * 0.95, *wg[2:])),
+    "k9_dsrc_heads_rolled": lambda dx, dsrc, wg: (
+        dx, dsrc.unflatten(-1, (8, -1)).roll(1, -2).flatten(-2), wg),
+}
 
 
-@pytest.mark.parametrize("fault", [None, *K8_FAULTS, *K7_FAULTS])
+@pytest.mark.parametrize("fault", [None, *K8_FAULTS, *K9_FAULTS, *K7_FAULTS])
 def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
     """chip_smoke.py's training semantic check: a sound step is within its
     LIMITS, and a step whose K8 or K7 output carries a fault is not. Prints
@@ -443,6 +575,7 @@ def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
 
     cs = _chip_smoke()
     for mod, name, faults in ((sbt, "swin_block_train_bwd", K8_FAULTS),
+                              (ctt, "coarse_layer_backward", K9_FAULTS),
                               (sfl, "sparse_focal_backward", K7_FAULTS)):
         if fault in faults:
             kernel = getattr(mod, name)
@@ -454,8 +587,10 @@ def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
             monkeypatch.setattr(mod, name, faulty)
     r = cs.training_agreement(*cs.semantic_setup())
     bad = cs.agreement_failures(r)
-    keys = ("loss", "min_cos", "feat_sin", "feat_norm", "k8_sin", "k8_norm", "k7_sin", "k7_norm")
+    keys = ("loss", "min_cos", "feat_sin", "feat_norm", "k8_sin", "k8_norm", "k9_sin", "k9_norm",
+            "k7_sin", "k7_norm")
     print(f"\nfault {fault}: " + ", ".join(f"{k} {r[k]:.3e}" for k in keys)
           + f"; worst at {r['min_cos_at']} / {r['k8_sin_at']} / {r['k8_norm_at']} / "
-          f"{r['k7_sin_at']} / {r['k7_norm_at']}; outside the limits: {bad}")
+          f"{r['k9_sin_at']} / {r['k9_norm_at']} / {r['k7_sin_at']} / {r['k7_norm_at']}; "
+          f"outside the limits: {bad}")
     assert (bad == []) if fault is None else bad

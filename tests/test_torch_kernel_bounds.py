@@ -6,6 +6,9 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
+    coarse_train_bwd_work,
+    coarse_train_calls,
+    coarse_train_fwd_work,
     dual_softmax_lse_work,
     fine_stage_work,
     sparse_focal_backward_work,
@@ -66,3 +69,21 @@ def test_training_kernels_count_their_launches():
     L, C = 60 * 80, cfg.coarse.d_model
     lse, k7 = dual_softmax_lse_work(4, L, L, C), sparse_focal_backward_work(4, L, L, C)
     assert lse[1] + k7[1] == rows["K7"][1] and k7[1] == 3 * lse[1]
+
+
+def test_k9_counts_its_encoder_calls():
+    """K9: 4 self calls on both images and 2 x 4 cross calls on one image
+    each a step; the forward does K5's work, the backward twice its
+    products and moves more bytes; together they make the K9 row."""
+    cfg = ModelConfig()
+    rows = {r[0]: r[2] for r in all_kernels(cfg)}
+    L, C, h = 60 * 80, cfg.coarse.d_model, cfg.coarse.nhead
+    calls = coarse_train_calls(cfg, 8, L)
+    assert sorted(calls) == [(4, False)] * 8 + [(8, True)] * 4
+    fwd = [coarse_train_fwd_work(G, L, L, C, h) for G, _ in calls]
+    bwd = [coarse_train_bwd_work(G, L, L, C, h, s) for G, s in calls]
+    assert sum(w[1] for w in fwd) == rows["K5"][1]
+    for f, b in zip(fwd, bwd):
+        assert b[1] == 2 * f[1] and b[0] > f[0]
+    assert sum(w[0] for w in fwd + bwd) == rows["K9"][0]
+    assert sum(w[1] for w in fwd + bwd) == rows["K9"][1]

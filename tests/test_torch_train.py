@@ -8,7 +8,9 @@ semantics, and one whole `train_step` and `eval_step` against JAX
 depths 1/1/1 and 1/1/1, heads 1/2/4, window 4, 64x64, batch 2,
 `fused_block='on'` — the Pallas kernel in interpret mode on the JAX side,
 its plain twin on the port's — both `fused_train` switches 'off', drop-path
-0), on the same `Matcher.init` weights carried across by `load_jax_params`.
+0), on the same `Matcher.init` weights carried across by `load_jax_params`;
+and the port's gradients with `coarse.fused_train='on'` (K9's plain twin)
+against the same JAX gradients.
 """
 
 import dataclasses
@@ -105,8 +107,12 @@ def step_setup():
                 metrics=metrics, eval_out=out, eval_losses=losses)
 
 
-def _port_state(setup):
+def _port_state(setup, coarse_fused_train=None):
     pc = config_from_dict(Config, dataclasses.asdict(setup["cfg"]))
+    if coarse_fused_train is not None:
+        m = pc.model
+        pc = dataclasses.replace(pc, model=dataclasses.replace(
+            m, coarse=dataclasses.replace(m.coarse, fused_train=coarse_fused_train)))
     state = create_train_state(pc, device="cpu", seed=0, global_batch_size=2)
     load_jax_params(state.model, setup["params"])
     return state
@@ -128,6 +134,26 @@ class TestTrainStep:
         for k, r in ref.items():
             g = _leaves(got)[k]
             assert np.abs(g - r).max() <= GRAD_RTOL * np.abs(r).max() + 1e-9, k
+
+    def test_loss_and_every_gradient_leaf_with_coarse_fused_train_on(self, step_setup,
+                                                                      monkeypatch):
+        """The port's step through K9 (its plain twin on the CPU) against the
+        JAX gradients of the per-op stack: the same math at f32."""
+        import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
+
+        calls = []
+        twin = ctt.coarse_layer_backward_reference
+        monkeypatch.setattr(ctt, "coarse_layer_backward_reference",
+                            lambda *a: calls.append(1) or twin(*a))
+        state = _port_state(step_setup, coarse_fused_train="on")
+        losses, _ = forward_with_loss(state.model, state.cfg, step_setup["batch"], train=True)
+        losses.loss.backward()
+        assert len(calls) == 3  # a self call and a cross layer's two calls
+        got = _leaves(to_jax_tree(state.model, grads=True))
+        ref = _leaves(step_setup["grads"])
+        assert set(got) == set(ref)
+        for k, r in ref.items():
+            assert np.abs(got[k] - r).max() <= GRAD_RTOL * np.abs(r).max() + 1e-9, k
 
     def test_metrics_and_updated_parameters(self, step_setup):
         """loss, loss_c, loss_f and grad_norm within 3e-4. The updated
@@ -225,19 +251,41 @@ class TestEntryPoints:
             create_train_state(Config())
 
     @pytest.mark.parametrize("part,field,value,match", [
-        ("coarse", "fused_train", "on", "K9"), ("fine", "fused_train", "on", "K10"),
+        ("fine", "fused_train", "on", "K10"),
         ("swin", "fused_block", "off", "per-op SwinBlock"), ("swin", "fused_block", "auto",
                                                              "per-op SwinBlock"),
         ("pose", "flag", "old", "pose heads"),
     ])
     def test_forms_not_ported_raise(self, part, field, value, match):
         """On the CPU 'auto' selects the per-op forms; 'on' selects a kernel
-        (its plain twin here), so K9 and K10 raise for 'on'."""
+        (its plain twin here), so K10 raises for 'on'."""
         cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
         cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part),
                                                                      **{field: value})})
         with pytest.raises(NotImplementedError, match=match):
             Matcher(cfg, device="cpu")
+
+
+    @pytest.mark.parametrize("value,k9", [("on", True), ("auto", False), ("off", False)])
+    def test_coarse_fused_train_selects_k9(self, monkeypatch, value, k9):
+        """'on' takes K9's path (its plain twin on the CPU) and runs no eager
+        coarse EncoderLayer; 'auto' and 'off' run the per-op stack here."""
+        import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
+
+        cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
+        cfg = dataclasses.replace(cfg, coarse=dataclasses.replace(cfg.coarse, fused_train=value))
+        model = Matcher(cfg, device="cpu")
+        twin, eager = [], []
+        ref = ctt.coarse_layer_backward_reference
+        monkeypatch.setattr(ctt, "coarse_layer_backward_reference",
+                            lambda *a: twin.append(1) or ref(*a))
+        for layer in model.coarse_transformer.children():
+            layer.register_forward_hook(lambda *_: eager.append(1))
+        f = torch.rand(1, 64, cfg.coarse.d_model, requires_grad=True)
+        a, b = model.coarse_transformer(f, f * 0.5)
+        (a.sum() + b.sum()).backward()
+        assert model.coarse_transformer.use_fused_train == k9
+        assert (len(twin), len(eager)) == ((3, 0) if k9 else (0, 3))
 
 
 class TestFineGather:
