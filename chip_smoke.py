@@ -34,34 +34,45 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      heads: the forward's output and kv/ks, and dx, dsrc and the 10
      parameter gradients of the backward against the plain twin on the same
      inputs; time the forward and backward and the plain twin's;
-  6. run the training step (`default_config()` with `fine.fused_train` 'off'
-     and `coarse.fused_train` as users leave it, 'auto': K9 on the card;
-     640x480, batch 4, bf16, sparse focal loss, AdamW) with the launch
-     counters set to 0 just before the timed steps and read just after: K8
-     forward and backward 13 times a step, K9 forward and backward 12 times
-     (4 self and 8 cross calls), K1's pass 1 and K7 once, no eager coarse
-     EncoderLayer, no K1 match statistics and no serving kernel (K9's
-     forward calls K5's layer kernels, not the serving stack's wrapper, so
-     K5's counter reads 0); print the step time, training pairs/s, the
+     The differentiable fine transformer (K10) at the step's shapes: one
+     self call (G = 8192) and one cross call (G = 4096) of [G, 49, 64], 8
+     heads: each layer's forward output (K6's kernel, one layer), and dx,
+     dsrc and the 10 parameter gradients of the backward against the plain
+     twin on the same inputs, by K10_TOL; time the forward and backward and
+     the plain twin's;
+  6. run the training step (`default_config()` as users run it: every
+     kernel switch 'auto', so K8, K9 and K10 on the card; 640x480, batch 4,
+     bf16, sparse focal loss, AdamW) with the launch counters set to 0 just
+     before the timed steps and read just after: K8 forward and backward 13
+     times a step, K9 forward and backward 12 times (4 self and 8 cross
+     calls), K10's forward twice (one launch a layer) and backward 3 times
+     (a self call and a cross layer's two calls), K1's pass 1 and K7 once,
+     no eager coarse or fine EncoderLayer, no K1 match statistics and no
+     serving kernel (K9's and K10's forwards call K5's and K6's kernels,
+     not the serving wrappers, so K5's and K6's counters read 0); print the
+     step time, training pairs/s, the
      device time of the forward, backward and optimizer, the device's busy
      share and the largest kernels, and check the loss, the gradient norm
      and every parameter are finite;
   7. training semantic check: one step on the card against the plain path on
-     the CPU at 128x128, batch 2, with `coarse.fused_train` 'on' on both
-     sides (K9 on the card, its plain twin on the CPU; `training_agreement`,
-     bounded by LIMITS: the loss, every gradient leaf's cosine and the
-     coarse features' gradient, card against CPU; each of the step's K8 and
-     K9 calls run again from its inputs and upstream gradient, and the
-     step's K7 call, against their plain versions on the card), ten steps on
+     the CPU at 128x128, batch 2, with `coarse.fused_train` and
+     `fine.fused_train` 'on' on both sides (K9 and K10 on the card, their
+     plain twins on the CPU; `training_agreement`, bounded by LIMITS: the
+     loss, every gradient leaf's cosine and the coarse features' gradient,
+     card against CPU; each of the step's K8, K9 and K10 calls run again
+     from its inputs and upstream gradient, and the step's K7 call, against
+     their plain versions on the card), ten steps on
      one batch at lr 1e-4 lower the loss, and the evaluation step takes its
      matches from K1's statistics (one launch) with finite outputs.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
 layers' stats and apply launches), dual_softmax_match_stats (K1) and
-fine_stage_fused (K6, fold mode). The six of the training step:
+fine_stage_fused (K6, fold mode). The eight of the training step:
 swin_block_train_fwd and swin_block_train_bwd (K8), coarse_layer_forward
-and coarse_layer_backward (K9, one launch an encoder call), dual_softmax_lse
+and coarse_layer_backward (K9, one launch an encoder call),
+fine_layer_forward (K10's forward: K6's kernel, one launch a layer) and
+fine_layer_backward (K10, one launch an encoder call), dual_softmax_lse
 (K1's pass 1, K7's forward) and sparse_focal_backward (K7).
 
 Per-kernel numbers in the JSON line are totals over one forward (serving
@@ -97,6 +108,8 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     dual_softmax_lse_work,
     dual_softmax_work,
     fine_stage_work,
+    fine_train_bwd_work,
+    fine_train_fwd_work,
     layer_norm_work,
     patch_expand_work,
     sparse_focal_backward_work,
@@ -140,12 +153,19 @@ SOURCES = {
         "featurematching_tpu/ops/pallas_coarse_grad.py:333 (pallas_coarse_transformer.py:168,194)"),
     "coarse_layer_backward": (
         "coarse_transformer_train.cu", "featurematching_tpu/ops/pallas_coarse_grad.py:245,286"),
+    "fine_layer_forward": (
+        "fine_stage.cu",
+        "featurematching_tpu/ops/pallas_fine_grad.py:384 (pallas_fine_stage.py:378)"),
+    "fine_layer_backward": (
+        "fine_transformer_train.cu", "featurematching_tpu/ops/pallas_fine_grad.py:444"),
 }
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
-# once an encoder call: 4 self calls and 2 x 4 cross calls)
+# once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
+# once a layer, its backward once an encoder call: a self call and 2 cross)
 EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
     "swin_block_train_fwd": 13, "swin_block_train_bwd": 13, "dual_softmax_lse": 1,
     "sparse_focal_backward": 1, "coarse_layer_forward": 12, "coarse_layer_backward": 12,
+    "fine_layer_forward": 2, "fine_layer_backward": 3,
 }
 # K8 against the plain twin's autograd, max |kernel - plain| <= K8_TOL max |plain|
 # per tensor: both take the same bf16 activations and bf16-valued weights and
@@ -164,6 +184,12 @@ K8_TOL = 5e-2
 # distance from its float32 result at small calls, where such entries weigh
 # more)
 K9_TOL = 1e-2
+# K10 against its plain twin on the same inputs, per tensor, in the norm as
+# K9_TOL and for its reasons: the same bf16 rounding points, f32 sums in
+# another order (over 16-wide tiles and weight-gradient splits), so a
+# rounding can fall the other way, and a ReLU or feature-map input within
+# rounding of 0 can take the other branch
+K10_TOL = 1e-2
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -743,23 +769,84 @@ def check_coarse_train(rec: Record, g) -> None:
                  err=float((got["dx"].float() - ref["dx"].float()).abs().max()))
 
 
-def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None):
-    """default_config() with K10 off (the per-op fine transformer; the JAX
-    config's own switch), optionally another drop-path rate, block switch or
-    coarse.fused_train (K9: 'auto' by default, the kernel on the card)."""
+def check_fine_train(rec: Record, g) -> None:
+    from featurematching_tpu_torch.ops.coarse_transformer_train import train_values
+    from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward, fine_layer_reference
+    from featurematching_tpu_torch.ops.fine_transformer_train import (
+        fine_layer_backward,
+        fine_layer_backward_reference,
+    )
+
+    nwin, N, C, h = B * 1024, 49, 64, 8  # max_gt_matches windows a pair, 7x7 taps
+    print(f"  tolerance per tensor (the layer's two outputs, dx, dsrc, 10 gradients): "
+          f"|kernel - plain| <= {K10_TOL} |plain| (norms); max |kernel - plain| / max |plain| "
+          f"printed")
+    # the step's layers: a self layer (one backward call on both sides' windows,
+    # G = 2 nwin) and a cross layer (two backward calls, G = nwin; the first here)
+    for kind, G, count in (("self", 2 * nwin, 1), ("cross", nwin, 2)):
+        lv = layer_values(g, C)
+        lt = train_values(lv)
+        w0, w1 = rnd(g, nwin, N, C, dtype=torch.bfloat16), rnd(g, nwin, N, C, dtype=torch.bfloat16)
+        out = fine_layer_forward(w0, w1, lv, kind, h)
+        ref_out = fine_layer_reference(w0, w1, lv, kind, h)
+        x = torch.cat([w0, w1]) if kind == "self" else w0
+        src = x if kind == "self" else w1
+        gout = rnd(g, G, N, C)
+        got = k9_tensors(None, fine_layer_backward(x, src, gout, lv, lt, h))
+        torch.cuda.synchronize()
+        ref = k9_tensors(None, fine_layer_backward_reference(x, src, gout, lv, h))
+        got |= {"out0": out[0], "out1": out[1]}
+        ref |= {"out0": ref_out[0], "out1": ref_out[1]}
+        errs = {n: norm_err(got[n], ref[n]) for n in got}
+        worst = max(errs, key=errs.get)
+        peak = {n: rel_err(got[n], ref[n]) for n in got}
+        wpeak = max(peak, key=peak.get)
+        print(f"  {kind} layer, backward call G={G}: norm errors out0 {errs['out0']:.2e}, dx "
+              f"{errs['dx']:.2e}, dsrc {errs['dsrc']:.2e}, worst {worst} {errs[worst]:.2e}; "
+              f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}")
+        bad = {k: v for k, v in errs.items() if not v <= K10_TOL}
+        if bad:
+            raise AssertionError(f"fine_transformer_train ({kind}, G={G}): {bad}")
+        bwd = lambda: fine_layer_backward(x, src, gout, lv, lt, h)  # noqa: E731
+        profile_ms(bwd)
+        _, rows = profile_ms(bwd)
+        split = {}
+        for ms, _, name in rows:  # by kernel: window_bwd, wgrad, sum_parts
+            bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
+            k = re.split(r"[<(]", bare)[0].split("::")[-1]
+            split[k] = split.get(k, 0.0) + ms
+        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        calls = 1 if kind == "self" else 2
+        rec.site("fine_layer_forward", 1,
+                 cuda_ms(lambda: fine_layer_forward(w0, w1, lv, kind, h)),
+                 cuda_ms(lambda: fine_layer_reference(w0, w1, lv, kind, h), iters=3),
+                 total([fine_train_fwd_work(G, N, C, h)] * calls),
+                 err=max(float((a.float() - r.float()).abs().max())
+                         for a, r in zip(out, ref_out)))
+        rec.site("fine_layer_backward", count, cuda_ms(bwd, iters=10),
+                 cuda_ms(lambda: fine_layer_backward_reference(x, src, gout, lv, h), iters=3),
+                 fine_train_bwd_work(G, N, C, h, kind == "self"),
+                 err=float((got["dx"] - ref["dx"]).abs().max()))
+
+
+def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fine_fused=None):
+    """default_config() as users run it, optionally with another drop-path
+    rate, block switch, coarse.fused_train or fine.fused_train (K9 and K10:
+    'auto' by default, the kernels on the card)."""
     from featurematching_tpu_torch.config import default_config
 
     cfg = default_config()
     m = cfg.model
-    swin, coarse = m.swin, m.coarse
+    swin, coarse, fine = m.swin, m.coarse, m.fine
     if drop_path_rate is not None:
         swin = dataclasses.replace(swin, drop_path_rate=drop_path_rate)
     if fused_block is not None:
         swin = dataclasses.replace(swin, fused_block=fused_block)
     if coarse_fused is not None:
         coarse = dataclasses.replace(coarse, fused_train=coarse_fused)
-    model = dataclasses.replace(m, swin=swin, coarse=coarse,
-                                fine=dataclasses.replace(m.fine, fused_train="off"))
+    if fine_fused is not None:
+        fine = dataclasses.replace(fine, fused_train=fine_fused)
+    model = dataclasses.replace(m, swin=swin, coarse=coarse, fine=fine)
     return dataclasses.replace(cfg, model=model)
 
 
@@ -798,9 +885,10 @@ def training_step(wrappers, launches) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, met = train_step(state, batch)  # warm-up
     torch.cuda.synchronize()
-    eager = []  # calls of the per-op coarse EncoderLayers: K9 runs the stack
+    eager = []  # calls of the per-op EncoderLayers: K9 and K10 run the stacks
     hooks = [layer.register_forward_hook(lambda *_: eager.append(1))
-             for layer in state.model.coarse_transformer.children()]
+             for tf in (state.model.coarse_transformer, state.model.fine_transformer)
+             for layer in tf.children()]
     for w in wrappers.values():
         w.launches = 0
     t = time.perf_counter()
@@ -811,13 +899,13 @@ def training_step(wrappers, launches) -> None:
     launches.update({n: w.launches for n, w in wrappers.items()})
     for hk in hooks:
         hk.remove()
-    print(f"  launches over {N_STEPS} steps: {launches}; eager coarse EncoderLayer calls: "
-          f"{len(eager)}")
+    print(f"  launches over {N_STEPS} steps: {launches}; eager coarse or fine EncoderLayer "
+          f"calls: {len(eager)}")
     for n, per in EXPECTED_PER_STEP.items():
         if launches[n] != per * N_STEPS:
             raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_STEPS}")
     if eager:
-        raise AssertionError(f"{len(eager)} eager coarse EncoderLayer calls in the step")
+        raise AssertionError(f"{len(eager)} eager coarse or fine EncoderLayer calls in the step")
     vals = {k: float(v) for k, v in met.items()}
     print(f"  last step: {vals}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -844,11 +932,11 @@ def training_step(wrappers, launches) -> None:
 
 
 # The card's training step against the plain path on the CPU (both bf16,
-# 128x128, batch 2, drop-path 0, the same weights and batch; K9 on the card,
-# its plain twin on the CPU), and each K8 and K9 call of that step against
-# the plain twin on the card: limits on the readings of
+# 128x128, batch 2, drop-path 0, the same weights and batch; K9 and K10 on
+# the card, their plain twins on the CPU), and each K8, K9 and K10 call of
+# that step against the plain twin on the card: limits on the readings of
 # `training_agreement`, set from a sound run's readings and from runs with a
-# fault injected into K8's, K9's or K7's output
+# fault injected into K8's, K9's, K10's or K7's output
 # (tests/test_torch_cuda.py::test_training_agreement_sees_kernel_faults;
 # both readings in PERF.md)
 LIMITS = {
@@ -869,6 +957,8 @@ LIMITS = {
     # gradient, kernel against plain twin on the card, over dx, dsrc and the
     # 10 gradients; 1 - cosine and |norm ratio - 1|
     "k9_sin": 1e-3, "k9_norm": 5e-3,
+    # K10: likewise over dx, dsrc and the 10 gradients of each call
+    "k10_sin": 1e-3, "k10_norm": 5e-3,
 }
 
 
@@ -897,7 +987,7 @@ def semantic_setup():
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
     from featurematching_tpu_torch.train.step import create_train_state
 
-    cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on")
+    cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on", fine_fused="on")
     card = create_train_state(cfg, device="cuda", seed=0, global_batch_size=2)
     cpu = create_train_state(cfg, device="cpu", seed=0, global_batch_size=2)
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
@@ -925,10 +1015,11 @@ def _block_grads(fn, x, mask, s1, s2, params, h, g) -> dict:
 
 def training_agreement(cfg, card, cpu, batch) -> dict:
     """One forward and backward on the card and on the CPU, recording the
-    card's K8, K9 and K7 calls: the readings that LIMITS bound, with where
-    the worst of each is."""
+    card's K8, K9, K10 and K7 calls: the readings that LIMITS bound, with
+    where the worst of each is."""
     import featurematching_tpu_torch.models.backbone_swin as bs
     import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
+    import featurematching_tpu_torch.ops.fine_transformer_train as ftt
     import featurematching_tpu_torch.ops.sparse_focal_loss as sfl
     from featurematching_tpu_torch.ops.swin_block_train import (
         swin_block_train,
@@ -938,12 +1029,13 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
 
     k8, k7 = _Recorder(swin_block_train), _Recorder(sfl.sparse_focal_backward)
     k9 = _Recorder(ctt.coarse_layer_backward)
+    k10 = _Recorder(ftt.fine_layer_backward)
     got = {}
     for side, st in (("card", card), ("cpu", cpu)):
         st.model.zero_grad(set_to_none=True)
         if side == "card":
             bs.swin_block_train, sfl.sparse_focal_backward = k8, k7
-            ctt.coarse_layer_backward = k9
+            ctt.coarse_layer_backward, ftt.fine_layer_backward = k9, k10
         try:
             losses, out = forward_with_loss(st.model, cfg, batch, train=True)
             for _, y in k8.calls:
@@ -953,7 +1045,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
             losses.loss.backward()
         finally:
             bs.swin_block_train, sfl.sparse_focal_backward = k8.fn, k7.fn
-            ctt.coarse_layer_backward = k9.fn
+            ctt.coarse_layer_backward, ftt.fine_layer_backward = k9.fn, k10.fn
         got[side] = (float(losses.loss.detach()),
                      {n: p.grad for n, p in st.model.named_parameters()}, feats)
     (gl, g_all, g_f), (rl, r_all, r_f) = got["card"], got["cpu"]
@@ -963,7 +1055,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
     r["min_cos_at"] = min(cos, key=cos.get)
     r["leaves"] = len(cos)
     pairs = {"feat": [(n, a, b) for n, a, b in zip(("feat_c0", "feat_c1"), g_f, r_f)], "k8": [],
-             "k9": [], "k7": []}
+             "k9": [], "k10": [], "k7": []}
     for i, ((x, mask, s1, s2, p, h), y) in enumerate(k8.calls):
         args = (x.detach(), mask, s1, s2, {k: v.detach() for k, v in p.items()}, h, y.grad)
         kern = _block_grads(swin_block_train, *args)
@@ -975,6 +1067,11 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
         plain = k9_tensors(None, ctt.coarse_layer_backward_reference(x, src, kv, ks, gk, lv, h))
         at = f"call {i} ({'self' if src is x else 'cross'}, G={x.shape[0]})"
         pairs["k9"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
+    for i, ((x, src, gk, lv, lt, h), got_k10) in enumerate(k10.calls):
+        kern = k9_tensors(None, got_k10)
+        plain = k9_tensors(None, ftt.fine_layer_backward_reference(x, src, gk, lv, h))
+        at = f"call {i} ({'self' if src is x else 'cross'}, G={x.shape[0]})"
+        pairs["k10"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
     for args, got_k7 in k7.calls:  # the coarse loss's backward: twice, same inputs
         ref = sfl.sparse_focal_backward_reference(*args)
         pairs["k7"] += [(n, a, b) for n, a, b in zip(("df0", "df1"), got_k7, ref)]
@@ -984,6 +1081,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
             at = max(vals, key=lambda n: vals[n][i])
             r[f"{key}_{what}"], r[f"{key}_{what}_at"] = vals[at][i], at
     r["k8_calls"], r["k9_calls"], r["k7_calls"] = len(k8.calls), len(k9.calls), len(k7.calls)
+    r["k10_calls"] = len(k10.calls)
     return r
 
 
@@ -1007,6 +1105,8 @@ def training_semantic() -> None:
     for key, what in (("feat", "coarse-loss gradient at the coarse features, card vs CPU"),
                       ("k8", f"the step's {r['k8_calls']} K8 calls vs the plain twin on the card"),
                       ("k9", f"the step's {r['k9_calls']} K9 calls vs the plain twin on the card"),
+                      ("k10", f"the step's {r['k10_calls']} K10 calls vs the plain twin on the "
+                       "card"),
                       ("k7", f"the step's {r['k7_calls']} K7 calls vs the plain version")):
         print(f"  {what}: 1 - cosine max {r[key + '_sin']:.3e} (at {r[key + '_sin_at']}), "
               f"|norm ratio - 1| max {r[key + '_norm']:.3e} (at {r[key + '_norm_at']})")
@@ -1079,7 +1179,8 @@ def main() -> int:
         coarse_layer_forward,
     )
     from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_lse, dual_softmax_match_stats
-    from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused
+    from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward, fine_stage_fused
+    from featurematching_tpu_torch.ops.fine_transformer_train import fine_layer_backward
     from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
     from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
     from featurematching_tpu_torch.ops.sparse_focal_loss import sparse_focal_backward
@@ -1097,6 +1198,7 @@ def main() -> int:
         "dual_softmax_lse": dual_softmax_lse, "sparse_focal_backward": sparse_focal_backward,
         "coarse_layer_forward": coarse_layer_forward,
         "coarse_layer_backward": coarse_layer_backward,
+        "fine_layer_forward": fine_layer_forward, "fine_layer_backward": fine_layer_backward,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1137,6 +1239,7 @@ def main() -> int:
     phase("check swin_block_train", lambda: check_swin_block_train(rec, g))
     phase("check sparse_focal_loss", lambda: check_sparse_focal_loss(rec, g))
     phase("check coarse_transformer_train", lambda: check_coarse_train(rec, g))
+    phase("check fine_transformer_train", lambda: check_fine_train(rec, g))
 
     cfg = default_config().model
     launches = {}  # of the serving forward

@@ -5,10 +5,11 @@ The port keeps its own copy of the configuration schema of
 `featurematching_tpu.config`, limited to the fields the serving forward and
 the training step read. Field names and defaults are the same, so a
 configuration of the JAX package converts with
-`config_from_dict(Config, dataclasses.asdict(cfg))` (fields this copy does
-not hold are ignored). The model always has a qkv bias, a patch-embed
-LayerNorm and the fine stage's coarse-feature concat, the JAX defaults; a
-weight tree without them fails to load.
+`config_from_dict(Config, dataclasses.asdict(cfg))`. A field this copy does
+not hold converts only at its JAX default, or where it never changes the
+math (`IGNORED_JAX_FIELDS`): the model always has a qkv bias, a patch-embed
+LayerNorm, the fine stage and its coarse-feature concat, and no positional
+encoding, and a configuration asking otherwise raises.
 
 The kernel switches mean what they mean in the JAX package: 'on' runs the
 kernel, 'off' the per-op form, 'auto' the kernel on an accelerator (`cuda`
@@ -147,11 +148,67 @@ def default_config() -> Config:
     return Config()
 
 
-def config_from_dict(cls: Any, d: dict) -> Any:
+# Fields of the JAX package's configuration that this copy does not hold,
+# with the JAX defaults (by dotted path from the `Config` root). A value other
+# than the default would build another model, so `config_from_dict` refuses it.
+JAX_ONLY_DEFAULTS = {
+    "model.coarse_only": False,  # True skips the fine stage
+    "model.positional_encoding": None,  # True adds the sine encoding
+    "model.swin.qkv_bias": True,
+    "model.swin.patch_norm": True,
+    "model.fine.concat_coarse_feat": True,
+}
+# Fields this copy does not hold that never change the port's math, each
+# with its reason; any value passes.
+IGNORED_JAX_FIELDS = {
+    "model.swin.fused_attention": "selects a Pallas kernel form; same math as the fused block",
+    "model.resnet_fpn": "read only by the ResNet-FPN backbone, which the port refuses",
+    "model.pose": "read only by the pose heads; pose.flag other than 'none' raises",
+    "model.loss.fine_correct_thr": "read by no code of the JAX package",
+    "model.loss.r_weight": "a pose-head loss weight; the pose heads are not ported",
+    "model.loss.t_weight": "a pose-head loss weight; the pose heads are not ported",
+    "model.loss.pose_in_total": "a pose-head loss switch; the pose heads are not ported",
+    "trainer.optimizer.scheduler_interval": "read by no code of the JAX package",
+    "trainer.ransac": "the pose solver of evaluation, not part of the training step",
+    "trainer.data_sampler": "the JAX package's data loading",
+    "trainer.n_samples_per_subset": "the JAX package's data loading",
+    "trainer.val_plot_pairs": "validation figures",
+    "data": "the JAX package's dataset paths and loader sizes",
+}
+
+
+def _path_root(cls: Any) -> str:
+    """The dotted path of `cls` in `Config`, where a dict of it converts alone."""
+    return {
+        "ModelConfig": "model.", "SwinConfig": "model.swin.", "TransformerConfig": "model.coarse.",
+        "CoarseMatchConfig": "model.match_coarse.", "FineMatchConfig": "model.fine.",
+        "PoseHeadConfig": "model.pose.", "LossConfig": "model.loss.", "TrainerConfig": "trainer.",
+        "OptimizerConfig": "trainer.optimizer.",
+    }.get(cls.__name__, "")
+
+
+def config_from_dict(cls: Any, d: dict, _path: str = None) -> Any:
     """Rebuild `cls` (and its nested config dataclasses) from a plain dict.
 
-    Keys that `cls` has no field for are ignored; lists become tuples."""
+    Lists become tuples. A key `cls` has no field for passes only where it
+    holds the JAX package's default (`JAX_ONLY_DEFAULTS`) or never changes
+    the math (`IGNORED_JAX_FIELDS`); any other raises ValueError naming the
+    field, so a JAX configuration never converts to another model."""
+    if _path is None:
+        _path = _path_root(cls)
     hints = typing.get_type_hints(cls)
+    names = {f.name for f in dataclasses.fields(cls)}
+    for key in d:
+        if key in names:
+            continue
+        path = _path + key
+        if any(path == p or path.startswith(p + ".") for p in IGNORED_JAX_FIELDS):
+            continue
+        v = d[key]
+        if path not in JAX_ONLY_DEFAULTS or v != JAX_ONLY_DEFAULTS[path]:
+            raise ValueError(
+                f"config field {path}={v!r} is not held by the port: only the JAX default "
+                f"{JAX_ONLY_DEFAULTS.get(path, '(none)')!r} converts")
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:
@@ -159,7 +216,7 @@ def config_from_dict(cls: Any, d: dict) -> Any:
         v = d[f.name]
         t = hints[f.name]
         if dataclasses.is_dataclass(t) and isinstance(v, dict):
-            v = config_from_dict(t, v)
+            v = config_from_dict(t, v, f"{_path}{f.name}.")
         elif isinstance(v, list):
             v = tuple(v)
         kwargs[f.name] = v

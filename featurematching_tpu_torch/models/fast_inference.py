@@ -6,11 +6,14 @@ kernels, as the JAX package does on its accelerator: the backbone through
 swin_block_fused (13 launches), layer_norm_chain (4) and patch_expand_ln (3),
 the coarse transformer through coarse_transformer_fused (once, 8 layers),
 the coarse matching through dual_softmax_match_stats (once) and the fine
-stage through fine_stage_fused in its fold mode (once). Where a
-configuration fails the fused gates (`use_fused_coarse`, `use_fused_fine`:
-pure functions of the config and the shapes), the plain
-LocalFeatureTransformer, window mix and fine_soft_argmax run instead, as the
-JAX package's plain branches do.
+stage through fine_stage_fused in its fold mode (once). Each fused branch
+is gated on what its kernel takes (`use_fused_coarse`, `use_fused_fine`,
+`patch_expand_supported`: pure functions of the config and the shapes,
+chosen before any launch); where a gate fails, the plain
+LocalFeatureTransformer, window mix and fine_soft_argmax, or depth-to-space
+and layer_norm_chain, run instead, as the JAX package's plain branches do.
+K2 takes Swin head dim 16 only and the per-op Swin block is not ported, so
+on `cuda` another head dim raises at construction.
 
 `FastMatcher(cfg)` runs on `cuda` and raises when no GPU is present;
 `device="cpu"` runs every kernel's plain version instead. Inputs and outputs
@@ -41,14 +44,19 @@ from featurematching_tpu_torch.models.backbone_swin import (
 from featurematching_tpu_torch.models.matcher_params import MatcherParams, resolve_device
 from featurematching_tpu_torch.models.output import MatcherOutput
 from featurematching_tpu_torch.ops.coarse_transformer import (
+    WIDTHS,
     coarse_transformer_fused,
     coarse_transformer_supported,
     pack_layers,
 )
-from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_supported
+from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_kernel_supported
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
-from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
-from featurematching_tpu_torch.ops.swin_block import swin_block_fused
+from featurematching_tpu_torch.ops.patch_expand import (
+    depth_to_space,
+    patch_expand_ln,
+    patch_expand_supported,
+)
+from featurematching_tpu_torch.ops.swin_block import HEAD_DIM, swin_block_fused
 
 __all__ = ["FastMatcher", "SwinBackbone", "resolve_device"]
 
@@ -69,6 +77,11 @@ class SwinBackbone(SwinUNetParams):
         pe = getattr(self, f"dec{j}_expand")
         nu = getattr(self, f"norm_up{j}")
         y = dense(x, pe.expand)
+        if not patch_expand_supported(y.shape[-1] // 4, 0 if head is None else head.out_features):
+            # the JAX package's per-op form: depth-to-space, the LN chain, the head
+            v = layer_norm_chain(depth_to_space(y, H, W).contiguous(), pe.norm.weight,
+                                 pe.norm.bias, nu.weight, nu.bias)
+            return tuple(([v] if emit_ln else []) + ([dense(v, head)] if head is not None else []))
         w_head = b_head = None
         if head is not None:  # the heads have no bias
             w_head = head.weight.t()
@@ -126,16 +139,25 @@ class FastMatcher(MatcherParams):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__(cfg, SwinBackbone(cfg), device, seed)
+        s = cfg.swin
+        dims = [s.embed_dim * 2**i // h for i, h in enumerate(s.num_heads)]
+        if self.mix_feat_0.weight.device.type == "cuda" and any(d != HEAD_DIM for d in dims):
+            raise NotImplementedError(
+                f"the Swin block kernel (K2) takes head dim {HEAD_DIM}, this config has {dims}; "
+                "the per-op Swin block that would run the others is ROADMAP A1, not ported yet")
 
     def use_fused_coarse(self, n_tokens: int) -> bool:
+        """The JAX gate, limited to the (C, head dim) pairs K5's kernels take."""
         c = self.cfg.coarse
-        return c.attention == "linear" and coarse_transformer_supported(
-            c.layer_names, c.d_model, c.nhead, n_tokens)
+        return (c.attention == "linear"
+                and coarse_transformer_supported(c.layer_names, c.d_model, c.nhead, n_tokens)
+                and (c.d_model, c.d_model // c.nhead) in WIDTHS)
 
     def use_fused_fine(self) -> bool:
+        """The JAX gate, limited to what K6's kernel takes."""
         f = self.cfg.fine
-        return f.attention == "linear" and fine_stage_supported(
-            f.layer_names, f.d_model, f.nhead)
+        return f.attention == "linear" and fine_stage_kernel_supported(
+            f.layer_names, f.d_model, f.nhead, f.window_size**2)
 
     def coarse_stage(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor):
         """The coarse transformer on [B, L, C] tokens: the fused kernels when

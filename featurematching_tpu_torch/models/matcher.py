@@ -18,13 +18,13 @@ pipeline:
      the GT ids. Otherwise the dual-softmax statistics (K1) and the top-K
      mutual nearest neighbours, and the dense conf matrix when it is wanted;
   4. the fine windows at the GT ids (training) or the matches, merged with
-     the down-projected coarse features, the per-op fine transformer, the
-     learned 49 -> 1 mixes and the soft-argmax.
+     the down-projected coarse features, the fine transformer (K10,
+     `ops/fine_transformer_train`, where `fine.fused_train` selects it, else
+     the per-op stack), the learned 49 -> 1 mixes and the soft-argmax.
 
 The kernel switches of the configuration hold as in the JAX package; the
-forms not ported yet raise: `swin.fused_block='off'` (the per-op SwinBlock),
-`fine.fused_train` when it selects K10 ('on', or 'auto' on the card), and
-the pose heads (`pose.flag` other than 'none').
+forms not ported yet raise: `swin.fused_block='off'` (the per-op SwinBlock)
+and the pose heads (`pose.flag` other than 'none').
 The ResNet-FPN backbone is not ported. Runs on `cuda` unless `device="cpu"`.
 """
 
@@ -74,10 +74,6 @@ class Matcher(MatcherParams):
             raise NotImplementedError(
                 "the per-op SwinBlock (swin.fused_block='off', or 'auto' on the CPU) is not "
                 "ported yet; use 'on'")
-        if kernel_selected(cfg.fine.fused_train, dev):
-            raise NotImplementedError(
-                f"fine.fused_train={cfg.fine.fused_train!r} selects K10, not ported yet; set it "
-                "to 'off'")
         if cfg.pose.flag != "none":
             raise NotImplementedError(f"pose heads (pose.flag={cfg.pose.flag!r}) are not ported yet")
 

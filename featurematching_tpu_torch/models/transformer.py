@@ -11,8 +11,9 @@ flax does.
 features have one shape and `coarse_train_supported` holds, the stack runs
 as the differentiable kernel K9 (`ops/coarse_transformer_train`; its plain
 twin on the CPU); where the coarse gate fails and the fine gate
-(`fine_train_supported`) holds, flax would run K10, which is not ported yet,
-so it raises. Otherwise, and always without the switch, the per-op stack
+(`fine_train_supported`) holds, it runs as the differentiable fine window
+transformer K10 (`ops/fine_transformer_train`; its plain twin on the CPU),
+as flax does. Otherwise, and always without the switch, the per-op stack
 runs (the serving forward's fallback where its fused kernels do not apply).
 """
 
@@ -34,6 +35,7 @@ from featurematching_tpu_torch.ops.coarse_transformer_train import (
     coarse_transformer_train,
 )
 from featurematching_tpu_torch.ops.fine_stage import fine_train_supported
+from featurematching_tpu_torch.ops.fine_transformer_train import fine_transformer_train
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 
@@ -101,9 +103,7 @@ class LocalFeatureTransformer(nn.Module):
             if coarse_train_supported(*args):
                 return coarse_transformer_train(feat0, feat1, self, self.layer_names, self.nhead)
             if fine_train_supported(*args):
-                raise NotImplementedError(
-                    "use_fused_train selects the differentiable fine transformer (K10), not "
-                    "ported yet")
+                return fine_transformer_train(feat0, feat1, self, self.layer_names, self.nhead)
         for i, name in enumerate(self.layer_names):
             layer = getattr(self, f"layer_{i}")
             if name == "self":

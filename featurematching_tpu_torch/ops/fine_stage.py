@@ -52,11 +52,26 @@ def fine_stage_supported(layer_names: Sequence[str], d_model: int, nhead: int) -
     )
 
 
+def _kernel_takes(d_model: int, nhead: int, taps: int) -> bool:
+    return (d_model == C_KERNEL and nhead >= 1 and d_model % nhead == 0
+            and d_model // nhead in HEAD_DIMS and 1 <= taps <= MAX_TAPS)
+
+
+def fine_stage_kernel_supported(layer_names: Sequence[str], d_model: int, nhead: int,
+                                taps: int) -> bool:
+    """The JAX gate limited to what K6's kernel takes: C = 64, a head dim in
+    HEAD_DIMS, 1 to MAX_LAYERS layers and at most MAX_TAPS taps."""
+    return (fine_stage_supported(layer_names, d_model, nhead)
+            and 1 <= len(layer_names) <= MAX_LAYERS and _kernel_takes(d_model, nhead, taps))
+
+
 def fine_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
                          n_tokens: int) -> bool:
-    """The JAX package's gate of its differentiable fine transformer (K10):
-    the kernel's conditions, on windows of at most 128 tokens."""
-    return fine_stage_supported(layer_names, d_model, nhead) and n_tokens <= 128
+    """The gate of the differentiable fine transformer (K10): what its
+    kernels take (C = 64, a head dim in HEAD_DIMS, at most MAX_TAPS tokens,
+    self/cross layers). Any number of layers: K10 launches one a layer."""
+    return (len(layer_names) >= 1 and all(n in ("self", "cross") for n in layer_names)
+            and _kernel_takes(d_model, nhead, n_tokens))
 
 
 def window_mix(w: torch.Tensor, mix: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -90,6 +105,41 @@ def fine_stage_fused(w0, w1, layers: Sequence[LayerValues], mix0, mix1,
     if w0.device.type == "cpu":
         return fine_stage_reference(w0, w1, layers, mix0, mix1, layer_names, nhead,
                                     fold_softargmax)
+    out = _launch(w0, w1, layers, mix0, mix1, layer_names, nhead, fold_softargmax)
+    fine_stage_fused.launches += 1
+    return out
+
+
+fine_stage_fused.launches = 0
+
+
+def fine_layer_reference(w0, w1, lv: LayerValues, name: str, nhead: int):
+    """Plain version of `fine_layer_forward`: `encoder_reference` in the
+    stack's layer order."""
+    return _run_stack(w0, w1, [lv], [name], lambda x, s, v: encoder_reference(x, s, v, nhead))
+
+
+def fine_layer_forward(w0: torch.Tensor, w1: torch.Tensor, lv: LayerValues, name: str,
+                       nhead: int):
+    """One fine encoder layer over window pairs, (w0, w1) -> the updated
+    pair, as K10's forward runs it: on a CUDA tensor K6's kernel in plain
+    mode with this one layer and zero mixes (the JAX package's `_fwd_impl`),
+    counted in `launches` (not in `fine_stage_fused.launches`); on a CPU
+    tensor `fine_layer_reference`."""
+    if w0.device.type == "cpu":
+        return fine_layer_reference(w0, w1, lv, name, nhead)
+    N = w0.shape[1]
+    zero = (torch.zeros(N, device=w0.device), torch.zeros(1, device=w0.device))
+    out = _launch(w0, w1, [lv], zero, zero, (name,), nhead, False)
+    fine_layer_forward.launches += 1
+    return out[0], out[1]
+
+
+fine_layer_forward.launches = 0
+
+
+def _launch(w0, w1, layers, mix0, mix1, layer_names, nhead, fold_softargmax):
+    """Check the operands and launch `csrc/fine_stage.cu` once."""
     B_, N, C = w0.shape
     nl = len(layer_names)
     if C != C_KERNEL or C % nhead or C // nhead not in HEAD_DIMS or not 1 <= N <= MAX_TAPS:
@@ -126,8 +176,4 @@ def fine_stage_fused(w0, w1, layers: Sequence[LayerValues], mix0, mix1,
         *[t.data_ptr() if t is not None else None for t in outs],
         B_, N, C // nhead, nl, cross, int(fold_softargmax), sms, _build.stream(),
     )
-    fine_stage_fused.launches += 1
     return tuple(outs[:2]) if fold_softargmax else tuple(outs)
-
-
-fine_stage_fused.launches = 0

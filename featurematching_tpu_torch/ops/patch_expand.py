@@ -32,6 +32,12 @@ def depth_to_space(y: torch.Tensor, H: int, W: int) -> torch.Tensor:
     )
 
 
+def patch_expand_supported(C4: int, head: int) -> bool:
+    """What the kernel takes: C4 in (64, 128) and a head width of 0 (none),
+    64 or 256."""
+    return C4 in (64, 128) and head in (0, 64, 256)
+
+
 def patch_expand_ln_plain(y, H, W, scale1, bias1, scale2=None, bias2=None,
                           w_head=None, b_head=None, emit_ln=True):
     """Plain version: LN chain in f32, the head reads the bf16-rounded LN
@@ -73,7 +79,7 @@ def patch_expand_ln(
         )
     C4 = Ce // 4
     CH = 0 if w_head is None else w_head.shape[1]
-    if C4 not in (64, 128) or CH not in (0, 64, 256):
+    if not patch_expand_supported(C4, CH):
         raise ValueError(
             f"patch_expand_ln kernel takes C4 in (64, 128) and a head width in "
             f"(64, 256); got C4={C4}, head={CH}"

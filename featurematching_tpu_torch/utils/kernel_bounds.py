@@ -20,15 +20,16 @@ saves for it is written once and read once. K8, K7 and K9, which the port
 has, are counted per launch as their kernels run: K8's forward (K2's work
 plus the probabilities and the residual stream it keeps) and backward
 apart, K7 as the backward's softmax terms plus the pass-1 log-sum-exps of
-its forward, and K9 per encoder call, its forward (K5's stats and apply
-work) and backward apart; the command line prints K9's forward and
-backward on rows of their own.
+its forward, K9 per encoder call, its forward (K5's stats and apply work)
+and backward apart, and K10 per encoder call likewise (its forward a share
+of K6's one-layer launch); the command line prints the forward and backward
+of K9 and K10 on rows of their own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -179,18 +180,54 @@ def coarse_train_bwd_work(G: int, L: int, S: int, C: int, heads: int, self_call:
     return nbytes, 2 * coarse_train_fwd_work(G, L, S, C, heads)[1]
 
 
-def coarse_train_calls(cfg, images: int, L: int) -> List[Tuple[int, bool]]:
-    """(images G, self call) of each K9 encoder call of the coarse stack over
-    `images` images of L tokens: a self layer is one call on all of them, a
-    cross layer two calls on half of them each."""
+def train_calls(layer_names, items: int) -> List[Tuple[int, bool]]:
+    """(batch G, self call) of each encoder call of a differentiable stack
+    over `items` images or windows in all (both sides): a self layer is one
+    call on all of them, a cross layer two calls on half of them each."""
     calls = []
-    for name in cfg.coarse.layer_names:
-        calls += [(images, True)] if name == "self" else [(images // 2, False)] * 2
+    for name in layer_names:
+        calls += [(items, True)] if name == "self" else [(items // 2, False)] * 2
     return calls
 
 
-def with_backward(fwd: Work, saved_bytes: float, weight_grad_bytes: float) -> Work:
-    return 2 * fwd[0] + 2 * saved_bytes + weight_grad_bytes, 3 * fwd[1]
+def fine_train_fwd_work(G: int, N: int, C: int, heads: int) -> Work:
+    """K10's forward for one encoder call over G windows of N taps (a share
+    of K6's one-layer launch, which holds a window pair on chip): the layer's
+    weights and a window in, a window out (bf16; a cross layer's two calls
+    read both windows and write both); the layer's products."""
+    tokens = 2 * G * N
+    return (tokens * C * BF16 + 10 * C * C * BF16 + 4 * C * F32,
+            G * N * (20 * C * C + 4 * C * (C // heads)))
+
+
+def fine_train_bwd_work(G: int, N: int, C: int, heads: int, self_call: bool) -> Work:
+    """K10's backward for one encoder call: x and src (one tensor for a self
+    call, bf16), the output gradient (f32) and the weights in; dx and dsrc
+    (f32) and the layer's gradients (f32) out; twice the forward's products."""
+    tokens = G * N
+    nbytes = (tokens * (1 if self_call else 2) * C * BF16 + tokens * C * F32
+              + 10 * C * C * BF16 + 4 * C * F32 + 2 * tokens * C * F32
+              + 10 * C * C * F32 + 4 * C * F32)
+    return nbytes, 2 * fine_train_fwd_work(G, N, C, heads)[1]
+
+
+def train_stack_work(cfg, batch: int = 4, H: int = 480,
+                     W: int = 640) -> Dict[str, Tuple[Work, Work]]:
+    """The forward and backward Work of K9 and K10 in one training step
+    (batch pairs of H x W), each summed over its encoder calls: K9 over the
+    2 batch images' coarse tokens, K10 over the GT ids' fine windows of
+    both sides."""
+    co, fi = cfg.coarse, cfg.fine
+    L = (H // cfg.resolution[0]) * (W // cfg.resolution[0])
+    taps = fi.window_size**2
+    k9 = train_calls(co.layer_names, 2 * batch)
+    k10 = train_calls(fi.layer_names, 2 * batch * cfg.match_coarse.max_gt_matches)
+    return {
+        "K9": (total(coarse_train_fwd_work(G, L, L, co.d_model, co.nhead) for G, _ in k9),
+               total(coarse_train_bwd_work(G, L, L, co.d_model, co.nhead, s) for G, s in k9)),
+        "K10": (total(fine_train_fwd_work(G, taps, fi.d_model, fi.nhead) for G, _ in k10),
+                total(fine_train_bwd_work(G, taps, fi.d_model, fi.nhead, s) for G, s in k10)),
+    }
 
 
 class Site(NamedTuple):
@@ -233,6 +270,7 @@ def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[s
     taps = fi.window_size**2
     fine_enc = encoder_work(2 * nwin * taps, fi.d_model, fi.nhead, len(fi.layer_names))
     coarse = encoder_work(images * L, co.d_model, co.nhead, len(co.layer_names))
+    train = train_stack_work(cfg, batch, H, W)
     return [
         ("K1", "pallas_dual_softmax.dual_softmax_match_stats", dual_softmax_work(
             batch, L, L, co.d_model)),
@@ -257,13 +295,8 @@ def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[s
         ("K8", "pallas_swin_block_grad.swin_block_train", total(
             w for st in sites for w in (swin_block_train_fwd_work(*st[:4]),
                                         swin_block_train_bwd_work(*st[:4])))),
-        ("K9", "pallas_coarse_grad.coarse_transformer_train", total(
-            w for G, self_call in coarse_train_calls(cfg, images, L)
-            for w in (coarse_train_fwd_work(G, L, L, co.d_model, co.nhead),
-                      coarse_train_bwd_work(G, L, L, co.d_model, co.nhead, self_call)))),
-        ("K10", "pallas_fine_grad.fine_transformer_train", with_backward(
-            fine_enc, len(fi.layer_names) * 2 * nwin * taps * fi.d_model * BF16,
-            len(fi.layer_names) * 10 * fi.d_model**2 * F32)),
+        ("K9", "pallas_coarse_grad.coarse_transformer_train", total(train["K9"])),
+        ("K10", "pallas_fine_grad.fine_transformer_train", total(train["K10"])),
         ("K11", "pallas_window_attention.window_attention_pallas",
          total(window_attention_work(*st[:4]) for st in sites)),
         ("K12", "pallas_swin_block.swin_block_fused_image",
@@ -279,14 +312,10 @@ def main() -> None:
     print("| Id | Kernel | MB moved | GFLOP | bound ms | bound by |")
     print("|---|---|---|---|---|---|")
     cfg = default_config().model
-    L = (480 // cfg.resolution[0]) * (640 // cfg.resolution[0])
-    co = cfg.coarse
-    calls = coarse_train_calls(cfg, 8, L)
-    k9 = {"K9 fwd": total(coarse_train_fwd_work(G, L, L, co.d_model, co.nhead) for G, _ in calls),
-          "K9 bwd": total(coarse_train_bwd_work(G, L, L, co.d_model, co.nhead, s)
-                          for G, s in calls)}
+    split = train_stack_work(cfg)
     for kid, name, work in all_kernels(cfg):
-        rows = k9.items() if kid == "K9" else [(kid, work)]
+        rows = (zip((f"{kid} fwd", f"{kid} bwd"), split[kid]) if kid in split
+                else [(kid, work)])
         for rid, (nbytes, flops) in rows:
             b, by = bound_ms(nbytes, flops)
             print(f"| {rid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")

@@ -11,7 +11,7 @@ inputs made by numpy from a seed and flax weights carried across by
 - one call's backward (`apply_backward_reference`, then
   `stats_backward_reference`) against `pallas_coarse_grad._apply_bwd` and
   `_stats_bwd` in interpret mode, fed the same stats, in f32 and in bf16;
-- the gate and the `use_fused_train` dispatch.
+- the gate and the `use_fused_train` dispatch (fine windows take K10).
 """
 
 import jax
@@ -192,13 +192,22 @@ def test_dispatch_falls_back_to_the_per_op_stack(rng, backward_calls, C, N0, N1)
         assert torch.isfinite(a).all() and torch.equal(a, r)
 
 
-def test_dispatch_raises_where_flax_takes_the_fine_kernel(rng):
-    """Fine windows (C = 64, 49 tokens) pass the JAX fine gate: flax would
-    run K10, which is not ported, so the switch raises."""
+def test_dispatch_raises_where_flax_takes_the_fine_kernel(rng, backward_calls, monkeypatch):
+    """Fine windows (C = 64, 49 tokens) fail the coarse gate and pass the
+    fine one: the switch no longer raises but takes K10 (its plain twin
+    here), as flax does, and no K9 call."""
+    from featurematching_tpu_torch.ops import fine_transformer_train as ftt
+
+    k10 = []
+    twin = ftt.fine_layer_backward_reference
+    monkeypatch.setattr(ftt, "fine_layer_backward_reference",
+                        lambda *a: k10.append(1) or twin(*a))
     tf = LocalFeatureTransformer(64, 8, ("self", "cross"), use_fused_train=True)
-    w = torch.zeros(4, 49, 64)
-    with pytest.raises(NotImplementedError, match="K10"):
-        tf(w, w)
+    w = _t(rng.standard_normal((4, 49, 64)).astype(np.float32)).requires_grad_()
+    o0, o1 = tf(w, w * 0.5)
+    (o0.sum() + o1.sum()).backward()
+    assert (len(k10), len(backward_calls)) == (3, 0)
+    assert torch.isfinite(w.grad).all()
 
 
 def test_no_grad_saves_nothing(rng, monkeypatch):

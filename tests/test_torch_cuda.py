@@ -8,8 +8,10 @@ across tiles, other widths of the transformer kernels, weights loaded after
 a first forward, bit-identical gradients across runs (the training kernels
 reduce across blocks in a fixed order), the wrappers' refusal of tensors
 the kernels do not take, K9 at a ragged token count for each width it takes
-and through a whole stack, and that chip_smoke.py's training semantic check
-sees faults injected into K8's, K9's and K7's outputs. They import neither
+and through a whole stack, K10 at ragged window counts and tap counts and
+through a whole stack, the serving forward's per-op branches where the
+kernels' limits fail, and that chip_smoke.py's training semantic check
+sees faults injected into K8's, K9's, K10's and K7's outputs. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -27,6 +29,7 @@ from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
 from featurematching_tpu_torch.models.fast_inference import FastMatcher
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
+from featurematching_tpu_torch.ops import fine_transformer_train as ftt
 from featurematching_tpu_torch.ops.coarse_transformer import (
     WIDTHS,
     coarse_layer_fused,
@@ -42,7 +45,12 @@ from featurematching_tpu_torch.ops.dual_softmax import (
     dual_softmax_match_stats,
 )
 from featurematching_tpu_torch.matching.fine import window_heatmaps
-from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_reference
+from featurematching_tpu_torch.ops.fine_stage import (
+    fine_layer_forward,
+    fine_layer_reference,
+    fine_stage_fused,
+    fine_stage_reference,
+)
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln, patch_expand_ln_plain
 from featurematching_tpu_torch.ops.sparse_focal_loss import (
@@ -536,6 +544,123 @@ def test_coarse_train_wrapper_raises_rather_than_fall_back(gen):
     assert ctt.coarse_layer_backward.launches == before
 
 
+def _k10_call(x, src, lv, heads, gout, plain):
+    if plain:
+        return list(ftt.fine_layer_backward_reference(x, src, gout, lv, heads))
+    return list(ftt.fine_layer_backward(x, src, gout, lv, ctt.train_values(lv), heads))
+
+
+def _flat(r):
+    return [r[0], r[1], *r[2]]
+
+
+@pytest.mark.parametrize("G", [1, 301])
+@pytest.mark.parametrize("N", [25, 49])
+@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("cross", 4)])
+def test_fine_train_call_ragged_windows(gen, G, N, kind, heads):
+    """One window (fewer than the grid's blocks) and 301 (more than two an
+    SM, a ragged weight-gradient split), 25 and 49 taps, head dims 8 and
+    16: dx, dsrc and the 9 gradients against the plain twin on the same
+    inputs, by `_k9_close` against the twin in bf16 and in float32
+    arithmetic; twice, bit for bit."""
+    C = 64
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, G, N, C)
+    got = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
+    ref = _flat(_k10_call(x, src, lv, heads, gout, plain=True))
+    src32 = x.float() if kind == "self" else src.float()
+    exact = _flat(_k10_call(x.float(), src32, type(lv)(*[t.float() for t in lv]), heads, gout,
+                            plain=True))
+    names = ["dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s", "dn2b"]
+    for name, a, r, e in zip(names, got, ref, exact, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        _k9_close(a, r, e, name)
+    again = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
+    for name, a, b in zip(names, got, again, strict=True):
+        assert torch.equal(a, b), name  # fixed-order sums: bit for bit
+
+
+def test_fine_train_stack_against_the_twin(gen, monkeypatch):
+    """A self + cross stack (C = 64, 8 heads, 2 x 300 windows of 49 taps)
+    through fine_transformer_train: the outputs (K6's tolerance), both
+    window gradients and all 20 parameter gradients against the same
+    Function run on the plain twins on the card (`_k9_close` against the
+    twins in bf16 and in float32); K10 launches 2 forwards and 3 backwards,
+    K6's serving counter none."""
+    torch.manual_seed(0)
+    tf = LocalFeatureTransformer(64, 8, ("self", "cross"), use_fused_train=True).cuda()
+    f0, f1 = (_rnd(gen, 300, 49, 64, scale=0.5, dtype=torch.bfloat16) for _ in range(2))
+    w0, w1 = _rnd(gen, 300, 49, 64), _rnd(gen, 300, 49, 64)
+    before = (fine_layer_forward.launches, ftt.fine_layer_backward.launches,
+              fine_stage_fused.launches)
+    got = _stack_grads(tf, f0, f1, w0, w1)
+    after = (fine_layer_forward.launches, ftt.fine_layer_backward.launches,
+             fine_stage_fused.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 3, 0)
+    monkeypatch.setattr(ftt, "fine_layer_forward", fine_layer_reference)
+    twin = ftt.fine_layer_backward_reference
+    monkeypatch.setattr(ftt, "fine_layer_backward",
+                        lambda x, s, g, lv, lt, h: twin(x, s, g, lv, h))
+    ref = _stack_grads(tf, f0, f1, w0, w1)
+    exact = _stack_grads(tf, f0.float(), f1.float(), w0, w1)
+    for i, (a, r, e) in enumerate(zip(got, ref, exact, strict=True)):
+        assert a.shape == r.shape and a.dtype == r.dtype, i
+        if i < 2:  # the stack's outputs: K6's window tolerance
+            _assert_close(a, r, 5e-2, 2e-2)
+        else:
+            _k9_close(a, r, e, i)
+
+
+def test_fine_train_wrapper_raises_rather_than_fall_back(gen):
+    """C = 128, head dim 4, 65 taps, a bf16 upstream gradient: the K10
+    wrapper raises and launches nothing."""
+    lv = _layer_values(gen, 64)
+    lt = ctt.train_values(lv)
+    x = _rnd(gen, 2, 49, 64, dtype=torch.bfloat16)
+    g = _rnd(gen, 2, 49, 64)
+    before = ftt.fine_layer_backward.launches
+    lv128 = _layer_values(gen, 128)
+    x128 = _rnd(gen, 2, 49, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C=64"):
+        ftt.fine_layer_backward(x128, x128, _rnd(gen, 2, 49, 128), lv128,
+                                ctt.train_values(lv128), 8)
+    with pytest.raises(ValueError, match="head dim"):
+        ftt.fine_layer_backward(x, x, g, lv, lt, 16)  # head dim 4
+    x65 = _rnd(gen, 2, 65, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="taps"):
+        ftt.fine_layer_backward(x65, x65, _rnd(gen, 2, 65, 64), lv, lt, 8)
+    with pytest.raises(ValueError, match="float32"):
+        ftt.fine_layer_backward(x, x, g.bfloat16(), lv, lt, 8)
+    assert ftt.fine_layer_backward.launches == before
+
+
+def test_serving_forward_takes_the_per_op_branches(gen):
+    """Coarse nhead 4 (head dim 64, not K5's) and fine nhead 1 (head dim 64,
+    not K6's), Swin heads unchanged: the plain coarse and fine branches run
+    end to end on the card and launch neither K5 nor K6. A Swin head dim of
+    64 raises at construction (K2 takes 16; the per-op block is ROADMAP A1)."""
+    import dataclasses
+
+    cfg = ModelConfig()
+    cfg = dataclasses.replace(cfg, coarse=dataclasses.replace(cfg.coarse, nhead=4),
+                              fine=dataclasses.replace(cfg.fine, nhead=1))
+    model = FastMatcher(cfg, device="cuda", seed=0)
+    assert not model.use_fused_coarse(64) and not model.use_fused_fine()
+    a = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    before = (coarse_transformer_fused.launches, fine_stage_fused.launches)
+    out = model(a, torch.roll(a, shifts=8, dims=2))
+    torch.cuda.synchronize()
+    assert (coarse_transformer_fused.launches, fine_stage_fused.launches) == before
+    assert torch.isfinite(out.feat_c0.float()).all()
+    m = out.coarse.mask
+    assert torch.isfinite(out.fine.mkpts0_f[m]).all()
+    swin64 = dataclasses.replace(ModelConfig().swin, num_heads=(1, 2, 4))
+    with pytest.raises(NotImplementedError, match="K2"):
+        FastMatcher(dataclasses.replace(ModelConfig(), swin=swin64), device="cuda")
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -563,12 +688,17 @@ K9_FAULTS = {
     "k9_dsrc_heads_rolled": lambda dx, dsrc, wg: (
         dx, dsrc.unflatten(-1, (8, -1)).roll(1, -2).flatten(-2), wg),
 }
+# K10: the same two faults in the fine transformer's backward
+K10_FAULTS = {
+    "k10_dwkv_5pc_short": K9_FAULTS["k9_dwkv_5pc_short"],
+    "k10_dsrc_heads_rolled": K9_FAULTS["k9_dsrc_heads_rolled"],
+}
 
 
-@pytest.mark.parametrize("fault", [None, *K8_FAULTS, *K9_FAULTS, *K7_FAULTS])
+@pytest.mark.parametrize("fault", [None, *K8_FAULTS, *K9_FAULTS, *K10_FAULTS, *K7_FAULTS])
 def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
     """chip_smoke.py's training semantic check: a sound step is within its
-    LIMITS, and a step whose K8 or K7 output carries a fault is not. Prints
+    LIMITS, and a step whose K8, K9, K10 or K7 output carries a fault is not. Prints
     the readings (run with -s) that PERF.md records beside the limits."""
     import featurematching_tpu_torch.ops.sparse_focal_loss as sfl
     import featurematching_tpu_torch.ops.swin_block_train as sbt
@@ -576,6 +706,7 @@ def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
     cs = _chip_smoke()
     for mod, name, faults in ((sbt, "swin_block_train_bwd", K8_FAULTS),
                               (ctt, "coarse_layer_backward", K9_FAULTS),
+                              (ftt, "fine_layer_backward", K10_FAULTS),
                               (sfl, "sparse_focal_backward", K7_FAULTS)):
         if fault in faults:
             kernel = getattr(mod, name)
@@ -588,9 +719,10 @@ def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
     r = cs.training_agreement(*cs.semantic_setup())
     bad = cs.agreement_failures(r)
     keys = ("loss", "min_cos", "feat_sin", "feat_norm", "k8_sin", "k8_norm", "k9_sin", "k9_norm",
-            "k7_sin", "k7_norm")
+            "k10_sin", "k10_norm", "k7_sin", "k7_norm")
     print(f"\nfault {fault}: " + ", ".join(f"{k} {r[k]:.3e}" for k in keys)
           + f"; worst at {r['min_cos_at']} / {r['k8_sin_at']} / {r['k8_norm_at']} / "
-          f"{r['k9_sin_at']} / {r['k9_norm_at']} / {r['k7_sin_at']} / {r['k7_norm_at']}; "
+          f"{r['k9_sin_at']} / {r['k9_norm_at']} / {r['k10_sin_at']} / {r['k10_norm_at']} / "
+          f"{r['k7_sin_at']} / {r['k7_norm_at']}; "
           f"outside the limits: {bad}")
     assert (bad == []) if fault is None else bad

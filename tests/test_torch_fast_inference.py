@@ -143,6 +143,36 @@ class TestEntryPoint:
         cfg = config_from_dict(ModelConfig, dataclasses.asdict(jax_default_config().model))
         assert cfg == ModelConfig()
 
+    def test_gates_follow_the_kernels_limits(self):
+        """tpu_optimized_config()'s coarse (C 256, head dim 64) and fine (C 64,
+        head dim 64) shapes pass the JAX gates but not K5's and K6's kernels:
+        the plain branches run, and on the CPU the forward runs end to end."""
+        from featurematching_tpu.config import tpu_optimized_config
+
+        cfg = config_from_dict(ModelConfig, dataclasses.asdict(tpu_optimized_config().model))
+        port = FastMatcher(cfg, device="cpu")
+        assert not port.use_fused_coarse(64) and not port.use_fused_fine()
+        default = FastMatcher(ModelConfig(), device="cpu")
+        assert default.use_fused_coarse(4800) and default.use_fused_fine()
+        a, b = _pair(5, 1)
+        out = port(_t(a), _t(b))
+        assert out.feat_c0.shape == (1, 64, 256) and torch.isfinite(out.feat_c0).all()
+        assert torch.isfinite(out.fine.mkpts0_f).all()
+
+    def test_patch_expand_per_op_form(self, slice_setup, monkeypatch):
+        """Where patch_expand_ln's kernel limits fail, depth-to-space, the LN
+        chain and the dense head run: in f32 the backbone's outputs equal the
+        fused branch's plain version to rounding."""
+        import featurematching_tpu_torch.models.fast_inference as fi
+
+        _, _, _, port = slice_setup
+        a, _ = _pair(6, 1)
+        ref = port.backbone(_t(a))
+        monkeypatch.setattr(fi, "patch_expand_supported", lambda c4, head: False)
+        got = port.backbone(_t(a))
+        for g, r in zip(got, ref, strict=True):
+            np.testing.assert_allclose(_np(g), _np(r), atol=1e-4, rtol=1e-4)
+
     def test_load_jax_params_fails_loudly(self, slice_setup):
         mcfg, variables, _, _ = slice_setup
         port = FastMatcher(config_from_dict(ModelConfig, dataclasses.asdict(mcfg)), device="cpu")

@@ -7,15 +7,17 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     coarse_apply_work,
     coarse_stats_work,
     coarse_train_bwd_work,
-    coarse_train_calls,
     coarse_train_fwd_work,
     dual_softmax_lse_work,
     fine_stage_work,
+    fine_train_bwd_work,
+    fine_train_fwd_work,
     sparse_focal_backward_work,
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
     swin_block_work,
     swin_sites,
+    train_calls,
 )
 
 
@@ -78,7 +80,7 @@ def test_k9_counts_its_encoder_calls():
     cfg = ModelConfig()
     rows = {r[0]: r[2] for r in all_kernels(cfg)}
     L, C, h = 60 * 80, cfg.coarse.d_model, cfg.coarse.nhead
-    calls = coarse_train_calls(cfg, 8, L)
+    calls = train_calls(cfg.coarse.layer_names, 8)
     assert sorted(calls) == [(4, False)] * 8 + [(8, True)] * 4
     fwd = [coarse_train_fwd_work(G, L, L, C, h) for G, _ in calls]
     bwd = [coarse_train_bwd_work(G, L, L, C, h, s) for G, s in calls]
@@ -87,3 +89,24 @@ def test_k9_counts_its_encoder_calls():
         assert b[1] == 2 * f[1] and b[0] > f[0]
     assert sum(w[0] for w in fwd + bwd) == rows["K9"][0]
     assert sum(w[1] for w in fwd + bwd) == rows["K9"][1]
+
+
+def test_k10_counts_its_encoder_calls():
+    """K10: a self call on both sides' 4096 windows and 2 cross calls on
+    4096 each a step; the forward does the operations of K6's encoder
+    layers, the backward twice its products and moves more bytes; together
+    they make the K10 row."""
+    cfg = ModelConfig()
+    rows = {r[0]: r[2] for r in all_kernels(cfg)}
+    f = cfg.fine
+    taps, nwin = f.window_size**2, 4 * 1024
+    calls = train_calls(f.layer_names, 2 * nwin)
+    assert calls == [(8192, True), (4096, False), (4096, False)]
+    fwd = [fine_train_fwd_work(G, taps, f.d_model, f.nhead) for G, _ in calls]
+    bwd = [fine_train_bwd_work(G, taps, f.d_model, f.nhead, s) for G, s in calls]
+    k6 = fine_stage_work(nwin, taps, f.d_model, f.nhead, len(f.layer_names))
+    assert sum(w[1] for w in fwd) == k6[1] - 2 * 2 * nwin * taps * f.d_model * 2  # no mix, no heat
+    for fw, bw in zip(fwd, bwd):
+        assert bw[1] == 2 * fw[1] and bw[0] > fw[0]
+    assert sum(w[0] for w in fwd + bwd) == rows["K10"][0]
+    assert sum(w[1] for w in fwd + bwd) == rows["K10"][1]

@@ -9,8 +9,10 @@ depths 1/1/1 and 1/1/1, heads 1/2/4, window 4, 64x64, batch 2,
 `fused_block='on'` — the Pallas kernel in interpret mode on the JAX side,
 its plain twin on the port's — both `fused_train` switches 'off', drop-path
 0), on the same `Matcher.init` weights carried across by `load_jax_params`;
-and the port's gradients with `coarse.fused_train='on'` (K9's plain twin)
-against the same JAX gradients.
+and the port's gradients with `coarse.fused_train='on'` (K9's plain twin),
+and with both switches 'on' (K9's and K10's twins), against the same JAX
+gradients; and `config_from_dict`'s refusal of JAX fields that would build
+another model.
 """
 
 import dataclasses
@@ -107,12 +109,15 @@ def step_setup():
                 metrics=metrics, eval_out=out, eval_losses=losses)
 
 
-def _port_state(setup, coarse_fused_train=None):
+def _port_state(setup, coarse_fused_train=None, fine_fused_train=None):
     pc = config_from_dict(Config, dataclasses.asdict(setup["cfg"]))
+    m = pc.model
     if coarse_fused_train is not None:
-        m = pc.model
-        pc = dataclasses.replace(pc, model=dataclasses.replace(
-            m, coarse=dataclasses.replace(m.coarse, fused_train=coarse_fused_train)))
+        m = dataclasses.replace(m, coarse=dataclasses.replace(m.coarse,
+                                                              fused_train=coarse_fused_train))
+    if fine_fused_train is not None:
+        m = dataclasses.replace(m, fine=dataclasses.replace(m.fine, fused_train=fine_fused_train))
+    pc = dataclasses.replace(pc, model=m)
     state = create_train_state(pc, device="cpu", seed=0, global_batch_size=2)
     load_jax_params(state.model, setup["params"])
     return state
@@ -149,6 +154,33 @@ class TestTrainStep:
         losses, _ = forward_with_loss(state.model, state.cfg, step_setup["batch"], train=True)
         losses.loss.backward()
         assert len(calls) == 3  # a self call and a cross layer's two calls
+        got = _leaves(to_jax_tree(state.model, grads=True))
+        ref = _leaves(step_setup["grads"])
+        assert set(got) == set(ref)
+        for k, r in ref.items():
+            assert np.abs(got[k] - r).max() <= GRAD_RTOL * np.abs(r).max() + 1e-9, k
+
+    def test_loss_and_every_gradient_leaf_with_both_fused_train_on(self, step_setup,
+                                                                    monkeypatch):
+        """The port's step through K9 and K10 (their plain twins on the CPU)
+        against the JAX gradients of the per-op stacks: the same math at f32."""
+        import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
+        import featurematching_tpu_torch.ops.fine_transformer_train as ftt
+
+        calls = {"k9": 0, "k10": 0}
+        for mod, name, key in ((ctt, "coarse_layer_backward_reference", "k9"),
+                               (ftt, "fine_layer_backward_reference", "k10")):
+            twin = getattr(mod, name)
+
+            def spy(*a, twin=twin, key=key):
+                calls[key] += 1
+                return twin(*a)
+
+            monkeypatch.setattr(mod, name, spy)
+        state = _port_state(step_setup, coarse_fused_train="on", fine_fused_train="on")
+        losses, _ = forward_with_loss(state.model, state.cfg, step_setup["batch"], train=True)
+        losses.loss.backward()
+        assert calls == {"k9": 3, "k10": 3}
         got = _leaves(to_jax_tree(state.model, grads=True))
         ref = _leaves(step_setup["grads"])
         assert set(got) == set(ref)
@@ -245,20 +277,51 @@ class TestEntryPoints:
     def test_config_from_the_jax_config(self):
         assert config_from_dict(Config, dataclasses.asdict(jax_default_config())) == Config()
 
+    @pytest.mark.parametrize("part,field,value", [
+        (None, "coarse_only", True), (None, "positional_encoding", True),
+        ("swin", "qkv_bias", False), ("fine", "concat_coarse_feat", False),
+    ])
+    def test_config_refuses_fields_it_does_not_hold(self, part, field, value):
+        """A JAX field the port does not hold converts only at its JAX
+        default: another value would build another model."""
+        m = jax_default_config().model
+        m = (dataclasses.replace(m, **{field: value}) if part is None else dataclasses.replace(
+            m, **{part: dataclasses.replace(getattr(m, part), **{field: value})}))
+        path = "model." + (f"{part}." if part else "") + field
+        with pytest.raises(ValueError, match=path.replace(".", r"\.")):
+            config_from_dict(Config, dataclasses.asdict(dataclasses.replace(
+                jax_default_config(), model=m)))
+
+    def test_config_allows_fields_that_do_not_change_the_math(self):
+        """The allow-list: a Pallas kernel form, pose and data settings."""
+        from featurematching_tpu.config import tpu_optimized_config
+
+        from featurematching_tpu_torch.config import IGNORED_JAX_FIELDS
+
+        jc = jax_default_config()
+        m = jc.model
+        jc = dataclasses.replace(jc, model=dataclasses.replace(
+            m, swin=dataclasses.replace(m.swin, fused_attention="off"),
+            pose=dataclasses.replace(m.pose, nhead=4),
+            loss=dataclasses.replace(m.loss, fine_correct_thr=3.0)))
+        assert config_from_dict(Config, dataclasses.asdict(jc)) == Config()
+        assert "model.swin.fused_attention" in IGNORED_JAX_FIELDS
+        port = config_from_dict(Config, dataclasses.asdict(tpu_optimized_config()))
+        assert (port.model.coarse.nhead, port.model.fine.nhead) == (4, 1)
+
     def test_default_device_is_cuda_and_raises_without_it(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_train_state(Config())
 
     @pytest.mark.parametrize("part,field,value,match", [
-        ("fine", "fused_train", "on", "K10"),
         ("swin", "fused_block", "off", "per-op SwinBlock"), ("swin", "fused_block", "auto",
                                                              "per-op SwinBlock"),
         ("pose", "flag", "old", "pose heads"),
     ])
     def test_forms_not_ported_raise(self, part, field, value, match):
-        """On the CPU 'auto' selects the per-op forms; 'on' selects a kernel
-        (its plain twin here), so K10 raises for 'on'."""
+        """On the CPU 'auto' selects the per-op forms; the per-op SwinBlock
+        and the pose heads are not ported."""
         cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
         cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part),
                                                                      **{field: value})})
@@ -286,6 +349,27 @@ class TestEntryPoints:
         (a.sum() + b.sum()).backward()
         assert model.coarse_transformer.use_fused_train == k9
         assert (len(twin), len(eager)) == ((3, 0) if k9 else (0, 3))
+
+    @pytest.mark.parametrize("value,k10", [("on", True), ("auto", False), ("off", False)])
+    def test_fine_fused_train_selects_k10(self, monkeypatch, value, k10):
+        """'on' takes K10's path (its plain twin on the CPU) and runs no eager
+        fine EncoderLayer; 'auto' and 'off' run the per-op stack here."""
+        import featurematching_tpu_torch.ops.fine_transformer_train as ftt
+
+        cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
+        cfg = dataclasses.replace(cfg, fine=dataclasses.replace(cfg.fine, fused_train=value))
+        model = Matcher(cfg, device="cpu")
+        twin, eager = [], []
+        ref = ftt.fine_layer_backward_reference
+        monkeypatch.setattr(ftt, "fine_layer_backward_reference",
+                            lambda *a: twin.append(1) or ref(*a))
+        for layer in model.fine_transformer.children():
+            layer.register_forward_hook(lambda *_: eager.append(1))
+        f = torch.rand(3, 49, cfg.fine.d_model, requires_grad=True)
+        a, b = model.fine_transformer(f, f * 0.5)
+        (a.sum() + b.sum()).backward()
+        assert model.fine_transformer.use_fused_train == k10
+        assert (len(twin), len(eager)) == ((3, 0) if k10 else (0, 3))
 
 
 class TestFineGather:

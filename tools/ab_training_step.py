@@ -30,6 +30,7 @@ MODULES = {
     "swin_block_train_bwd": "swin_block_train", "sparse_focal_backward": "sparse_focal_loss",
     "coarse_layer_forward": "coarse_transformer_train",
     "coarse_layer_backward": "coarse_transformer_train",
+    "fine_layer_forward": "fine_stage", "fine_layer_backward": "fine_transformer_train",
 }
 
 t = time.time()
