@@ -37,9 +37,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      The differentiable fine transformer (K10) at the step's shapes: one
      self call (G = 8192) and one cross call (G = 4096) of [G, 49, 64], 8
      heads: each layer's forward output (K6's kernel, one layer), and dx,
-     dsrc and the 10 parameter gradients of the backward against the plain
-     twin on the same inputs, by K10_TOL; time the forward and backward and
-     the plain twin's;
+     dsrc (the cross call's; the self call adds it into dx) and the 10
+     parameter gradients of the backward against the plain twin on the same
+     inputs, by K10_TOL; time the forward and backward and the plain twin's;
   6. run the training step (`default_config()` as users run it: every
      kernel switch 'auto', so K8, K9 and K10 on the card; 640x480, batch 4,
      bf16, sparse focal loss, AdamW) with the launch counters set to 0 just
@@ -702,12 +702,13 @@ K9_GRADS = ("q_proj", "k_proj", "v_proj", "merge", "norm1.weight", "norm1.bias",
 
 
 def k9_tensors(out, grads) -> dict:
-    """A K9 call's (dx, dsrc, (dwq, dwkv, ...)) by name, the [C, 2C] K | V
-    gradient in its two halves, as the layer's 10 parameters take them."""
+    """A K9 or K10 call's (dx, dsrc, (dwq, dwkv, ...)) by name, the [C, 2C]
+    K | V gradient in its two halves, as the layer's 10 parameters take
+    them; no dsrc where it is None (a K10 self call adds it into dx)."""
     dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b) = grads
     C = dwq.shape[0]
     vals = (dwq, dwkv[:, :C], dwkv[:, C:], dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
-    named = {"dx": dx, "dsrc": dsrc} | dict(zip(K9_GRADS, vals))
+    named = {"dx": dx} | ({} if dsrc is None else {"dsrc": dsrc}) | dict(zip(K9_GRADS, vals))
     return named if out is None else {"out": out} | named
 
 
@@ -801,8 +802,9 @@ def check_fine_train(rec: Record, g) -> None:
         worst = max(errs, key=errs.get)
         peak = {n: rel_err(got[n], ref[n]) for n in got}
         wpeak = max(peak, key=peak.get)
+        dsrc = f"dsrc {errs['dsrc']:.2e}" if "dsrc" in errs else "dsrc added into dx"
         print(f"  {kind} layer, backward call G={G}: norm errors out0 {errs['out0']:.2e}, dx "
-              f"{errs['dx']:.2e}, dsrc {errs['dsrc']:.2e}, worst {worst} {errs[worst]:.2e}; "
+              f"{errs['dx']:.2e}, {dsrc}, worst {worst} {errs[worst]:.2e}; "
               f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}")
         bad = {k: v for k, v in errs.items() if not v <= K10_TOL}
         if bad:

@@ -177,14 +177,16 @@ IGNORED_JAX_FIELDS = {
 }
 
 
-def _path_root(cls: Any) -> str:
-    """The dotted path of `cls` in `Config`, where a dict of it converts alone."""
-    return {
-        "ModelConfig": "model.", "SwinConfig": "model.swin.", "TransformerConfig": "model.coarse.",
-        "CoarseMatchConfig": "model.match_coarse.", "FineMatchConfig": "model.fine.",
-        "PoseHeadConfig": "model.pose.", "LossConfig": "model.loss.", "TrainerConfig": "trainer.",
-        "OptimizerConfig": "trainer.optimizer.",
-    }.get(cls.__name__, "")
+def _config_paths(cls: Any = Config, path: str = "") -> dict:
+    """Each config class under `cls` by its dotted path prefix (its first
+    place, walking the fields in order), read from the type hints."""
+    paths = {cls: path}
+    hints = typing.get_type_hints(cls)
+    for f in dataclasses.fields(cls):
+        if dataclasses.is_dataclass(hints[f.name]):
+            for sub, p in _config_paths(hints[f.name], f"{path}{f.name}.").items():
+                paths.setdefault(sub, p)
+    return paths
 
 
 def config_from_dict(cls: Any, d: dict, _path: str = None) -> Any:
@@ -194,8 +196,8 @@ def config_from_dict(cls: Any, d: dict, _path: str = None) -> Any:
     holds the JAX package's default (`JAX_ONLY_DEFAULTS`) or never changes
     the math (`IGNORED_JAX_FIELDS`); any other raises ValueError naming the
     field, so a JAX configuration never converts to another model."""
-    if _path is None:
-        _path = _path_root(cls)
+    if _path is None:  # a dict of a sub-config converts alone at its place in Config
+        _path = _config_paths().get(cls, "")
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
     for key in d:

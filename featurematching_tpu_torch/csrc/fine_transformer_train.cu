@@ -6,10 +6,13 @@
 // fine_transformer_train (_fine_bwd_kernel through _layer_bwd_call:
 // _enc_fwd_stash, then _enc_bwd).
 //
-// Bound on the H100 by memory bytes: x and src in (bf16), the upstream
-// gradient in and dx and dsrc out (f32), 14-16 C bytes a token, against
-// twice the forward's products (about 20 C^2 multiply-adds a token; see
-// utils/kernel_bounds.fine_train_bwd_work). The TPU kernel holds a chunk of windows in
+// Bound on the H100 by operations: twice the forward's products (about
+// 20 C^2 multiply-adds a token) against the function's bytes at the TPU
+// kernel's dtypes, x, src and the upstream gradient in and dx and dsrc out
+// in bf16, 6-10 C bytes a token (utils/kernel_bounds.fine_train_bwd_work).
+// This kernel moves more: the upstream gradient in and dx and dsrc out in
+// f32, which keeps a layer's cotangents in f32 between its calls as the TPU
+// kernel keeps them inside its one call a layer. The TPU kernel holds a chunk of windows in
 // VMEM and adds each chunk's weight gradients into one output block across
 // its sequential grid. On the H100 blocks run in parallel, so:
 //   1. window_bwd: two blocks an SM, each looping over windows (a window of
@@ -21,7 +24,8 @@
 //      tiles.cuh: LN2, the FFN, LN1, the merge, the per-head attention
 //      gradients (dKV = Q^T dA and dK_sum on chip, only the heads' diagonal
 //      blocks), the Q and K feature maps, and writes dx and dsrc (f32: a
-//      layer's cotangents are added in f32, as the TPU kernel adds them).
+//      layer's cotangents are added in f32, as the TPU kernel adds them; in
+//      a self call, where src is x, dsrc is added into dx).
 //      It writes, per token in bf16, the operands of the weight products:
 //      o, msg, dm1, dqf, dy2, h, dy1 and [dkf | dv]; and per block the
 //      partial sums of the LN parameter gradients, over its windows in
@@ -473,11 +477,14 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_kernel(Io io) {
     }
     __syncthreads();
     fm::copy_rows_from_smem(io.dkv3 + row0 * 2 * C, 2 * C, kvs, LD2, N, 2 * C);
-    // dsrc = [dkf | dv] . wkvᵀ
-    float* dsg = io.dsrc + row0 * C;
+    // dsrc = [dkf | dv] . wkvᵀ; a self call adds it into dx (written above,
+    // before the barrier)
+    float* dsg = (io.self_call ? io.dx : io.dsrc) + row0 * C;
     fm::gemm_rows64<kWarps, 2 * C, C / 16>(kvs, LD2, io.wkvt, 0, warp, lane,
                                            [&](int r, int c, float v) {
-                                             if (r < N) dsg[(size_t)r * C + c] = v;
+                                             if (r >= N) return;
+                                             float& d = dsg[(size_t)r * C + c];
+                                             d = io.self_call ? d + v : v;
                                            });
     __syncthreads();  // the window's buffers are free for the next
   }
@@ -513,7 +520,8 @@ FM_ERROR_STRING_ENTRY
 // g [G, N, C] (f32); wq, wkv, wmerge, n1s, n1b, w1, w2, n2s, n2b (fm_fine_stage's
 // operands of one layer); w2t [C, 2C], w1mt [2C, C], wmt [C, C], wdxt [3C, C],
 // wkvt [2C, C] (bf16, packed: w2ᵀ, w1[C:]ᵀ, wmergeᵀ, [w1[:C]ᵀ ; wqᵀ], wkvᵀ)}.
-// out = {dx, dsrc [G, N, C] (f32); dwq [C, C], dwkv [C, 2C], dwmerge [C, C],
+// out = {dx, dsrc [G, N, C] (f32; a self call writes dx + dsrc to dx and
+// takes no dsrc, which may be null); dwq [C, C], dwkv [C, 2C], dwmerge [C, C],
 // dln [4C] (dn1s | dn1b | dn2s | dn2b), dw1 [2C, 2C], dw2 [2C, C] (f32, [in,
 // out]); scratch: stash bf16 [11 G N C], LN partials f32 [blocks][4C],
 // weight-gradient partials f32 [splits][2 C^2]}. blocks: the window stage's

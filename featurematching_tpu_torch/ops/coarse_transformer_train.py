@@ -225,7 +225,9 @@ def coarse_layer_backward_reference(x, src, kv, ks, g, lv: LayerValues, nhead: i
 
 
 def _ptrs(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A C array of the tensors' device pointers (None: a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr()
+                                              for t in tensors])
 
 
 def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, nhead: int):

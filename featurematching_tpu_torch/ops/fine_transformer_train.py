@@ -8,8 +8,8 @@ fine_transformer_train`, as a `torch.autograd.Function`:
              runs it), saving each layer's input pair and the final pair.
   backward — the layers in reverse (`_vjp_bwd`), each through
              `layer_backward`: a self layer is one encoder call over both
-             sides' windows stacked (dx + dsrc split back into the two
-             sides); a cross layer (o0 = enc(a0, a1), o1 = enc(a1, o0)) is
+             sides' windows stacked (its dx, into which the call adds
+             dsrc, split back into the two sides); a cross layer (o0 = enc(a0, a1), o1 = enc(a1, o0)) is
              two calls, the second first, its dsrc added to d0 before the
              first (`_fine_bwd_kernel`'s order). The second call's source
              is the saved o0, which is the JAX kernel's `has_o0` without a
@@ -18,8 +18,8 @@ fine_transformer_train`, as a `torch.autograd.Function`:
              kernels of `csrc/fine_transformer_train.cu` (a window stage
              that recomputes the window's forward in shared memory and runs
              its backward on tensor cores, then the weight gradients dW =
-             Aᵀ B of `csrc/wgrad.cuh`), bound on the H100 by the bytes
-             of its f32 gradients; on a CPU tensor its plain twin,
+             Aᵀ B of `csrc/wgrad.cuh`), bound on the H100 by its
+             operations; on a CPU tensor its plain twin,
              `fine_layer_backward_reference`.
 
 The plain twin follows `_enc_fwd_stash` and `_enc_bwd` at their rounding
@@ -79,12 +79,18 @@ def _dfeat(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v > 0, 1.0, torch.exp(v))
 
 
+def _self_call(x, src) -> bool:
+    """src is x: the kernel's test, by the tensors' memory."""
+    return src.data_ptr() == x.data_ptr()
+
+
 def fine_layer_backward_reference(x, src, g, lv: LayerValues, nhead: int):
     """The plain twin of one encoder call's backward: the forward recomputed
     from x [G, N, C] (queries) and src [G, N, C] (keys/values) of G windows,
     then its backward for the output's gradient g (f32). Returns (dx, dsrc,
     (dwq, dwkv, dwmerge, dn1s, dn1b, dw1, dw2, dn2s, dn2b)), all f32, the
-    gradients [in, out]."""
+    gradients [in, out]; in a self call (src is x) dx is the whole gradient
+    of x, dx + dsrc, and dsrc None."""
     G, N, C = x.shape
     H, D = nhead, C // nhead
     dt = x.dtype
@@ -138,7 +144,8 @@ def fine_layer_backward_reference(x, src, g, lv: LayerValues, nhead: int):
     dkv3 = torch.cat([(dK * _dfeat(kf)).to(dt), (dV * (1.0 / N)).to(dt)], dim=-1).float()
     dwkv = _tok(sf).t() @ _tok(dkv3)
     dsrc = dkv3 @ wkv.t()
-    return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+    wg = (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+    return (dx + dsrc, None, wg) if _self_call(x, src) else (dx, dsrc, wg)
 
 
 def _check(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int) -> None:
@@ -158,11 +165,11 @@ def _check(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int) -> None:
 
 def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int):
     """One encoder call's backward, as `fine_layer_backward_reference`
-    returns it. On a CUDA tensor the kernels of
-    `csrc/fine_transformer_train.cu` (raises for what they do not take:
-    bf16 x and src, f32 g, C = 64, a head dim in HEAD_DIMS, at most
-    MAX_TAPS taps), counted
-    in `launches`; on a CPU tensor the plain twin."""
+    returns it (a self call: dx + dsrc as dx, dsrc None). On a CUDA tensor
+    the kernels of `csrc/fine_transformer_train.cu` (raises for what they do
+    not take: bf16 x and src, f32 g, C = 64, a head dim in HEAD_DIMS, at
+    most MAX_TAPS taps), counted in `launches`; on a CPU tensor the plain
+    twin."""
     if x.device.type == "cpu":
         return fine_layer_backward_reference(x, src, g, lv, nhead)
     g = g.contiguous()
@@ -173,7 +180,8 @@ def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = min(WINDOW_BLOCKS_PER_SM * sms, G)
     splits = max(1, -(-G * N // SPLIT_TOKENS))
-    dx, dsrc = torch.empty(x.shape, **f32), torch.empty(x.shape, **f32)
+    dx = torch.empty(x.shape, **f32)
+    dsrc = None if _self_call(x, src) else torch.empty(x.shape, **f32)
     dwq, dwm = torch.empty(C, C, **f32), torch.empty(C, C, **f32)
     dwkv = torch.empty(C, 2 * C, **f32)
     dln = torch.empty(4 * C, **f32)
@@ -207,8 +215,8 @@ def layer_backward(name: str, x0, x1, o0, d0, d1, lv: LayerValues, lt: TrainValu
     if name == "self":
         G = x0.shape[0]
         both = torch.cat([x0, x1], dim=0)
-        dx, dsrc, wg = bwd(both, both, torch.cat([d0, d1], dim=0).float(), lv, lt, nhead)
-        d0, d1 = (dx + dsrc).to(dt).split(G)
+        dx, _, wg = bwd(both, both, torch.cat([d0, d1], dim=0).float(), lv, lt, nhead)
+        d0, d1 = dx.to(dt).split(G)
         return d0, d1, wg
     # o1 = enc(x1, o0) first: its dsrc is a cotangent of o0 = enc(x0, x1)
     dx1, do0, wg1 = bwd(x1, o0, d1.float().contiguous(), lv, lt, nhead)

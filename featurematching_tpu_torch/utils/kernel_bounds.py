@@ -201,12 +201,14 @@ def fine_train_fwd_work(G: int, N: int, C: int, heads: int) -> Work:
 
 
 def fine_train_bwd_work(G: int, N: int, C: int, heads: int, self_call: bool) -> Work:
-    """K10's backward for one encoder call: x and src (one tensor for a self
-    call, bf16), the output gradient (f32) and the weights in; dx and dsrc
-    (f32) and the layer's gradients (f32) out; twice the forward's products."""
-    tokens = G * N
-    nbytes = (tokens * (1 if self_call else 2) * C * BF16 + tokens * C * F32
-              + 10 * C * C * BF16 + 4 * C * F32 + 2 * tokens * C * F32
+    """K10's backward for one encoder call, at the TPU function's own dtypes:
+    x, src and the output gradient (bf16; src is x in a self call) and the
+    weights in; dx and, where it is an output of its own (a cross call),
+    dsrc (bf16) and the layer's gradients (f32) out; twice the forward's
+    products. The port's kernel moves more (an f32 output gradient, f32 dx
+    and dsrc); what it moves beyond this is its own cost."""
+    acts = 3 if self_call else 5
+    nbytes = (acts * G * N * C * BF16 + 10 * C * C * BF16 + 4 * C * F32
               + 10 * C * C * F32 + 4 * C * F32)
     return nbytes, 2 * fine_train_fwd_work(G, N, C, heads)[1]
 

@@ -192,7 +192,7 @@ def test_dispatch_falls_back_to_the_per_op_stack(rng, backward_calls, C, N0, N1)
         assert torch.isfinite(a).all() and torch.equal(a, r)
 
 
-def test_dispatch_raises_where_flax_takes_the_fine_kernel(rng, backward_calls, monkeypatch):
+def test_dispatch_takes_k10_for_fine_windows(rng, backward_calls, monkeypatch):
     """Fine windows (C = 64, 49 tokens) fail the coarse gate and pass the
     fine one: the switch no longer raises but takes K10 (its plain twin
     here), as flax does, and no K9 call."""

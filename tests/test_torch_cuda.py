@@ -550,8 +550,13 @@ def _k10_call(x, src, lv, heads, gout, plain):
     return list(ftt.fine_layer_backward(x, src, gout, lv, ctt.train_values(lv), heads))
 
 
+K10_NAMES = ["dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s",
+             "dn2b"]
+
+
 def _flat(r):
-    return [r[0], r[1], *r[2]]
+    """A K10 call's outputs by name; a self call has no dsrc (dx holds it)."""
+    return {n: t for n, t in zip(K10_NAMES, [r[0], r[1], *r[2]], strict=True) if t is not None}
 
 
 @pytest.mark.parametrize("G", [1, 301])
@@ -561,8 +566,8 @@ def test_fine_train_call_ragged_windows(gen, G, N, kind, heads):
     """One window (fewer than the grid's blocks) and 301 (more than two an
     SM, a ragged weight-gradient split), 25 and 49 taps, head dims 8 and
     16: dx, dsrc and the 9 gradients against the plain twin on the same
-    inputs, by `_k9_close` against the twin in bf16 and in float32
-    arithmetic; twice, bit for bit."""
+    inputs (a self call: dx + dsrc as dx), by `_k9_close` against the twin
+    in bf16 and in float32 arithmetic; twice, bit for bit."""
     C = 64
     lv = _layer_values(gen, C)
     x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
@@ -570,16 +575,18 @@ def test_fine_train_call_ragged_windows(gen, G, N, kind, heads):
     gout = _rnd(gen, G, N, C)
     got = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
     ref = _flat(_k10_call(x, src, lv, heads, gout, plain=True))
-    src32 = x.float() if kind == "self" else src.float()
-    exact = _flat(_k10_call(x.float(), src32, type(lv)(*[t.float() for t in lv]), heads, gout,
+    x32 = x.float()
+    src32 = x32 if kind == "self" else src.float()
+    exact = _flat(_k10_call(x32, src32, type(lv)(*[t.float() for t in lv]), heads, gout,
                             plain=True))
-    names = ["dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s", "dn2b"]
-    for name, a, r, e in zip(names, got, ref, exact, strict=True):
-        assert a.shape == r.shape and a.dtype == r.dtype, name
-        _k9_close(a, r, e, name)
+    assert list(got) == list(ref) == list(exact) == [n for n in K10_NAMES
+                                                     if kind == "cross" or n != "dsrc"]
+    for name, a in got.items():
+        assert a.shape == ref[name].shape and a.dtype == ref[name].dtype, name
+        _k9_close(a, ref[name], exact[name], name)
     again = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
-    for name, a, b in zip(names, got, again, strict=True):
-        assert torch.equal(a, b), name  # fixed-order sums: bit for bit
+    for name, a in got.items():
+        assert torch.equal(a, again[name]), name  # fixed-order sums: bit for bit
 
 
 def test_fine_train_stack_against_the_twin(gen, monkeypatch):
@@ -688,10 +695,12 @@ K9_FAULTS = {
     "k9_dsrc_heads_rolled": lambda dx, dsrc, wg: (
         dx, dsrc.unflatten(-1, (8, -1)).roll(1, -2).flatten(-2), wg),
 }
-# K10: the same two faults in the fine transformer's backward
+# K10: the same two faults in the fine transformer's backward (a self call
+# returns no dsrc: it is added into dx)
 K10_FAULTS = {
     "k10_dwkv_5pc_short": K9_FAULTS["k9_dwkv_5pc_short"],
-    "k10_dsrc_heads_rolled": K9_FAULTS["k9_dsrc_heads_rolled"],
+    "k10_dsrc_heads_rolled": lambda dx, dsrc, wg: (
+        (dx, dsrc, wg) if dsrc is None else K9_FAULTS["k9_dsrc_heads_rolled"](dx, dsrc, wg)),
 }
 
 

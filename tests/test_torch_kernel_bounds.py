@@ -17,6 +17,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_block_train_fwd_work,
     swin_block_work,
     swin_sites,
+    total,
     train_calls,
 )
 
@@ -108,5 +109,9 @@ def test_k10_counts_its_encoder_calls():
     assert sum(w[1] for w in fwd) == k6[1] - 2 * 2 * nwin * taps * f.d_model * 2  # no mix, no heat
     for fw, bw in zip(fwd, bwd):
         assert bw[1] == 2 * fw[1] and bw[0] > fw[0]
+    # bf16 activations: x, g and dx of a self call; x, src, g, dx and dsrc of a cross call
+    acts = sum(w[0] for w in bwd) - 3 * (10 * f.d_model**2 * (2 + 4) + 8 * f.d_model * 4)
+    assert acts == (3 * 8192 + 5 * 2 * 4096) * taps * f.d_model * 2
+    assert bound_ms(*total(bwd)) == (bound_ms(0, total(bwd)[1])[0], "operations")
     assert sum(w[0] for w in fwd + bwd) == rows["K10"][0]
     assert sum(w[1] for w in fwd + bwd) == rows["K10"][1]

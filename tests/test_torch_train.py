@@ -292,6 +292,23 @@ class TestEntryPoints:
             config_from_dict(Config, dataclasses.asdict(dataclasses.replace(
                 jax_default_config(), model=m)))
 
+    @pytest.mark.parametrize("part,field,value", [
+        (None, "coarse_only", True), ("swin", "qkv_bias", False),
+        ("fine", "concat_coarse_feat", False),
+    ])
+    def test_sub_config_refuses_at_its_place_in_config(self, part, field, value):
+        """A sub-config converted alone finds its dotted path in Config from
+        the type hints: the error names the field as a whole Config would."""
+        from featurematching_tpu_torch.config import FineMatchConfig, ModelConfig, SwinConfig
+
+        m = jax_default_config().model
+        jax_part = m if part is None else getattr(m, part)
+        cls = {None: ModelConfig, "swin": SwinConfig, "fine": FineMatchConfig}[part]
+        path = "model." + (f"{part}." if part else "") + field
+        with pytest.raises(ValueError, match=path.replace(".", r"\.")):
+            config_from_dict(cls, dataclasses.asdict(dataclasses.replace(jax_part, **{field: value})))
+        assert config_from_dict(cls, dataclasses.asdict(jax_part)) == cls()
+
     def test_config_allows_fields_that_do_not_change_the_math(self):
         """The allow-list: a Pallas kernel form, pose and data settings."""
         from featurematching_tpu.config import tpu_optimized_config
