@@ -179,9 +179,13 @@ def test_c128_takes_no_k10(rng, backward_calls):
     """The JAX test case (4, 49, 128, 8, 4 layers) fails the port's fine
     gate: no K10 call. C = 128 passes the coarse gate, so the switch takes
     K9 (its twin here), whose gradients equal those of the per-op stack
-    switched off to f32 rounding."""
+    switched off to f32 rounding. The weights come from a fixed seed: the two
+    stacks sum in other orders, so for some weights (about 5 seeds in 100) a
+    ReLU input within f32 rounding of 0 takes the other branch and moves a
+    few entries by more than the tolerance."""
     names = ("self", "cross", "self", "cross")
     f0, f1 = (_t(rng.standard_normal((4, 49, 128)).astype(np.float32)) for _ in range(2))
+    torch.manual_seed(0)
     on = LocalFeatureTransformer(128, 8, names, use_fused_train=True)
     off = LocalFeatureTransformer(128, 8, names)
     off.load_state_dict(on.state_dict())
