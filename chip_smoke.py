@@ -40,6 +40,18 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      dsrc (the cross call's; the self call adds it into dx) and the 10
      parameter gradients of the backward against the plain twin on the same
      inputs, by K10_TOL; time the forward and backward and the plain twin's;
+     The window attention (K11) at every block of the backbone (the window
+     count, C, heads and, on odd blocks, the shift mask of 640x480, batch
+     4), by K11_ATOL / K11_RTOL, timed against its twin and against
+     `F.scaled_dot_product_attention` with the bias (plus mask) as a float
+     mask (the library yardstick); then at tpu_optimized_config()'s three
+     widths (head dim 64) and at head dim 32 at one site;
+     The image-layout Swin block (K12) at every block of the backbone with
+     the real maps (120x160, 60x80, 30x40, padded as the pad formulation
+     pads), against its plain twin and against K2 through the roll path on
+     the same inputs (K12_K2_RTOL), timed against K2 with its pad, roll,
+     partition, reverse, roll back and crop; then the 13 blocks in order
+     through swin_block_image N_FORWARD times, one K12 launch a block;
   6. run the training step (`default_config()` as users run it: every
      kernel switch 'auto', so K8, K9 and K10 on the card; 640x480, batch 4,
      bf16, sparse focal loss, AdamW) with the launch counters set to 0 just
@@ -63,7 +75,21 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      from its inputs and upstream gradient, and the step's K7 call, against
      their plain versions on the card), ten steps on
      one batch at lr 1e-4 lower the loss, and the evaluation step takes its
-     matches from K1's statistics (one launch) with finite outputs.
+     matches from K1's statistics (one launch) with finite outputs;
+  8. the evaluation step with `swin.fused_block='off'` (the per-op block,
+     fused_attention 'auto'; default_config(), 640x480, batch 4, bf16) with
+     the launch counters set to 0 just before and read just after: K11 13
+     times, K8 and K2 none, K9's and K10's forwards, K1's statistics and
+     its pass 1 (EXPECTED_PER_EVAL); finite outputs, pairs/s, the device's
+     busy share and the backbone's device ms;
+  9. its semantic checks: identical images with thr=1e-8 match on the
+     diagonal; the card's forward agrees with the CPU's at 128x128
+     (feat_c0, and mkpts0_f over the matches both find); and the forward at
+     tpu_optimized_config() with the per-op block runs K11 at head dim 64,
+     13 launches, with finite outputs;
+ 10. two training steps with the per-op block (autograd through the plain
+     ops; no K11 in training, as in flax): no K8 launch, finite loss,
+     gradient norm and parameters.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
@@ -73,10 +99,13 @@ swin_block_train_fwd and swin_block_train_bwd (K8), coarse_layer_forward
 and coarse_layer_backward (K9, one launch an encoder call),
 fine_layer_forward (K10's forward: K6's kernel, one launch a layer) and
 fine_layer_backward (K10, one launch an encoder call), dual_softmax_lse
-(K1's pass 1, K7's forward) and sparse_focal_backward (K7).
+(K1's pass 1, K7's forward) and sparse_focal_backward (K7). The per-op
+block's evaluation forward adds window_attention (K11); swin_block_fused_image
+(K12) runs on its own entry point, swin_block_image.
 
 Per-kernel numbers in the JSON line are totals over one forward (serving
-kernels) or one training step (training kernels): each call site's time
+kernels), one training step (training kernels), one evaluation step with the
+per-op block (K11) or the backbone's 13 blocks (K12): each call site's time
 times its launches, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
@@ -116,7 +145,9 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
     swin_block_work,
+    swin_sites,
     total,
+    window_attention_work,
 )
 
 B, H, W = 4, 480, 640
@@ -158,6 +189,11 @@ SOURCES = {
         "featurematching_tpu/ops/pallas_fine_grad.py:384 (pallas_fine_stage.py:378)"),
     "fine_layer_backward": (
         "fine_transformer_train.cu", "featurematching_tpu/ops/pallas_fine_grad.py:444"),
+    "window_attention": (
+        "window_attention.cu", "featurematching_tpu/ops/pallas_window_attention.py:141,154"),
+    "swin_block_fused_image": (
+        "swin_block_image.cu",
+        "featurematching_tpu/ops/pallas_swin_block.py:478 (swin_block_image :514)"),
 }
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
 # once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
@@ -165,7 +201,17 @@ SOURCES = {
 EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
     "swin_block_train_fwd": 13, "swin_block_train_bwd": 13, "dual_softmax_lse": 1,
     "sparse_focal_backward": 1, "coarse_layer_forward": 12, "coarse_layer_backward": 12,
-    "fine_layer_forward": 2, "fine_layer_backward": 3,
+    "fine_layer_forward": 2, "fine_layer_backward": 3, "window_attention": 0,
+    "swin_block_fused_image": 0,
+}
+# launches of an evaluation step with swin.fused_block='off' (the per-op
+# block, fused_attention 'auto'): K11 once a block; the coarse and fine stacks
+# through K9's and K10's forwards (one launch an encoder call, one a fine
+# layer); K1's statistics for the matches and its pass 1 for the sparse loss;
+# no other kernel
+EXPECTED_PER_EVAL = dict.fromkeys(SOURCES, 0) | {
+    "window_attention": 13, "coarse_layer_forward": 12, "fine_layer_forward": 2,
+    "dual_softmax_match_stats": 1, "dual_softmax_lse": 1,
 }
 # K8 against the plain twin's autograd, max |kernel - plain| <= K8_TOL max |plain|
 # per tensor: both take the same bf16 activations and bf16-valued weights and
@@ -190,6 +236,17 @@ K9_TOL = 1e-2
 # rounding can fall the other way, and a ReLU or feature-map input within
 # rounding of 0 can take the other branch
 K10_TOL = 1e-2
+# K11 against its plain twin (bf16): both round p and the output to bf16
+# after f32 sums in another order; a sum within f32 rounding of a bf16
+# boundary rounds the other way: one bf16 ulp of the output (2^-8, rtol),
+# and over the probabilities at most 2^-8 sum_j p_j |v_j| <= 2^-8 max |v|
+# (|v| < 5 for normal inputs: atol)
+K11_ATOL, K11_RTOL = 2e-2, 2**-7
+# K12 against K2 through the roll path: the same block body on the same
+# windows, so equal up to one bf16 rounding; the tokens the roll wraps into
+# a window are pad tokens in K12's map, both masked at -100, whose
+# probabilities round to 0 in bf16
+K12_K2_RTOL = 2**-8
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -831,6 +888,301 @@ def check_fine_train(rec: Record, g) -> None:
                  err=float((got["dx"] - ref["dx"]).abs().max()))
 
 
+def backbone_blocks(cfg):
+    """The backbone's Swin blocks at 640x480, batch 4, grouped: [(count, (H,
+    W) map, C, heads, shift)] (odd blocks shifted)."""
+    groups = {}
+    for st in swin_sites(cfg, 2 * B, H, W):
+        key = (st.map_hw, st.C, st.heads, cfg.swin.window_size // 2 if st.mask_windows else 0)
+        groups[key] = groups.get(key, 0) + 1
+    return [(count, *key) for key, count in groups.items()]
+
+
+def padded(hw, w=8):
+    return tuple(-(-v // w) * w for v in hw)
+
+
+def check_window_attention(rec: Record, g) -> None:
+    import torch.nn.functional as F
+
+    from featurematching_tpu_torch.config import default_config, tpu_optimized_config
+    from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
+    from featurematching_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
+
+    print(f"  tolerance |kernel - plain| <= {K11_ATOL} + {K11_RTOL} |plain|")
+
+    def site(count, hw, C, h, shift, record):
+        Hp, Wp = padded(hw)
+        nwin = 2 * B * (Hp // 8) * (Wp // 8)
+        d = C // h
+        scale = d**-0.5
+        qkv = rnd(g, nwin, 64, 3 * C, dtype=torch.bfloat16)
+        bias = rnd(g, h, 64, 64, scale=0.02)
+        mask = (torch.as_tensor(_shift_attn_mask(Hp, Wp, 8, shift), device="cuda")
+                if shift else None)
+        got = window_attention(qkv, bias, mask, h, scale)
+        torch.cuda.synchronize()
+        err, ok = close(got, window_attention_reference(qkv, bias, mask, h, scale),
+                        K11_ATOL, K11_RTOL)
+        print(f"  {nwin} windows C={C} head dim {d} mask={mask is not None}: "
+              f"max_abs_err {err:.3e}")
+        if not ok:
+            raise AssertionError(f"window_attention C={C} d={d} mask={mask is not None}: "
+                                 f"max err {err:.3e}")
+        if not record:
+            return
+        q, k, v = qkv.view(nwin, 64, 3, h, d).permute(2, 0, 3, 1, 4)
+        am = bias.bfloat16()[None]
+        if mask is not None:  # SDPA's float mask: bias plus each window's shift mask
+            wid = torch.arange(nwin, device="cuda") % mask.shape[0]
+            am = (bias[None] + mask[wid][:, None]).bfloat16()
+        rec.site("window_attention", count,
+                 cuda_ms(lambda: window_attention(qkv, bias, mask, h, scale)),
+                 cuda_ms(lambda: window_attention_reference(qkv, bias, mask, h, scale), iters=5),
+                 window_attention_work(nwin, C, h, 0 if mask is None else mask.shape[0]), err=err,
+                 lib_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                       scale=scale)))
+
+    for count, hw, C, h, shift in backbone_blocks(default_config().model):
+        site(count, hw, C, h, shift, True)
+    print("  tpu_optimized_config() (head dim 64), not in the totals:")
+    for count, hw, C, h, shift in backbone_blocks(tpu_optimized_config().model):
+        site(count, hw, C, h, shift, False)
+    print("  head dim 32, not in the totals:")
+    site(1, (60, 80), 128, 4, 4, False)
+
+
+def roll_path(x, Hh, Ww, shift, block):
+    """The serving backbone's window plumbing around block(windows, mask):
+    pad to the window, roll, partition, the block, reverse, roll back, crop."""
+    import torch.nn.functional as F
+
+    from featurematching_tpu_torch.models.backbone_swin import (
+        _shift_attn_mask,
+        window_partition,
+        window_reverse,
+    )
+
+    Bx, L, C = x.shape
+    Hp, Wp = padded((Hh, Ww))
+    xi = F.pad(x.reshape(Bx, Hh, Ww, C), (0, 0, 0, Wp - Ww, 0, Hp - Hh))
+    mask = None
+    if shift:
+        xi = torch.roll(xi, shifts=(-shift, -shift), dims=(1, 2))
+        mask = torch.as_tensor(_shift_attn_mask(Hp, Wp, 8, shift), device=x.device)
+    oi = window_reverse(block(window_partition(xi, 8).contiguous(), mask), 8, Hp, Wp)
+    if shift:
+        oi = torch.roll(oi, shifts=(shift, shift), dims=(1, 2))
+    return oi[:, :Hh, :Ww].reshape(Bx, Hh * Ww, C)
+
+
+def check_swin_block_image(rec: Record, g, launches: dict) -> None:
+    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.ops.swin_block import swin_block_fused
+    from featurematching_tpu_torch.ops.swin_block_image import (
+        pad_image,
+        swin_block_fused_image,
+        swin_block_image,
+        swin_block_image_reference,
+    )
+
+    atol, rtol = 5e-2, 2e-2  # K2's: bf16 intermediates rounded in another order
+    print(f"  tolerance against the plain twin |kernel - plain| <= {atol} + {rtol} |plain|; "
+          f"against K2 through the roll path |K12 - K2| <= {K12_K2_RTOL} |K2| (the same "
+          "block body on the same windows)")
+    inputs = []
+    for count, (Hh, Ww), C, h, shift in backbone_blocks(default_config().model):
+        x = rnd(g, 2 * B, Hh * Ww, C, dtype=torch.bfloat16)
+        p = block_params(g, C, h)
+        xp, top = pad_image(x, Hh, Ww, 8, shift)
+        got = swin_block_fused_image(xp, p, h, 8, shift)
+        torch.cuda.synchronize()
+        err, ok = close(got, swin_block_image_reference(xp, p, h, 8, shift), atol, rtol)
+
+        def k2_path():
+            return roll_path(x, Hh, Ww, shift, lambda xw, m: swin_block_fused(xw, m, p, h))
+
+        k2 = k2_path()
+        img = swin_block_image(x, Hh, Ww, p, h, 8, shift)
+        torch.cuda.synchronize()
+        err_k2 = float((img.float() - k2.float()).abs().max())
+        ok_k2 = bool(((img.float() - k2.float()).abs() <= K12_K2_RTOL * k2.float().abs()).all())
+        print(f"  {2 * B}x{Hh}x{Ww} C={C} shift={shift}: max_abs_err {err:.3e} against the twin, "
+              f"{err_k2:.3e} against K2 through the roll path")
+        if not (ok and ok_k2):
+            raise AssertionError(f"swin_block_fused_image {Hh}x{Ww} C={C} shift={shift}: "
+                                 f"max err {err:.3e} (twin), {err_k2:.3e} (K2)")
+        whole = cuda_ms(lambda: swin_block_image(x, Hh, Ww, p, h, 8, shift))
+        k2_whole = cuda_ms(k2_path)
+        print(f"    K12 with its pad and slice {whole:.4f} ms; K2 with the pad, roll, "
+              f"partition, reverse, roll back and crop {k2_whole:.4f} ms")
+        # the function's work is the block's on the map's windows (K2's count,
+        # as kernel_bounds counts K12); the pad formulation's extra row and
+        # column of windows are the kernel's own cost
+        Hp, Wp = padded((Hh, Ww))
+        nw = (Hp // 8) * (Wp // 8)
+        rec.site("swin_block_fused_image", count,
+                 cuda_ms(lambda: swin_block_fused_image(xp, p, h, 8, shift)),
+                 cuda_ms(lambda: swin_block_image_reference(xp, p, h, 8, shift), iters=3),
+                 swin_block_work(2 * B * nw, C, h, nw if shift else 0, tokens=2 * B * Hh * Ww),
+                 err=err)
+        inputs.append((count, x, Hh, Ww, p, h, shift))
+    # K12 on its own path: the backbone's 13 blocks, each through
+    # swin_block_image, N_FORWARD times as the forwards run
+    swin_block_fused_image.launches = 0
+    for _ in range(N_FORWARD):
+        for count, x, Hh, Ww, p, h, shift in inputs:
+            for _ in range(count):
+                swin_block_image(x, Hh, Ww, p, h, 8, shift)
+    torch.cuda.synchronize()
+    launches["swin_block_fused_image"] = swin_block_fused_image.launches
+    print(f"  the backbone's blocks through swin_block_image, {N_FORWARD} times: "
+          f"{swin_block_fused_image.launches} launches")
+    if swin_block_fused_image.launches != 13 * N_FORWARD:
+        raise AssertionError("swin_block_image did not launch K12 once a block")
+
+
+def eval_forward(wrappers, launches) -> None:
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.train.step import create_train_state, eval_step
+
+    cfg = training_config(fused_block="off")
+    state = create_train_state(cfg, device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    eval_step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    for _ in range(N_FORWARD):
+        out, ev = eval_step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    print(f"  launches over {N_FORWARD} evaluation steps: {launches}")
+    for n, per in EXPECTED_PER_EVAL.items():
+        if launches[n] != per * N_FORWARD:
+            raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_FORWARD}")
+    m = out.coarse.mask
+    if out.feat_c0.shape != (B, (H // 8) * (W // 8), 256):
+        raise AssertionError("unexpected output shapes")
+    for t_ in (ev.loss, out.feat_c0, out.feat_c1, out.coarse.mconf, out.fine.mkpts0_f,
+               out.fine.mkpts1_f):
+        if not torch.isfinite(t_.float()).all():
+            raise AssertionError("non-finite output")
+    fwd_ms = dt / N_FORWARD * 1e3
+    print(f"  evaluation step: {fwd_ms:.3f} ms, {B * N_FORWARD / dt:.3f} pairs/s (batch {B}, "
+          f"{W}x{H}, bf16, {int(m.sum())} matches at thr {cfg.model.match_coarse.thr})",
+          flush=True)
+    model = state.model
+    imgs = torch.cat([batch["image0"], batch["image1"]]).to(model.dtype)
+    with torch.no_grad():
+        bb_ms, _ = profile_ms(lambda: model.backbone(imgs, fused_block=False,
+                                                     fused_attention=True))
+    busy, rows = profile_ms(lambda: eval_step(state, batch))
+    print(f"  device: {busy:.3f} ms busy = {busy / fwd_ms:.3f} of the {fwd_ms:.3f} ms step; "
+          f"backbone (per-op blocks, K11) {bb_ms:.3f} ms of device time")
+    print(f"  profiler: {len(rows)} kernel names, {sum(r[1] for r in rows)} launches a step")
+    for ms, count, name in rows[:10]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+
+
+def eval_semantic() -> None:
+    from featurematching_tpu_torch.config import tpu_optimized_config
+    from featurematching_tpu_torch.models.matcher import Matcher
+    from featurematching_tpu_torch.ops.swin_block_train import swin_block_train_fwd
+    from featurematching_tpu_torch.ops.window_attention import window_attention
+
+    cfg = training_config(fused_block="off").model
+    cfg = dataclasses.replace(cfg, match_coarse=dataclasses.replace(cfg.match_coarse, thr=1e-8))
+    model = Matcher(cfg, device="cuda", seed=0)
+    gi = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.rand(B, H, W, 3, generator=gi, device="cuda")
+    with torch.no_grad():
+        out = model(img, img)
+    m = out.coarse.mask
+    diag = float((out.coarse.i_ids == out.coarse.j_ids)[m].float().mean())
+    print(f"  identical images: {int(m.sum())} matches, {diag:.4f} on the diagonal")
+    if int(m.sum()) == 0 or diag < 0.95:
+        raise AssertionError("identical images do not match on the diagonal")
+    # the card's forward (K11) against the CPU's (the per-op attention), same weights
+    cpu = Matcher(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    a = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(3))
+    b = torch.roll(a, shifts=8, dims=2)
+    with torch.no_grad():
+        got, ref = model(a.cuda(), b.cuda()), cpu(a, b)
+    rel = float((got.feat_c0.float().cpu() - ref.feat_c0.float()).abs().max()
+                / ref.feat_c0.float().abs().max())
+    print(f"  128x128 card vs CPU (bf16 both): feat_c0 max err / max |ref| = {rel:.4f}")
+    if not rel < 0.05:
+        raise AssertionError("the card's evaluation forward disagrees with the CPU's")
+    gc, rc = got.coarse, ref.coarse
+    both = (gc.mask.cpu() & rc.mask & (gc.i_ids.cpu() == rc.i_ids) & (gc.j_ids.cpu() == rc.j_ids))
+    px = float((got.fine.mkpts0_f.cpu()[both][:, :2] - ref.fine.mkpts0_f[both][:, :2])
+               .abs().max()) if both.any() else float("nan")
+    print(f"  128x128 mkpts0_f over the {int(both.sum())} matches both find (of "
+          f"{int(rc.mask.sum())} on the CPU): max err {px:.4f} px")
+    if not (both.any() and px <= 0.5):  # as the serving check: a window spans +-6 px
+        raise AssertionError("the card's fine keypoints disagree with the CPU's")
+    # tpu_optimized_config(): Swin head dim 64, K11's only path on the card
+    tc = tpu_optimized_config().model
+    tc = dataclasses.replace(tc, swin=dataclasses.replace(tc.swin, fused_block="off"))
+    model = Matcher(tc, device="cuda", seed=0)
+    window_attention.launches = swin_block_train_fwd.launches = 0
+    with torch.no_grad():
+        out = model(img, torch.roll(img, shifts=16, dims=2))
+    torch.cuda.synchronize()
+    n11, n8 = window_attention.launches, swin_block_train_fwd.launches
+    finite = all(torch.isfinite(t.float()).all() for t in (
+        out.feat_c0, out.feat_c1, out.fine.mkpts0_f, out.fine.mkpts1_f))
+    print(f"  tpu_optimized_config() (Swin heads {tc.swin.num_heads}, head dim "
+          f"{tc.swin.embed_dim // tc.swin.num_heads[0]}): window_attention {n11} launches, "
+          f"swin_block_train_fwd {n8}, outputs finite: {finite}")
+    if (n11, n8) != (13, 0) or not finite:
+        raise AssertionError("tpu_optimized_config()'s evaluation forward did not run K11")
+
+
+def training_per_op(wrappers) -> None:
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.train.step import create_train_state, train_step
+
+    cfg = training_config(fused_block="off")
+    state = create_train_state(cfg, device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    for _ in range(2):
+        state, met = train_step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = {n: w.launches for n, w in wrappers.items()}
+    print(f"  launches over 2 steps: {got}")
+    vals = {k: float(v) for k, v in met.items()}
+    print(f"  last step: {vals}; {dt / 2 * 1e3:.3f} ms a step over the first two")
+    for n in ("swin_block_train_fwd", "swin_block_train_bwd", "window_attention",
+              "swin_block_fused"):
+        if got[n]:
+            raise AssertionError(f"{n} launched {got[n]} times in the per-op block's step")
+    if not all(map(np.isfinite, vals.values())):
+        raise AssertionError("non-finite loss or gradient norm")
+    for name, p in state.model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"non-finite parameter {name}")
+
+
 def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fine_fused=None):
     """default_config() as users run it, optionally with another drop-path
     rate, block switch, coarse.fused_train or fine.fused_train (K9 and K10:
@@ -1187,10 +1539,12 @@ def main() -> int:
     from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln
     from featurematching_tpu_torch.ops.sparse_focal_loss import sparse_focal_backward
     from featurematching_tpu_torch.ops.swin_block import swin_block_fused
+    from featurematching_tpu_torch.ops.swin_block_image import swin_block_fused_image
     from featurematching_tpu_torch.ops.swin_block_train import (
         swin_block_train_bwd,
         swin_block_train_fwd,
     )
+    from featurematching_tpu_torch.ops.window_attention import window_attention
 
     wrappers = {
         "swin_block_fused": swin_block_fused, "layer_norm_chain": layer_norm_chain,
@@ -1201,6 +1555,7 @@ def main() -> int:
         "coarse_layer_forward": coarse_layer_forward,
         "coarse_layer_backward": coarse_layer_backward,
         "fine_layer_forward": fine_layer_forward, "fine_layer_backward": fine_layer_backward,
+        "window_attention": window_attention, "swin_block_fused_image": swin_block_fused_image,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1242,10 +1597,15 @@ def main() -> int:
     phase("check sparse_focal_loss", lambda: check_sparse_focal_loss(rec, g))
     phase("check coarse_transformer_train", lambda: check_coarse_train(rec, g))
     phase("check fine_transformer_train", lambda: check_fine_train(rec, g))
+    phase("check window_attention", lambda: check_window_attention(rec, g))
+    image_launches = {}  # of the backbone's 13 blocks through swin_block_image
+    phase("check swin_block_fused_image",
+          lambda: check_swin_block_image(rec, g, image_launches))
 
     cfg = default_config().model
     launches = {}  # of the serving forward
     train_launches = {}  # of the training step
+    eval_launches = {}  # of the evaluation step with the per-op block
 
     def forward():
         model = FastMatcher(cfg, device="cuda", seed=0)
@@ -1319,12 +1679,19 @@ def main() -> int:
     phase(f"training step {W}x{H} batch {B} bf16",
           lambda: training_step(wrappers, train_launches))
     phase("training semantic checks", training_semantic)
+    phase(f"evaluation step, per-op block, {W}x{H} batch {B} bf16",
+          lambda: eval_forward(wrappers, eval_launches))
+    phase("evaluation semantic checks, per-op block", eval_semantic)
+    phase(f"two training steps, per-op block, {W}x{H} batch {B} bf16",
+          lambda: training_per_op(wrappers))
 
     kernels = []
+    path_launches = dict.fromkeys(EXPECTED_PER_FORWARD, launches) | {
+        "window_attention": eval_launches, "swin_block_fused_image": image_launches}
     for n, k in rec.k.items():
         src, replaces = SOURCES[n]
         b, by = bound_ms(k["nbytes"], k["flops"])
-        runs = launches if n in EXPECTED_PER_FORWARD else train_launches
+        runs = path_launches.get(n, train_launches)
         kernels.append({
             "name": n, "route": "cuda", "source": f"featurematching_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": runs.get(n, 0), "max_abs_err": k["err"],

@@ -37,8 +37,12 @@ class SwinConfig:
     window_size: int = 8
     mlp_ratio: float = 4.0
     drop_path_rate: float = 0.2
+    # the window-attention kernel (K11, `ops/window_attention`) in the per-op
+    # block: 'auto' (evaluation on the card), 'on', 'off'
+    fused_attention: str = "auto"
     # the differentiable fused block (K8, `ops/swin_block_train`) in the
-    # training Matcher: 'auto', 'on', 'off'
+    # training Matcher: 'auto', 'on', 'off'. Supersedes fused_attention
+    # where it is selected
     fused_block: str = "auto"
 
 
@@ -148,6 +152,17 @@ def default_config() -> Config:
     return Config()
 
 
+def tpu_optimized_config() -> Config:
+    """The JAX package's performance profile: the default's capacity with
+    head dim 64 (Swin heads (1, 2, 4), coarse 4 heads, fine 1 head). Not
+    weight-compatible with default_config()."""
+    return Config(model=ModelConfig(
+        swin=SwinConfig(num_heads=(1, 2, 4)),
+        coarse=TransformerConfig(d_model=256, nhead=4),
+        fine=FineMatchConfig(d_model=64, nhead=1),
+    ))
+
+
 # Fields of the JAX package's configuration that this copy does not hold,
 # with the JAX defaults (by dotted path from the `Config` root). A value other
 # than the default would build another model, so `config_from_dict` refuses it.
@@ -161,7 +176,6 @@ JAX_ONLY_DEFAULTS = {
 # Fields this copy does not hold that never change the port's math, each
 # with its reason; any value passes.
 IGNORED_JAX_FIELDS = {
-    "model.swin.fused_attention": "selects a Pallas kernel form; same math as the fused block",
     "model.resnet_fpn": "read only by the ResNet-FPN backbone, which the port refuses",
     "model.pose": "read only by the pose heads; pose.flag other than 'none' raises",
     "model.loss.fine_correct_thr": "read by no code of the JAX package",

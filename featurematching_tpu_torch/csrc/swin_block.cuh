@@ -27,7 +27,11 @@
 //
 // The same kernel serves the training forward (swin_block_train.cu, K8):
 // TrainIO carries the drop-path branch scales and the outputs the backward
-// reads; the serving forward (swin_block.cu, K2) passes nulls.
+// reads; the serving forward (swin_block.cu, K2) passes nulls. It also
+// serves the image-layout block (swin_block_image.cu, K12): ImageIO has it
+// read each window straight from a padded [B, Hp2, Wp2, C] map and write it
+// back to the same place, with the shift mask derived from each token's
+// region label instead of read.
 
 #include "common.cuh"
 
@@ -56,7 +60,9 @@ struct Smem {
   static constexpr size_t h_off = x_off + N * LDX * 2;  // bf16 [N][LDX] LN output
   static constexpr size_t q_off = h_off + N * LDX * 2;  // bf16 [N][LDQ] q|k|v, then MLP hidden chunk
   static constexpr size_t w_off = q_off + N * LDQ * 2;  // per-warp slices
-  static constexpr size_t bytes = w_off + kWarps * kWarpBytes;
+  static constexpr size_t o_off = w_off + kWarps * kWarpBytes;  // int64 [N] token offsets
+  static constexpr size_t l_off = o_off + N * 8;                // uint8 [N] region labels
+  static constexpr size_t bytes = l_off + N;
   static_assert(N * LDH * 2 <= N * LDQ * 2, "hidden chunk must fit in the qkv region");
 };
 
@@ -126,11 +132,13 @@ __device__ __forceinline__ void layer_norm_rows(const bf16* src, bf16* dst, cons
 }
 
 // One (head, 16 query rows) attention unit in the warp's slice: scores with
-// the relative-position bias and the shift mask, softmax, then P.V written
+// the relative-position bias and the shift mask (read from mk, or -100
+// between tokens of different region labels lab), softmax, then P.V written
 // over the unit's q columns.
 template <int C>
 __device__ __forceinline__ void attention_unit(bf16* qkv, int hd, int tm,
                                                const float* rel_bias, const float* mk,
+                                               const unsigned char* lab,
                                                unsigned char* slice, int lane,
                                                bf16* probs) {
   constexpr int LDQ = Smem<C>::LDQ;
@@ -157,6 +165,11 @@ __device__ __forceinline__ void attention_unit(bf16* qkv, int hd, int tm,
     if (mr) {
       s0 += mr[r * N + lane];
       s1 += mr[r * N + lane + 32];
+    }
+    if (lab) {
+      const unsigned char lq = lab[tm * 16 + r];
+      s0 += lab[lane] == lq ? 0.f : -100.f;
+      s1 += lab[lane + 32] == lq ? 0.f : -100.f;
     }
     const float m = fm::warp_max(fmaxf(s0, s1));
     const float e0 = expf(s0 - m), e1 = expf(s1 - m);
@@ -194,9 +207,47 @@ struct TrainIO {
   bf16* x1;         // [num_windows][64][C] residual stream after the attention branch
 };
 
+// Where the block's tokens live. hp2 = 0: the window layout [windows, 64,
+// C]. Otherwise the padded map [B, hp2, wp2, C] (hp2, wp2 multiples of 8),
+// windows numbered image by image in row-major order; with shift > 0 the
+// map is padded as ops/swin_block_image.py pads it ((8 - shift) rows and
+// columns before the content, the content to a multiple of 8, shift after)
+// and the mask is -100 between tokens of different regions.
+struct ImageIO {
+  int hp2 = 0, wp2 = 0, shift = 0;
+};
+
+// Region band of padded coordinate p along an axis of padded length p2
+// (pad_region_masks): 3 in the added pad, else 2, 0 or 1 as the rolled
+// map's shift mask labels the content coordinate.
+__device__ __forceinline__ int region_band(int p, int p2, int shift) {
+  const int y = p - (8 - shift), hp = p2 - 8;
+  if (y < 0 || y >= hp) return 3;
+  return y < shift ? 2 : (y < hp - 8 + shift ? 0 : 1);
+}
+
+// Each token's element offset in x and out, and its region label (shift
+// mask of the image layout only), into shared memory.
+__device__ __forceinline__ void window_tokens(const ImageIO& img, int win, int C,
+                                              long long* off, unsigned char* lab) {
+  for (int t = threadIdx.x; t < N; t += blockDim.x) {
+    if (img.hp2 == 0) {
+      off[t] = ((long long)win * N + t) * C;
+      continue;
+    }
+    const int nww = img.wp2 / 8, nwh = img.hp2 / 8;
+    const int b = win / (nwh * nww), y = (win / nww) % nwh * 8 + t / 8,
+              xx = win % nww * 8 + t % 8;
+    off[t] = (((long long)b * img.hp2 + y) * img.wp2 + xx) * C;
+    if (img.shift > 0)
+      lab[t] = region_band(y, img.hp2, img.shift) * 4 + region_band(xx, img.wp2, img.shift);
+  }
+}
+
 template <int C>
 __global__ void __launch_bounds__(kThreads)
-swin_block_kernel(TrainIO io, const bf16* __restrict__ x, const float* __restrict__ mask, int nW,
+swin_block_kernel(TrainIO io, ImageIO img, const bf16* __restrict__ x,
+                  const float* __restrict__ mask, int nW,
                   const float* __restrict__ ln1s, const float* __restrict__ ln1b,
                   const bf16* __restrict__ wqkv, const float* __restrict__ bqkv,
                   const float* __restrict__ rel_bias, const bf16* __restrict__ wproj,
@@ -215,7 +266,15 @@ swin_block_kernel(TrainIO io, const bf16* __restrict__ x, const float* __restric
   float* scr = reinterpret_cast<float*>(slice);
   const int win = blockIdx.x;
 
-  fm::copy_rows_to_smem(xs, LDX, x + (size_t)win * N * C, C, N, C, N);
+  long long* toff = reinterpret_cast<long long*>(smem + S::o_off);
+  unsigned char* lab = smem + S::l_off;
+  window_tokens(img, win, C, toff, lab);
+  __syncthreads();
+  for (int e = threadIdx.x; e < N * (C / 8); e += kThreads) {  // 16-byte loads
+    const int r = e / (C / 8), c = e % (C / 8) * 8;
+    *reinterpret_cast<uint4*>(xs + r * LDX + c) =
+        *reinterpret_cast<const uint4*>(x + toff[r] + c);
+  }
   __syncthreads();
   layer_norm_rows<C>(xs, hs, ln1s, ln1b, warp, lane);
   __syncthreads();
@@ -230,7 +289,8 @@ swin_block_kernel(TrainIO io, const bf16* __restrict__ x, const float* __restric
   const float* mk = nW > 0 ? mask + (size_t)(win % nW) * N * N : nullptr;
   bf16* probs = io.probs ? io.probs + (size_t)win * H * N * N : nullptr;
   for (int u = warp; u < H * (N / 16); u += kWarps)
-    attention_unit<C>(qkv, u / (N / 16), u % (N / 16), rel_bias, mk, slice, lane, probs);
+    attention_unit<C>(qkv, u / (N / 16), u % (N / 16), rel_bias, mk,
+                      img.shift > 0 ? lab : nullptr, slice, lane, probs);
   __syncthreads();
 
   // x = x + s1 * (attn @ w_proj + b_proj)
@@ -271,7 +331,6 @@ swin_block_kernel(TrainIO io, const bf16* __restrict__ x, const float* __restric
     }
     __syncthreads();
   }
-  bf16* og = out + (size_t)win * N * C;
 #pragma unroll
   for (int j = 0; j < UPW; ++j) {
     const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
@@ -280,14 +339,15 @@ swin_block_kernel(TrainIO io, const bf16* __restrict__ x, const float* __restric
       tile_epilogue(acc[j][i], scr, lane, [&](int r, int c, float v) {
         const int row = (tm0 + i) * 16 + r, col = tn * 16 + c;
         const float y = __bfloat162float(__float2bfloat16((v + b2[col]) * sc2));
-        og[row * C + col] = __float2bfloat16(__bfloat162float(xs[row * LDX + col]) + y);
+        out[toff[row] + col] = __float2bfloat16(__bfloat162float(xs[row * LDX + col]) + y);
       });
   }
 }
 
 template <int C>
 cudaError_t launch_block(TrainIO io, const void* x, const void* mask, int nW,
-                         const void* const* p, void* out, int num_windows, cudaStream_t st) {
+                         const void* const* p, void* out, int num_windows, cudaStream_t st,
+                         ImageIO img = {}) {
   const size_t smem = Smem<C>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       swin_block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -295,7 +355,7 @@ cudaError_t launch_block(TrainIO io, const void* x, const void* mask, int nW,
   auto F = [](const void* q) { return static_cast<const float*>(q); };
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
   swin_block_kernel<C><<<num_windows, kThreads, smem, st>>>(
-      io, Bf(x), F(mask), nW, F(p[0]), F(p[1]), Bf(p[2]), F(p[3]), F(p[4]), Bf(p[5]),
+      io, img, Bf(x), F(mask), nW, F(p[0]), F(p[1]), Bf(p[2]), F(p[3]), F(p[4]), Bf(p[5]),
       F(p[6]), F(p[7]), F(p[8]), Bf(p[9]), F(p[10]), Bf(p[11]), F(p[12]),
       static_cast<bf16*>(out));
   return cudaGetLastError();

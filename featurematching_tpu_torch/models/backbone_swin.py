@@ -1,15 +1,19 @@
-"""Swin-UNet backbone: window helpers, parameter modules and the
-differentiable forward of training.
+"""Swin-UNet backbone: window helpers, parameter modules and the forward of
+training and evaluation.
 
 Port of `featurematching_tpu/models/backbone_swin.py`: the window helpers
 (window_partition, window_reverse, _shift_attn_mask,
 _rel_pos_bias_from_table), the parameter layout (a block's weights under the
 JAX tree's names: norm1, attn.qkv, attn.proj, attn.rel_pos_bias, norm2, mlp1,
-mlp2), and `SwinUNet`, the linen SwinUNet in its `fused_block` form: every
-block through `ops/swin_block_train.swin_block_train` (kernel K8 on the card),
-with drop-path, and the patch embed, PatchMerging, the linen PatchExpand
-(Dense, depth-to-space, LN), the stage LNs and the two heads as plain
-PyTorch ops under autograd, as they are plain XLA ops in the JAX package.
+mlp2), and `SwinUNet`, the linen SwinUNet with both of its block forms: the
+`fused_block` form, every block through `ops/swin_block_train.swin_block_train`
+(kernel K8 on the card), and the per-op form (the linen `SwinBlock` with
+`use_fused_block=False`: LN1, then the window padding, the roll and the
+linen `WindowAttention`, whose `fused_attention` branch runs
+`ops/window_attention.window_attention`, kernel K11 on the card). Both take
+drop-path; the patch embed, PatchMerging, the linen PatchExpand (Dense,
+depth-to-space, LN), the stage LNs and the two heads are plain PyTorch ops
+under autograd, as they are plain XLA ops in the JAX package.
 `SwinUNetParams` holds the weights and the window plumbing; `SwinUNet` and
 the serving `models/fast_inference.SwinBackbone` each extend it with their
 forward.
@@ -28,6 +32,10 @@ from torch import nn
 from featurematching_tpu_torch.config import ModelConfig
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 from featurematching_tpu_torch.ops.swin_block_train import swin_block_train
+from featurematching_tpu_torch.ops.window_attention import (
+    window_attention,
+    window_attention_supported,
+)
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -136,6 +144,43 @@ def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return y if lin.bias is None else y + lin.bias.to(x.dtype)
 
 
+def window_attention_per_op(x: torch.Tensor, mask: Optional[torch.Tensor],
+                            attn: WindowAttentionParams, num_heads: int, window: int,
+                            fused: bool) -> torch.Tensor:
+    """The linen WindowAttention on windows x [B_, N, C] (mask [nW, N, N] or
+    None): the qkv Dense, then K11 where `fused`, else the per-op math (q
+    scaled in the dtype, f32 scores, bias, mask, softmax cast to the dtype,
+    f32 P.V cast), then the proj Dense."""
+    B_, N, C = x.shape
+    h = num_heads
+    d = C // h
+    dt = x.dtype
+    scale = d**-0.5
+    qkv = dense(x, attn.qkv)
+    bias = _rel_pos_bias_from_table(attn.rel_pos_bias, window, h)
+    if fused:
+        return dense(window_attention(qkv.contiguous(), bias, mask, h, scale), attn.proj)
+    q, k, v = qkv.reshape(B_, N, 3, h, d).permute(2, 0, 3, 1, 4)
+    s = (q * scale).float() @ k.float().transpose(-1, -2) + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(B_ // nW, nW, h, N, N) + mask.float()[None, :, None]).reshape(B_, h, N, N)
+    p = torch.softmax(s, dim=-1).to(dt)
+    out = (p.float() @ v.float()).to(dt).transpose(1, 2).reshape(B_, N, C)
+    return dense(out, attn.proj)
+
+
+def drop_path_draws(batch: int, rate: float, train: bool,
+                    generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
+    """A block's drop-path keep draws, [2, batch] bool (attention branch, MLP
+    branch), one per image; None when nothing is dropped. Both block forms
+    take them in this order from the generator, so one generator state gives
+    both forms the same masks."""
+    if not train or rate <= 0:
+        return None
+    return torch.rand(2, batch, generator=generator, device=device) < 1.0 - rate
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """flax LayerNorm: f32 statistics, output in x's dtype."""
     return layer_norm_chain_plain(x, ln.weight, ln.bias)
@@ -233,9 +278,10 @@ class SwinUNetParams(nn.Module):
         return y.permute(0, 2, 3, 1) + self.patch_embed.bias.to(dt)
 
     def _in_windows(self, x: torch.Tensor, H: int, W: int, shift: int, fn) -> torch.Tensor:
-        """x [B, H*W, C] -> the map padded to a multiple of the window, rolled
-        by -shift, as windows [B*nW, w*w, C]; fn(windows, shift mask or None,
-        nW) runs the block on them; the result is rolled back and cropped."""
+        """x [B, H*W, C] -> the map padded with zeros to a multiple of the
+        window, rolled by -shift, as windows [B*nW, w*w, C]; fn(windows, shift
+        mask or None, nW) runs the block (or the per-op block's attention) on
+        them; the result is rolled back and cropped."""
         B, L, C = x.shape
         w = self.cfg.window_size
         xi = x.reshape(B, H, W, C)
@@ -255,12 +301,17 @@ class SwinUNetParams(nn.Module):
 
 
 class SwinUNet(SwinUNetParams):
-    """The differentiable forward of training over the Swin-UNet weights.
+    """The differentiable forward of training and evaluation over the
+    Swin-UNet weights.
 
-    forward(x, train, generator): x [B, H, W, C_in] NHWC in the compute
-    dtype -> (coarse [B, H/8, W/8, 256], fine [B, H/2, W/2, 64]). With
-    `train` and a drop_path_rate > 0 each block draws its two drop-path
-    masks per image from `generator` (a torch.Generator on x's device)."""
+    forward(x, train, generator, fused_block, fused_attention): x [B, H, W,
+    C_in] NHWC in the compute dtype -> (coarse [B, H/8, W/8, 256], fine [B,
+    H/2, W/2, 64]). `fused_block` runs every block in the fused form (K8),
+    else in the per-op form, whose attention takes K11 where
+    `fused_attention` (and the kernel's limits) hold in evaluation, as the
+    linen SwinUNet dispatches. With `train` and a drop_path_rate > 0 each
+    block draws its two drop-path masks per image from `generator` (a
+    torch.Generator on x's device)."""
 
     def _block(self, x: torch.Tensor, H: int, W: int, blk: SwinBlockParams, shift: int,
                rate: float, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -271,17 +322,50 @@ class SwinUNet(SwinUNetParams):
 
         def run(xw, mask, nW):
             s1 = s2 = None
-            if train and rate > 0:
-                keep = 1.0 - rate
-                draws = torch.rand(2, B, generator=generator, device=x.device) < keep
-                s1, s2 = (draws.float() / keep).repeat_interleave(nW, dim=1)
+            draws = drop_path_draws(B, rate, train, generator, x.device)
+            if draws is not None:
+                s1, s2 = (draws.float() / (1.0 - rate)).repeat_interleave(nW, dim=1)
             return swin_block_train(xw, mask, s1, s2, blk.kernel_params(), blk.num_heads)
 
         return self._in_windows(x, H, W, shift, run)
 
+    def _block_per_op(self, x: torch.Tensor, H: int, W: int, blk: SwinBlockParams, shift: int,
+                      rate: float, train: bool, generator: Optional[torch.Generator],
+                      fused_attention: bool) -> torch.Tensor:
+        """One block in the per-op form (the linen SwinBlock with
+        use_fused_block=False): LN1, then the window plumbing on the LN's
+        output (so the padding is zeros after the LN) around the window
+        attention (K11 where `fused_attention` and the kernel's limits hold,
+        in evaluation only); the shortcut with drop-path, then LN2, mlp1,
+        exact GELU, mlp2 and drop-path again, each Dense rounded to the dtype."""
+        B, L, C = x.shape
+        w = self.cfg.window_size
+        draws = drop_path_draws(B, rate, train, generator, x.device)
+        keep = 1.0 - rate
+
+        def drop(y, i):
+            return y if draws is None else y / keep * draws[i].to(y.dtype)[:, None, None]
+
+        fused = (fused_attention and not train
+                 and window_attention_supported(w * w, C, blk.num_heads))
+        a = self._in_windows(layer_norm(x, blk.norm1), H, W, shift, lambda xw, mask, nW:
+                             window_attention_per_op(xw, mask, blk.attn, blk.num_heads, w, fused))
+        x = x + drop(a, 0)
+        y = dense(F.gelu(dense(layer_norm(x, blk.norm2), blk.mlp1)), blk.mlp2)
+        return x + drop(y, 1)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, fused_block: bool = True,
+                fused_attention: bool = False):
         s = self.cfg
+
+        def block(y, H, W, blk, b, rate):
+            shift = 0 if b % 2 == 0 else s.window_size // 2
+            if fused_block:
+                return self._block(y, H, W, blk, shift, rate, train, generator)
+            return self._block_per_op(y, H, W, blk, shift, rate, train, generator,
+                                      fused_attention)
+
         B = x.shape[0]
         y = self._embed(x)
         Wh, Ww = y.shape[1], y.shape[2]
@@ -290,9 +374,7 @@ class SwinUNet(SwinUNetParams):
         n = len(s.depths)
         for i in range(n):
             for b in range(s.depths[i]):
-                y = self._block(y, Wh, Ww, getattr(self, f"enc{i}_blk{b}"),
-                                0 if b % 2 == 0 else s.window_size // 2,
-                                enc_rates[i][b], train, generator)
+                y = block(y, Wh, Ww, getattr(self, f"enc{i}_blk{b}"), b, enc_rates[i][b])
             if i < n - 1:
                 y = patch_merge(y, Wh, Ww, getattr(self, f"enc{i}_merge"))
                 Wh, Ww = (Wh + 1) // 2, (Ww + 1) // 2
@@ -301,9 +383,7 @@ class SwinUNet(SwinUNetParams):
         n_up = len(s.depths_up)
         for j in range(n_up):
             for b in range(s.depths_up[n_up - 1 - j]):
-                y = self._block(y, Wh, Ww, getattr(self, f"dec{j}_blk{b}"),
-                                0 if b % 2 == 0 else s.window_size // 2,
-                                dec_rates[j][b], train, generator)
+                y = block(y, Wh, Ww, getattr(self, f"dec{j}_blk{b}"), b, dec_rates[j][b])
             y = patch_expand(y, Wh, Ww, getattr(self, f"dec{j}_expand"))
             Wh, Ww = Wh * 2, Ww * 2
             y = layer_norm(y, getattr(self, f"norm_up{j}"))

@@ -12,8 +12,10 @@ is gated on what its kernel takes (`use_fused_coarse`, `use_fused_fine`,
 chosen before any launch); where a gate fails, the plain
 LocalFeatureTransformer, window mix and fine_soft_argmax, or depth-to-space
 and layer_norm_chain, run instead, as the JAX package's plain branches do.
-K2 takes Swin head dim 16 only and the per-op Swin block is not ported, so
-on `cuda` another head dim raises at construction.
+K2 takes Swin head dim 16 only, so on `cuda` another head dim raises at
+construction: the serving forward keeps K2 in window space, as
+`make_fast_matcher_fn` does (the evaluation `Matcher` with the per-op block
+runs the other head dims).
 
 `FastMatcher(cfg)` runs on `cuda` and raises when no GPU is present;
 `device="cpu"` runs every kernel's plain version instead. Inputs and outputs
@@ -144,7 +146,7 @@ class FastMatcher(MatcherParams):
         if self.mix_feat_0.weight.device.type == "cuda" and any(d != HEAD_DIM for d in dims):
             raise NotImplementedError(
                 f"the Swin block kernel (K2) takes head dim {HEAD_DIM}, this config has {dims}; "
-                "the per-op Swin block that would run the others is ROADMAP A1, not ported yet")
+                "the evaluation Matcher with swin.fused_block='off' runs the others")
 
     def use_fused_coarse(self, n_tokens: int) -> bool:
         """The JAX gate, limited to the (C, head dim) pairs K5's kernels take."""

@@ -6,9 +6,11 @@ backbone. Like `fast_inference.FastMatcher` it extends
 same names and one flax `variables["params"]` tree loads into either. The
 pipeline:
 
-  1. the Swin-UNet over the stacked pair (`backbone_swin.SwinUNet`: every
-     block through `swin_block_train`, kernel K8 on the card, with drop-path
-     in training);
+  1. the Swin-UNet over the stacked pair (`backbone_swin.SwinUNet`, with
+     drop-path in training): every block through `swin_block_train`, kernel
+     K8 on the card, where `swin.fused_block` selects it, else the per-op
+     block, whose window attention runs K11 (`ops/window_attention`) where
+     `swin.fused_attention` selects it in evaluation;
   2. the coarse LoFTR transformer: K9 (`ops/coarse_transformer_train`)
      where `coarse.fused_train` selects it, else the per-op
      `LocalFeatureTransformer`;
@@ -23,8 +25,7 @@ pipeline:
      the per-op stack), the learned 49 -> 1 mixes and the soft-argmax.
 
 The kernel switches of the configuration hold as in the JAX package; the
-forms not ported yet raise: `swin.fused_block='off'` (the per-op SwinBlock)
-and the pose heads (`pose.flag` other than 'none').
+form not ported yet raises: the pose heads (`pose.flag` other than 'none').
 The ResNet-FPN backbone is not ported. Runs on `cuda` unless `device="cpu"`.
 """
 
@@ -67,13 +68,21 @@ class Matcher(MatcherParams):
         self.fine_transformer.use_fused_train = kernel_selected(cfg.fine.fused_train, dev)
         self.check_switches()
 
+    def swin_switches(self, train: bool) -> Tuple[bool, bool]:
+        """(fused block, fused attention) as flax's Matcher selects them:
+        fused_block 'auto' means the card; fused_attention 'auto' means
+        evaluation on the card; the attention kernel only where the fused
+        block is off (the backbone also holds K11 to its limits)."""
+        s = self.cfg.swin
+        dev = self.mix_feat_0.weight.device
+        fused_blk = kernel_selected(s.fused_block, dev)
+        fused_attn = kernel_selected(s.fused_attention, dev) and (
+            s.fused_attention == "on" or not train)
+        return fused_blk, fused_attn and not fused_blk
+
     def check_switches(self) -> None:
         cfg = self.cfg
-        dev = self.mix_feat_0.weight.device
-        if not kernel_selected(cfg.swin.fused_block, dev):
-            raise NotImplementedError(
-                "the per-op SwinBlock (swin.fused_block='off', or 'auto' on the CPU) is not "
-                "ported yet; use 'on'")
+        self.swin_switches(False)  # unknown switch values raise
         if cfg.pose.flag != "none":
             raise NotImplementedError(f"pose heads (pose.flag={cfg.pose.flag!r}) are not ported yet")
 
@@ -103,9 +112,11 @@ class Matcher(MatcherParams):
             want_conf_matrix = train
 
         imgs = torch.cat([image0, image1], dim=0).to(device=dev, dtype=self.dtype)
+        fused_blk, fused_attn = self.swin_switches(train)
         feat_c, feat_f = self.backbone(imgs, train=train,
                                        generator=generator if generator is not None
-                                       else self.generator)
+                                       else self.generator,
+                                       fused_block=fused_blk, fused_attention=fused_attn)
         Cc = feat_c.shape[-1]
         feat_c0, feat_c1 = self.coarse_transformer(feat_c[:B].reshape(B, hc * wc, Cc),
                                                    feat_c[B:].reshape(B, hc * wc, Cc))

@@ -238,6 +238,7 @@ class Site(NamedTuple):
     heads: int
     mask_windows: int  # 0 without the shift mask
     tokens: int  # unpadded tokens of the map
+    map_hw: Tuple[int, int]  # the unpadded map
 
 
 def swin_sites(cfg, images: int, H: int, W: int) -> List[Site]:
@@ -256,7 +257,7 @@ def swin_sites(cfg, images: int, H: int, W: int) -> List[Site]:
         nw = math.ceil(h / w) * math.ceil(wd / w)
         for b in range(depth):
             sites.append(Site(images * nw, s.embed_dim * 2**level, s.num_heads[level],
-                              nw if b % 2 else 0, images * h * wd))
+                              nw if b % 2 else 0, images * h * wd, (h, wd)))
     return sites
 
 
@@ -300,14 +301,20 @@ def all_kernels(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[s
         ("K9", "pallas_coarse_grad.coarse_transformer_train", total(train["K9"])),
         ("K10", "pallas_fine_grad.fine_transformer_train", total(train["K10"])),
         ("K11", "pallas_window_attention.window_attention_pallas",
-         total(window_attention_work(*st[:4]) for st in sites)),
+         total(window_attention_sites(cfg, images, H, W))),
         ("K12", "pallas_swin_block.swin_block_fused_image",
-         total(swin_block_work(*st) for st in sites)),
+         total(swin_block_work(*st[:5]) for st in sites)),
     ]
 
 
+def window_attention_sites(cfg, images: int = 8, H: int = 480, W: int = 640) -> List[Work]:
+    """K11's work at every Swin block of the backbone (one launch a block in
+    the per-op block's evaluation forward)."""
+    return [window_attention_work(*st[:4]) for st in swin_sites(cfg, images, H, W)]
+
+
 def main() -> None:
-    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.config import default_config, tpu_optimized_config
 
     print(f"H100 SXM peaks: {HBM_BYTES_PER_S / 1e12} TB/s, {BF16_TENSOR_FLOPS / 1e12} "
           "TFLOP/s bf16 (700 W); default_config(), 640x480, batch 4")
@@ -321,6 +328,10 @@ def main() -> None:
         for rid, (nbytes, flops) in rows:
             b, by = bound_ms(nbytes, flops)
             print(f"| {rid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    nbytes, flops = total(window_attention_sites(tpu_optimized_config().model))
+    b, by = bound_ms(nbytes, flops)
+    print(f"| K11 (tpu_optimized_config, head dim 64) | pallas_window_attention."
+          f"window_attention_pallas | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
 
 
 if __name__ == "__main__":

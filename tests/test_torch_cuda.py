@@ -11,7 +11,10 @@ the kernels do not take, K9 at a ragged token count for each width it takes
 and through a whole stack, K10 at ragged window counts and tap counts and
 through a whole stack, the serving forward's per-op branches where the
 kernels' limits fail, and that chip_smoke.py's training semantic check
-sees faults injected into K8's, K9's, K10's and K7's outputs. They import neither
+sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
+window counts and each head dim, K12 on odd maps against its twin and K2
+through the roll path, both wrappers' refusals, and the per-op block's
+evaluation forward through K11. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -647,7 +650,8 @@ def test_serving_forward_takes_the_per_op_branches(gen):
     """Coarse nhead 4 (head dim 64, not K5's) and fine nhead 1 (head dim 64,
     not K6's), Swin heads unchanged: the plain coarse and fine branches run
     end to end on the card and launch neither K5 nor K6. A Swin head dim of
-    64 raises at construction (K2 takes 16; the per-op block is ROADMAP A1)."""
+    64 raises at construction (K2 takes 16; the serving forward keeps K2,
+    as make_fast_matcher_fn does)."""
     import dataclasses
 
     cfg = ModelConfig()
@@ -735,3 +739,124 @@ def test_training_agreement_sees_kernel_faults(gen, monkeypatch, fault):
           f"{r['k7_sin_at']} / {r['k7_norm_at']}; "
           f"outside the limits: {bad}")
     assert (bad == []) if fault is None else bad
+
+
+# K11 against its twin: chip_smoke.py's tolerance (K11_ATOL, K11_RTOL)
+K11_TOL = (2e-2, 2**-7)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("nwin,map_hw", [(13, None), (301, (16, 24)), (7, (8, 24))])
+def test_window_attention_ragged_windows(gen, d, nwin, map_hw):
+    """Window counts that are no multiple of the mask's period (nW = 6 and
+    3) or of anything else, each head dim, 4 heads: window b takes mask[b % nW]."""
+    from featurematching_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
+
+    h = 4
+    C = h * d
+    qkv = _rnd(gen, nwin, 64, 3 * C, dtype=torch.bfloat16)
+    bias = _rnd(gen, h, 64, 64, scale=0.1)
+    mask = (torch.as_tensor(_shift_attn_mask(*map_hw, 8, 4), device="cuda")
+            if map_hw else None)
+    before = window_attention.launches
+    got = window_attention(qkv, bias, mask, h, d**-0.5)
+    assert window_attention.launches == before + 1
+    _assert_close(got, window_attention_reference(qkv, bias, mask, h, d**-0.5), *K11_TOL)
+
+
+@pytest.mark.parametrize("C,H,W,shift", [(64, 13, 21, 4), (64, 13, 21, 0), (128, 17, 9, 4),
+                                         (128, 9, 16, 0), (256, 30, 40, 4), (256, 8, 8, 0)])
+def test_swin_block_image_odd_maps(gen, C, H, W, shift):
+    """Odd maps with and without the shift, 3 images: against the plain twin
+    on the padded map (K2's tolerance) and against K2 through the roll path
+    (chip_smoke.py's K12_K2_RTOL)."""
+    from featurematching_tpu_torch.ops.swin_block_image import (
+        pad_image,
+        swin_block_fused_image,
+        swin_block_image,
+        swin_block_image_reference,
+    )
+
+    h = C // 16
+    cs = _chip_smoke()
+    p = _block_params(gen, C, h)
+    x = _rnd(gen, 3, H * W, C, dtype=torch.bfloat16)
+    before = swin_block_fused_image.launches
+    got = swin_block_image(x, H, W, p, h, 8, shift)
+    assert swin_block_fused_image.launches == before + 1
+    xp, top = pad_image(x, H, W, 8, shift)
+    ref = swin_block_image_reference(xp, p, h, 8, shift)[:, top:top + H, top:top + W]
+    _assert_close(got, ref.reshape(3, H * W, C), 5e-2, 2e-2)
+    k2 = cs.roll_path(x, H, W, shift, lambda xw, m: swin_block_fused(xw, m, p, h))
+    _assert_close(got, k2, 0.0, cs.K12_K2_RTOL)
+
+
+def test_window_attention_and_image_block_raise(gen):
+    """Outside their limits the two wrappers raise on a CUDA tensor; no plain
+    fallback runs and no launch is counted."""
+    from featurematching_tpu_torch.ops.swin_block_image import (
+        swin_block_fused_image,
+        swin_block_image,
+    )
+    from featurematching_tpu_torch.ops.window_attention import window_attention
+
+    before = window_attention.launches
+    bias = _rnd(gen, 4, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        window_attention(_rnd(gen, 2, 64, 192), bias, None, 4, 0.25)
+    with pytest.raises(ValueError, match="8x8 windows"):
+        window_attention(_rnd(gen, 2, 16, 192, dtype=torch.bfloat16), bias[:, :16, :16], None, 4,
+                         0.25)
+    with pytest.raises(ValueError, match="head dim"):
+        window_attention(_rnd(gen, 2, 64, 192, dtype=torch.bfloat16), _rnd(gen, 8, 64, 64),
+                         None, 8, 0.25)  # head dim 8
+    with pytest.raises(ValueError, match="C <= 256"):
+        window_attention(_rnd(gen, 2, 64, 3 * 512, dtype=torch.bfloat16), _rnd(gen, 8, 64, 64),
+                         None, 8, 0.125)
+    with pytest.raises(ValueError, match="shape"):
+        window_attention(_rnd(gen, 2, 64, 192, dtype=torch.bfloat16), bias[:2], None, 4, 0.25)
+    assert window_attention.launches == before
+    before = swin_block_fused_image.launches
+    p64 = _block_params(gen, 64, 4)
+    x = _rnd(gen, 1, 16 * 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        swin_block_image(x, 16, 16, _block_params(gen, 64, 2), 2, 8, 4)  # head dim 32
+    with pytest.raises(ValueError, match="window 8"):
+        swin_block_image(x, 16, 16, p64, 4, 4, 2)
+    with pytest.raises(ValueError, match="padded"):
+        swin_block_fused_image(x.reshape(1, 16, 16, 64)[:, :12].contiguous(), p64, 4, 8, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        swin_block_image(x.float(), 16, 16, p64, 4, 8, 0)
+    assert swin_block_fused_image.launches == before
+
+
+@pytest.mark.parametrize("heads", [(4, 8, 16), (1, 2, 4)])
+def test_evaluation_forward_with_the_per_op_block(gen, heads):
+    """swin.fused_block 'off': the evaluation forward runs every block's
+    attention through K11 (head dim 16, and 64 as tpu_optimized_config()
+    has it), no K8 and no K2; in training no K11."""
+    import dataclasses
+
+    from featurematching_tpu_torch.models.matcher import Matcher
+    from featurematching_tpu_torch.ops.window_attention import window_attention
+
+    cfg = ModelConfig()
+    cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, num_heads=heads,
+                                                            fused_block="off"))
+    model = Matcher(cfg, device="cuda", seed=0)
+    a = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    before = (window_attention.launches, swin_block_train_fwd.launches,
+              swin_block_fused.launches)
+    with torch.no_grad():
+        out = model(a, torch.roll(a, shifts=8, dims=2))
+    torch.cuda.synchronize()
+    after = (window_attention.launches, swin_block_train_fwd.launches,
+             swin_block_fused.launches)
+    assert tuple(x - y for x, y in zip(after, before)) == (13, 0, 0)
+    assert torch.isfinite(out.feat_c0.float()).all()
+    with torch.no_grad():
+        model(a, a, train=True)
+    assert window_attention.launches == after[0]

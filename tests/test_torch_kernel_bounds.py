@@ -19,6 +19,8 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_sites,
     total,
     train_calls,
+    window_attention_sites,
+    window_attention_work,
 )
 
 
@@ -115,3 +117,16 @@ def test_k10_counts_its_encoder_calls():
     assert bound_ms(*total(bwd)) == (bound_ms(0, total(bwd)[1])[0], "operations")
     assert sum(w[0] for w in fwd + bwd) == rows["K10"][0]
     assert sum(w[1] for w in fwd + bwd) == rows["K10"][1]
+
+
+def test_window_attention_sites_at_head_dim_64():
+    """K11 once a block: 13 sites; at tpu_optimized_config() every block has
+    head dim 64 (heads 1, 2, 4), fewer bias bytes, the same operations."""
+    from featurematching_tpu_torch.config import tpu_optimized_config
+
+    cfg = tpu_optimized_config().model
+    sites = swin_sites(cfg, 8, 480, 640)
+    assert len(sites) == 13 and all(s.C // s.heads == 64 for s in sites)
+    tpu, default = (total(window_attention_sites(c)) for c in (cfg, ModelConfig()))
+    assert tpu[1] == default[1] and tpu[0] < default[0]
+    assert window_attention_sites(cfg)[1] == window_attention_work(2400, 64, 1, 300)

@@ -310,7 +310,9 @@ class TestEntryPoints:
         assert config_from_dict(cls, dataclasses.asdict(jax_part)) == cls()
 
     def test_config_allows_fields_that_do_not_change_the_math(self):
-        """The allow-list: a Pallas kernel form, pose and data settings."""
+        """The allow-list (pose and data settings) converts; fused_attention,
+        which selects the per-op block's attention kernel, converts to the
+        port's own field."""
         from featurematching_tpu.config import tpu_optimized_config
 
         from featurematching_tpu_torch.config import IGNORED_JAX_FIELDS
@@ -321,10 +323,22 @@ class TestEntryPoints:
             m, swin=dataclasses.replace(m.swin, fused_attention="off"),
             pose=dataclasses.replace(m.pose, nhead=4),
             loss=dataclasses.replace(m.loss, fine_correct_thr=3.0)))
-        assert config_from_dict(Config, dataclasses.asdict(jc)) == Config()
-        assert "model.swin.fused_attention" in IGNORED_JAX_FIELDS
+        port = config_from_dict(Config, dataclasses.asdict(jc))
+        assert port == dataclasses.replace(Config(), model=dataclasses.replace(
+            Config().model, swin=dataclasses.replace(Config().model.swin, fused_attention="off")))
+        assert "model.swin.fused_attention" not in IGNORED_JAX_FIELDS  # the port holds it
         port = config_from_dict(Config, dataclasses.asdict(tpu_optimized_config()))
         assert (port.model.coarse.nhead, port.model.fine.nhead) == (4, 1)
+
+    def test_tpu_optimized_config_is_the_jax_packages(self):
+        """The port's copy of the head-dim-64 profile converts from and equals
+        the JAX package's."""
+        from featurematching_tpu.config import tpu_optimized_config as jax_tpu_optimized_config
+
+        from featurematching_tpu_torch.config import tpu_optimized_config
+
+        assert config_from_dict(Config, dataclasses.asdict(jax_tpu_optimized_config())) == (
+            tpu_optimized_config())
 
     def test_default_device_is_cuda_and_raises_without_it(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -332,18 +346,35 @@ class TestEntryPoints:
             create_train_state(Config())
 
     @pytest.mark.parametrize("part,field,value,match", [
-        ("swin", "fused_block", "off", "per-op SwinBlock"), ("swin", "fused_block", "auto",
-                                                             "per-op SwinBlock"),
         ("pose", "flag", "old", "pose heads"),
     ])
     def test_forms_not_ported_raise(self, part, field, value, match):
-        """On the CPU 'auto' selects the per-op forms; the per-op SwinBlock
-        and the pose heads are not ported."""
+        """The pose heads are not ported."""
         cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
         cfg = dataclasses.replace(cfg, **{part: dataclasses.replace(getattr(cfg, part),
                                                                      **{field: value})})
         with pytest.raises(NotImplementedError, match=match):
             Matcher(cfg, device="cpu")
+
+    @pytest.mark.parametrize("value", ["off", "auto"])
+    def test_per_op_swin_block_runs_on_the_cpu(self, monkeypatch, value):
+        """swin.fused_block 'off', and 'auto' on the CPU, build the Matcher
+        and run every block in the per-op form, with no K8 call."""
+        import featurematching_tpu_torch.models.backbone_swin as bs
+
+        cfg = config_from_dict(Config, dataclasses.asdict(_small_jax_config())).model
+        cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, fused_block=value))
+        model = Matcher(cfg, device="cpu")
+        per_op, k8 = [], []
+        block = bs.SwinUNet._block_per_op
+        monkeypatch.setattr(bs.SwinUNet, "_block_per_op",
+                            lambda *a, **k: per_op.append(1) or block(*a, **k))
+        monkeypatch.setattr(bs, "swin_block_train", lambda *a: k8.append(1))
+        img = torch.rand(1, 64, 64, 3)
+        with torch.no_grad():
+            out = model(img, img)
+        assert (len(per_op), len(k8)) == (6, 0)
+        assert torch.isfinite(out.feat_c0).all()
 
 
     @pytest.mark.parametrize("value,k9", [("on", True), ("auto", False), ("off", False)])
