@@ -13,8 +13,8 @@
 // 10*C bytes a token of activations, probabilities and gradients). The TPU
 // kernel keeps everything of a chunk of windows in VMEM and accumulates the
 // weight gradients across its sequential grid. On the H100 blocks run in
-// parallel and a block has 227 KB of shared memory (K2 alone needs 215 KB at
-// C = 256), so the backward is split where the gradient of the residual
+// parallel and a block has 227 KB of shared memory (the forward alone needs
+// 213 KB at C = 256), so the backward is split where the gradient of the residual
 // stream crosses between the two branches:
 //   1. mlp_bwd: per window (a persistent block walks a fixed set of windows)
 //      LN2 is recomputed from x1, the hidden width is streamed in chunks of
@@ -47,11 +47,9 @@ namespace {
 using fm::bf16;
 namespace wmma = fm::wmma;
 using swin::D;
-using swin::kThreads;
-using swin::kWarps;
 using swin::N;
-using swin::rows_per_unit;
-using swin::tile_epilogue;
+constexpr int kWarps = 8;  // the backward's blocks
+constexpr int kThreads = 32 * kWarps;
 using fm::sum_parts;
 using fm::wgrad;
 
@@ -66,6 +64,60 @@ constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 constexpr float kScale = 0.25f;  // head_dim ** -0.5
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+// The backward's products: WMMA 16x16x16 tiles, each accumulator handed to
+// its epilogue through a per-warp 16x16 f32 scratch in shared memory.
+
+// Store an accumulator tile through the warp's scratch and hand each of its
+// 256 values to epi(row, col, value).
+template <typename Epi>
+__device__ __forceinline__ void tile_epilogue(const fm::FragC& acc, float* scr, int lane,
+                                              Epi epi) {
+  wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 256; e += 32) epi(e / 16, e % 16, scr[e]);
+  __syncwarp();
+}
+
+// acc[i] += A[16i .. 16i+16, 0..K) . B[0..K, 16 columns] for RT row tiles;
+// A in shared memory (row stride lda), B row-major in global (row stride ldb)
+template <int K, int RT>
+__device__ __forceinline__ void strip_mma(fm::FragC* acc, const bf16* a, int lda,
+                                          const bf16* b, int ldb) {
+#pragma unroll
+  for (int k = 0; k < K / 16; ++k) {
+    fm::FragBRow fb;
+    wmma::load_matrix_sync(fb, b + (size_t)k * 16 * ldb, ldb);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      fm::FragA fa;
+      wmma::load_matrix_sync(fa, a + i * 16 * lda + k * 16, lda);
+      wmma::mma_sync(acc[i], fa, fb, acc[i]);
+    }
+  }
+}
+
+// row tiles per work unit: 4 when the strips alone keep all warps busy
+__host__ __device__ constexpr int rows_per_unit(int strips) { return strips % kWarps == 0 ? 4 : 2; }
+
+// out[64][16 * STRIPS] = A[64][K] . B[K][16 * STRIPS], handed to epi(row, col, v)
+template <int K, int STRIPS, typename Epi>
+__device__ __forceinline__ void gemm_rows64(const bf16* a, int lda, const bf16* b, int ldb,
+                                            float* scr, int warp, int lane, Epi epi) {
+  constexpr int RT = rows_per_unit(STRIPS), GROUPS = 4 / RT;
+  for (int u = warp; u < STRIPS * GROUPS; u += kWarps) {
+    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
+    fm::FragC acc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
+    strip_mma<K, RT>(acc, a + tm0 * 16 * lda, lda, b + tn * 16, ldb);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      tile_epilogue(acc[i], scr, lane,
+                    [&](int r, int c, float v) { epi((tm0 + i) * 16 + r, tn * 16 + c, v); });
+  }
+}
 
 // acc[i] += A[16i .., 0..K) . Wᵀ for RT row tiles, W row-major [n][k] (row
 // stride ldw) read as a col-major B: element (k, n) at w[n * ldw + k]
@@ -276,7 +328,7 @@ mlp_bwd_kernel(const bf16* __restrict__ x1g, const bf16* __restrict__ g, const f
       for (int i = 0; i < RT2; ++i) wmma::fill_fragment(dacc[j][i], 0.f);
     for (int c0 = 0; c0 < HID; c0 += HC) {
       // y1 = h2 W1[:, chunk] + b1 (f32)
-      swin::gemm_rows64<C, HC / 16>(hs, LDX, w1 + c0, HID, scr, warp, lane,
+      gemm_rows64<C, HC / 16>(hs, LDX, w1 + c0, HID, scr, warp, lane,
                                     [&](int r, int c, float v) { ys[r * LDY + c] = v + b1[c0 + c]; });
       __syncthreads();
       // dge = dm W2[chunk, :]ᵀ; ge = gelu(y1) to the stash; dy1 = dge gelu'(y1)
@@ -389,7 +441,7 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
     ln_rows<C>(x + row0 * C, C, ln1s, ln1b, mu, rs, hs, LDX, warp, lane);
     __syncthreads();
     fm::copy_rows_from_smem(st.h1 + row0 * C, C, hs, LDX, N, C);
-    swin::gemm_rows64<C, 3 * C / 16>(hs, LDX, wqkv, 3 * C, scr, warp, lane,
+    gemm_rows64<C, 3 * C / 16>(hs, LDX, wqkv, 3 * C, scr, warp, lane,
                                      [&](int r, int c, float v) {
                                        qkv[r * LDQ + c] = __float2bfloat16(v + bqkv[c]);
                                      });

@@ -55,6 +55,22 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
                : "r"(addr));
 }
 
+// 16 bytes global -> shared, asynchronously (cp.async, bypassing L1)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's committed groups are in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
 // A fragment of the 16x16 tile at a (shared, row-major, row stride lda)
 __device__ __forceinline__ void load_a(uint32_t* r, const bf16* a, int lda, int lane) {
   ldsm_x4(r, a + (lane & 15) * lda + (lane >> 4) * 8);

@@ -15,11 +15,6 @@ constexpr int WG_T = 64;  // tokens a stage
 constexpr int WG_LD = 64 + 8;
 constexpr int WG_THREADS = 128;  // 4 warps, each a 32x32 quarter of the 64x64 tile
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
 // part[split][M][N] = sum over the split's tokens t < T of A[t][m] B[t][n].
 // A [T][M] (row stride lda), B [T][Nn] (row stride ldb), bf16. Grid (M/64,
 // Nn/64, splits); tokens_per_split is a multiple of 64. Stages of 64 tokens
@@ -52,15 +47,15 @@ wgrad_kernel(const bf16* __restrict__ a, int lda, const bf16* __restrict__ b, in
         *reinterpret_cast<uint4*>(bs[stage] + r * WG_LD + c) = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
   if (steps > 0) load(0, t_begin);
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) {
       load((s + 1) & 1, t_begin + (s + 1) * WG_T);  // its buffer was freed by the last sync
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();
     const bf16* A = as[s & 1];

@@ -14,7 +14,10 @@ kernels' limits fail, and that chip_smoke.py's training semantic check
 sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
 window counts and each head dim, K12 on odd maps against its twin and K2
 through the roll path, both wrappers' refusals, and the per-op block's
-evaluation forward through K11. They import neither
+evaluation forward through K11; K2 at one window and one past a full wave
+of the card, with a mask whose count divides none of the window counts and
+with masks whose -100 entries cover whole rows, and K8's forward bit-equal
+to K2 with its saved probabilities against the twin's softmax. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -63,6 +66,7 @@ from featurematching_tpu_torch.ops.sparse_focal_loss import (
 from featurematching_tpu_torch.ops.swin_block import swin_block_fused, swin_block_reference
 from featurematching_tpu_torch.ops.swin_block_train import (
     PARAM_KEYS,
+    _kernel_params,
     swin_block_train,
     swin_block_train_bwd,
     swin_block_train_fwd,
@@ -103,28 +107,109 @@ def test_layer_norm_chain_ragged_rows(gen, C, two):
     _assert_close(got, layer_norm_chain_plain(x, s1, b1, s2, b2), 1.6e-2, 1.6e-2)
 
 
+def _swin_block_params(g, C):
+    """K2's operands: LN scales near 1, biases near 0, bf16 weights at lecun scale."""
+    h, hid = C // 16, 4 * C
+    return {
+        "ln1_scale": _rnd(g, C, scale=0.1, shift=1.0), "ln1_bias": _rnd(g, C, scale=0.1),
+        "w_qkv": _rnd(g, C, 3 * C, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_qkv": _rnd(g, 3 * C, scale=0.02), "rel_bias": _rnd(g, h, 64, 64, scale=0.02),
+        "w_proj": _rnd(g, C, C, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_proj": _rnd(g, C, scale=0.02),
+        "ln2_scale": _rnd(g, C, scale=0.1, shift=1.0), "ln2_bias": _rnd(g, C, scale=0.1),
+        "w_mlp1": _rnd(g, C, hid, scale=C**-0.5, dtype=torch.bfloat16),
+        "b_mlp1": _rnd(g, hid, scale=0.02),
+        "w_mlp2": _rnd(g, hid, C, scale=hid**-0.5, dtype=torch.bfloat16),
+        "b_mlp2": _rnd(g, C, scale=0.02),
+    }
+
+
 @pytest.mark.parametrize("C", [64, 128, 256])
 @pytest.mark.parametrize("masked", [False, True])
 def test_swin_block_small_batches(gen, C, masked):
     """Two images of a 16x24 padded map (nW = 6): window w takes mask[w % 6]."""
-    h, hid = C // 16, 4 * C
+    h = C // 16
     x = _rnd(gen, 12, 64, C, dtype=torch.bfloat16)
-    p = {
-        "ln1_scale": _rnd(gen, C, scale=0.1, shift=1.0), "ln1_bias": _rnd(gen, C, scale=0.1),
-        "w_qkv": _rnd(gen, C, 3 * C, scale=C**-0.5, dtype=torch.bfloat16),
-        "b_qkv": _rnd(gen, 3 * C, scale=0.02), "rel_bias": _rnd(gen, h, 64, 64, scale=0.02),
-        "w_proj": _rnd(gen, C, C, scale=C**-0.5, dtype=torch.bfloat16),
-        "b_proj": _rnd(gen, C, scale=0.02),
-        "ln2_scale": _rnd(gen, C, scale=0.1, shift=1.0), "ln2_bias": _rnd(gen, C, scale=0.1),
-        "w_mlp1": _rnd(gen, C, hid, scale=C**-0.5, dtype=torch.bfloat16),
-        "b_mlp1": _rnd(gen, hid, scale=0.02),
-        "w_mlp2": _rnd(gen, hid, C, scale=hid**-0.5, dtype=torch.bfloat16),
-        "b_mlp2": _rnd(gen, C, scale=0.02),
-    }
+    p = _swin_block_params(gen, C)
     mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda") if masked else None
     got = swin_block_fused(x, mask, p, h)
     # bf16 intermediates rounded in another order (the tolerance of chip_smoke.py)
     _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nwin", [1, 133, 161, 265])
+@pytest.mark.parametrize("masked", [False, True])
+def test_swin_block_window_counts(gen, C, nwin, masked):
+    """One window; one past a full wave of one block an SM on 132 SMs (133,
+    C = 256) and of two (265, C <= 128); one past the serving forward's 160
+    windows at C = 256. The mask has nW = 6 (a 16x24 map), which divides
+    none of these counts: window w takes mask[w % 6]."""
+    h = C // 16
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _swin_block_params(gen, C)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda") if masked else None
+    got = swin_block_fused(x, mask, p, h)
+    _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_masked_rows(gen, C):
+    """Masks whose -100 entries cover whole rows: mask[0] lets each token
+    see only itself (63 masked keys a row, each e^-100 a subnormal in the
+    softmax), mask[1] masks every key of the first 16 query rows (a whole
+    row tile of the attention), mask[2] lets every token see only key 0,
+    mask[3] is zero. K2 against its twin with chip_smoke.py's tolerance."""
+    h = C // 16
+    x = _rnd(gen, 13, 64, C, dtype=torch.bfloat16)
+    p = _swin_block_params(gen, C)
+    mask = torch.zeros(4, 64, 64, device="cuda")
+    mask[0] = -100.0 * (1.0 - torch.eye(64, device="cuda"))
+    mask[1, :16] = -100.0
+    mask[2, :, 1:] = -100.0
+    got = swin_block_fused(x, mask, p, h)
+    _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (the subnormal spacing below the smallest normal)."""
+    a = v.abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_train_forward_is_k2(gen, C):
+    """K8's forward with both drop-path scales 1 is K2's body: on the same
+    inputs its output is bit-equal to K2's. Its saved probabilities are
+    within one bf16 ulp of the softmax the plain twin computes in f32, on
+    inputs where the twin's q and k are the kernel's: with LN1's scale 0
+    every token's LN1 output is LN1's bias, so q.k is one value for all
+    pairs of a head on each side (the sum order moves it by f32 rounding,
+    and a softmax ignores a constant), and the probabilities vary by the
+    relative-position bias, drawn at a scale of 1, and the shift mask. On
+    random inputs the twin rounds a few q and k entries to the other bf16
+    neighbour of the kernel's, which moves some probabilities by more."""
+    h, nwin = C // 16, 133
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    ones = torch.ones(nwin, device="cuda")
+    out, _, _ = swin_block_train_fwd(x, mask, ones, ones, _kernel_params(p, C, h), h)
+    k2 = swin_block_fused(x, mask, p, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k2)
+    p = p | {"ln1_scale": torch.zeros(C, device="cuda"), "rel_bias": _rnd(gen, h, 64, 64)}
+    _, probs, _ = swin_block_train_fwd(x, mask, ones, ones, _kernel_params(p, C, h), h)
+    hx = layer_norm_chain_plain(x, p["ln1_scale"], p["ln1_bias"])
+    qkv = (hx.float() @ p["w_qkv"] + p["b_qkv"]).to(x.dtype).float()
+    q, k = (qkv[..., i * C:(i + 1) * C].reshape(nwin, 64, h, 16).transpose(1, 2)
+            for i in range(2))
+    s = (q @ k.transpose(-1, -2)) * 0.25 + p["rel_bias"][None]
+    s = s + mask[torch.arange(nwin, device="cuda") % mask.shape[0]][:, None]
+    ref = torch.softmax(s, dim=-1)
+    torch.cuda.synchronize()
+    bad = (probs.float() - ref).abs() > _bf16_ulp(ref)
+    assert not bad.any(), f"{int(bad.sum())} probabilities off by more than one bf16 ulp"
 
 
 @pytest.mark.parametrize("C4,CH,emit_ln", [(128, 256, True), (64, 0, True), (64, 64, False),
