@@ -2,32 +2,68 @@
 
 Port of `featurematching_tpu/ops/pallas_dual_softmax.py ·
 dual_softmax_match_stats`. On a CUDA tensor it launches `csrc/dual_softmax.cu`
-(two passes over 64x64 sim tiles on bf16 tensor cores, with two small
-combine kernels; bound by tensor-core operations); on a CPU tensor it runs
-`_stats_reference`.
+(two passes of 128-row blocks over chunks of f1's 64-column tiles on bf16
+mma.sync tiles, the sim tile and its statistics in registers, each pass
+followed by a small combine kernel; bound by tensor-core operations); on a
+CPU tensor it runs `_stats_reference`.
 
 Both forms fold inv_temp = 1 / (C * T) into f0 in f0's dtype before the
 product, as the TPU kernel does (the JAX package's `_stats_reference` scales
 after it; in float32 the two agree to rounding).
 
-`dual_softmax_lse` launches pass 1 and a combine kernel alone: the row and
+`dual_softmax_lse` launches pass 1 and its combine alone: the row and
 column log-sum-exps of sim, the forward of the sparse focal loss (the JAX
 package's `sparse_focal_loss._lses_pallas`, which runs `_pass1_stats`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from featurematching_tpu_torch.ops import _build
 
-ROW_TILE = 64
-_ARGTYPES = (
-    [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 12
-)
-_LSE_ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 7
+ROW_TILE = 128  # rows of f0 a block
+_ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 6 + [_build.PTR] * 11
+_LSE_ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 6 + [_build.PTR] * 7
+
+
+class Plan(NamedTuple):
+    """The kernels' work decomposition: row tiles x `n_split` chunks of
+    `chunk` 64-column tiles, `units` blocks a pass."""
+
+    blocks_per_sm: int
+    sms: int
+    n_split: int
+    chunk: int
+    units: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, L: int, S: int, C: int, device: int) -> Plan:
+    """The decomposition `csrc/dual_softmax.cu` picks for these shapes on
+    CUDA device `device` (the split count that spreads the work units most
+    evenly over the SMs)."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _build.launch("dual_softmax", "fm_dual_softmax_plan", [_build.INT] * 4 + [_build.PTR],
+                      B, L, S, C, ctypes.addressof(out))
+    return Plan(*out)
+
+
+def _scratch(feat0: torch.Tensor, feat1: torch.Tensor):
+    """The plan and the partials' buffers: row [B, n_split, L] x 2, column
+    [B, n_tiles, S] x 2 (f32; pass 2 keeps its argmaxes there as int32)."""
+    B, L, C = feat0.shape
+    S = feat1.shape[1]
+    p = plan(B, L, S, C, feat0.device.index)
+    f32 = dict(device=feat0.device, dtype=torch.float32)
+    n_tiles = -(-L // ROW_TILE)
+    return p, [torch.empty(B, p.n_split, L, **f32), torch.empty(B, p.n_split, L, **f32),
+               torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **f32)]
 
 
 class MatchStats(NamedTuple):
@@ -74,22 +110,17 @@ def dual_softmax_match_stats(
         raise ValueError(f"dual_softmax_match_stats kernel takes C in (64, 128, 256), got {C}")
     _build.check_cuda(feat0, "feat0", torch.bfloat16)
     _build.check_cuda(feat1, "feat1", torch.bfloat16, (B, S, C))
-    n_tiles = -(-L // ROW_TILE)
+    p, scratch = _scratch(feat0, feat1)
     f32 = dict(device=feat0.device, dtype=torch.float32)
     i32 = dict(device=feat0.device, dtype=torch.int32)
-    scratch = [
-        torch.empty(B, L, **f32), torch.empty(B, L, **f32),  # row max, row sum-exp
-        torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **f32),  # col partials
-        torch.empty(B, S, **f32),  # col log-sum-exp
-        torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **i32),  # col max/arg partials
-    ]
+    scratch += [torch.empty(B, L, **f32), torch.empty(B, S, **f32)]  # base-2 log-sum-exps
     out = MatchStats(
         torch.empty(B, L, **f32), torch.empty(B, L, **i32),
         torch.empty(B, S, **f32), torch.empty(B, S, **i32),
     )
     _build.launch(
         "dual_softmax", "fm_dual_softmax_stats", _ARGTYPES,
-        feat0.data_ptr(), feat1.data_ptr(), inv_temp, B, L, S, C,
+        feat0.data_ptr(), feat1.data_ptr(), inv_temp, B, L, S, C, p.n_split, p.chunk,
         *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in out], _build.stream(),
     )
     dual_softmax_match_stats.launches += 1
@@ -116,14 +147,12 @@ def dual_softmax_lse(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float):
         raise ValueError(f"dual_softmax_lse kernel takes C in (64, 128, 256), got {C}")
     _build.check_cuda(feat0, "feat0", torch.bfloat16)
     _build.check_cuda(feat1, "feat1", torch.bfloat16, (B, S, C))
-    n_tiles = -(-L // ROW_TILE)
+    p, scratch = _scratch(feat0, feat1)
     f32 = dict(device=feat0.device, dtype=torch.float32)
-    scratch = [torch.empty(B, L, **f32), torch.empty(B, L, **f32),
-               torch.empty(B, n_tiles, S, **f32), torch.empty(B, n_tiles, S, **f32)]
     lse_r, lse_c = torch.empty(B, L, **f32), torch.empty(B, S, **f32)
     _build.launch(
         "dual_softmax", "fm_dual_softmax_lse", _LSE_ARGTYPES,
-        feat0.data_ptr(), feat1.data_ptr(), float(inv_temp), B, L, S, C,
+        feat0.data_ptr(), feat1.data_ptr(), float(inv_temp), B, L, S, C, p.n_split, p.chunk,
         *[t.data_ptr() for t in scratch], lse_r.data_ptr(), lse_c.data_ptr(), _build.stream(),
     )
     dual_softmax_lse.launches += 1

@@ -17,7 +17,9 @@ through the roll path, both wrappers' refusals, and the per-op block's
 evaluation forward through K11; K2 at one window and one past a full wave
 of the card, with a mask whose count divides none of the window counts and
 with masks whose -100 entries cover whole rows, and K8's forward bit-equal
-to K2 with its saved probabilities against the twin's softmax. They import neither
+to K2 with its saved probabilities against the twin's softmax; K1 and its
+pass 1 on argmax ties inside one tile and at shapes that cross its row
+tiles, chunks of column tiles and batch. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -47,8 +49,10 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
 from featurematching_tpu_torch.ops.dual_softmax import (
     _lse_reference,
     _stats_reference,
+    dual_softmax_confidence,
     dual_softmax_lse,
     dual_softmax_match_stats,
+    plan,
 )
 from featurematching_tpu_torch.matching.fine import window_heatmaps
 from featurematching_tpu_torch.ops.fine_stage import (
@@ -262,6 +266,74 @@ def test_dual_softmax_ties_keep_the_lowest_index(gen):
     torch.cuda.synchronize()
     assert int(got.row_argmax[0, 3]) == 5 and int(got.row_argmax[0, 150]) == 5
     assert int(got.col_argmax[0, 5]) == 3 and int(got.col_argmax[0, 100]) == 3
+
+
+@pytest.mark.parametrize("C", [64, 256])
+def test_dual_softmax_ties_inside_one_tile(gen, C):
+    """Exact duplicates inside one 64-column tile and one 128-row block tie:
+    columns 5, 13, 43 and 45 of f1 lie in other n8 fragments and three of
+    them in other lanes of a row's quad; rows 3, 19 and 35 of f0 lie on
+    three warps. Every merge keeps the lower index, as jnp.argmax does; the
+    log-sum-exps of the duplicates agree with the plain twin's."""
+    B, L, S = 2, 200, 136
+    f1 = _rnd(gen, B, S, C)
+    f1[:, [13, 43, 45]] = f1[:, 5:6]
+    f0 = 0.3 * _rnd(gen, B, L, C)
+    f0[:, [3, 19, 35]] = 2.0 * f1[:, 5:6]
+    f0, f1 = f0.bfloat16(), f1.bfloat16()
+    got = dual_softmax_match_stats(f0, f1, 0.1)
+    torch.cuda.synchronize()
+    assert got.row_argmax[:, [3, 19, 35]].eq(5).all()
+    assert got.col_argmax[:, [5, 13, 43, 45]].eq(3).all()
+    inv_temp = 1.0 / (C * 0.1)
+    lr, lc = dual_softmax_lse(f0, f1, inv_temp)
+    rr, rc = _lse_reference(f0, f1, inv_temp)
+    _assert_close(lr, rr, 1e-3, 0.0)
+    _assert_close(lc, rc, 1e-3, 0.0)
+
+
+def _one_past_a_chunk(B, L, C, S_max):
+    """The largest S <= S_max whose last chunk of the kernels' decomposition
+    (dual_softmax.plan) holds one column."""
+    dev = torch.cuda.current_device()
+    for S in range(S_max, 64, -1):
+        p = plan(B, L, S, C, dev)
+        if p.n_split > 1 and S % (64 * p.chunk) == 1:
+            return S
+    raise AssertionError("no S with a one-column last chunk")
+
+
+@pytest.mark.parametrize("B, L, S", [
+    (1, 4800, 4800), (4, 4800, 4800),  # the serving forward's shapes, and one pair
+    (2, 129, 200), (4, 4737, 4800),  # L one past a 128-row tile
+    (1, 4800, None),  # S one past a chunk of column tiles
+])
+def test_dual_softmax_across_the_decomposition(gen, B, L, S):
+    """K1 and dual_softmax_lse at shapes that cross the kernels' row tiles,
+    chunks and batch, against the plain twins at chip_smoke.py's
+    tolerances: max values within 1e-3 relative, each argmax picking an
+    entry at least (1 - 1e-3) x the plain max, log-sum-exps within 1e-3."""
+    C, T, rtol = 256, 0.1, 1e-3
+    S = S or _one_past_a_chunk(B, L, C, 4800)
+    f0 = _rnd(gen, B, L, C)
+    idx = torch.randint(0, L, (S,), generator=gen, device="cuda")
+    f1 = (0.8 * f0[:, idx] + 0.6 * _rnd(gen, B, S, C)).bfloat16()
+    f0 = f0.bfloat16()
+    inv_temp = 1.0 / (C * T)
+    got = dual_softmax_match_stats(f0, f1, T)
+    ref = _stats_reference(f0, f1, inv_temp)
+    _assert_close(got.row_max, ref.row_max, 0.0, rtol)
+    _assert_close(got.col_max, ref.col_max, 0.0, rtol)
+    conf = dual_softmax_confidence(f0, f1, inv_temp)
+    row_pick = torch.gather(conf, 2, got.row_argmax.long()[..., None])[..., 0]
+    col_pick = torch.gather(conf, 1, got.col_argmax.long()[:, None])[:, 0]
+    assert (row_pick >= ref.row_max * (1 - rtol)).all()
+    assert (col_pick >= ref.col_max * (1 - rtol)).all()
+    del conf
+    lr, lc = dual_softmax_lse(f0, f1, inv_temp)
+    rr, rc = _lse_reference(f0, f1, inv_temp)
+    _assert_close(lr, rr, 1e-3, 0.0)
+    _assert_close(lc, rc, 1e-3, 0.0)
 
 
 def _layer_values(g, C):
