@@ -142,6 +142,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     layer_norm_work,
     patch_expand_work,
     sparse_focal_backward_work,
+    swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
     swin_block_work,
@@ -665,10 +666,13 @@ def check_swin_block_train(rec: Record, g) -> None:
                 bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
                 k = re.split(r"[<(]", bare)[0]
                 split[k] = split.get(k, 0.0) + ms
-            print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+            nw = 0 if m is None else m.shape[0]
+            ab, aby = bound_ms(*swin_block_train_attn_bwd_work(nwin, C, h, nw))
+            print("    backward by kernel: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                  + f"; attn_bwd bound {ab:.4f} ms ({aby})")
             pf = cuda_ms(lambda: swin_block_train_reference(x, m, a, b, p, h), iters=3)
             pfb = cuda_ms(plain_fb, iters=3)
-            nw = 0 if m is None else m.shape[0]
             rec.site("swin_block_train_fwd", count,
                      cuda_ms(lambda: swin_block_train_fwd(x, m, a, b, kp, h)), pf,
                      swin_block_train_fwd_work(nwin, C, h, nw),

@@ -161,6 +161,28 @@ def swin_block_train_bwd_work(windows: int, C: int, heads: int, mask_windows: in
     return nbytes, 2 * swin_block_work(windows, C, heads, mask_windows)[1]
 
 
+def swin_block_train_attn_bwd_work(windows: int, C: int, heads: int,
+                                   mask_windows: int) -> Work:
+    """`attn_bwd`, the attention branch of K8's backward, alone. The backward
+    is split where the residual stream's gradient crosses between the two
+    branches (`csrc/swin_block_train.cu`): `mlp_bwd` writes dx1 in f32, and
+    the weight gradients are products over all tokens in `wgrad`, which reads
+    the bf16 operands attn_bwd stashes for it. Under that split attn_bwd must
+    read x (bf16), dx1 (f32), the saved probabilities (bf16), the drop-path
+    scale and its weights, and write dx and the stash's h1, dqkv, o and do
+    (bf16). Its products are the activation gradients da = do Wprojᵀ,
+    dh1 = dqkv Wqkvᵀ (4 C² multiply-adds a token) and the attention's dP,
+    dq, dk and dv (4 x 64 C); the recomputed qkv and o are the kernel's
+    choice, not counted. `mask_windows` is taken for the sites' signature:
+    the backward reads the saved probabilities, not the mask."""
+    del mask_windows
+    tokens = windows * WINDOW
+    weights = 4 * C * C * BF16 + (3 * C + 2 * C) * F32
+    nbytes = (tokens * C * (BF16 + F32 + BF16) + tokens * 6 * C * BF16
+              + windows * heads * WINDOW * WINDOW * BF16 + windows * F32 + weights)
+    return nbytes, 2 * tokens * (4 * C * C + 4 * WINDOW * C)
+
+
 def coarse_train_fwd_work(G: int, L: int, S: int, C: int, heads: int) -> Work:
     """K9's forward for one encoder call (L query tokens of G images over S
     source tokens): K5's stats and apply launches."""

@@ -6,7 +6,12 @@ reach: ragged edges (row counts, token counts and window counts that are no
 multiple of a tile, of the grid or of a weight-gradient split), argmax ties
 across tiles, other widths of the transformer kernels, weights loaded after
 a first forward, bit-identical gradients across runs (the training kernels
-reduce across blocks in a fixed order), the wrappers' refusal of tensors
+reduce across blocks in a fixed order; K8's at C = 64, 128 and 256 and at
+window counts that walk a block's window loop three times), K8's backward
+with the attention branch dropped on every window (dx equal to the f32 dx1
+rounded to bf16, the branch's gradients exactly 0) and with rows that keep
+one key (a one-hot P, rel_bias's gradient on that row below 1e-30), the
+wrappers' refusal of tensors
 the kernels do not take, K9 at a ragged token count for each width it takes
 and through a whole stack, K10 at ragged window counts and tap counts and
 through a whole stack, the serving forward's per-op branches where the
@@ -467,11 +472,12 @@ def _block_train_grads(x, mask, s1, s2, p, h, gout, plain):
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])
-@pytest.mark.parametrize("nwin,masked", [(12, False), (12, True), (301, True)])
+@pytest.mark.parametrize("nwin,masked", [(12, False), (12, True), (301, True), (533, True)])
 def test_swin_block_train_against_autograd_of_the_plain_twin(gen, C, nwin, masked):
-    """Window counts of 12 (one window a block) and 301 (more than the
+    """Window counts of 12 (one window a block), 301 (more than the
     backward's 264 blocks, and 19,264 tokens: a ragged last weight-gradient
-    split), with the shift mask of a 16x24 map (window w takes mask[w % 6])
+    split) and 533 = 2 x 264 + 5 (five blocks walk their window loop three
+    times), with the shift mask of a 16x24 map (window w takes mask[w % 6])
     and drop-path scales of 0 and 1/keep. The output, dx and all 13
     gradients within chip_smoke.py's K8 tolerance (5e-2 of max |plain|)."""
     h = C // 16
@@ -490,8 +496,13 @@ def test_swin_block_train_against_autograd_of_the_plain_twin(gen, C, nwin, maske
         assert _rel(a, r) <= 5e-2, name
 
 
-def test_swin_block_train_gradients_are_bit_identical(gen):
-    C, h, nwin = 128, 8, 301
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nwin", [301, 533])
+def test_swin_block_train_gradients_are_bit_identical(gen, C, nwin):
+    """Two backward runs on the same inputs give equal bits: every sum across
+    windows, blocks and weight-gradient splits runs in a fixed order. 533
+    windows make five of the 264 blocks walk their window loop three times."""
+    h = C // 16
     x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
     gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
     p = _block_params(gen, C, h)
@@ -500,6 +511,82 @@ def test_swin_block_train_gradients_are_bit_identical(gen):
     again = _block_train_grads(x, mask, None, None, p, h, gout, plain=False)
     for name, a, b in zip(["out", "dx", *PARAM_KEYS], first, again, strict=True):
         assert torch.equal(a, b), name
+
+
+def _bwd_keeping_dx1(x, s1, s2, probs, x1, g, kp, h):
+    """swin_block_train_bwd's launch, its buffers allocated as the wrapper
+    does, returning the f32 gradient of the residual stream after the
+    attention branch (dx1, which mlp_bwd writes and attn_bwd reads) beside
+    dx and the 13 gradients."""
+    from featurematching_tpu_torch.ops import _build
+    from featurematching_tpu_torch.ops import swin_block_train as sbt
+
+    B_, N, C = x.shape
+    T = B_ * N
+    nb, splits = min(B_, sbt.MAX_BLOCKS), max(1, -(-T // sbt.SPLIT_TOKENS))
+    f32 = dict(device=x.device, dtype=torch.float32)
+    grads = [torch.empty(p.shape, **f32) for p in kp]
+    dx = torch.empty_like(x)
+    stash = torch.empty(16 * C * T, device=x.device, dtype=torch.bfloat16)
+    dx1 = torch.empty(T * C, **f32)
+    scratch = [torch.empty(nb * 13 * C, **f32), torch.empty(nb * h * N * N, **f32),
+               torch.empty(splits * 12 * C * C, **f32)]
+    _build.launch("swin_block_train", "fm_swin_block_train_bwd", sbt._BWD_ARGS,
+                  sbt._ptrs([x, s1, s2, probs, x1, g, *kp]),
+                  sbt._ptrs([dx, *grads, stash, dx1, *scratch]), B_, C, nb, splits,
+                  _build.stream())
+    torch.cuda.synchronize()
+    return dx, dict(zip(PARAM_KEYS, grads)), dx1.view(B_, N, C)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_train_backward_with_the_attention_branch_dropped(gen, C):
+    """s1 = 0 on every window: do = 0, so da, dS and dqkv are 0, dx = dx1 +
+    LN1ᵀ(0) is dx1 rounded to bf16, bit for bit, and the gradients of the
+    attention branch's parameters (LN1, w_qkv, b_qkv, rel_bias, w_proj,
+    b_proj) are exactly 0."""
+    h, nwin = C // 16, 301
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    kp = _kernel_params(_block_params(gen, C, h), C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    s1 = torch.zeros(nwin, device="cuda")
+    s2 = torch.full((nwin,), 1 / 0.8, device="cuda")
+    _, probs, x1 = swin_block_train_fwd(x, mask, s1, s2, kp, h)
+    dx, grads, dx1 = _bwd_keeping_dx1(x, s1, s2, probs, x1, gout, kp, h)
+    assert torch.equal(dx, dx1.bfloat16())
+    assert bool(dx1.abs().max() > 0)
+    for k in ("ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "rel_bias", "w_proj", "b_proj"):
+        assert not bool(grads[k].any()), k
+    assert bool(grads["w_mlp1"].abs().max() > 0)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_train_rows_with_one_key(gen, C):
+    """A mask that leaves one key of row 37 unmasked in every mask window
+    (another key in each; the other rows keep the 16x24 map's shift mask):
+    P is one-hot on that row up to the probabilities of its masked keys
+    (e^-100 and below, 0 or subnormal in bf16), so dS = P (dP - rowsum(dP P))
+    vanishes there. The output, dx and the 13 gradients within
+    chip_smoke.py's K8 tolerance of the plain twin, and rel_bias's gradient
+    on row 37 below 1e-30 in magnitude."""
+    h, nwin, row = C // 16, 301, 37
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda").clone()
+    nW = mask.shape[0]
+    mask[:, row, :] = -100.0
+    mask[torch.arange(nW, device="cuda"), row, torch.arange(nW, device="cuda") * 11 % 64] = 0.0
+    s1 = torch.where(torch.arange(nwin, device="cuda") % 3 == 0, 0.0, 1 / 0.8)
+    s2 = torch.where(torch.arange(nwin, device="cuda") % 5 == 1, 0.0, 1 / 0.8)
+    got = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+    ref = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=True)
+    for name, a, r in zip(["out", "dx", *PARAM_KEYS], got, ref, strict=True):
+        assert _rel(a, r) <= 5e-2, name
+    rel_bias = got[2 + PARAM_KEYS.index("rel_bias")]
+    assert float(rel_bias[:, row].abs().max()) < 1e-30
+    assert float(rel_bias.abs().max()) > 0
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])

@@ -13,6 +13,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     fine_train_bwd_work,
     fine_train_fwd_work,
     sparse_focal_backward_work,
+    swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
     swin_block_work,
@@ -74,6 +75,25 @@ def test_training_kernels_count_their_launches():
     L, C = 60 * 80, cfg.coarse.d_model
     lse, k7 = dual_softmax_lse_work(4, L, L, C), sparse_focal_backward_work(4, L, L, C)
     assert lse[1] + k7[1] == rows["K7"][1] and k7[1] == 3 * lse[1]
+
+
+def test_attn_bwd_counts_its_own_split():
+    """K8's attention backward alone at C = 128 on 640 windows (8 heads),
+    by hand: a token's x, f32 dx1 and dx, and the four stash operands h1,
+    dqkv, o and do (bf16); the probabilities, the drop-path scales and the
+    weights once; products 2 T (4 C^2 + 256 C), the recomputed qkv and o
+    not counted."""
+    W, C, h = 640, 128, 8
+    T = W * 64
+    nbytes, flops = swin_block_train_attn_bwd_work(W, C, h, 80)
+    token = 2 * C + 4 * C + 2 * C + 2 * (C + 3 * C + C + C)
+    probs = W * h * 64 * 64 * 2
+    weights = (3 * C * C + C * C) * 2 + (3 * C + C + C) * 4  # w_qkv, w_proj; b_qkv, LN1
+    assert nbytes == T * token + probs + W * 4 + weights
+    assert flops == 2 * T * (4 * C * C + 256 * C)
+    # a part of K8's backward: fewer products than the whole
+    whole = swin_block_train_bwd_work(W, C, h, 80)
+    assert flops < whole[1]
 
 
 def test_k9_counts_its_encoder_calls():

@@ -31,6 +31,7 @@ MODULES = {
     "coarse_layer_forward": "coarse_transformer_train",
     "coarse_layer_backward": "coarse_transformer_train",
     "fine_layer_forward": "fine_stage", "fine_layer_backward": "fine_transformer_train",
+    "window_attention": "window_attention", "swin_block_fused_image": "swin_block_image",
 }
 
 t = time.time()
