@@ -132,6 +132,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
+    coarse_train_apply_bwd_work,
     coarse_train_bwd_work,
     coarse_train_fwd_work,
     dual_softmax_lse_work,
@@ -817,7 +818,9 @@ def check_coarse_train(rec: Record, g) -> None:
             bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
             k = re.split(r"[<(]", bare)[0].split("::")[-1]
             split[k] = split.get(k, 0.0) + ms
-        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        ab, aby = bound_ms(*coarse_train_apply_bwd_work(G, N, N, C, h))
+        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+              + f"; apply_bwd bound {ab:.4f} ms ({aby})")
         rec.site("coarse_layer_forward", count,
                  cuda_ms(lambda: coarse_layer_forward(x, src, lv, h)),
                  cuda_ms(lambda: encoder_reference_with_stats(x, src, lv, h), iters=3),

@@ -12,18 +12,45 @@
 // query chunk's recomputed forward in VMEM and add each chunk's weight
 // gradients into one output block across the sequential grid. On the H100
 // blocks run in parallel and a block has 227 KB of shared memory, so:
-//   1. apply_bwd: one block a 64-token query tile recomputes the forward tile
-//      on chip from x, the saved K^T V and K_sum and the weights (in the
-//      forward's bf16 rounding), then runs its backward: LN2, the FFN
-//      (relu mask kept as bits), LN1, the merge, the per-head attention
-//      gradients and the Q feature map, and writes dx. Shared memory holds
-//      two [64, 2C] and two [64, C] bf16 buffers, reused phase by phase
-//      (x | msg, then dy1; o, hidden chunks, y2, dy2, then the f32 dmsg,
-//      then dopre | dqf; Q; m1, then dm1, then x again), 226 KB at C = 256.
-//      The per-head products are formed by (head, 16-row) units that keep
-//      both factors of an elementwise step in registers of one layout: the
-//      merge gradient do beside the recomputed Q.KV, and the recomputed
-//      x.wq beside dQ, so neither f32 [64, C] tile is stored.
+//   1. apply_bwd: one block of 8 warps a 64-token query tile recomputes the
+//      forward tile on chip from x, the saved K^T V and K_sum and the
+//      weights (in the forward's bf16 rounding), then runs its backward: LN2,
+//      the FFN, LN1, the merge, the per-head attention gradients and the Q
+//      feature map, and writes dx.
+//      - Every product runs on tiles.cuh's mma.sync tiles with the warps as
+//        2 x 4 over a [64, N] output, a warp's 32 x N/4 tile in registers.
+//        The nine weight products read their packed B fragments straight
+//        from L2 by ld.global.nc, each warp four k-steps ahead of their use,
+//        into registers; the two warps of a column group read the same
+//        fragments, which L1 merges, and no barrier couples the warps. (A
+//        cp.async ring of 16 KB slices shared by the block, a barrier a
+//        slice, ran the tile 1.4x slower on the H100 at three, five or seven
+//        slots: its copies came at about 9 bytes a cycle an SM, PERF.md.)
+//      - LN1, LN2 and both LN backwards run a warp a row over shared memory
+//        in compact loops (the products' accumulators are written there
+//        first; dmsg, in f32, a row half at a time), since the code of
+//        register epilogues unrolled over a warp's tile outgrew the
+//        instruction cache; a column's sums (the LN gradients) stay in each
+//        warp's registers over its rows, then the 8 warps add in a fixed
+//        order. g is read once, into shared memory at the tile's start, for
+//        LN2 and dx. The ReLU mask is one bit a hidden entry in the
+//        registers of the lane that computed it, which later takes the same
+//        entry of dy1.
+//      - The per-head products (Q.KV, dopre.KVᵀ) run in the same warp tiles,
+//        beside the merge gradient do and the recomputed x.wq, so both
+//        factors of each elementwise step share a layout in registers; Z
+//        and the head sums of dZ are formed in the lanes that hold the rows,
+//        and dK_sum's column sums go across a warp's rows by shuffles, then
+//        across the two row halves in a fixed order.
+//      - The hidden width runs in chunks of 128 columns: relu([x | msg].w1)
+//        and then its part of y2, later dy1 and then its part of dmsg, so no
+//        [64, 2C] f32 tile exists. x is read again for x.wq, over Q.
+//      - Shared memory: six [64, C] bf16 buffers, five reused phase by phase
+//        (x, then y2, then dy1 over the first two; o, then msg; Q, then x,
+//        then dqf; m1, then dm1, then dopre; the plain K^T V, the hidden
+//        chunk, dy2, dmsg's row halves, the plain K^T V again) and g; K_sum,
+//        the LN parameters and statistics and the dK_sum partial: 209,408
+//        bytes at C = 256, one block an SM.
 //      It writes the bf16 operands of the weight products (o, msg, h, dy2,
 //      dy1, dm1, dqf: the operands the TPU kernel feeds its bf16 products),
 //      and per-tile partials of the LN gradients, each head's dK^T V [D, D]
@@ -46,6 +73,7 @@
 
 namespace {
 
+using fm::Acc16;
 using fm::bf16;
 
 constexpr int T = 64;  // token rows of a tile
@@ -64,113 +92,6 @@ __device__ __forceinline__ void load_b_t(uint32_t* r, const bf16* s, int lds, in
   fm::ldsm_x4(r, s + ((lane & 7) + (m >> 1) * 8) * lds + (m & 1) * 8);
 }
 
-// LayerNorm of 64 rows from src to dst as fm::warp_layer_norm computes it,
-// keeping each row's mean and reciprocal deviation
-template <int C>
-__device__ __forceinline__ void ln_fwd_rows(const bf16* src, int lds, const float* s,
-                                            const float* b, float* mu, float* rs, bf16* dst,
-                                            int ldd, int warp, int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {
-    float v[V];
-    fm::load_bf16<V>(src + r * lds + lane * V, v);
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) t += v[i];
-    const float m = fm::warp_sum(t) * (1.0f / C);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      v[i] -= m;
-      q += v[i] * v[i];
-    }
-    const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = v[i] * rr * s[lane * V + i] + b[lane * V + i];
-    fm::store_bf16<V>(dst + r * ldd + lane * V, v);
-    if (lane == 0) {
-      mu[r] = m;
-      rs[r] = rr;
-    }
-  }
-}
-
-// Column sums of an LN backward over the tile's valid rows, by the thread
-// owning column c: sum dh * xhat and sum dh (xhat = (x - mu) rs)
-template <int C, typename Dh>
-__device__ __forceinline__ void ln_bwd_columns(const bf16* xin, int ldx, const float* mu,
-                                               const float* rs, int valid, Dh dh,
-                                               float* out_s, float* out_b) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float ss = 0.f, sb = 0.f;
-    for (int r = 0; r < valid; ++r) {
-      const float d = dh(r, c);
-      ss += d * ((bf(xin[r * ldx + c]) - mu[r]) * rs[r]);
-      sb += d;
-    }
-    out_s[c] = ss;
-    out_b[c] = sb;
-  }
-}
-
-// LN backward of the rows: dx = rs (dxhat - mean(dxhat) - xhat mean(dxhat
-// xhat)), dxhat = dh * scale, rounded to bf16 into dst (rows past valid: 0)
-template <int C, typename Dh>
-__device__ __forceinline__ void ln_bwd_rows(const bf16* xin, int ldx, const float* mu,
-                                            const float* rs, const float* scale, int valid, Dh dh,
-                                            bf16* dst, int ldd, int warp, int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {
-    float out[V];
-    if (r < valid) {
-      float xh[V], dxh[V];
-      fm::load_bf16<V>(xin + r * ldx + lane * V, xh);
-      float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const int c = lane * V + i;
-        xh[i] = (xh[i] - mu[r]) * rs[r];
-        dxh[i] = dh(r, c) * scale[c];
-        m1 += dxh[i];
-        m2 += dxh[i] * xh[i];
-      }
-      m1 = fm::warp_sum(m1) * (1.0f / C);
-      m2 = fm::warp_sum(m2) * (1.0f / C);
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = rs[r] * (dxh[i] - m1 - xh[i] * m2);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = 0.f;
-    }
-    fm::store_bf16<V>(dst + r * ldd + lane * V, out);
-  }
-}
-
-template <int C, int D>
-struct BwdSmem {
-  static constexpr int H = C / D;
-  static constexpr int LD2 = 2 * C + 8;  // [64, 2C] bf16 rows
-  static constexpr int LD1 = C + 8;      // [64, C] bf16 rows
-  static constexpr int LDF = C + 4;      // [64, C] f32 rows (over a [64, 2C] bf16 buffer)
-  static constexpr int LDH = HC + 8;     // a hidden chunk
-  static constexpr int LDKV = D + 8;     // each head's K^T V rows
-  static constexpr int MW = 2 * C / 32;  // relu mask words a row
-  static constexpr size_t a_off = 0;                          // x | msg, then dy1
-  static constexpr size_t b_off = a_off + T * LD2 * 2;        // o, h, y2/dy2, dmsg, dopre | dqf
-  static constexpr size_t q_off = b_off + T * LD2 * 2;        // Q
-  static constexpr size_t m_off = q_off + T * LD1 * 2;        // m1, dm1, then x
-  static constexpr size_t kv_off = m_off + T * LD1 * 2;       // K^T V, plain [H][D][LDKV]
-  static constexpr size_t ks_off = kv_off + C * LDKV * 2;     // f32 K_sum [C]
-  static constexpr size_t z_off = ks_off + C * 4;             // f32 Z [64][H]
-  static constexpr size_t dz_off = z_off + T * H * 4;         // f32 head sums of dZ [64][H]
-  static constexpr size_t st_off = dz_off + T * H * 4;        // f32 mu1, rs1, mu2, rs2 [64]
-  static constexpr size_t mask_off = st_off + 4 * T * 4;      // relu(y1) > 0 bits
-  static constexpr size_t bytes = mask_off + T * MW * 4;
-  static_assert(T * LDF * 4 <= T * LD2 * 2, "f32 dmsg must fit a [64, 2C] bf16 buffer");
-  static_assert(LDH <= LD1, "a hidden chunk must fit a [64, C] row");
-  static_assert(bytes <= kMaxSmem, "apply_bwd shared memory");
-};
-
 struct BwdIO {
   const bf16 *x, *kv, *ks, *g;
   const bf16 *wq, *wmerge, *w1, *w2;  // forward operands, packed [in, out]
@@ -181,323 +102,648 @@ struct BwdIO {
   float *part_ln, *part_kv, *part_ks;         // per-tile partials
 };
 
+// a warp's accumulators over a [64, N] output: 2 x N/64 tiles of 16x16
+template <int N>
+using Acc = Acc16[2][N / 64];
+
+template <int N>
+__device__ __forceinline__ void zero(Acc<N>& acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 64; ++j) fm::zero(acc[i][j]);
+}
+
+// acc += [a1 | a2] . B over the warp's tile (warps 2 x 4, a warp rows 32
+// (warp / 4) .., columns N/4 (warp % 4) ..): a1 the first K1 of A's K
+// columns, a2 the rest (shared, row strides lda1, lda2). B is rows [k0, k0
+// + K) of the N columns from strip s0 on of a packed weight w with `steps`
+// 16-row steps. The warp takes its columns two 16-column tiles a pass and
+// reads each pass's B fragments from L2 by ld.global.nc, PF k-steps ahead
+// of their use, into registers (the two warps of a column group read the
+// same fragments, which L1 merges).
+template <int N, int K, int K1 = K>
+__device__ __forceinline__ void product(Acc<N>& acc, const bf16* a1, int lda1, const bf16* a2,
+                                        int lda2, const bf16* w, int steps, int s0, int k0,
+                                        int warp, int lane) {
+  constexpr int NT = N / 64, NP = 2, KSTEPS = K / 16, PF = 8;
+  static_assert(NT % NP == 0 && KSTEPS % PF == 0 && K1 % 16 == 0, "whole passes and rounds");
+  const int m0 = warp / 4 * 32;
+#pragma unroll
+  for (int pass = 0; pass < NT / NP; ++pass) {
+    const uint4* b = reinterpret_cast<const uint4*>(
+        w + ((size_t)(s0 + warp % 4 * NT + pass * NP) * steps + k0 / 16) * 256) + lane;
+    uint4 fb[PF][NP];  // the B fragments of the next PF k-steps
+#pragma unroll
+    for (int p = 0; p < PF; ++p)
+#pragma unroll
+      for (int j = 0; j < NP; ++j) fb[p][j] = __ldg(b + ((size_t)j * steps + p) * 32);
+    for (int kr = 0; kr < KSTEPS; kr += PF) {
+#pragma unroll
+      for (int p = 0; p < PF; ++p) {
+        const int kk = kr + p;
+        const bf16* a = kk * 16 < K1 ? a1 + kk * 16 : a2 + (kk * 16 - K1);
+        const int lda = kk * 16 < K1 ? lda1 : lda2;
+        uint32_t fa[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) fm::load_a(fa[i], a + (m0 + 16 * i) * lda, lda, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            fm::mma16(acc[i][pass * NP + j], fa[i], reinterpret_cast<const uint32_t*>(&fb[p][j]));
+        if (kk + PF < KSTEPS) {
+#pragma unroll
+          for (int j = 0; j < NP; ++j) fb[p][j] = __ldg(b + ((size_t)j * steps + kk + PF) * 32);
+        }
+      }
+    }
+  }
+}
+
+// f(i, jp, ri, row, col) for each accumulator pair (acc[i][j].c[2 jp],
+// .c[2 jp + 1]) of column tile j of the warp's tile of an Acc<64 NT>: the
+// pair's row (the lane's ri-th of 4) and its first column
+template <int NT, typename F>
+__device__ __forceinline__ void for_pairs_of(int j, int warp, int lane, F f) {
+  const int m0 = warp / 4 * 32, n0 = warp % 4 * NT * 16, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp)
+      f(i, jp, 2 * i + (jp & 1), m0 + 16 * i + g + 8 * (jp & 1),
+        n0 + 16 * j + 8 * (jp >> 1) + 2 * t);
+}
+
+// f(i, j, jp, ri, row, col) for every pair of the warp's tile
+template <int NT, typename F>
+__device__ __forceinline__ void for_pairs(int warp, int lane, F f) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    for_pairs_of<NT>(j, warp, lane,
+                     [&](int i, int jp, int ri, int r, int c) { f(i, j, jp, ri, r, c); });
+}
+
+// d = acc's column tile j (a runtime index) by predicated moves, so that a
+// loop over the tiles need not be unrolled
+template <int NT>
+__device__ __forceinline__ void pick(Acc16 (&d)[2], const Acc16 (&acc)[2][NT], int j) {
+#pragma unroll
+  for (int jj = 0; jj < NT; ++jj)
+    if (jj == j) {
+      d[0] = acc[0][jj];
+      d[1] = acc[1][jj];
+    }
+}
+
+// the lane's ri-th row of the warp's tile
+__device__ __forceinline__ int lane_row(int ri, int warp, int lane) {
+  return warp / 4 * 32 + 16 * (ri >> 1) + (lane >> 2) + 8 * (ri & 1);
+}
+
+// NV column sums of column tile j over the warp's 32 rows into part
+// ([2][NV][C] f32, by row half): v[k][q] holds column 16 j + 8 (q >> 1) +
+// 2 t + (q & 1) of the warp's tile summed over the lane's 4 rows, then
+// across the warp's 8 row groups by shuffles. After a barrier col_total
+// adds the two row halves in a fixed order.
+template <int C, int NV>
+__device__ __forceinline__ void col_part(float (&v)[NV][4], float* part, int j, int warp,
+                                         int lane) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) v[k][q] += __shfl_xor_sync(0xffffffffu, v[k][q], o);
+  if (lane < 4) {
+    const int c0 = warp % 4 * (C / 4) + 16 * j + 2 * lane;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        part[(warp / 4 * NV + k) * C + c0 + 8 * (q >> 1) + (q & 1)] = v[k][q];
+  }
+}
+
+template <int C, int NV>
+__device__ __forceinline__ void col_total(const float* part, float* out) {
+  for (int e = threadIdx.x; e < NV * C; e += kThreads) out[e] = part[e] + part[NV * C + e];
+}
+
+// Z of the lane's 4 rows for each head of the warp's columns: Q_h . K_sum_h,
+// a quarter of the head's columns a lane of the row, then across the four
+// lanes (Q bf16 [64][C + 8] in shared memory, K_sum f32)
+template <int C, int D>
+__device__ __forceinline__ void head_z(float (&z)[4][C / 4 / D], const bf16* qs,
+                                       const float* kss, int warp, int lane) {
+  constexpr int V = D / 4;
+  const int n0 = warp % 4 * (C / 4), t = lane & 3;
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int hh = 0; hh < C / 4 / D; ++hh) {
+      const int c0 = n0 + hh * D + t * V;
+      float q[V];
+      fm::load_bf16<V>(qs + lane_row(ri, warp, lane) * (C + 8) + c0, q);
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) s += q[v] * kss[c0 + v];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      z[ri][hh] = s;
+    }
+}
+
+// acc[i] += A_h . KV_h (TRANS: A_h . KV_hᵀ) for column tile j of the
+// warp's tile of a [64, C] output (its two row tiles i), the 16 columns'
+// head h: A bf16 [64][C + 8], the plain K^T V [C][D + 8] (row h D + k)
+template <int C, int D, bool TRANS>
+__device__ __forceinline__ void head_tile(Acc16 (&acc)[2], const bf16* a, const bf16* kvp, int j,
+                                          int warp, int lane) {
+  constexpr int LD1 = C + 8, LDKV = D + 8;
+  const int m0 = warp / 4 * 32, col = warp % 4 * (C / 4) + 16 * j, h = col / D, e0 = col % D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t fa[2][4], fb[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      fm::load_a(fa[i], a + (m0 + 16 * i) * LD1 + h * D + 16 * kk, LD1, lane);
+    if (TRANS)
+      load_b_t(fb, kvp + (h * D + e0) * LDKV + 16 * kk, LDKV, lane);
+    else
+      fm::load_b(fb, kvp + (h * D + 16 * kk) * LDKV + e0, LDKV, lane);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) fm::mma16(acc[i], fa[i], fb);
+  }
+}
+
+// K^T V of one image from the merge's fragment order into plain rows
+// [C][D + 8] of shared memory (row h D + k, column n): this thread's
+// 16-byte pieces are read first (load) and written out later (store), so
+// that the read's latency hides behind other work
+template <int C, int D>
+struct KvPlain {
+  static constexpr int PIECES = C * D / 8 / kThreads;
+  uint4 raw[PIECES];
+
+  __device__ __forceinline__ void load(const bf16* kvg) {
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p)
+      raw[p] = *reinterpret_cast<const uint4*>(kvg + (size_t)(threadIdx.x + p * kThreads) * 8);
+  }
+
+  __device__ __forceinline__ void store(bf16* kvp) const {
+    constexpr int DT = D / 16, LDKV = D + 8;
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p) {
+      const int e8 = threadIdx.x + p * kThreads, ln = e8 & 31, tl = e8 >> 5;
+      const int h = tl / (DT * DT), nt = (tl / DT) % DT, kt = tl % DT;
+      const uint32_t w[4] = {raw[p].x, raw[p].y, raw[p].z, raw[p].w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int k = kt * 16 + 2 * (ln & 3) + (q & 1) + 8 * ((q >> 1) & 1);
+        const int n = nt * 16 + (ln >> 2) + 8 * (q >> 2);
+        const uint32_t bits = q & 1 ? w[q >> 1] >> 16 : w[q >> 1] & 0xffffu;
+        kvp[(h * D + k) * LDKV + n] = __ushort_as_bfloat16(static_cast<unsigned short>(bits));
+      }
+    }
+  }
+};
+
+// Column sums of NV quantities, each warp's v[k][i] for columns lane V + i
+// summed over its rows, into out[k C + column]: each warp's into part
+// ([8][NV][C] f32), then, after a barrier, the 8 warps added in a fixed order.
+template <int C, int NV>
+__device__ __forceinline__ void warp_col_sums(const float (&v)[NV][C / 32], float* part,
+                                             float* out, int warp, int lane) {
+  constexpr int V = C / 32;
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[(warp * NV + k) * C + lane * V + i] = v[k][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < NV * C; e += kThreads) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += part[w * NV * C + e];
+    out[e] = t;
+  }
+}
+
+// 64 rows of C bf16 (row stride C) into shared memory (row stride ld) by
+// cp.async, committed as one group; rows at or past valid zero-filled
+template <int C>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int ld, const bf16* src, int valid) {
+  for (int e = threadIdx.x; e < T * C / 8; e += kThreads) {
+    const int r = e / (C / 8), c = e % (C / 8) * 8;
+    if (r < valid)
+      fm::cp_async16(dst + r * ld + c, src + (size_t)r * C + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fm::cp_async_commit();
+}
+
+__device__ __forceinline__ float2 get2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void put2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <int C, int D>
+struct BwdSmem {
+  static constexpr int LD1 = C + 8;      // [64, C] bf16 rows
+  static constexpr int LD2 = 2 * C + 8;  // dy1 [64, 2C] over the first two buffers
+  static constexpr int LDH = HC + 8;     // a hidden chunk
+  static constexpr int LDKV = D + 8;     // each head's K^T V rows
+  static constexpr size_t R = (size_t)T * LD1 * 2;  // bytes of a [64, C] buffer
+  static constexpr size_t x_off = 0;                // x, y2; then dy1 over x | o
+  static constexpr size_t o_off = R;                // o, msg, LN2's column sums
+  static constexpr size_t q_off = 2 * R;            // Q, then x, then dqf
+  static constexpr size_t m_off = 3 * R;            // m1, then dm1, then dopre
+  static constexpr size_t k_off = 4 * R;            // K^T V, hidden chunk, dy2, dmsg, K^T V
+  static constexpr size_t g_off = 5 * R;            // g
+  static constexpr size_t ks_off = 6 * R;           // f32 K_sum [C]
+  static constexpr size_t st_off = ks_off + C * 4;  // f32 mu1, rs1 [64]
+  static constexpr size_t col_off = st_off + 2 * T * 4;           // f32 column sums [2][C]
+  static constexpr size_t ln_off = col_off + 2 * C * 4;           // f32 n1s, n1b, n2s [C]
+  static constexpr size_t z_off = ln_off + 3 * C * 4;             // f32 n1s, n1b, n2s [C]
+  // f32 [64][H] each: Z + eps, S / (Z + eps) and the head sums of dZ
+  static constexpr size_t bytes = z_off + 3 * T * (C / D) * 4;
+  static_assert(T * LD2 * 2 <= 2 * R, "dy1 must fit the first two buffers");
+  static_assert(T * LDH * 2 <= R && C * LDKV * 2 <= R && T / 2 * (C + 4) * 4 <= R &&
+                    kWarps * 2 * C * 4 <= R,
+                "the tenants of the second and fifth buffers must fit");
+  static_assert(bytes <= kMaxSmem, "apply_bwd shared memory");
+};
+
 // grid (ceil(L / 64), G): block (b, g) takes query rows [64 b, 64 b + 64) of image g
 template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 1) apply_bwd_kernel(BwdIO io, int L, int S) {
+__global__ void __launch_bounds__(kThreads, 1)
+apply_bwd_kernel(const __grid_constant__ BwdIO io, int L, int S) {
   using Sm = BwdSmem<C, D>;
-  constexpr int H = Sm::H, DT = D / 16, LD2 = Sm::LD2, LD1 = Sm::LD1, LDF = Sm::LDF;
-  constexpr int LDH = Sm::LDH, LDKV = Sm::LDKV, MW = Sm::MW;
+  constexpr int H = C / D, DT = D / 16, NT = C / 64, NCH = 2 * C / HC, HPW = C / 4 / D;
+  constexpr int LD1 = Sm::LD1, LD2 = Sm::LD2, LDH = Sm::LDH;
+  constexpr int V = C / 32;  // a lane's columns of a row
+  constexpr float kInvC = 1.0f / C;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xa = reinterpret_cast<bf16*>(smem + Sm::a_off);
-  bf16* rb = reinterpret_cast<bf16*>(smem + Sm::b_off);
-  float* rbf = reinterpret_cast<float*>(smem + Sm::b_off);
+  bf16* xs = reinterpret_cast<bf16*>(smem + Sm::x_off);
+  bf16* dy1s = xs;  // [64][LD2]
+  bf16* os = reinterpret_cast<bf16*>(smem + Sm::o_off);
   bf16* qs = reinterpret_cast<bf16*>(smem + Sm::q_off);
   bf16* ms = reinterpret_cast<bf16*>(smem + Sm::m_off);
-  bf16* kvp = reinterpret_cast<bf16*>(smem + Sm::kv_off);
+  bf16* ks4 = reinterpret_cast<bf16*>(smem + Sm::k_off);
   float* kss = reinterpret_cast<float*>(smem + Sm::ks_off);
-  float* zs = reinterpret_cast<float*>(smem + Sm::z_off);
-  float* dzs = reinterpret_cast<float*>(smem + Sm::dz_off);
   float* mu1 = reinterpret_cast<float*>(smem + Sm::st_off);
   float* rs1 = mu1 + T;
-  float* mu2 = rs1 + T;
-  float* rs2 = mu2 + T;
-  unsigned* mask = reinterpret_cast<unsigned*>(smem + Sm::mask_off);
+  float* colp = reinterpret_cast<float*>(smem + Sm::col_off);
+  float* n1s = reinterpret_cast<float*>(smem + Sm::ln_off);  // LN1's scale and bias, LN2's scale
+  float* n1b = n1s + C;
+  float* n2s = n1b + C;
+  bf16* gs = reinterpret_cast<bf16*>(smem + Sm::g_off);
+  float* zsm = reinterpret_cast<float*>(smem + Sm::z_off);  // [64][H] Z + eps of the do phase
+  float* nsm = zsm + T * H;                                   // S / (Z + eps)
+  float* dzs = nsm + T * H;                                   // the head sums of dZ
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = blockIdx.y, r0 = blockIdx.x * T, valid = min(T, L - r0);
   const size_t row0 = (size_t)g * L + r0;  // first token of the tile
   const size_t tile = (size_t)g * gridDim.x + blockIdx.x;
-  const bf16* gg = io.g + row0 * C;
   const float s_f = (float)S;
-
-  // ---- forward recompute, as coarse_transformer.cu's apply_kernel ----
-  fm::copy_rows_to_smem(xa, LD2, io.x + row0 * C, C, T, C, valid);
-  for (int c = threadIdx.x; c < C; c += kThreads) kss[c] = bf(io.ks[(size_t)g * C + c]);
-  {  // K^T V from fragment order (the merge's layout) to plain rows
-    const bf16* kvg = io.kv + (size_t)g * C * D;
-    for (int e = threadIdx.x; e < C * D; e += kThreads) {
-      const int e8 = e & 7, ln = (e >> 3) & 31, tl = e >> 8;
-      const int h = tl / (DT * DT), nt = (tl / DT) % DT, kt = tl % DT;
-      const int k = kt * 16 + 2 * (ln & 3) + (e8 & 1) + 8 * ((e8 >> 1) & 1);
-      const int n = nt * 16 + (ln >> 2) + 8 * (e8 >> 2);
-      kvp[(h * D + k) * LDKV + n] = kvg[e];
-    }
-  }
-  for (int i = threadIdx.x; i < T * MW; i += kThreads) mask[i] = 0u;
-  __syncthreads();
-  // Q = elu(x . wq) + 1
-  fm::gemm_rows64<kWarps, C, C / 16>(xa, LD2, io.wq, 0, warp, lane, [&](int r, int c, float v) {
-    qs[r * LD1 + c] = __float2bfloat16(fm::elu1(v));
-  });
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * H; e += kThreads) {
-    const int r = e / H, h = e % H;
-    float z = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) z += __bfloat162float(qs[r * LD1 + h * D + d]) * kss[h * D + d];
-    zs[e] = z;
-  }
-  __syncthreads();
-  // o = Q_h . KV_h * (S / (Z + eps)) into rb
-  for (int u = warp; u < H * (T / 16); u += kWarps) {
-    const int h = u / (T / 16), tm = u % (T / 16);
-    fm::Acc16 acc[DT];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) fm::zero(acc[j]);
-#pragma unroll
-    for (int k = 0; k < DT; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, qs + tm * 16 * LD1 + h * D + k * 16, LD1, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b(fb, kvp + (h * D + k * 16) * LDKV + j * 16, LDKV, lane);
-        fm::mma16(acc[j], fa, fb);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      fm::tile_epilogue(acc[j], tm * 16, h * D + j * 16, lane, [&](int row, int col, float v) {
-        rb[row * LD1 + col] = __float2bfloat16(v * (s_f / (zs[row * H + h] + kEps)));
-      });
-  }
-  __syncthreads();
-  // m1 = bf16(o . wmerge) into ms
-  fm::gemm_rows64<kWarps, C, C / 16>(rb, LD1, io.wmerge, 0, warp, lane,
-                                     [&](int r, int c, float v) {
-                                       ms[r * LD1 + c] = __float2bfloat16(v);
-                                     });
-  fm::copy_rows_from_smem(io.o + row0 * C, C, rb, LD1, valid, C);
-  __syncthreads();
-  // msg = LN1(m1), beside x
-  ln_fwd_rows<C>(ms, LD1, io.n1s, io.n1b, mu1, rs1, xa + C, LD2, warp, lane);
-  __syncthreads();
-  fm::copy_rows_from_smem(io.msg + row0 * C, C, xa + C, LD2, valid, C);
-  // FFN: relu([x | msg] . w1) in chunks of HC hidden columns (in rb, stashed),
-  // the y2 products in registers as the forward keeps them
-  constexpr int S2 = C / 16, RT2 = fm::rows_per_unit(S2, kWarps), G2 = 4 / RT2;
-  constexpr int UPW = S2 * G2 / kWarps;
-  static_assert(S2 * G2 % kWarps == 0, "wmlp2 units must spread evenly over the warps");
-  {
-    fm::Acc16 acc2[UPW][RT2];
-#pragma unroll
-    for (int j = 0; j < UPW; ++j)
-#pragma unroll
-      for (int i = 0; i < RT2; ++i) fm::zero(acc2[j][i]);
-    for (int c0 = 0; c0 < 2 * C; c0 += HC) {
-      fm::gemm_rows64<kWarps, 2 * C, HC / 16>(xa, LD2, io.w1, c0 / 16, warp, lane,
-                                              [&](int r, int c, float v) {
-                                                rb[r * LDH + c] = __float2bfloat16(fmaxf(v, 0.f));
-                                                if (v > 0.f)
-                                                  atomicOr(&mask[r * MW + (c0 + c) / 32],
-                                                           1u << ((c0 + c) % 32));
-                                              });
-      __syncthreads();
-      fm::copy_rows_from_smem(io.h + row0 * 2 * C + c0, 2 * C, rb, LDH, valid, HC);
-#pragma unroll
-      for (int j = 0; j < UPW; ++j) {
-        const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
-        fm::strip_mma<HC, RT2>(acc2[j], rb + tm0 * 16 * LDH, LDH, io.w2, 2 * C, c0 / 16, tn,
-                               lane);
-      }
-      __syncthreads();
-    }
-    // y2 = bf16(hidden . w2) into rb
-#pragma unroll
-    for (int j = 0; j < UPW; ++j) {
-      const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
-#pragma unroll
-      for (int i = 0; i < RT2; ++i)
-        fm::tile_epilogue(acc2[j][i], (tm0 + i) * 16, tn * 16, lane, [&](int r, int c, float v) {
-          rb[r * LD1 + c] = __float2bfloat16(v);
-        });
-    }
-  }
-  __syncthreads();
-
-  // ---- backward ----
   float* pln = io.part_ln + tile * 4 * C;  // dn1s | dn1b | dn2s | dn2b
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {  // LN2 statistics of y2
+  // a stash operand's tile rows from shared memory, 16 bytes a thread (rows past valid: none)
+  auto stash = [&](bf16* base, int ld, const bf16* from, int lds, int cols) {
+    fm::copy_rows_from_smem(base + row0 * ld, ld, from, lds, valid, cols);
+  };
+
+  load_rows_async<C>(xs, LD1, io.x + row0 * C, valid);
+  load_rows_async<C>(gs, LD1, io.g + row0 * C, valid);  // g for LN2 and dx, read once
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    kss[c] = bf(io.ks[(size_t)g * C + c]);
+    n1s[c] = io.n1s[c];
+    n1b[c] = io.n1b[c];
+    n2s[c] = io.n2s[c];
+  }
+  KvPlain<C, D> kvl;
+  kvl.load(io.kv + (size_t)g * C * D);
+
+  // ---- forward recompute, in coarse_transformer.cu's apply rounding ----
+  fm::cp_async_wait<1>();
+  __syncthreads();  // x has landed
+  constexpr int S1 = C / 16, S2 = 2 * C / 16, S3 = 3 * C / 16;  // 16-row steps of C, 2C, 3C rows
+  Acc<C> acc;  // the [64, C] products
+  zero<C>(acc);
+  product<C, C>(acc, xs, LD1, xs, LD1, io.wq, S1, 0, 0, warp, lane);  // Q = elu(x . wq) + 1
+  for_pairs<NT>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+    put2(qs + r * LD1 + c, fm::elu1(acc[i][j].c[2 * jp]), fm::elu1(acc[i][j].c[2 * jp + 1]));
+  });
+  kvl.store(ks4);
+  __syncthreads();
+  float z[4][HPW];  // Z of the lane's rows and the warp's heads, then S / (Z + eps)
+  head_z<C, D>(z, qs, kss, warp, lane);
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) z[ri][hh] = s_f / (z[ri][hh] + kEps);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {  // o = Q_h . KV_h * (S / (Z + eps)), a column tile at a time
+    Acc16 t[2];
+    fm::zero(t[0]);
+    fm::zero(t[1]);
+    head_tile<C, D, false>(t, qs, ks4, j, warp, lane);
+    for_pairs_of<NT>(j, warp, lane, [&](int i, int jp, int ri, int r, int c) {
+      const float nf = z[ri][16 * j / D];
+      const float v0 = t[i].c[2 * jp] * nf, v1 = t[i].c[2 * jp + 1] * nf;
+      put2(os + r * LD1 + c, v0, v1);
+    });
+  }
+  __syncthreads();
+  stash(io.o, C, os, LD1, C);
+  zero<C>(acc);
+  product<C, C>(acc, os, LD1, os, LD1, io.wmerge, S1, 0, 0, warp, lane);  // m1 = bf16(o . wmerge)
+  for_pairs<NT>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+    put2(ms + r * LD1 + c, acc[i][j].c[2 * jp], acc[i][j].c[2 * jp + 1]);
+  });
+  __syncthreads();  // m1 is in place, and every warp is done reading o
+  // msg = LN1(m1) over o, a warp a row (stashed); m1 and its statistics kept
+  // for the LN1 backward
+  for (int r = warp; r < T; r += kWarps) {
     float v[V];
-    fm::load_bf16<V>(rb + r * LD1 + lane * V, v);
+    fm::load_bf16<V>(ms + r * LD1 + lane * V, v);
     float t = 0.f;
 #pragma unroll
     for (int i = 0; i < V; ++i) t += v[i];
-    const float m = fm::warp_sum(t) * (1.0f / C);
+    const float m = fm::warp_sum(t) * kInvC;
     float q = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) q += (v[i] - m) * (v[i] - m);
-    const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
+    for (int i = 0; i < V; ++i) {
+      v[i] -= m;
+      q += v[i] * v[i];
+    }
+    const float rr = rsqrtf(fm::warp_sum(q) * kInvC + fm::kLnEps);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = v[i] * rr * n1s[lane * V + i] + n1b[lane * V + i];
+    fm::store_bf16<V>(os + r * LD1 + lane * V, v);
     if (lane == 0) {
-      mu2[r] = m;
-      rs2[r] = rr;
+      mu1[r] = m;
+      rs1[r] = rr;
     }
   }
   __syncthreads();
-  auto gval = [&](int r, int c) { return bf(gg[(size_t)r * C + c]); };
-  ln_bwd_columns<C>(rb, LD1, mu2, rs2, valid, gval, pln + 2 * C, pln + 3 * C);
-  __syncthreads();
-  ln_bwd_rows<C>(rb, LD1, mu2, rs2, io.n2s, valid, gval, rb, LD1, warp, lane);  // dy2 over y2
-  __syncthreads();
-  fm::copy_rows_from_smem(io.dy2 + row0 * C, C, rb, LD1, valid, C);
-  // dy1 = (dy2 . w2ᵀ) * (y1 > 0) over x | msg
-  fm::gemm_rows64<kWarps, C, 2 * C / 16>(rb, LD1, io.w2t, 0, warp, lane,
-                                         [&](int r, int c, float v) {
-                                           const bool on = (mask[r * MW + c / 32] >> (c % 32)) & 1u;
-                                           xa[r * LD2 + c] = __float2bfloat16(on ? v : 0.f);
-                                         });
-  __syncthreads();
-  fm::copy_rows_from_smem(io.dy1 + row0 * 2 * C, 2 * C, xa, LD2, valid, 2 * C);
-  // dmsg = dy1 . w1[C:]ᵀ (f32, over rb)
-  fm::gemm_rows64<kWarps, 2 * C, C / 16>(xa, LD2, io.w1mt, 0, warp, lane,
-                                         [&](int r, int c, float v) { rbf[r * LDF + c] = v; });
-  __syncthreads();
-  auto dmsg = [&](int r, int c) { return rbf[r * LDF + c]; };
-  ln_bwd_columns<C>(ms, LD1, mu1, rs1, valid, dmsg, pln, pln + C);
-  __syncthreads();
-  ln_bwd_rows<C>(ms, LD1, mu1, rs1, io.n1s, valid, dmsg, ms, LD1, warp, lane);  // dm1 over m1
-  __syncthreads();
-  fm::copy_rows_from_smem(io.dm1 + row0 * C, C, ms, LD1, valid, C);
-  // per (head, 16 rows): do = dm1 . wmergeᵀ beside the recomputed Q_h . KV_h;
-  // dopre = do n into rb[:, :C]; the head sums of dZ = -(do o) / (Z + eps)
-  for (int u = warp; u < H * (T / 16); u += kWarps) {
-    const int h = u / (T / 16), tm = u % (T / 16);
-    fm::Acc16 ad[DT], ao[DT];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      fm::zero(ad[j]);
-      fm::zero(ao[j]);
-    }
-    for (int k = 0; k < C / 16; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, ms + tm * 16 * LD1 + k * 16, LD1, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b_packed(fb, fm::packed_tile(io.wmt, C, k, h * DT + j), lane);
-        fm::mma16(ad[j], fa, fb);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < DT; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, qs + tm * 16 * LD1 + h * D + k * 16, LD1, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b(fb, kvp + (h * D + k * 16) * LDKV + j * 16, LDKV, lane);
-        fm::mma16(ao[j], fa, fb);
-      }
-    }
-    float dz_lo = 0.f, dz_hi = 0.f;  // rows lane / 4 and lane / 4 + 8 of the unit
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = tm * 16 + (lane >> 2) + 8 * ((q >> 1) & 1);
-        const int col = h * D + j * 16 + 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-        const float zz = zs[row * H + h] + kEps;
-        const float nf = s_f / zz;
-        const float dov = ad[j].c[q];
-        rb[row * LD2 + col] = __float2bfloat16(dov * nf);
-        const float dz = fm::round_bf16(-(dov * (ao[j].c[q] * nf)) / zz);
-        if ((q >> 1) & 1)
-          dz_hi += dz;
-        else
-          dz_lo += dz;
-      }
-    }
-    dz_lo += __shfl_xor_sync(0xffffffffu, dz_lo, 1);
-    dz_lo += __shfl_xor_sync(0xffffffffu, dz_lo, 2);
-    dz_hi += __shfl_xor_sync(0xffffffffu, dz_hi, 1);
-    dz_hi += __shfl_xor_sync(0xffffffffu, dz_hi, 2);
-    if ((lane & 3) == 0) {
-      dzs[(tm * 16 + (lane >> 2)) * H + h] = dz_lo;
-      dzs[(tm * 16 + (lane >> 2) + 8) * H + h] = dz_hi;
-    }
+  stash(io.msg, C, os, LD1, C);
+  // FFN in chunks of HC hidden columns: h = relu([x | msg] . w1[:, chunk])
+  // into the fifth buffer (stashed; its positive entries as bits in
+  // mask[chunk]), then y2 += h . w2[chunk, :] in registers
+  uint32_t mask[NCH];
+  Acc<C> acc2;  // y2, then dmsg
+  zero<C>(acc2);
+#pragma unroll 1
+  for (int ch = 0; ch < NCH; ++ch) {
+    Acc<HC> ah;
+    zero<HC>(ah);
+    product<HC, 2 * C, C>(ah, xs, LD1, os, LD1, io.w1, S2, ch * HC / 16, 0, warp, lane);
+    __syncthreads();  // every warp is done with the previous hidden chunk
+    uint32_t bits = 0u;
+    for_pairs<HC / 64>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+      const float v0 = ah[i][j].c[2 * jp], v1 = ah[i][j].c[2 * jp + 1];
+      const int b = ((i * (HC / 64) + j) * 4 + jp) * 2;
+      bits |= (v0 > 0.f ? 1u : 0u) << b | (v1 > 0.f ? 1u : 0u) << (b + 1);
+      put2(ks4 + r * LDH + c, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+    });
+    mask[ch] = bits;
+    __syncthreads();
+    stash(io.h + ch * HC, 2 * C, ks4, LDH, HC);
+    product<C, HC>(acc2, ks4, LDH, ks4, LDH, io.w2, S2, 0, ch * HC, warp, lane);
   }
+
+  // ---- backward ----
+  // LN2 of y2 = bf16(acc2) (over x) and its backward for g, a warp a row:
+  // dy2 into the fifth buffer (stashed), dn2s and dn2b
+  for_pairs<NT>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+    put2(xs + r * LD1 + c, acc2[i][j].c[2 * jp], acc2[i][j].c[2 * jp + 1]);
+  });
+  fm::cp_async_wait<0>();  // g
   __syncthreads();
-  // partials: dKV_h = Q_hᵀ dopre_h [D, D] per head; dks[c] = sum_r Q[r, c] dzs[r, head(c)]
   {
-    constexpr int UNITS = H * DT * DT, UPW2 = (UNITS + kWarps - 1) / kWarps;
+    float cs[2][V] = {};
+    for (int r = warp; r < T; r += kWarps) {
+      float y[V], gv[V];
+      fm::load_bf16<V>(xs + r * LD1 + lane * V, y);
+      fm::load_bf16<V>(gs + r * LD1 + lane * V, gv);
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) t += y[i];
+      const float m = fm::warp_sum(t) * kInvC;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        y[i] -= m;
+        q += y[i] * y[i];
+      }
+      const float rr = rsqrtf(fm::warp_sum(q) * kInvC + fm::kLnEps);
+      float d1 = 0.f, d2 = 0.f, dh[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        y[i] *= rr;  // xhat
+        dh[i] = gv[i] * n2s[lane * V + i];
+        d1 += dh[i];
+        d2 += dh[i] * y[i];
+        cs[0][i] += gv[i] * y[i];
+        cs[1][i] += gv[i];
+      }
+      d1 = fm::warp_sum(d1) * kInvC;
+      d2 = fm::warp_sum(d2) * kInvC;
+#pragma unroll
+      for (int i = 0; i < V; ++i) dh[i] = rr * (dh[i] - d1 - y[i] * d2);
+      fm::store_bf16<V>(ks4 + r * LD1 + lane * V, dh);
+    }
+    warp_col_sums<C, 2>(cs, reinterpret_cast<float*>(os), pln + 2 * C, warp, lane);
+  }
+  stash(io.dy2, C, ks4, LD1, C);
+  __syncthreads();  // every warp is done with the column sums over o's buffer
+  // dy1 = (dy2 . w2ᵀ) * (y1 > 0) chunk by chunk into the first two buffers
+  // (stashed), then dmsg += dy1[:, chunk] . w1[C:]ᵀ[chunk, :] in registers
+  zero<C>(acc2);
+#pragma unroll 1
+  for (int ch = 0; ch < NCH; ++ch) {
+    Acc<HC> ah;
+    zero<HC>(ah);
+    product<HC, C>(ah, ks4, LD1, ks4, LD1, io.w2t, S1, ch * HC / 16, 0, warp, lane);
+    const uint32_t bits = mask[ch];
+    for_pairs<HC / 64>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+      const int b = ((i * (HC / 64) + j) * 4 + jp) * 2;
+      const float v0 = (bits >> b) & 1u ? ah[i][j].c[2 * jp] : 0.f;
+      const float v1 = (bits >> (b + 1)) & 1u ? ah[i][j].c[2 * jp + 1] : 0.f;
+      put2(dy1s + r * LD2 + ch * HC + c, v0, v1);
+    });
+    __syncthreads();
+    stash(io.dy1 + ch * HC, 2 * C, dy1s + ch * HC, LD2, HC);
+    product<C, HC>(acc2, dy1s + ch * HC, LD2, dy1s + ch * HC, LD2, io.w1mt, S2, 0, ch * HC,
+                   warp, lane);
+  }
+  {  // the LN1 backward of dmsg (acc2, f32), a warp a row, dmsg through the
+     // fifth buffer (dy2's, no longer read) a row half at a time: dm1 over m1
+     // (stashed), dn1s, dn1b
+    constexpr int LDF = C + 4;
+    float* dm = reinterpret_cast<float*>(ks4);  // f32 [32][LDF]
+    float cs[2][V] = {};
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      if (warp / 4 == half)
+        for_pairs<NT>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+          *reinterpret_cast<float2*>(dm + (r - 32 * half) * LDF + c) =
+              make_float2(acc2[i][j].c[2 * jp], acc2[i][j].c[2 * jp + 1]);
+        });
+      __syncthreads();
+      for (int r = 32 * half + warp; r < 32 * half + 32; r += kWarps) {
+        float x[V], d[V];
+        fm::load_bf16<V>(ms + r * LD1 + lane * V, x);
+        const float* dr = dm + (r - 32 * half) * LDF + lane * V;
+        float d1 = 0.f, d2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          x[i] = (x[i] - mu1[r]) * rs1[r];
+          cs[0][i] += dr[i] * x[i];
+          cs[1][i] += dr[i];
+          d[i] = dr[i] * n1s[lane * V + i];
+          d1 += d[i];
+          d2 += d[i] * x[i];
+        }
+        d1 = fm::warp_sum(d1) * kInvC;
+        d2 = fm::warp_sum(d2) * kInvC;
+#pragma unroll
+        for (int i = 0; i < V; ++i) d[i] = rs1[r] * (d[i] - d1 - x[i] * d2);
+        fm::store_bf16<V>(ms + r * LD1 + lane * V, d);
+      }
+      __syncthreads();
+    }
+    warp_col_sums<C, 2>(cs, dm, pln, warp, lane);
+  }
+  stash(io.dm1, C, ms, LD1, C);
+  __syncthreads();  // every warp is done with the column sums over the fifth buffer
+  kvl.load(io.kv + (size_t)g * C * D);
+  // do = dm1 . wmergeᵀ beside the recomputed Q_h . KV_h; dopre = do n over
+  // dm1 (stashed nowhere), the head sums of dZ = -(do o) / (Z + eps) kept in
+  // the lanes of their rows, and the dK_sum partial Qᵀ dZ
+  zero<C>(acc);
+  product<C, C>(acc, ms, LD1, ms, LD1, io.wmt, S1, 0, 0, warp, lane);
+  kvl.store(ks4);  // over dy2, which no warp reads any more
+  {
+    head_z<C, D>(z, qs, kss, warp, lane);  // the lane's rows and the warp's heads
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+        for (int hh = 0; hh < HPW; ++hh) {
+          const int at = lane_row(ri, warp, lane) * H + warp % 4 * HPW + hh;
+          zsm[at] = z[ri][hh] + kEps;
+          nsm[at] = s_f / zsm[at];
+        }
+    }
+    __syncthreads();  // every warp has read dm1, and K^T V is in place
+#pragma unroll 1
+    for (int j = 0; j < NT; ++j) {  // Q_h . KV_h beside do, a column tile at a time
+      Acc16 dj[2], t[2];
+      pick<NT>(dj, acc, j);
+      fm::zero(t[0]);
+      fm::zero(t[1]);
+      head_tile<C, D, false>(t, qs, ks4, j, warp, lane);
+      float dzj[4] = {};
+      for_pairs_of<NT>(j, warp, lane, [&](int i, int jp, int ri, int r, int c) {
+        const float zz = zsm[r * H + c / D], n = nsm[r * H + c / D];
+        const float do0 = dj[i].c[2 * jp], do1 = dj[i].c[2 * jp + 1];
+        put2(ms + r * LD1 + c, do0 * n, do1 * n);
+        dzj[ri] += fm::round_bf16(-(do0 * (t[i].c[2 * jp] * n)) / zz) +
+                   fm::round_bf16(-(do1 * (t[i].c[2 * jp + 1] * n)) / zz);
+      });
+      const int h = (warp % 4 * (C / 4) + 16 * j) / D;
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        dzj[ri] += __shfl_xor_sync(0xffffffffu, dzj[ri], 1);
+        dzj[ri] += __shfl_xor_sync(0xffffffffu, dzj[ri], 2);
+      }
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int ri = 0; ri < 4; ++ri) {
+          float& d = dzs[lane_row(ri, warp, lane) * H + h];
+          d = (16 * j % D == 0 ? 0.f : d) + dzj[ri];
+        }
+      }
+    }
+    __syncwarp();  // the warp's dZ head sums, for its rows and heads
+#pragma unroll 1
+    for (int j = 0; j < NT; ++j) {
+      float cs[1][4] = {};
+      for_pairs_of<NT>(j, warp, lane, [&](int, int jp, int, int r, int c) {
+        const float2 qv = get2(qs + r * LD1 + c);
+        const float dz = dzs[r * H + c / D];
+        const int qq = 2 * (jp >> 1);
+        cs[0][qq] += qv.x * dz;
+        cs[0][qq + 1] += qv.y * dz;
+      });
+      col_part<C, 1>(cs, colp, j, warp, lane);
+    }
+    __syncthreads();  // also orders dopre's writes before the partials
+    col_total<C, 1>(colp, io.part_ks + tile * C);
+  }
+  {  // the dK^T V partial Q_hᵀ dopre_h [D, D] of each head
+    constexpr int UNITS = H * DT * DT, UPW = (UNITS + kWarps - 1) / kWarps;
     float* pk = io.part_kv + tile * C * D;
 #pragma unroll
-    for (int jw = 0; jw < UPW2; ++jw) {
+    for (int jw = 0; jw < UPW; ++jw) {
       const int u = warp + jw * kWarps;
       if (u < UNITS) {
         const int h = u / (DT * DT), i = (u / DT) % DT, jj = u % DT;
-        fm::Acc16 acc;
-        fm::zero(acc);
+        Acc16 pa;
+        fm::zero(pa);
 #pragma unroll
         for (int k = 0; k < T / 16; ++k) {
           uint32_t fa[4], fb[4];
           fm::load_a_trans(fa, qs + k * 16 * LD1 + h * D + i * 16, LD1, lane);
-          fm::load_b(fb, rb + k * 16 * LD2 + h * D + jj * 16, LD2, lane);
-          fm::mma16(acc, fa, fb);
+          fm::load_b(fb, ms + k * 16 * LD1 + h * D + jj * 16, LD1, lane);
+          fm::mma16(pa, fa, fb);
         }
-        fm::tile_epilogue(acc, i * 16, jj * 16, lane,
+        fm::tile_epilogue(pa, i * 16, jj * 16, lane,
                           [&](int r, int c, float v) { pk[h * D * D + r * D + c] = v; });
       }
     }
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < valid; ++r) s += bf(qs[r * LD1 + c]) * dzs[r * H + c / D];
-      io.part_ks[tile * C + c] = s;
-    }
   }
-  fm::copy_rows_to_smem(ms, LD1, io.x + row0 * C, C, T, C, valid);  // x again, over dm1
-  __syncthreads();
-  // per (head, 16 rows): dQ = dopre_h . KV_hᵀ + dzs K_sum beside the
-  // recomputed qf = x . wq; dqf = dQ elu'(qf) into rb[:, C:]
-  for (int u = warp; u < H * (T / 16); u += kWarps) {
-    const int h = u / (T / 16), tm = u % (T / 16);
-    fm::Acc16 aq[DT], adq[DT];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      fm::zero(aq[j]);
-      fm::zero(adq[j]);
-    }
-    for (int k = 0; k < C / 16; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, ms + tm * 16 * LD1 + k * 16, LD1, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b_packed(fb, fm::packed_tile(io.wq, C, k, h * DT + j), lane);
-        fm::mma16(aq[j], fa, fb);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < DT; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, rb + tm * 16 * LD2 + h * D + k * 16, LD2, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        load_b_t(fb, kvp + (h * D + j * 16) * LDKV + k * 16, LDKV, lane);
-        fm::mma16(adq[j], fa, fb);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = tm * 16 + (lane >> 2) + 8 * ((q >> 1) & 1);
-        const int col = h * D + j * 16 + 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-        const float qf = aq[j].c[q];
-        const float dq = adq[j].c[q] + dzs[row * H + h] * kss[col];
-        rb[row * LD2 + C + col] = __float2bfloat16(dq * (qf > 0.f ? 1.0f : expf(qf)));
-      }
-    }
+  __syncthreads();  // every warp has read Q
+  // dQ = dopre_h . KV_hᵀ + dZ K_sum while x comes again over Q; then the
+  // recomputed qf = x . wq, and dqf = dQ elu'(qf) over x (stashed)
+  load_rows_async<C>(qs, LD1, io.x + row0 * C, valid);
+  fm::cp_async_wait<0>();
+  __syncthreads();  // x has landed
+  zero<C>(acc);
+  product<C, C>(acc, qs, LD1, qs, LD1, io.wq, S1, 0, 0, warp, lane);
+  __syncthreads();  // every warp has read x
+#pragma unroll 1
+  for (int j = 0; j < NT; ++j) {  // dopre_h . KV_hᵀ beside qf, a column tile at a time
+    Acc16 qj[2], t[2];
+    pick<NT>(qj, acc, j);
+    fm::zero(t[0]);
+    fm::zero(t[1]);
+    head_tile<C, D, true>(t, ms, ks4, j, warp, lane);
+    for_pairs_of<NT>(j, warp, lane, [&](int i, int jp, int, int r, int c) {
+      const float zd = dzs[r * H + c / D];
+      const float q0 = qj[i].c[2 * jp], q1 = qj[i].c[2 * jp + 1];
+      const float v0 = (t[i].c[2 * jp] + zd * kss[c]) * (q0 > 0.f ? 1.0f : expf(q0));
+      const float v1 = (t[i].c[2 * jp + 1] + zd * kss[c + 1]) * (q1 > 0.f ? 1.0f : expf(q1));
+      put2(qs + r * LD1 + c, v0, v1);
+    });
   }
   __syncthreads();
-  fm::copy_rows_from_smem(io.dqf + row0 * C, C, rb + C, LD2, valid, C);
-  // dx = g + [dy1 | dqf] . [w1[:C]ᵀ ; wqᵀ]
-  bf16* dxg = io.dx + row0 * C;
-  fm::gemm_rows64_split<kWarps, 2 * C, C, C / 16>(
-      xa, LD2, rb + C, LD2, io.wdxt, 0, warp, lane, [&](int r, int c, float v) {
-        if (r < valid) dxg[(size_t)r * C + c] = __float2bfloat16(gval(r, c) + v);
-      });
+  stash(io.dqf, C, qs, LD1, C);
+  // dx = g + [dqf | dy1] . [wqᵀ ; w1[:C]ᵀ]
+  zero<C>(acc);
+  product<C, C>(acc, qs, LD1, qs, LD1, io.wdxt, S3, 0, 2 * C, warp, lane);
+  product<C, 2 * C>(acc, dy1s, LD2, dy1s, LD2, io.wdxt, S3, 0, 0, warp, lane);
+  for_pairs<NT>(warp, lane, [&](int i, int j, int jp, int, int r, int c) {
+    const float2 gv = get2(gs + r * LD1 + c);
+    if (r < valid)
+      put2(io.dx + (row0 + r) * C + c, gv.x + acc[i][j].c[2 * jp], gv.y + acc[i][j].c[2 * jp + 1]);
+  });
 }
 
 // dkv[g] = bf16(sum over the image's tiles of part_kv), plain [H][D][D];
@@ -706,6 +952,15 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, in
   return fm::wgrad(Bf(in[1]), C, dkv3, 2 * C, TSi, splits, C, 2 * C, gemm, out[3], st);
 }
 
+template <int C, int D>
+cudaError_t bwd_occupancy(int* info) {
+  const int bytes = (int)BwdSmem<C, D>::bytes;
+  FM_CHECK(set_smem(apply_bwd_kernel<C, D>, bytes));
+  info[0] = bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], apply_bwd_kernel<C, D>, kThreads,
+                                                       bytes);
+}
+
 }  // namespace
 
 FM_ERROR_STRING_ENTRY
@@ -731,5 +986,15 @@ extern "C" int fm_coarse_train_bwd(const void* const* in, void* const* out, int 
   if (C == c && D == d) return (int)launch_bwd<c, d>(in, out, G, L, S, splits, st);
   FM_BWD(128, 16) FM_BWD(128, 32) FM_BWD(256, 16) FM_BWD(256, 32)
 #undef FM_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// apply_bwd's dynamic shared memory and resident blocks an SM at (C, D):
+// info = {bytes, blocks}
+extern "C" int fm_coarse_train_bwd_occupancy(int C, int D, int* info) {
+#define FM_OCC(c, d) \
+  if (C == c && D == d) return (int)bwd_occupancy<c, d>(info);
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+#undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }

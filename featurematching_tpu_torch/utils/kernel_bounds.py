@@ -202,6 +202,33 @@ def coarse_train_bwd_work(G: int, L: int, S: int, C: int, heads: int, self_call:
     return nbytes, 2 * coarse_train_fwd_work(G, L, S, C, heads)[1]
 
 
+def coarse_train_apply_bwd_work(G: int, L: int, S: int, C: int, heads: int) -> Work:
+    """`apply_bwd`, the query side of K9's backward for one encoder call,
+    alone. The backward is split where the source side begins
+    (`csrc/coarse_transformer_train.cu`): the weight gradients are products
+    over all tokens in `wgrad`, which reads the bf16 operands apply_bwd
+    stashes for it, and the source side reads only the merged dKᵀV and dK_sum
+    of apply_bwd's per-tile partials. Under that split apply_bwd must read x
+    and g, the merged stats kv and ks (bf16), the weights wq, wmerge, w1, w2
+    (bf16, once: the transposed copies are the kernel's packing of the same
+    values) and LN1's scale and bias and LN2's scale (f32); and write dx and
+    the stash's o, msg, h (2C), dy2, dy1 (2C), dm1 and dqf (9C bf16 a token),
+    and the f32 partials of each 64-token tile: the LN gradients (4C), each
+    head's dKᵀV (C D) and dK_sum (C). Its products are the activation
+    gradients dy1 = dy2 w2ᵀ, dmsg = dy1 w1[C:]ᵀ, do = dm1 wmergeᵀ and dx =
+    [dy1 | dqf] [w1[:C]ᵀ ; wqᵀ] (8 C² multiply-adds a token), the dQ =
+    dopre KVᵀ and dKᵀV = Qᵀ dopre of each head (2 C D); the recomputed
+    forward tile (Q, o, m1, h, y2, and x wq again for the feature map's
+    derivative) is the kernel's choice, not counted. S enters only as the
+    scale S / (Z + eps)."""
+    del S
+    D = C // heads
+    tiles = G * -(-L // 64)
+    nbytes = (G * L * C * BF16 * 2 + G * (C * D + C) * BF16 + 8 * C * C * BF16 + 3 * C * F32
+              + G * L * C * BF16 + G * L * 9 * C * BF16 + tiles * (4 * C + C * D + C) * F32)
+    return nbytes, 2 * G * L * (8 * C * C + 2 * C * D)
+
+
 def train_calls(layer_names, items: int) -> List[Tuple[int, bool]]:
     """(batch G, self call) of each encoder call of a differentiable stack
     over `items` images or windows in all (both sides): a self layer is one

@@ -13,7 +13,11 @@ rounded to bf16, the branch's gradients exactly 0) and with rows that keep
 one key (a one-hot P, rel_bias's gradient on that row below 1e-30), the
 wrappers' refusal of tensors
 the kernels do not take, K9 at a ragged token count for each width it takes
-and through a whole stack, K10 at ragged window counts and tap counts and
+and through a whole stack, K9's backward at query lengths on its 64-row
+tile's edges (1, 63, 65 and 4801 at 1 and 2 images, bit-identical twice),
+at the training step's cross call within chip_smoke.py's K9_TOL, with g = 0
+(every output exactly 0) and with w1 = 0 (an empty ReLU mask: the stashed
+dy1, dw1 and dw2 exactly 0), K10 at ragged window counts and tap counts and
 through a whole stack, the serving forward's per-op branches where the
 kernels' limits fail, and that chip_smoke.py's training semantic check
 sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
@@ -735,6 +739,128 @@ def test_coarse_train_call_ragged_tokens(gen, C, heads, kind):
     again = _k9_call(x, src, lv, heads, gout, plain=False)
     for name, a, b in zip(names, got, again, strict=True):
         assert torch.equal(a, b), name  # fixed-order sums: bit for bit
+
+
+K9_NAMES = ["dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s", "dn2b"]
+
+
+def _k9_grads(x, src, kv, ks, gout, lv, heads, plain):
+    """[dx, dsrc, the 9 gradients] of one call's backward on the forward's
+    stats (kv, ks): the kernels or, plain, the twin."""
+    if plain:
+        dx, dsrc, wg = ctt.coarse_layer_backward_reference(x, src, kv, ks, gout, lv, heads)
+    else:
+        dx, dsrc, wg = ctt.coarse_layer_backward(x, src, kv, ks, gout, lv,
+                                                 ctt.train_values(lv), heads)
+    return [dx, dsrc, *wg]
+
+
+def _k9_held(x, src, kv, ks, gout, lv, heads):
+    """The kernels' backward, held against the twin by `_k9_close` (the twin
+    in float32 arithmetic on the same stats as the reference); returned."""
+    got = _k9_grads(x, src, kv, ks, gout, lv, heads, plain=False)
+    ref = _k9_grads(x, src, kv, ks, gout, lv, heads, plain=True)
+    exact = _k9_grads(x.float(), src.float(), kv.float(), ks.float(), gout.float(),
+                      type(lv)(*[t.float() for t in lv]), heads, plain=True)
+    for name, a, r, e in zip(K9_NAMES, got, ref, exact, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        _k9_close(a, r, e, name)
+    return got
+
+
+@pytest.mark.parametrize("L", [1, 63, 65, 4801])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_coarse_train_tile_edges(gen, L, G, kind):
+    """Query lengths at apply_bwd's 64-row tile's edges (one row, one short of
+    a tile, one past it, one past the step's 75 tiles), C = 256 with 8 heads,
+    and 37 more source tokens than queries for a cross call: the backward
+    against the plain twin on the same stats by `_k9_close` (the twin in
+    float32 arithmetic as the reference), and bit-identical twice."""
+    C, heads = 256, 8
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, L + 37, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    _, kv, ks = ctt.coarse_layer_forward(x, src, lv, heads)
+    got = _k9_held(x, src, kv, ks, gout, lv, heads)
+    again = _k9_grads(x, src, kv, ks, gout, lv, heads, plain=False)
+    for name, a, b in zip(K9_NAMES, got, again, strict=True):
+        assert torch.equal(a, b), name
+
+
+def test_coarse_train_step_cross_call(gen):
+    """The training step's cross call [4, 4800, 256] (8 heads): dx, dsrc and
+    the 10 gradients against the plain twin within chip_smoke.py's K9_TOL of
+    each tensor's norm."""
+    cs = _chip_smoke()
+    lv = _layer_values(gen, 256)
+    x, src, gout = (_rnd(gen, 4, 4800, 256, dtype=torch.bfloat16) for _ in range(3))
+    _, kv, ks = ctt.coarse_layer_forward(x, src, lv, 8)
+    got = cs.k9_tensors(None, ctt.coarse_layer_backward(x, src, kv, ks, gout, lv,
+                                                        ctt.train_values(lv), 8))
+    torch.cuda.synchronize()
+    ref = cs.k9_tensors(None, ctt.coarse_layer_backward_reference(x, src, kv, ks, gout, lv, 8))
+    errs = {n: cs.norm_err(got[n], ref[n]) for n in got}
+    assert all(v <= cs.K9_TOL for v in errs.values()), errs
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_coarse_train_zero_gradient(gen, kind):
+    """g = 0 (200 query tokens, ragged): dx, dsrc and every gradient exactly 0."""
+    lv = _layer_values(gen, 256)
+    x = _rnd(gen, 2, 200, 256, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, 2, 237, 256, dtype=torch.bfloat16)
+    _, kv, ks = ctt.coarse_layer_forward(x, src, lv, 8)
+    got = _k9_grads(x, src, kv, ks, torch.zeros_like(x), lv, 8, plain=False)
+    for name, a in zip(K9_NAMES, got, strict=True):
+        torch.cuda.synchronize()
+        assert bool((a == 0).all()), name
+
+
+def _k9_bwd_keeping_stash(x, src, kv, ks, g, lv, lt, heads):
+    """coarse_layer_backward's launch with its buffers allocated as the
+    wrapper does, returning the stashed dy1 [G, L, 2C] beside dw1 and dw2."""
+    from featurematching_tpu_torch.ops import _build
+
+    G, L, C = x.shape
+    S, D = src.shape[1], C // heads
+    f32 = dict(device=x.device, dtype=torch.float32)
+    tiles = G * -(-L // 64)
+    splits = max(1, -(-G * max(L, S) // ctt.SPLIT_TOKENS))
+    outs = [torch.empty_like(x), torch.empty_like(src), torch.empty(C, C, **f32),
+            torch.empty(C, 2 * C, **f32), torch.empty(C, C, **f32), torch.empty(4 * C, **f32),
+            torch.empty(2 * C, 2 * C, **f32), torch.empty(2 * C, C, **f32),
+            torch.empty((9 * G * L + 2 * G * S) * C, device=x.device, dtype=torch.bfloat16),
+            torch.empty(tiles * 4 * C, **f32), torch.empty(tiles * C * D, **f32),
+            torch.empty(tiles * C, **f32),
+            torch.empty(G * C * D, device=x.device, dtype=torch.bfloat16),
+            torch.empty(G * C, device=x.device, dtype=torch.bfloat16),
+            torch.empty(splits * 2 * C * C, **f32)]
+    _build.launch("coarse_transformer_train", "fm_coarse_train_bwd", ctt._BWD_ARGS,
+                  ctt._ptrs([x, src, kv, ks, g, *lv, *lt]), ctt._ptrs(outs), G, L, S, C, D,
+                  splits, _build.stream())
+    torch.cuda.synchronize()
+    T = G * L
+    # the stash: o, msg (C), h (2C), dy2 (C), dy1 (2C), ...
+    dy1 = outs[8][5 * C * T:7 * C * T].view(G, L, 2 * C)
+    return dy1, outs[6], outs[7]
+
+
+def test_coarse_train_empty_relu_mask(gen):
+    """w1 = 0: no hidden unit is positive on any row, so the stashed dy1, dw1
+    and dw2 are exactly 0; the other outputs (dx = g, dn2b = the sum of g, the
+    rest 0) hold against the plain twin by `_k9_close`."""
+    C, heads = 256, 8
+    lv = _layer_values(gen, C)
+    lv = lv._replace(wmlp1=torch.zeros_like(lv.wmlp1))
+    x = _rnd(gen, 2, 200, C, dtype=torch.bfloat16)
+    src = _rnd(gen, 2, 237, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, 2, 200, C, dtype=torch.bfloat16)
+    _, kv, ks = ctt.coarse_layer_forward(x, src, lv, heads)
+    dy1, dw1, dw2 = _k9_bwd_keeping_stash(x, src, kv, ks, gout, lv, ctt.train_values(lv), heads)
+    assert bool((dy1 == 0).all()) and bool((dw1 == 0).all()) and bool((dw2 == 0).all())
+    _k9_held(x, src, kv, ks, gout, lv, heads)
 
 
 def _stack_grads(tf, f0, f1, w0, w1):

@@ -3,6 +3,7 @@
 from featurematching_tpu_torch.config import ModelConfig
 from featurematching_tpu_torch.utils.kernel_bounds import (
     all_kernels,
+    coarse_train_apply_bwd_work,
     bound_ms,
     coarse_apply_work,
     coarse_stats_work,
@@ -94,6 +95,27 @@ def test_attn_bwd_counts_its_own_split():
     # a part of K8's backward: fewer products than the whole
     whole = swin_block_train_bwd_work(W, C, h, 80)
     assert flops < whole[1]
+
+
+def test_apply_bwd_counts_its_own_split():
+    """K9's apply backward alone at a cross call [4, 4800, 256] (8 heads),
+    by hand: a token's x and g in, dx and the seven stash operands (o, msg,
+    h, dy2, dy1, dm1, dqf: 9 C) out, all bf16; the merged stats of the 4
+    images, wq, wmerge, w1 and w2 and LN1's scale and bias and LN2's scale
+    once; the f32 partials of the 4 x 75 tiles; products 2 T (8 C^2 + 2 C
+    D), the recomputed forward tile not counted."""
+    G, L, C, h = 4, 4800, 256, 8
+    D, T = C // h, G * L
+    nbytes, flops = coarse_train_apply_bwd_work(G, L, L, C, h)
+    token = 2 * C * 2 + C * 2 + 9 * C * 2
+    stats = G * (C * D + C) * 2
+    weights = (C * C + C * C + 2 * C * 2 * C + 2 * C * C) * 2 + 3 * C * 4
+    partials = G * 75 * (4 * C + C * D + C) * 4
+    assert nbytes == T * token + stats + weights + partials
+    assert flops == 2 * T * (8 * C * C + 2 * C * D)
+    # a part of K9's backward: fewer products than the whole; S does not count
+    assert flops < coarse_train_bwd_work(G, L, L, C, h, False)[1]
+    assert (nbytes, flops) == coarse_train_apply_bwd_work(G, L, 17, C, h)
 
 
 def test_k9_counts_its_encoder_calls():
