@@ -514,6 +514,11 @@ def check_coarse_transformer(rec: Record, g) -> None:
             cuda_ms(lambda: encoder_reference(x, src, lv, h), iters=3),
             total([coarse_stats_work(G, N, C, h), coarse_apply_work(G, N, C, h)]), err=err,
         )
+        apply_ms = sum(ms for ms, _, name in kernel_times(lambda: coarse_layer_fused(x, src, lv, h))
+                       if "apply_kernel" in name)
+        ab, aby = bound_ms(*coarse_apply_work(G, N, C, h))
+        print(f"  apply kernel ({kind}, G={G}): {apply_ms:.4f} ms a call (profiler) against its "
+              f"own bound {ab:.4f} ms ({aby}), x{count} a forward", flush=True)
     layers = [layer_values(g, C) for _ in range(8)]
     names = ("self", "cross") * 4
     f0, f1 = rnd(g, Bp, N, C, dtype=torch.bfloat16), rnd(g, Bp, N, C, dtype=torch.bfloat16)

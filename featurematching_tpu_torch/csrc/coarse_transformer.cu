@@ -6,9 +6,8 @@
 //
 // Replaces featurematching_tpu/ops/pallas_coarse_transformer.py ·
 // coarse_transformer_fused (_stats_kernel / _apply_kernel). Bound on the
-// H100 by tensor-core operations (20 C^2 multiply-adds x2 per token and
-// layer against 4 C bytes of activations in and out; the 1.25 MB of bf16
-// weights of a layer stay in L2). Design:
+// H100 by tensor-core operations (10 C^2 multiply-adds per token and
+// layer against 4 C bytes of activations in and out). Design:
 //   - The TPU grid carries K^T V and K^T 1 across token chunks in one output
 //     block; CUDA blocks cannot share one. A stats block reduces a run of
 //     64-token tiles of one image into registers and writes one partial; a
@@ -17,29 +16,37 @@
 //   - Only the H diagonal [D, D] blocks of K^T V are ever read, so only they
 //     are formed (the TPU kernel forms [C, C] and masks it): 1/H of the
 //     operations. K^T 1 is K_sum repeated across columns: stored once.
-//   - An apply block keeps a 64-token row tile on chip from the Q product to
-//     the residual: [x | msg] and one more [64, C] buffer in shared memory,
-//     the FFN hidden in 128-column chunks with the wmlp2 partial products in
-//     registers. 103 KB of shared memory at C = 256 lets two blocks share an
-//     SM. The weights, and the merged K^T V, are stored in tensor-core
-//     fragment order (tiles.cuh) and stream from L2 with one 16-byte load a
-//     lane for each 16x16 tile.
+//   - The stats kernel's weights (wkv, fragment order, tiles.cuh) stream
+//     from L2 with one 16-byte load a lane for each 16x16 tile.
+//   - The apply kernel does 80% of the operations (8 C^2 multiply-adds a
+//     token) and reads the layer's 8 C^2 bf16 weights (1 MiB at C = 256)
+//     in every block. Read once a 64-token tile, they would be 5.03 GB of
+//     L2 reads a serving forward (4 self calls of [8, 4800, 256], 8 cross
+//     calls of [4, 4800, 256]), and mma.sync products would take an
+//     ldmatrix each. An apply block takes two 64-token tiles (of one image
+//     or of two) in two warpgroups that read every weight slice
+//     from one shared-memory ring, so each slice leaves L2 once for 128
+//     rows: 2.52 GB a forward (300 blocks a self call, 150 a cross call).
+//     Its products run on wgmma (wgmma.cuh), B from the ring, which bulk
+//     copies fill and mbarriers guard, the accumulators in registers. One
+//     block an SM (230 KB of shared memory at C = 256), so a cross call's
+//     150 blocks run in two waves on 132 SMs.
 //
 // Rounding follows the TPU kernel: K and V/S rounded after the f32 product
-// and feature map; K_sum rounded to bf16; o * (S / (Z + eps)) in f32,
-// rounded once; each product rounded to bf16 before its LayerNorm; the
-// residual add is bf16 + bf16.
+// and feature map; K_sum rounded to bf16; Q rounded after its feature map;
+// o * (S / (Z + eps)) in f32, rounded once; each product rounded to bf16
+// before its LayerNorm; the residual add is bf16 + bf16.
 
 #include "tiles.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using fm::bf16;
 
-constexpr int T = 64;  // token rows of a tile
+constexpr int T = 64;  // token rows of a stats tile
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int HC = 128;  // FFN hidden columns per chunk
 constexpr float kEps = 1e-6f;
 
 template <int C>
@@ -147,145 +154,544 @@ __global__ void merge_kernel(const float* __restrict__ part_kv, const float* __r
   }
 }
 
+// ---- apply: two 64-token row tiles a block, their weights fetched once ----
+//
+// The G images' 64-row tiles are numbered in order (ceil(L / 64) an image);
+// block b takes tiles 2b and 2b + 1, one a warpgroup, which may lie in two
+// images. The layer's weight image (`ops/coarse_transformer.apply_image`:
+// wq, wmerge, then each 128-column chunk of wmlp1 followed by the matching
+// 128 rows of wmlp2, every k-step a [N, 16] K-major tile, wgmma.cuh)
+// streams as 16 KB slices through a ring of shared-memory slots, each
+// filled by a bulk copy that completes on the slot's `full` mbarrier; after
+// wq's slices the two tiles' K^T V blocks (fragment order) take the next two
+// slots. Both warpgroups read every slice, so a slice leaves L2 once for
+// 128 rows. A warp hands a slot back once the wgmma group that read it has
+// completed (one group left in flight); the last of the eight warps to hand
+// it back (a counter in shared memory) issues the copy of the slice SLOTS
+// further on. So no thread waits for a slot to empty and the block needs no
+// producer warp: its 256 threads may hold 255 registers each, which the y
+// accumulator (128 registers a thread at C = 256) beside a hidden chunk's
+// needs. (A producer warpgroup with setmaxnreg left ptxas allocating 168
+// registers a consumer thread, and the kernel spilled.)
+//
+// The weight products run on wgmma: A from shared memory (x, Q then o, msg:
+// [64, C] K-major tiles) or, for hidden . wmlp2, from the registers of the
+// ReLU'd hidden chunk. Each epilogue that runs once a block is a short loop
+// over shared memory: Q . K^T V per head on mma.sync (Q's fragments by
+// ldmatrix), LN1 and LN2 a warp on 8 rows at a time.
+
+constexpr int AR = 128;                   // token rows of an apply block
+constexpr int kApplyThreads = 256;        // two warpgroups
+constexpr int kSlice = 16384;             // bytes of a weight slice (a ring slot)
+constexpr int AHC = 128;                  // FFN hidden columns a chunk
+constexpr int kSmemMax = 232448;          // dynamic shared memory a block may use
+
 template <int C, int D>
-struct ApplySmem {
+struct ApplyLayout {
   static constexpr int H = C / D;
-  static constexpr int LDXM = 2 * C + 8;  // [x | msg] rows
-  static constexpr int LDQ = C + 8;       // Q, then o, then a hidden chunk, then y
-  static constexpr int LDH = HC + 8;
-  static constexpr size_t xm_off = 0;
-  static constexpr size_t q_off = xm_off + T * LDXM * 2;
-  static constexpr size_t z_off = q_off + T * LDQ * 2;  // f32 [T][H] normalisers
-  static constexpr size_t ks_off = z_off + T * H * 4;   // f32 [C] K_sum (bf16 values)
-  static constexpr size_t bytes = ks_off + C * 4;
-  static_assert(LDH <= LDQ, "a hidden chunk must fit in the Q buffer");
+  static constexpr size_t x_off = 0;                      // two [64, C] x tiles
+  static constexpr size_t o_off = x_off + AR * C * 2;     // two [64, C]: o, then msg, then out
+  static constexpr size_t ring_off = o_off + AR * C * 2;
+  static constexpr int FREE = kSmemMax - (int)ring_off - 128 - 4 * C;  // for the slots
+  static constexpr int SLOTS = FREE / kSlice < 6 ? FREE / kSlice : 6;
+  static constexpr size_t bar_off = ring_off + (size_t)SLOTS * kSlice;  // full[], then count[]
+  static constexpr size_t ks_off = bar_off + (SLOTS * (8 + 4) + 15) / 16 * 16;  // two K_sum [C]
+  static constexpr size_t bytes = ks_off + 2 * C * 2;
+  // slices of the weight image: wq, wmerge, then per hidden chunk wmlp1's
+  // [2C, AHC] columns and wmlp2's [AHC, C] rows
+  static constexpr int SPS = kSlice / (32 * C);    // k-steps a slice of an N = C product
+  static constexpr int SPSH = kSlice / (32 * AHC);  // k-steps a slice of a wmlp1 chunk
+  static constexpr int CHUNKS = 2 * C / AHC;
+  static constexpr int QSLICES = (C / 16) / SPS;  // wq's slices; the K^T V slots follow
+  static constexpr int SLICES = 2 * QSLICES + CHUNKS * (2 * C / 16 / SPSH + AHC / 16 / SPS);
+  static_assert(SLOTS >= 2, "the ring needs two slots");
+  static_assert(C * D * 2 <= kSlice, "a head set's K^T V must fit in a slot");
+  static_assert(ring_off % 128 == 0, "slots must be 128-byte aligned");
+  static_assert((C / 16) % SPS == 0 && (C / 16) % SPSH == 0 && (AHC / 16) % SPS == 0,
+                "a slice must hold whole k-steps of one product");
 };
 
-// grid (ceil(L / 64), G): block (b, g) takes query rows [64 b, 64 b + 64) of image g
-template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16* __restrict__ ks,
-             const bf16* __restrict__ wq, const bf16* __restrict__ wmerge,
-             const float* __restrict__ n1s, const float* __restrict__ n1b,
-             const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-             const float* __restrict__ n2s, const float* __restrict__ n2b,
-             bf16* __restrict__ out, int L, int S) {
-  using Sm = ApplySmem<C, D>;
-  constexpr int H = Sm::H, DT = D / 16, LDXM = Sm::LDXM, LDQ = Sm::LDQ, LDH = Sm::LDH;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xm = reinterpret_cast<bf16*>(smem + Sm::xm_off);
-  bf16* qs = reinterpret_cast<bf16*>(smem + Sm::q_off);
-  float* zs = reinterpret_cast<float*>(smem + Sm::z_off);
-  float* kss = reinterpret_cast<float*>(smem + Sm::ks_off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = blockIdx.y, r0 = blockIdx.x * T, valid = min(T, L - r0);
+// The ring of slices: slot q % SLOTS holds slice q. Each of the WARPS warps
+// that read the slices acquires every slot in order and hands it back; the
+// last to hand slot back refills it with slice q + SLOTS (Source::get gives
+// its address and bytes, without branches).
+template <int SLOTS, int WARPS, class Source>
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  int* count;  // hand-backs of each slot's current slice
+  Source src;
+  int next = 0, released = 0;
 
-  fm::copy_rows_to_smem(xm, LDXM, x + ((size_t)g * L + r0) * C, C, T, C, valid);
-  for (int c = threadIdx.x; c < C; c += kThreads) kss[c] = __bfloat162float(ks[(size_t)g * C + c]);
-  __syncthreads();
+  // start the copy of slice q into its slot (one thread)
+  __device__ void fill(int q) {
+    const void* from;
+    uint32_t bytes;
+    src.get(q, from, bytes);
+    const int slot = q % SLOTS;
+    fm::mbar_arrive_expect(&full[slot], bytes);
+    fm::bulk_load(base + slot * kSlice, from, bytes, &full[slot]);
+  }
+  __device__ const unsigned char* acquire_ptr() {
+    const int slot = next % SLOTS;
+    fm::mbar_wait(&full[slot], (next / SLOTS) & 1);
+    ++next;
+    return base + slot * kSlice;
+  }
+  __device__ uint32_t acquire() { return fm::smem_u32(acquire_ptr()); }
+  // hand back the oldest slot held if the warp holds more than `keep`: its
+  // reads of it, by wgmma groups or loads, have completed
+  __device__ void handback(int keep, int lane) {
+    const bool go = released < next - keep;
+    const int q = released + SLOTS, slot = released % SLOTS;
+    const void* from;
+    uint32_t bytes;
+    src.get(min(q, src.total - 1), from, bytes);
+    fm::ring_handback(go && lane == 0, fm::smem_u32(&count[slot]), WARPS - 1, q < src.total,
+                      fm::smem_u32(&full[slot]), fm::smem_u32(base + slot * kSlice), from,
+                      bytes);
+    released += go;
+  }
+};
 
-  // Q = elu(x . wq) + 1
-  fm::gemm_rows64<kWarps, C, C / 16>(xm, LDXM, wq, 0, warp, lane,
-                                     [&](int r, int c, float v) {
-                                       qs[r * LDQ + c] = __float2bfloat16(fm::elu1(v));
-                                     });
-  __syncthreads();
-  // Z[r][h] = Q[r, head h] . K_sum[head h]
-  for (int e = threadIdx.x; e < T * H; e += kThreads) {
-    const int r = e / H, h = e % H;
-    float z = 0.f;
+// the apply kernel's slices: the weight image's, with the two tiles' K^T V
+// after wq's
+struct ApplySource {
+  const unsigned char* image;
+  const void* kv0;  // the K^T V of warpgroup 0's tile, then of warpgroup 1's
+  const void* kv1;
+  int qslices, total;
+  uint32_t kv_bytes;
+  __device__ void get(int q, const void*& from, uint32_t& bytes) const {
+    const int k = q - qslices;
+    const bool is_kv = (unsigned)k < 2u;
+    const unsigned char* w = image + (size_t)(q < qslices ? q : q - 2) * kSlice;
+    from = is_kv ? (k == 0 ? kv0 : kv1) : static_cast<const void*>(w);
+    bytes = is_kv ? kv_bytes : kSlice;
+  }
+};
+
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
+    fm::wgmma_ss_n128(d, a, b, 1);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    fm::wgmma_rs_n128(d, a, b, 1);
+  }
+};
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b) {
+    fm::wgmma_ss_n256(d, a, b, 1);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    fm::wgmma_rs_n256(d, a, b, 1);
+  }
+};
+
+// descriptor of k-step i of a slot holding [N, 16] K-major tiles
+template <int N>
+__device__ __forceinline__ uint64_t slot_desc(uint32_t slot, int i) {
+  return fm::kmajor_desc(slot + i * 32 * N, 128, 256);
+}
+
+// acc += A[64, 16 s0 .. 16 (s0 + KSTEPS)) . B, A a K-major tile of aK
+// columns in shared memory, B the ring's next KSTEPS / SPS slices; one group
+// a slice, one group left in flight (the waits and hand-backs between are
+// branch-free, or ptxas would serialize the products)
+template <int N, int KSTEPS, class Ring>
+__device__ __forceinline__ void gemm_ss(float (&acc)[N / 2], const bf16* a, int aK, int s0,
+                                        Ring& ring, int lane) {
+  constexpr int SPS = kSlice / (32 * N);
+#pragma unroll 1
+  for (int s = 0; s < KSTEPS; s += SPS) {
+    const uint32_t slot = ring.acquire();
+    fm::wgmma_fence();
 #pragma unroll
-    for (int d = 0; d < D; ++d) z += __bfloat162float(qs[r * LDQ + h * D + d]) * kss[h * D + d];
-    zs[e] = z;
+    for (int i = 0; i < SPS; ++i)
+      Wgmma<N>::ss(acc, fm::tile_desc(a, aK, s0 + s + i), slot_desc<N>(slot, i));
+    fm::wgmma_commit();
+    fm::wgmma_wait<1>();
+    ring.handback(1, lane);
+  }
+}
+
+// acc += A . B with A's KSTEPS k-steps in registers (m16n8k16 A fragments)
+template <int N, int KSTEPS, class Ring>
+__device__ __forceinline__ void gemm_rs(float (&acc)[N / 2], const uint32_t (&a)[KSTEPS][4],
+                                        Ring& ring, int lane) {
+  constexpr int SPS = kSlice / (32 * N);
+#pragma unroll
+  for (int s = 0; s < KSTEPS; s += SPS) {
+    const uint32_t slot = ring.acquire();
+    fm::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < SPS; ++i) Wgmma<N>::rs(acc, a[s + i], slot_desc<N>(slot, i));
+    fm::wgmma_commit();
+    fm::wgmma_wait<1>();
+    ring.handback(1, lane);
+  }
+}
+
+// wait for every group and hand back the last slot; acc is then readable
+template <int R, class Ring>
+__device__ __forceinline__ void gemm_finish(float (&acc)[R], Ring& ring, int lane) {
+  fm::wgmma_wait<0>();
+  ring.handback(0, lane);
+  fm::fence_regs(acc);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  fm::fence_regs(acc);
+}
+
+// elu(v) + 1 with both sides computed: no branch a value (expf of a
+// clamped argument, so the result equals fm::elu1's)
+__device__ __forceinline__ float elu1_select(float v) {
+  const float e = expf(fminf(v, 0.f));
+  return v > 0.f ? v + 1.f : e;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// bf16 pairs of f(accumulator) into a [64, C] K-major tile (wr: the warp's
+// first row, g, t: the lane's quad coordinates)
+template <int C, typename F>
+__device__ __forceinline__ void store_acc(bf16* tile, const float (&acc)[C / 2], int wr, int g,
+                                          int t, F f) {
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(tile + fm::kmajor_index(wr + g + 8 * i, 8 * j + 2 * t, C)) =
+          fm::pack_bf16(f(acc[4 * j + 2 * i]), f(acc[4 * j + 2 * i + 1]));
+}
+
+// 8 bf16 of a row (16 bytes) as f32
+__device__ __forceinline__ void unpack8(const uint4& u, float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  return make_uint4(fm::pack_bf16(v[0], v[1]), fm::pack_bf16(v[2], v[3]),
+                    fm::pack_bf16(v[4], v[5]), fm::pack_bf16(v[6], v[7]));
+}
+
+// LayerNorm (statistics in f32) of the warp's 16 rows [wr, wr + 16) of a
+// [64, C] K-major bf16 tile, 8 rows at a time: lane (row r = lane % 8, k
+// group kq = lane / 8) takes the row's 16-byte chunks kq, kq + 4, ..., so
+// each 8 lanes read 128 contiguous bytes; a row's sums over the 4 lanes
+// that share it. The lane's scales and biases are loaded once, before the
+// rows, so no pass waits on device memory. out(row, kc, v) takes the 8
+// normalised values of chunk kc.
+template <int C, typename Out>
+__device__ __forceinline__ void ln_rows(const bf16* tile, int wr, int lane,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, Out out) {
+  constexpr int CH = C / 32;  // chunks a lane
+  const int kq = lane >> 3;
+  float4 sc[CH][2], bi[CH][2];
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sc[i][h] = __ldg(reinterpret_cast<const float4*>(scale + 8 * (kq + 4 * i) + 4 * h));
+      bi[i][h] = __ldg(reinterpret_cast<const float4*>(bias + 8 * (kq + 4 * i) + 4 * h));
+    }
+#pragma unroll 1
+  for (int rb = 0; rb < 2; ++rb) {
+    const int row = wr + 8 * rb + (lane & 7);
+    const bf16* base = tile + fm::kmajor_index(row, 0, C);
+    float v[CH][8];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      unpack8(*reinterpret_cast<const uint4*>(base + (kq + 4 * i) * 64), v[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += v[i][e];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    const float mu = (s + __shfl_xor_sync(0xffffffffu, s, 16)) * (1.0f / C);
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[i][e] -= mu;
+        q += v[i][e] * v[i][e];
+      }
+    q += __shfl_xor_sync(0xffffffffu, q, 8);
+    const float r = rsqrtf((q + __shfl_xor_sync(0xffffffffu, q, 16)) * (1.0f / C) + fm::kLnEps);
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const float m[8] = {sc[i][0].x, sc[i][0].y, sc[i][0].z, sc[i][0].w,
+                          sc[i][1].x, sc[i][1].y, sc[i][1].z, sc[i][1].w};
+      const float b[8] = {bi[i][0].x, bi[i][0].y, bi[i][0].z, bi[i][0].w,
+                          bi[i][1].x, bi[i][1].y, bi[i][1].z, bi[i][1].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = v[i][e] * r * m[e] + b[e];
+      out(row, kq + 4 * i, v[i]);
+    }
+  }
+}
+
+// rows [0, valid) of a row-major [64, C] global block into a K-major tile,
+// zeros past valid; 16 bytes a thread of the warpgroup, element e * 8 of the
+// tile being (row group, k group, row) = e
+// (all loads issued before the first store: one round trip to memory)
+template <int C>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ src, int valid,
+                                          int wt) {
+  constexpr int PER = 64 * C / 8 / 128;
+  uint4 v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = wt + 128 * i;
+    const int r = (e >> 3) / (C / 8) * 8 + (e & 7), k = (e >> 3) % (C / 8) * 8;
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid) v[i] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * C + k));
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) *reinterpret_cast<uint4*>(tile + (wt + 128 * i) * 8) = v[i];
+}
+
+// grid ceil(G * ceil(L / 64) / 2): warpgroup w of block b takes the 64-row
+// tile 2 b + w (none past the last)
+template <int C, int D>
+__global__ void __launch_bounds__(kApplyThreads, 1)
+apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16* __restrict__ ks,
+             const bf16* __restrict__ image, const float* __restrict__ n1s,
+             const float* __restrict__ n1b, const float* __restrict__ n2s,
+             const float* __restrict__ n2b, bf16* __restrict__ out, int G, int L, int S) {
+  using Lt = ApplyLayout<C, D>;
+  constexpr int H = Lt::H, DT = D / 16, SLOTS = Lt::SLOTS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lt::bar_off);
+  int* count = reinterpret_cast<int*>(full + SLOTS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wt = threadIdx.x % 128, wr = 16 * (warp % 4);
+  const int gq = lane / 4, t = lane % 4;
+  // tile 2 b + w of the G images' ceil(L / 64) tiles each; a tile past the
+  // last stands in for it (it reads the last tile and writes nothing)
+  const int tpi = (L + 63) / 64, last = G * tpi - 1;
+  const int q0 = min(2 * (int)blockIdx.x, last), q1 = min(2 * (int)blockIdx.x + 1, last);
+  const int tile = wg == 0 ? q0 : q1, img = tile / tpi, r0 = tile % tpi * 64;
+  const int valid = 2 * (int)blockIdx.x + wg > last ? 0 : min(64, L - r0);
+  const size_t row0 = (size_t)img * L + r0;
+  using Src = ApplySource;
+  Ring<SLOTS, 8, Src> ring{
+      smem + Lt::ring_off, full, count,
+      Src{reinterpret_cast<const unsigned char*>(image),
+          kv + (size_t)(q0 / tpi) * C * D, kv + (size_t)(q1 / tpi) * C * D, Lt::QSLICES,
+          Lt::SLICES + 2, C * D * 2}};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      fm::mbar_init(&full[i], 1);
+      count[i] = 0;
+    }
+    fm::mbar_init_fence();
+    for (int q = 0; q < SLOTS; ++q) ring.fill(q);
   }
   __syncthreads();
-  // o = Q_h . KV_h * (S / (Z + eps)) over Q in place: a warp owns whole
-  // (head, 16-row) units and has read all of a unit before it writes it
-  const bf16* kvg = kv + (size_t)g * C * D;
+  bf16* xt = reinterpret_cast<bf16*>(smem + Lt::x_off) + wg * 64 * C;
+  bf16* ot = reinterpret_cast<bf16*>(smem + Lt::o_off) + wg * 64 * C;
+  bf16* kst = reinterpret_cast<bf16*>(smem + Lt::ks_off) + wg * C;
+
+  if (wt < C / 8)
+    *reinterpret_cast<uint4*>(kst + 8 * wt) =
+        __ldg(reinterpret_cast<const uint4*>(ks + (size_t)img * C + 8 * wt));
+  load_tile<C>(xt, x + row0 * C, valid, wt);
+  fm::fence_proxy_async();
+  fm::named_barrier(1 + wg, 128);
+
+  // Q = bf16(elu(x . wq) + 1) into the o tile; each warp reads back only
+  // its own 16 rows
+  {
+    float acc[C / 2];
+    zero_regs(acc);
+    gemm_ss<C, C / 16>(acc, xt, C, 0, ring, lane);
+    gemm_finish(acc, ring, lane);
+    store_acc<C>(ot, acc, wr, gq, t, [](float v) { return elu1_select(v); });
+  }
+  __syncwarp();
+  // per head (a rolled loop): Z = Q_h . K_sum_h (quad sums), o_h = Q_h .
+  // KV_h * S / (Z + eps) over Q_h in place; the first of the two K^T V
+  // slots is warpgroup 0's
+  const unsigned char* kv0 = ring.acquire_ptr();
+  const unsigned char* kv1 = ring.acquire_ptr();
+  const bf16* kvs = reinterpret_cast<const bf16*>(wg == 0 ? kv0 : kv1);
   const float s_f = (float)S;
-  for (int u = warp; u < H * (T / 16); u += kWarps) {
-    const int h = u / (T / 16), tm = u % (T / 16);
-    fm::Acc16 acc[DT];
+#pragma unroll 1
+  for (int h = 0; h < H; ++h) {
+    uint32_t qa[DT][4];
+    float z[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < DT; ++j) fm::zero(acc[j]);
+    for (int kt = 0; kt < DT; ++kt) {
+      const int col = h * D + 16 * kt;
+      fm::ldsm_x4(qa[kt], ot + fm::kmajor_index(wr + (lane & 15), col + 8 * (lane >> 4), C));
 #pragma unroll
-    for (int k = 0; k < DT; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, qs + tm * 16 * LDQ + h * D + k * 16, LDQ, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b_packed(fb, fm::packed_tile(kvg + h * D * D, D, k, j), lane);
-        fm::mma16(acc[j], fa, fb);
+      for (int r = 0; r < 4; ++r) {
+        const float2 kp = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(kst + col + 8 * (r >> 1) + 2 * t));
+        const float2 qp = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kt][r]));
+        z[r & 1] += qp.x * kp.x + qp.y * kp.y;
       }
     }
+    const float sc[2] = {s_f / (quad_sum(z[0]) + kEps), s_f / (quad_sum(z[1]) + kEps)};
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
-      fm::tile_epilogue(acc[j], tm * 16, h * D + j * 16, lane, [&](int row, int col, float v) {
-        qs[row * LDQ + col] = __float2bfloat16(v * (s_f / (zs[row * H + h] + kEps)));
-      });
-  }
-  __syncthreads();
-  // msg = LN1(o . wmerge), beside x
-  fm::gemm_rows64<kWarps, C, C / 16>(qs, LDQ, wmerge, 0, warp, lane,
-                                     [&](int r, int c, float v) {
-                                       xm[r * LDXM + C + c] = __float2bfloat16(v);
-                                     });
-  __syncthreads();
-  fm::layer_norm_rows64<kWarps, C>(xm + C, LDXM, n1s, n1b, warp, lane);
-  __syncthreads();
-
-  // FFN: relu([x | msg] . w1) in chunks of HC hidden columns (in the Q
-  // buffer); each warp keeps UPW units of RT2 y tiles in registers
-  constexpr int S2 = C / 16, RT2 = fm::rows_per_unit(S2, kWarps), G2 = 4 / RT2;
-  constexpr int UPW = S2 * G2 / kWarps;
-  static_assert(S2 * G2 % kWarps == 0, "wmlp2 units must spread evenly over the warps");
-  fm::Acc16 acc2[UPW][RT2];
+    for (int jn = 0; jn < DT; ++jn) {
+      fm::Acc16 acc;
+      fm::zero(acc);
 #pragma unroll
-  for (int j = 0; j < UPW; ++j)
+      for (int kt = 0; kt < DT; ++kt) {
+        uint32_t fb[4];
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            fm::packed_tile(kvs + h * D * D, D, kt, jn) + lane * 8);
+        fb[0] = v.x;
+        fb[1] = v.y;
+        fb[2] = v.z;
+        fb[3] = v.w;
+        fm::mma16(acc, qa[kt], fb);
+      }
 #pragma unroll
-    for (int i = 0; i < RT2; ++i) fm::zero(acc2[j][i]);
-  for (int c0 = 0; c0 < 2 * C; c0 += HC) {
-    fm::gemm_rows64<kWarps, 2 * C, HC / 16>(xm, LDXM, w1, c0 / 16, warp, lane,
-                                            [&](int r, int c, float v) {
-                                              qs[r * LDH + c] = __float2bfloat16(fmaxf(v, 0.f));
-                                            });
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < UPW; ++j) {
-      const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
-      fm::strip_mma<HC, RT2>(acc2[j], qs + tm0 * 16 * LDH, LDH, w2, 2 * C, c0 / 16, tn, lane);
+      for (int p = 0; p < 4; ++p) {
+        const int i = p & 1, col = h * D + jn * 16 + 8 * (p >> 1) + 2 * t;
+        *reinterpret_cast<uint32_t*>(ot + fm::kmajor_index(wr + gq + 8 * i, col, C)) =
+            fm::pack_bf16(acc.c[2 * p] * sc[i], acc.c[2 * p + 1] * sc[i]);
+      }
     }
-    __syncthreads();
   }
-  // y = bf16(hidden . w2) into the Q buffer, then out = x + LN2(y)
-#pragma unroll
-  for (int j = 0; j < UPW; ++j) {
-    const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
-#pragma unroll
-    for (int i = 0; i < RT2; ++i)
-      fm::tile_epilogue(acc2[j][i], (tm0 + i) * 16, tn * 16, lane, [&](int r, int c, float v) {
-        qs[r * LDQ + c] = __float2bfloat16(v);
-      });
+  __syncwarp();  // the K^T V slots: this warp's reads of them are done
+  ring.handback(0, lane);
+  ring.handback(0, lane);
+  fm::fence_proxy_async();
+  fm::named_barrier(1 + wg, 128);
+
+  // msg = LN1(bf16(o . wmerge)), over o in the same tile
+  {
+    float acc[C / 2];
+    zero_regs(acc);
+    gemm_ss<C, C / 16>(acc, ot, C, 0, ring, lane);
+    gemm_finish(acc, ring, lane);
+    fm::named_barrier(1 + wg, 128);  // every warp's reads of o are done
+    store_acc<C>(ot, acc, wr, gq, t, [](float v) { return v; });
   }
+  __syncwarp();
+  ln_rows<C>(ot, wr, lane, n1s, n1b, [&](int row, int kc, const float* v) {
+    *reinterpret_cast<uint4*>(ot + fm::kmajor_index(row, 8 * kc, C)) = pack8(v);
+  });
+  fm::fence_proxy_async();
+  fm::named_barrier(1 + wg, 128);
+
+  // FFN: y = bf16(relu([x | msg] . wmlp1) . wmlp2) over 128-column hidden
+  // chunks; a chunk's hidden . wmlp2 stays in flight into the next chunk's
+  // first wmlp1 slice
+  float y[C / 2];
+  zero_regs(y);
+#pragma unroll 1
+  for (int c = 0; c < Lt::CHUNKS; ++c) {
+    uint32_t hf[AHC / 16][4];
+    {
+      float acc[AHC / 2];
+      zero_regs(acc);
+      gemm_ss<AHC, C / 16>(acc, xt, C, 0, ring, lane);
+      gemm_ss<AHC, C / 16>(acc, ot, C, 0, ring, lane);
+      gemm_finish(acc, ring, lane);
+#pragma unroll
+      for (int kk = 0; kk < AHC / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          hf[kk][r] = fm::pack_bf16(fmaxf(acc[8 * kk + 2 * r], 0.f),
+                                    fmaxf(acc[8 * kk + 2 * r + 1], 0.f));
+    }
+    gemm_rs<C, AHC / 16>(y, hf, ring, lane);
+  }
+  gemm_finish(y, ring, lane);
+  // out = x + bf16(LN2(bf16(y))): y through the o tile (msg is read by then),
+  // each row's chunks written to device memory from the LN loop
+  fm::named_barrier(1 + wg, 128);
+  store_acc<C>(ot, y, wr, gq, t, [](float v) { return v; });
+  __syncwarp();
+  bf16* og = out + row0 * C;
+  ln_rows<C>(ot, wr, lane, n2s, n2b, [&](int row, int kc, float* v) {
+    float xv[8];
+    unpack8(*reinterpret_cast<const uint4*>(xt + fm::kmajor_index(row, 8 * kc, C)), xv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = xv[e] + fm::round_bf16(v[e]);
+    if (row < valid) *reinterpret_cast<uint4*>(og + (size_t)row * C + 8 * kc) = pack8(v);
+  });
+}
+
+// the ring product's slices: one k-step of B ([256, 16], 8 KB) each
+struct StepSource {
+  const bf16* b;
+  int total;
+  __device__ void get(int q, const void*& from, uint32_t& bytes) const {
+    from = b + (size_t)q * 16 * 256;
+    bytes = 32 * 256;
+  }
+};
+
+// [64, N] f32 = A [64, K] . B [K, N] with N = 256 through a two-slot ring
+// (one warpgroup): A row-major in device memory, laid out K-major in shared
+// memory; B as the apply image's k-step tiles, a k-step a slice. The wgmma,
+// bulk-copy and mbarrier path of apply_kernel, alone, for tests.
+__global__ void __launch_bounds__(128, 1)
+ring_product_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bimg,
+                    float* __restrict__ out, int K) {
+  constexpr int N = 256, SLOTS = 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* at = reinterpret_cast<bf16*>(smem);
+  unsigned char* slots = smem + 64 * K * 2;
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + SLOTS * kSlice);
+  int* count = reinterpret_cast<int*>(full + SLOTS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  Ring<SLOTS, 4, StepSource> ring{slots, full, count, StepSource{bimg, K / 16}};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      fm::mbar_init(&full[i], 1);
+      count[i] = 0;
+    }
+    fm::mbar_init_fence();
+    for (int q = 0; q < SLOTS && q < K / 16; ++q) ring.fill(q);
+  }
+  for (int e = threadIdx.x; e < 64 * K; e += 128) at[fm::kmajor_index(e / K, e % K, K)] = a[e];
+  fm::fence_proxy_async();
   __syncthreads();
-  constexpr int V = C / 32;
-  float sv[V], bv[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    sv[i] = n2s[lane * V + i];
-    bv[i] = n2b[lane * V + i];
+  float acc[N / 2];
+  zero_regs(acc);
+#pragma unroll 1
+  for (int s = 0; s < K / 16; ++s) {
+    const uint32_t slot = ring.acquire();
+    fm::wgmma_fence();
+    Wgmma<N>::ss(acc, fm::tile_desc(at, K, s), slot_desc<N>(slot, 0));
+    fm::wgmma_commit();
+    fm::wgmma_wait<1>();
+    ring.handback(1, lane);
   }
-  bf16* og = out + ((size_t)g * L + r0) * C;
-  for (int r = warp; r < valid; r += kWarps) {
-    float y[V], xr[V];
-    fm::load_bf16<V>(qs + r * LDQ + lane * V, y);
-    fm::warp_layer_norm<V, C>(y, sv, bv);
-    fm::load_bf16<V>(xm + r * LDXM + lane * V, xr);
+  gemm_finish(acc, ring, lane);
+  const int wr = 16 * warp, gq = lane / 4, t = lane % 4;
 #pragma unroll
-    for (int i = 0; i < V; ++i) y[i] = xr[i] + fm::round_bf16(y[i]);
-    fm::store_bf16<V>(og + r * C + lane * V, y);
-  }
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(out + (wr + gq + 8 * i) * N + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
 template <typename K>
@@ -313,15 +719,27 @@ cudaError_t launch_stats(const void* src, const void* wkv, float* part_kv, float
 
 template <int C, int D>
 cudaError_t launch_apply(const void* const* p, void* out, int G, int L, int S, cudaStream_t st) {
-  const size_t smem = ApplySmem<C, D>::bytes;
+  const size_t smem = ApplyLayout<C, D>::bytes;
   cudaError_t e = set_smem(apply_kernel<C, D>, smem);
   if (e != cudaSuccess) return e;
   auto F = [](const void* q) { return static_cast<const float*>(q); };
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
-  apply_kernel<C, D><<<dim3((L + T - 1) / T, G), kThreads, smem, st>>>(
-      Bf(p[0]), Bf(p[1]), Bf(p[2]), Bf(p[3]), Bf(p[4]), F(p[5]), F(p[6]), Bf(p[7]), Bf(p[8]),
-      F(p[9]), F(p[10]), static_cast<bf16*>(out), L, S);
+  const int tiles = G * ((L + 63) / 64);
+  apply_kernel<C, D><<<(tiles + 1) / 2, kApplyThreads, smem, st>>>(
+      Bf(p[0]), Bf(p[1]), Bf(p[2]), Bf(p[3]), F(p[4]), F(p[5]), F(p[6]), F(p[7]),
+      static_cast<bf16*>(out), G, L, S);
   return cudaGetLastError();
+}
+
+template <int C, int D>
+cudaError_t apply_occupancy(int* info) {
+  const size_t smem = ApplyLayout<C, D>::bytes;
+  cudaError_t e = set_smem(apply_kernel<C, D>, smem);
+  if (e != cudaSuccess) return e;
+  info[0] = (int)smem;
+  info[1] = AR;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], apply_kernel<C, D>,
+                                                       kApplyThreads, smem);
 }
 
 }  // namespace
@@ -346,17 +764,39 @@ extern "C" int fm_coarse_stats(const void* src, const void* wkv, void* part_kv, 
 }
 
 // x, out: [G, L, C] bf16; kv, ks from fm_coarse_stats over S source tokens;
-// weights bf16 [in, out] in fragment order: wq, wmerge [C, C], w1 [2C, 2C],
-// w2 [2C, C]; LN scales and biases f32 [C].
-extern "C" int fm_coarse_apply(const void* x, const void* kv, const void* ks, const void* wq,
-                               const void* wmerge, const void* n1s, const void* n1b,
-                               const void* w1, const void* w2, const void* n2s, const void* n2b,
-                               void* out, int G, int L, int S, int C, int D, void* stream) {
-  const void* p[11] = {x, kv, ks, wq, wmerge, n1s, n1b, w1, w2, n2s, n2b};
+// image: the layer's weight image (ops/coarse_transformer.apply_image, bf16,
+// 16-byte aligned); LN scales and biases f32 [C].
+extern "C" int fm_coarse_apply(const void* x, const void* kv, const void* ks, const void* image,
+                               const void* n1s, const void* n1b, const void* n2s,
+                               const void* n2b, void* out, int G, int L, int S, int C, int D,
+                               void* stream) {
+  const void* p[8] = {x, kv, ks, image, n1s, n1b, n2s, n2b};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FM_APPLY(c, d) \
   if (C == c && D == d) return (int)launch_apply<c, d>(p, out, G, L, S, st);
   FM_APPLY(128, 16) FM_APPLY(128, 32) FM_APPLY(256, 16) FM_APPLY(256, 32)
 #undef FM_APPLY
   return (int)cudaErrorInvalidValue;
+}
+
+// info: the apply block's dynamic shared memory in bytes, its token rows (two
+// 64-row tiles) and the blocks an SM can hold, at (C, D)
+extern "C" int fm_coarse_apply_occupancy(int C, int D, int* info) {
+#define FM_OCC(c, d) \
+  if (C == c && D == d) return (int)apply_occupancy<c, d>(info);
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+#undef FM_OCC
+  return (int)cudaErrorInvalidValue;
+}
+
+// out [64, 256] f32 = a [64, K] (bf16, row-major) . b, b [K, 256] as K / 16
+// k-step tiles (the apply image's layout); K a multiple of 16, at most 1024
+extern "C" int fm_ring_product(const void* a, const void* bimg, void* out, int K, void* stream) {
+  if (K < 16 || K % 16 || K > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = 64 * (size_t)K * 2 + 2 * kSlice + 32;
+  cudaError_t e = set_smem(ring_product_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  ring_product_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(bimg), static_cast<float*>(out), K);
+  return (int)cudaGetLastError();
 }

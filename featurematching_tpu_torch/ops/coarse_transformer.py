@@ -12,8 +12,10 @@ encoder layer (models/transformer.EncoderLayer) is
 
 On a CUDA tensor `coarse_transformer_fused` launches `csrc/coarse_transformer.cu`
 for every layer (stats over token tiles with per-tile partials, a merge in a
-fixed order, then apply over 64-token row tiles; bf16 tensor cores, bound by
-tensor-core operations); on a CPU tensor it runs `coarse_transformer_reference`.
+fixed order, then apply over pairs of 64-token row tiles on wgmma, the
+weights streamed once a pair from the layer's `apply_image`; bf16 tensor
+cores, bound by tensor-core operations); on a CPU tensor it runs
+`coarse_transformer_reference`.
 
 Both follow the TPU kernel's rounding points, which differ from the flax
 stack's in bf16 only: K and V/S are rounded after the f32 product and its
@@ -27,6 +29,7 @@ so feat1 attends the UPDATED feat0, as the reference does.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -35,10 +38,12 @@ from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 EPS = 1e-6
-ROW_TILE = 64  # token rows of one stats tile and one apply block
+ROW_TILE = 64  # token rows of one stats tile and of one apply warpgroup's tile
+APPLY_HIDDEN_CHUNK = 128  # FFN hidden columns the apply kernel takes at a time
 WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))  # (C, head dim) the kernel takes
 _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
-_APPLY_ARGTYPES = [_build.PTR] * 12 + [_build.INT] * 5 + [_build.PTR]
+_APPLY_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR]
+_RING_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR]
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,6 +114,82 @@ def pack_layer(layer, dtype: torch.dtype) -> LayerValues:
         f(layer.norm1.weight), f(layer.norm1.bias), w(layer.mlp1), w(layer.mlp2),
         f(layer.norm2.weight), f(layer.norm2.bias),
     )
+
+
+def kstep_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A weight [..., K, N] ([in, out]) as the apply kernel's shared-memory
+    image of a B operand (csrc/wgmma.cuh): K / 16 k-steps, each [N, 16]
+    K-major in 8x8 core matrices of 128 contiguous bytes, (n // 8, k // 8)
+    in row-major order. [..., K * N], flat per leading index."""
+    *lead, K, N = w.shape
+    t = w.reshape(*lead, K // 16, 2, 8, N // 8, 8)
+    n = len(lead)
+    return t.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2).reshape(*lead, K * N)
+
+
+def kstep_untile(t: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of `kstep_tiles`: [..., K * N] -> [..., K, N]."""
+    *lead, _ = t.shape
+    n = len(lead)
+    u = t.reshape(*lead, K // 16, N // 8, 2, 8, 8)
+    return u.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3).reshape(*lead, K, N)
+
+
+def apply_image_plain(wq: torch.Tensor, wmerge: torch.Tensor, wmlp1: torch.Tensor,
+                      wmlp2: torch.Tensor) -> torch.Tensor:
+    """The apply kernel's weight image of one layer from weights [in, out]:
+    the slices in the order the kernel reads them, one flat tensor. wq and
+    wmerge ([C, C]), then for each 128-column chunk c of wmlp1 ([2C, 2C]) its
+    columns [2C, 128] followed by wmlp2's rows [128, C] of that chunk, each
+    as `kstep_tiles`: 8 C^2 values."""
+    C = wq.shape[0]
+    chunks = 2 * C // APPLY_HIDDEN_CHUNK
+    w1 = wmlp1.reshape(2 * C, chunks, APPLY_HIDDEN_CHUNK).transpose(0, 1)
+    w2 = wmlp2.reshape(chunks, APPLY_HIDDEN_CHUNK, C)
+    ffn = torch.cat([kstep_tiles(w1), kstep_tiles(w2)], dim=1)
+    return torch.cat([kstep_tiles(wq), kstep_tiles(wmerge), ffn.reshape(-1)])
+
+
+def apply_image_unpack(image: torch.Tensor, C: int):
+    """The inverse of `apply_image_plain`: (wq, wmerge, wmlp1, wmlp2) [in, out]."""
+    chunks, hc = 2 * C // APPLY_HIDDEN_CHUNK, APPLY_HIDDEN_CHUNK
+    wq = kstep_untile(image[:C * C], C, C)
+    wmerge = kstep_untile(image[C * C:2 * C * C], C, C)
+    ffn = image[2 * C * C:].reshape(chunks, 3 * C * hc)
+    w1 = kstep_untile(ffn[:, :2 * C * hc], 2 * C, hc).transpose(0, 1).reshape(2 * C, 2 * C)
+    w2 = kstep_untile(ffn[:, 2 * C * hc:], hc, C).reshape(2 * C, C)
+    return wq, wmerge, w1, w2
+
+
+@functools.lru_cache(maxsize=None)
+def _image_index(C: int, device) -> torch.Tensor:
+    """For each entry of a layer's apply image, its index in the flat
+    concatenation of the packed wq, wmerge, wmlp1 and wmlp2 (`frag_pack`)."""
+    sizes = (C * C, C * C, 4 * C * C, 2 * C * C)
+    flat = torch.arange(sum(sizes))
+    shapes = ((C, C), (C, C), (2 * C, 2 * C), (2 * C, C))
+    parts = [frag_unpack(p.reshape(n // 16, k // 16, 32, 8))
+             for p, (k, n) in zip(torch.split(flat, sizes), shapes, strict=True)]
+    return apply_image_plain(*parts).to(device)
+
+
+def apply_image(lv: LayerValues) -> torch.Tensor:
+    """`apply_image_plain` of a layer's packed weights, made on their device
+    by one gather and kept on `lv.wq` while wq, wmerge, wmlp1 and wmlp2 stay
+    the same tensors at the same versions. The serving forward's layers come
+    from `pack_layers`' cache, so their images are made once; a training
+    step packs its layers anew (`coarse_transformer_train`), so it makes one
+    image a layer."""
+    ws = (lv.wq, lv.wmerge, lv.wmlp1, lv.wmlp2)
+    key = tuple(w._version for w in ws)
+    held = getattr(lv.wq, "_apply_image", None)
+    if held is not None and held[1] == key and all(r() is w for r, w in zip(held[0], ws)):
+        return held[2]
+    C = lv.wq.shape[0] * 16
+    flat = torch.cat([w.reshape(-1) for w in ws])
+    image = flat[_image_index(C, flat.device)]
+    lv.wq._apply_image = (tuple(weakref.ref(w) for w in ws), key, image)
+    return image
 
 
 def pack_layers(tf, dtype: torch.dtype) -> Tuple[LayerValues, ...]:
@@ -299,14 +380,35 @@ def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
         src.data_ptr(), lv.wkv.data_ptr(), part_kv.data_ptr(), part_ks.data_ptr(),
         kv.data_ptr(), ks.data_ptr(), G, S, C, D, per_chunk, chunks, st,
     )
+    image = apply_image(lv)
     out = torch.empty_like(x)
     _build.launch(
         "coarse_transformer", "fm_coarse_apply", _APPLY_ARGTYPES,
-        x.data_ptr(), kv.data_ptr(), ks.data_ptr(), lv.wq.data_ptr(), lv.wmerge.data_ptr(),
-        lv.n1s.data_ptr(), lv.n1b.data_ptr(), lv.wmlp1.data_ptr(), lv.wmlp2.data_ptr(),
-        lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D, st,
+        x.data_ptr(), kv.data_ptr(), ks.data_ptr(), image.data_ptr(), lv.n1s.data_ptr(),
+        lv.n1b.data_ptr(), lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D,
+        st,
     )
     return out, kv, ks
+
+
+def ring_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [64, K] . b [K, 256] in float32 from bf16 operands: on a CUDA tensor
+    the apply kernel's wgmma, bulk-copy and mbarrier path alone (b streamed
+    a k-step at a time through a two-slot ring as `kstep_tiles`; K a
+    multiple of 16 up to 1024), on a CPU tensor the plain product."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    K = a.shape[1]
+    if tuple(a.shape) != (64, K) or tuple(b.shape) != (K, 256) or K % 16 or not 16 <= K <= 1024:
+        raise ValueError(f"ring_product takes [64, K] . [K, 256], K in 16..1024 a multiple of "
+                         f"16; got {tuple(a.shape)} . {tuple(b.shape)}")
+    _build.check_cuda(a, "a", torch.bfloat16)
+    _build.check_cuda(b, "b", torch.bfloat16)
+    bimg = kstep_tiles(b).contiguous()
+    out = torch.empty(64, 256, device=a.device, dtype=torch.float32)
+    _build.launch("coarse_transformer", "fm_ring_product", _RING_ARGTYPES, a.data_ptr(),
+                  bimg.data_ptr(), out.data_ptr(), K, _build.stream())
+    return out
 
 
 def coarse_layer_fused(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,

@@ -26,11 +26,16 @@ from featurematching_tpu.ops.pallas_coarse_transformer import (
 from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer_values
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops.coarse_transformer import (
+    APPLY_HIDDEN_CHUNK,
+    apply_image,
+    apply_image_plain,
+    apply_image_unpack,
     coarse_transformer_fused,
     coarse_transformer_reference,
     coarse_transformer_supported,
     frag_pack,
     frag_unpack,
+    layer_values,
     pack_layer,
     pack_layers,
 )
@@ -100,6 +105,64 @@ def test_frag_pack_layout():
     want = [w[kt * 16 + r, nt * 16 + c] for r, c in zip(rows, cols)]
     assert p[nt, kt, 4 * g + t].tolist() == [float(v) for v in want]
     assert torch.equal(frag_unpack(p), w)
+
+
+def _layer_weights(C):
+    """wq, wmerge [C, C], wmlp1 [2C, 2C], wmlp2 [2C, C] holding distinct values."""
+    shapes = ((C, C), (C, C), (2 * C, 2 * C), (2 * C, C))
+    sizes = [k * n for k, n in shapes]
+    flat = torch.arange(sum(sizes), dtype=torch.float64)
+    return [p.reshape(shape) for p, shape in zip(torch.split(flat, sizes), shapes, strict=True)]
+
+
+@pytest.mark.parametrize("C", [128, 256])
+def test_apply_image_round_trip(C):
+    """The apply kernel's weight image holds every weight once, 8 C^2 values,
+    and unpacks to the weights; made from the packed LayerValues by one
+    gather, it equals the plain image and is kept while the weights stay."""
+    ws = _layer_weights(C)
+    image = apply_image_plain(*ws)
+    assert image.shape == (8 * C * C,)
+    assert torch.equal(torch.sort(image).values, torch.arange(8.0 * C * C, dtype=torch.float64))
+    for got, w in zip(apply_image_unpack(image, C), ws, strict=True):
+        assert torch.equal(got, w)
+    ones, zeros = torch.ones(C), torch.zeros(C)
+    lv = layer_values(ws[0], torch.zeros(C, 2 * C, dtype=torch.float64), ws[1], ones, zeros,
+                      ws[2], ws[3], ones, zeros)
+    got = apply_image(lv)
+    assert torch.equal(got, image)
+    assert apply_image(lv) is got
+    lv2 = lv._replace(wmlp2=frag_pack(2 * ws[3]))
+    assert torch.equal(apply_image_unpack(apply_image(lv2), C)[3], 2 * ws[3])
+    lv.wq.mul_(2)  # an in-place change of a weight is seen
+    assert torch.equal(apply_image_unpack(apply_image(lv), C)[0], 2 * ws[0])
+
+
+@pytest.mark.parametrize("C", [128, 256])
+def test_apply_image_layout(C):
+    """Entries at the offsets the kernel reads them from (csrc/wgmma.cuh):
+    each k-step of a product is [N, 16] K-major, core matrices of 8 rows x 8
+    k values, (n // 8, k // 8) row-major, 64 values each; wq, then wmerge,
+    then per APPLY_HIDDEN_CHUNK-column hidden chunk c wmlp1[:, chunk c] and
+    wmlp2[chunk c, :]."""
+    ws = _layer_weights(C)
+    image = apply_image_plain(*ws)
+    hc = APPLY_HIDDEN_CHUNK
+
+    def at(k, n, N):  # offset of B[k, n] in the k-step tiles of a [K, N] operand
+        kk = k % 16
+        return (k // 16) * 16 * N + ((n // 8) * 2 + kk // 8) * 64 + (n % 8) * 8 + kk % 8
+
+    for k, n in ((0, 0), (9, 3), (C - 1, C - 1), (17, C // 2 + 5)):
+        assert image[at(k, n, C)] == ws[0][k, n]
+        assert image[C * C + at(k, n, C)] == ws[1][k, n]
+    chunk = 3 * C * hc  # values of one hidden chunk: wmlp1's columns, wmlp2's rows
+    for c, k, n in ((0, 0, 0), (1, 2 * C - 1, 63), (2 * C // hc - 1, C + 8, 17)):
+        base = 2 * C * C + c * chunk
+        assert image[base + at(k, n, hc)] == ws[2][k, c * hc + n]
+    for c, k, n in ((0, 0, 0), (1, 63, C - 1), (2 * C // hc - 1, 40, 9)):
+        base = 2 * C * C + c * chunk + 2 * C * hc
+        assert image[base + at(k, n, C)] == ws[3][c * hc + k, n]
 
 
 def test_pack_layers_sees_new_weights(rng):

@@ -28,7 +28,11 @@ of the card, with a mask whose count divides none of the window counts and
 with masks whose -100 entries cover whole rows, and K8's forward bit-equal
 to K2 with its saved probabilities against the twin's softmax; K1 and its
 pass 1 on argmax ties inside one tile and at shapes that cross its row
-tiles, chunks of column tiles and batch. They import neither
+tiles, chunks of column tiles and batch; K5's apply kernel at row counts
+around its 64-row tiles and 128-row blocks at each width it takes, one
+block past a full wave of the card, over an odd number of tiles and
+bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
+(`ring_product`). They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -54,6 +58,7 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     encoder_reference,
     encoder_reference_with_stats,
     layer_values,
+    ring_product,
 )
 from featurematching_tpu_torch.ops.dual_softmax import (
     _lse_reference,
@@ -368,6 +373,53 @@ def test_coarse_layer_ragged_tokens(gen, C, heads, N, kind):
     got = coarse_layer_fused(x, src, lv, heads)
     # bf16 intermediates rounded in another order (the tolerance of chip_smoke.py)
     _assert_close(got, encoder_reference(x, src, lv, heads), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("K", [16, 512])
+def test_ring_product(gen, K):
+    """The apply kernel's wgmma, bulk-copy and mbarrier path alone: one
+    m64n256k16 step, and K = 512 through the two-slot ring (32 k-steps,
+    each slot filled 16 times), against the plain product of the same bf16
+    operands (f32 sums in another order)."""
+    a = _rnd(gen, 64, K, dtype=torch.bfloat16)
+    b = _rnd(gen, K, 256, dtype=torch.bfloat16)
+    _assert_close(ring_product(a, b), a.float() @ b.float(), 1e-3, 1e-5)
+
+
+@pytest.mark.parametrize("C,heads", [(128, 4), (128, 8), (256, 8), (256, 16)])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129])
+def test_coarse_apply_tile_edges(gen, C, heads, L):
+    """Row counts around the apply kernel's 64-row tiles and 128-row blocks
+    (a block's second tile in the next image, or past the last tile), at
+    every width it takes; a self layer over two images."""
+    G = 2
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    got = coarse_layer_fused(x, x, lv, heads)
+    # bf16 intermediates rounded in another order (the tolerance of chip_smoke.py)
+    _assert_close(got, encoder_reference(x, x, lv, heads), 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("G,L,S", [(1, 265 * 64, 265 * 64), (3, 3 * 64, 1000)])
+def test_coarse_apply_waves_and_odd_tiles(gen, G, L, S):
+    """265 tiles of one image: 133 apply blocks, one past a full wave of the
+    card's 132 SMs, the last block's second warpgroup without rows; and a
+    cross layer (S != L) over an odd number of tiles in three images."""
+    C, heads = 256, 8
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    src = x if S == L else _rnd(gen, G, S, C, dtype=torch.bfloat16)
+    got = coarse_layer_fused(x, src, lv, heads)
+    _assert_close(got, encoder_reference(x, src, lv, heads), 5e-2, 2e-2)
+
+
+def test_coarse_apply_bit_identical(gen):
+    """The apply kernel uses no atomics: two runs agree bit for bit."""
+    lv = _layer_values(gen, 256)
+    x = _rnd(gen, 4, 4800, 256, dtype=torch.bfloat16)
+    src = _rnd(gen, 4, 4800, 256, dtype=torch.bfloat16)
+    first = coarse_layer_fused(x, src, lv, 8)
+    assert torch.equal(first, coarse_layer_fused(x, src, lv, 8))
 
 
 @pytest.mark.parametrize("N", [25, 49])
