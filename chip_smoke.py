@@ -9,7 +9,8 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   2. hold each kernel against its plain PyTorch version on the card at every
      shape the serving forward gives it (bf16, tolerances below), and time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call;
+     function, that call; print K6's block (window pairs in flight, shared
+     memory, blocks an SM, grid) for its serving call and for K10's forward;
   3. run the serving forward (`default_config()`, 640x480, batch 4, bf16,
      seeded random weights) with the launch counters set to 0 just before and
      read just after, check its outputs are finite and every kernel launched
@@ -537,7 +538,11 @@ def check_coarse_transformer(rec: Record, g) -> None:
 
 def check_fine_stage(rec: Record, g) -> None:
     from featurematching_tpu_torch.matching.fine import window_heatmaps
-    from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_reference
+    from featurematching_tpu_torch.ops.fine_stage import (
+        fine_stage_fused,
+        fine_stage_occupancy,
+        fine_stage_reference,
+    )
 
     B_, N, C, h = B * 1024, 49, 64, 8  # max_matches windows a pair, 7x7 taps
     names = ("self", "cross")
@@ -584,6 +589,16 @@ def check_fine_stage(rec: Record, g) -> None:
         cuda_ms(lambda: fine_stage_reference(*args, fold_softargmax=True), iters=3),
         fine_stage_work(B_, N, C, h, len(names)), err=err,
     )
+    print_fine_block(fine_stage_occupancy(len(names), h, B_), B_)
+
+
+def print_fine_block(occ: dict, pairs: int) -> None:
+    """K6's block as its library reports it, for `pairs` window pairs."""
+    slots = occ["grid"] * occ["pairs_in_flight"]
+    print(f"  K6 block: {occ['pairs_in_flight']} window pairs in flight (one a warpgroup), "
+          f"{occ['smem_bytes']} bytes of shared memory, {occ['blocks_per_sm']} block(s) an SM; "
+          f"grid {occ['grid']}: {pairs} pairs are {pairs / slots:.3f} rounds of its {slots} "
+          f"pair slots", flush=True)
 
 
 def block_params(g, C, h):
@@ -841,13 +856,18 @@ def check_coarse_train(rec: Record, g) -> None:
 
 def check_fine_train(rec: Record, g) -> None:
     from featurematching_tpu_torch.ops.coarse_transformer_train import train_values
-    from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward, fine_layer_reference
+    from featurematching_tpu_torch.ops.fine_stage import (
+        fine_layer_forward,
+        fine_layer_reference,
+        fine_stage_occupancy,
+    )
     from featurematching_tpu_torch.ops.fine_transformer_train import (
         fine_layer_backward,
         fine_layer_backward_reference,
     )
 
     nwin, N, C, h = B * 1024, 49, 64, 8  # max_gt_matches windows a pair, 7x7 taps
+    print_fine_block(fine_stage_occupancy(1, h, nwin), nwin)  # K10's forward: one layer
     print(f"  tolerance per tensor (the layer's two outputs, dx, dsrc, 10 gradients): "
           f"|kernel - plain| <= {K10_TOL} |plain| (norms); max |kernel - plain| / max |plain| "
           f"printed")

@@ -9,17 +9,25 @@ Port of `featurematching_tpu/ops/pallas_fine_stage.py · fine_stage_fused`:
     fold mode:  heat0 = softmax(m0·w1ᵀ/√C), heat1 = softmax(m1·w0ᵀ/√C)
 
 `enc` is `coarse_transformer.encoder_reference` with its rounding points.
-On a CUDA tensor `fine_stage_fused` launches `csrc/fine_stage.cu` (three
-blocks an SM, each looping over window pairs with the pair's intermediates in
-shared memory and the weights read from L1/L2, taps padded to 64 rows and
-masked out of every attention sum; bound by tensor-core operations); on a CPU tensor it runs
-`fine_stage_reference`, which works on the unpadded taps.
+On a CUDA tensor `fine_stage_fused` launches `csrc/fine_stage.cu`: a
+persistent grid of one block an SM, each block holding 3 window pairs in
+flight, one a warpgroup that synchronises only itself;
+the windows in registers, every weight product on `wgmma` with the layers'
+weights read from shared memory, where the block bulk-copies each layer's
+`fine_image` once (one pair a block at a time behind block-wide barriers,
+with the weights read from L1/L2 a window, measured 2.7x slower); taps padded
+to 64 rows and masked out of every attention sum; bound by tensor-core
+operations. On a CPU tensor it runs `fine_stage_reference`, which works on
+the unpadded taps.
 
 `mix*` is (weight [N], bias [1]) of the `mix_feat_*` layers.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import weakref
 from typing import Sequence, Tuple
 
 import torch
@@ -31,14 +39,19 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     _run_stack,
     check_layer_values,
     encoder_reference,
+    frag_unpack,
+    kstep_tiles,
+    kstep_untile,
 )
 
-MAX_TAPS = 64  # taps are padded to four 16-row tensor-core tiles
+MAX_TAPS = 64  # taps are padded to one 64-row wgmma tile
 C_KERNEL = 64
 HEAD_DIMS = (8, 16)  # head dims the kernel takes (heads tile 16-column blocks)
 MAX_LAYERS = 2
-# windows, 9 operands per layer, the mixes, the outputs; then the ints and the stream
-_ARGTYPES = [_build.PTR] * (2 + 9 * 2 + 4 + 4) + [_build.INT] * 7 + [_build.PTR]
+# windows, 5 operands per layer (the image and the LN parameters), the mixes, the
+# outputs; then the ints and the stream
+_ARGTYPES = [_build.PTR] * (2 + 5 * 2 + 4 + 4) + [_build.INT] * 7 + [_build.PTR]
+_OCC_ARGTYPES = [_build.INT] * 4 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def fine_stage_supported(layer_names: Sequence[str], d_model: int, nhead: int) -> bool:
@@ -81,6 +94,59 @@ def window_mix(w: torch.Tensor, mix: Tuple[torch.Tensor, torch.Tensor]) -> torch
     dt = w.dtype
     acc = torch.einsum("brc,r->bc", w.float(), weight.to(dt).float()).to(dt)
     return acc + bias.reshape(()).to(dt)
+
+
+def _image_shapes(C: int):
+    """[in, out] of wq, wkv, wmerge, wmlp1 and wmlp2, in the image's order."""
+    return ((C, C), (C, 2 * C), (C, C), (2 * C, 2 * C), (2 * C, C))
+
+
+def fine_image_plain(wq: torch.Tensor, wkv: torch.Tensor, wmerge: torch.Tensor,
+                     wmlp1: torch.Tensor, wmlp2: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight image of one layer from weights [in, out]: wq
+    [C, C], wkv [C, 2C], wmerge [C, C], wmlp1 [2C, 2C] and wmlp2 [2C, C] in
+    that order, each as `kstep_tiles` (its k-steps as [N, 16] K-major tiles,
+    the B operands of wgmma), one flat tensor of 10 C^2 values. wmlp1's first
+    C rows multiply the window, the next C the message."""
+    return torch.cat([kstep_tiles(w) for w in (wq, wkv, wmerge, wmlp1, wmlp2)])
+
+
+def fine_image_unpack(image: torch.Tensor, C: int):
+    """The inverse of `fine_image_plain`: (wq, wkv, wmerge, wmlp1, wmlp2) [in, out]."""
+    shapes = _image_shapes(C)
+    parts = torch.split(image, [k * n for k, n in shapes])
+    return tuple(kstep_untile(p, k, n) for p, (k, n) in zip(parts, shapes, strict=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _fine_image_index(C: int, device) -> torch.Tensor:
+    """For each entry of a layer's image, its index in the flat concatenation
+    of the packed wq, wkv, wmerge, wmlp1 and wmlp2 (`frag_pack`)."""
+    shapes = _image_shapes(C)
+    sizes = [k * n for k, n in shapes]
+    flat = torch.arange(sum(sizes))
+    parts = [frag_unpack(p.reshape(n // 16, k // 16, 32, 8))
+             for p, (k, n) in zip(torch.split(flat, sizes), shapes, strict=True)]
+    return fine_image_plain(*parts).to(device)
+
+
+def fine_image(lv: LayerValues) -> torch.Tensor:
+    """`fine_image_plain` of a layer's packed weights, made on their device by
+    one concatenation and one gather and kept on `lv.wq` while wq, wkv,
+    wmerge, wmlp1 and wmlp2 stay the same tensors at the same versions. The
+    serving forward's layers come from `pack_layers`' cache, so their images
+    are made once; a training or evaluation step packs its layers anew
+    (`fine_transformer_train`), so it makes one image a layer."""
+    ws = (lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2)
+    key = tuple(w._version for w in ws)
+    held = getattr(lv.wq, "_fine_image", None)
+    if held is not None and held[1] == key and all(r() is w for r, w in zip(held[0], ws)):
+        return held[2]
+    C = lv.wq.shape[0] * 16
+    flat = torch.cat([w.reshape(-1) for w in ws])
+    image = flat[_fine_image_index(C, flat.device)]
+    lv.wq._fine_image = (tuple(weakref.ref(w) for w in ws), key, image)
+    return image
 
 
 def fine_stage_reference(w0, w1, layers: Sequence[LayerValues], mix0, mix1,
@@ -159,8 +225,9 @@ def _launch(w0, w1, layers, mix0, mix1, layer_names, nhead, fold_softargmax):
     for weight, bias in (mix0, mix1):
         mixes += [_build.f32(weight.reshape(-1)), _build.f32(bias.reshape(-1))]
         _build.check_cuda(mixes[-2], "mix weight", torch.float32, (N,))
-    ptrs = [t.data_ptr() for lv in layers for t in lv]
-    ptrs += [None] * (9 * MAX_LAYERS - len(ptrs))
+    ptrs = [t.data_ptr() for lv in layers
+            for t in (fine_image(lv), lv.n1s, lv.n1b, lv.n2s, lv.n2b)]
+    ptrs += [None] * (5 * MAX_LAYERS - len(ptrs))
     cross = sum(1 << i for i, n in enumerate(layer_names) if n == "cross")
     f32 = dict(device=w0.device, dtype=torch.float32)
     if fold_softargmax:
@@ -177,3 +244,18 @@ def _launch(w0, w1, layers, mix0, mix1, layer_names, nhead, fold_softargmax):
         B_, N, C // nhead, nl, cross, int(fold_softargmax), sms, _build.stream(),
     )
     return tuple(outs[:2]) if fold_softargmax else tuple(outs)
+
+
+def fine_stage_occupancy(layers: int, nhead: int, pairs: int) -> dict:
+    """The kernel's block on the current card at `layers` layers and C //
+    nhead head dim, as its library reports it: pairs in flight a block,
+    dynamic shared memory (bytes), blocks an SM and the grid for `pairs`
+    window pairs."""
+    info = (ctypes.c_int * 4)()
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    fn = _build._load("fine_stage").fm_fine_stage_occupancy
+    fn.argtypes, fn.restype = _OCC_ARGTYPES, _build.INT
+    err = fn(layers, C_KERNEL // nhead, pairs, sms, info)
+    if err:
+        raise RuntimeError(f"fm_fine_stage_occupancy: CUDA error {err}")
+    return dict(pairs_in_flight=info[0], smem_bytes=info[1], blocks_per_sm=info[2], grid=info[3])

@@ -12,7 +12,11 @@ with the attention branch dropped on every window (dx equal to the f32 dx1
 rounded to bf16, the branch's gradients exactly 0) and with rows that keep
 one key (a one-hot P, rel_bias's gradient on that row below 1e-30), the
 wrappers' refusal of tensors
-the kernels do not take, K9 at a ragged token count for each width it takes
+the kernels do not take, K6 at 1 to 64 taps, head dims 8 and 16, each layer
+order, one window pair and one past a full wave of its persistent grid's
+pair slots, bit-identical twice, its one-layer plain mode (K10's forward) at
+the training step's shapes and a weight changed in place after a forward,
+K9 at a ragged token count for each width it takes
 and through a whole stack, K9's backward at query lengths on its 64-row
 tile's edges (1, 63, 65 and 4801 at 1 and 2 images, bit-identical twice),
 at the training step's cross call within chip_smoke.py's K9_TOL, with g = 0
@@ -73,6 +77,7 @@ from featurematching_tpu_torch.ops.fine_stage import (
     fine_layer_forward,
     fine_layer_reference,
     fine_stage_fused,
+    fine_stage_occupancy,
     fine_stage_reference,
 )
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
@@ -422,11 +427,22 @@ def test_coarse_apply_bit_identical(gen):
     assert torch.equal(first, coarse_layer_fused(x, src, lv, 8))
 
 
-@pytest.mark.parametrize("N", [25, 49])
-@pytest.mark.parametrize("heads,names", [(8, ("self", "cross")), (4, ("cross",))])
-def test_fine_stage_ragged_windows(gen, N, heads, names):
-    """300 window pairs: not a multiple of the persistent grid's 132 blocks."""
-    B_, C = 300, 64
+def _fine_wave(names, heads):
+    """One window pair past a full wave of K6's persistent grid: a pair in
+    every pair slot of every block, and one more."""
+    occ = fine_stage_occupancy(len(names), heads, 1 << 20)
+    return occ["grid"] * occ["pairs_in_flight"] + 1
+
+
+@pytest.mark.parametrize("pairs", [1, 300, "wave+1"])
+@pytest.mark.parametrize("N", [1, 25, 49, 64])
+@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("names", [("self", "cross"), ("cross",), ("cross", "self")])
+def test_fine_stage_ragged_windows(gen, pairs, N, heads, names):
+    """One window pair, 300 (fewer than a wave of the persistent grid's pair
+    slots, not a multiple of its blocks) and one past a full wave; 1 to 64
+    taps; head dims 8 and 16; each layer order; fold and plain mode."""
+    B_, C = (_fine_wave(names, heads) if pairs == "wave+1" else pairs), 64
     layers = [_layer_values(gen, C) for _ in names]
     mixes = [(_rnd(gen, N, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
     w0, w1 = _rnd(gen, B_, N, C, dtype=torch.bfloat16), _rnd(gen, B_, N, C, dtype=torch.bfloat16)
@@ -443,6 +459,66 @@ def test_fine_stage_ragged_windows(gen, N, heads, names):
     for i, (a, r) in enumerate(zip(got, fine_stage_reference(*args), strict=True)):
         assert a.shape == r.shape
         _assert_close(a, r, *((5e-2, 2e-2) if i < 2 else (0.13, 0.05)))
+
+
+@pytest.mark.parametrize("names", [("self", "cross"), ("cross",)])
+def test_fine_stage_bit_identical(gen, names):
+    """K6 sums in a fixed order without atomics: two runs agree bit for bit,
+    in fold and plain mode, at the serving call's 4096 window pairs."""
+    layers = [_layer_values(gen, 64) for _ in names]
+    mixes = [(_rnd(gen, 49, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
+    w0, w1 = (_rnd(gen, 4096, 49, 64, dtype=torch.bfloat16) for _ in range(2))
+    args = (w0, w1, layers, *mixes, names, 8)
+    for fold in (True, False):
+        first = fine_stage_fused(*args, fold_softargmax=fold)
+        again = fine_stage_fused(*args, fold_softargmax=fold)
+        assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_fine_layer_forward_at_the_step_shapes(gen, kind):
+    """K10's forward (K6's kernel in plain mode, one layer, one launch) at the
+    training step's 4096 window pairs of 49 taps and 8 heads, against
+    fine_layer_reference within chip_smoke.py's K10_TOL of each output's norm."""
+    cs = _chip_smoke()
+    lv = _layer_values(gen, 64)
+    w0, w1 = (_rnd(gen, 4096, 49, 64, dtype=torch.bfloat16) for _ in range(2))
+    before = (fine_layer_forward.launches, fine_stage_fused.launches)
+    got = fine_layer_forward(w0, w1, lv, kind, 8)
+    assert (fine_layer_forward.launches, fine_stage_fused.launches) == (before[0] + 1, before[1])
+    ref = fine_layer_reference(w0, w1, lv, kind, 8)
+    for a, r in zip(got, ref, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert cs.norm_err(a, r) <= cs.K10_TOL
+
+
+def test_fine_stage_sees_weights_changed_in_place(gen):
+    """K6's weight image is kept on the packed layer; a weight changed in
+    place after a forward is used by the next one, through the wrapper and
+    through the serving forward's packed-layer cache."""
+    names = ("self", "cross")
+    layers = [_layer_values(gen, 64) for _ in names]
+    mixes = [(_rnd(gen, 49, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
+    w0, w1 = (_rnd(gen, 300, 49, 64, dtype=torch.bfloat16) for _ in range(2))
+    args = (w0, w1, layers, *mixes, names, 8)
+    first = fine_stage_fused(*args, fold_softargmax=True)
+    layers[1].wmlp1.mul_(2)
+    again = fine_stage_fused(*args, fold_softargmax=True)
+    assert not torch.equal(first[0], again[0])
+    for a, r in zip(again, fine_stage_reference(*args, fold_softargmax=True), strict=True):
+        _assert_close(a, r, 5e-2, 0.0)
+    a = torch.rand(1, 64, 64, 3, generator=gen, device="cuda")
+    b = torch.roll(a, shifts=8, dims=2)
+    model = FastMatcher(ModelConfig(), device="cuda", seed=0)
+    model(a, b)
+    with torch.no_grad():
+        model.fine_transformer.layer_1.mlp1.weight.mul_(2)
+    again = model(a, b)
+    fresh = FastMatcher(ModelConfig(), device="cuda", seed=1)
+    fresh.load_state_dict(model.state_dict())
+    ref = fresh(a, b)
+    assert torch.equal(again.fine.mkpts0_f, ref.fine.mkpts0_f)
+    assert torch.equal(again.fine.mkpts1_f, ref.fine.mkpts1_f)
 
 
 def test_forward_sees_new_weights(gen):

@@ -8,11 +8,14 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
 `.`), builds that checkout's kernels and prints:
   - the serving forward (`default_config()`, 640x480, batch 4, bf16): its
     device time by the profiler over one forward after a warm-up, its
-    launches, and the time of K5's kernels in it (stats, merge, apply);
+    launches, and the time of K5's kernels (stats, merge, apply) and of
+    K6's (fine_stage_kernel) in it;
   - the training step (`chip_smoke.training_step`: step time, device time
     of the forward, backward and optimizer, launches);
   - the evaluation step with the per-op block (`chip_smoke.eval_forward`:
-    step time, device time, launches).
+    step time, device time, launches);
+  - the device time of K6's kernel (K10's forward) in the profile of the
+    whole training step and of the whole evaluation step.
 Run it once for each tree in turns (old, new, new, old) in one call on one
 card.
 """
@@ -45,6 +48,22 @@ MODULES = {
     "window_attention": "window_attention", "swin_block_fused_image": "swin_block_image",
 }
 K5_KERNELS = ("stats_kernel", "merge_kernel", "apply_kernel")
+K6_KERNEL = "fine_stage_kernel"
+_profiles = []  # the rows of each chip_smoke.profile_ms call
+_profile_ms = cs.profile_ms
+
+
+def _recording_profile_ms(fn):
+    busy, rows = _profile_ms(fn)
+    _profiles.append(rows)
+    return busy, rows
+
+
+cs.profile_ms = _recording_profile_ms
+
+
+def kernel_ms(rows, name: str) -> float:
+    return sum(ms for ms, _, n in rows if re.search(rf"\b{name}\b", n))
 
 
 def serving_forward() -> None:
@@ -55,10 +74,11 @@ def serving_forward() -> None:
     with torch.no_grad():
         model(img0, img1)  # warm-up: builds and packs
         busy, rows = cs.profile_ms(lambda: model(img0, img1))
-    k5 = {k: sum(ms for ms, _, name in rows if re.search(rf"\b{k}\b", name)) for k in K5_KERNELS}
+    k5 = {k: kernel_ms(rows, k) for k in K5_KERNELS}
     print(f"  serving forward: {busy:.3f} ms of device time, {sum(r[1] for r in rows)} "
           f"launches; K5 {sum(k5.values()):.4f} ms (" + ", ".join(
-              f"{k} {v:.4f}" for k, v in k5.items()) + ")", flush=True)
+              f"{k} {v:.4f}" for k, v in k5.items()) + f"); K6 {kernel_ms(rows, K6_KERNEL):.4f} ms",
+          flush=True)
 
 
 def main() -> None:
@@ -71,7 +91,11 @@ def main() -> None:
                            n) for n in cs.EXPECTED_PER_STEP}
     serving_forward()
     cs.training_step(wrappers, {})
+    print(f"  K6's kernel (K10's forward) in the training step: "
+          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
     cs.eval_forward(wrappers, {})
+    print(f"  K6's kernel (K10's forward) in the evaluation step: "
+          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
 
 
 if __name__ == "__main__":
