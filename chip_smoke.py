@@ -266,18 +266,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def kernel_times(fn):
+def kernel_times(fn, expected=None, tries: int = 3):
     """The device time of each kernel one call of fn() launches, by name,
-    from the profiler: [(ms, launches, name)], largest first."""
+    from the profiler: [(ms, launches, name)], largest first. `expected`
+    maps name fragments to the launches fn() makes of them: a profile that
+    records another count lost events, and is taken again, up to `tries`
+    times, before this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if is_kernel(e)]
-    return sorted(((e.device_time_total / 1e3, e.count, e.key) for e in kern), reverse=True)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if is_kernel(e)]
+        rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in kern), reverse=True)
+        seen = {k: sum(c for _, c, name in rows if k in name) for k in expected or {}}
+        if seen == dict(expected or {}):
+            return rows
+        print(f"  profiler: launches seen {seen}, made {expected}: profiling again", flush=True)
+    raise AssertionError(f"the profiler lost kernel events {tries} times: saw {seen}, "
+                         f"made {expected}")
 
 
 def is_kernel(event) -> bool:
@@ -489,37 +499,65 @@ def layer_values(g, C):
 def check_coarse_transformer(rec: Record, g) -> None:
     from featurematching_tpu_torch.ops.coarse_transformer import (
         coarse_layer_fused,
+        coarse_layer_with_stats,
         coarse_transformer_fused,
         coarse_transformer_reference,
         encoder_reference,
+        launch_stats,
+        stats_errors,
     )
 
     Bp, N, C, h = B, (H // 8) * (W // 8), 256, 8
     atol, rtol = 5e-2, 2e-2  # bf16 intermediates rounded in another order (as K2)
     stack_rel = 5e-2  # eight layers: the per-layer differences add up
     print(f"  tolerance per layer |kernel - plain| <= {atol} + {rtol} |plain|; "
-          f"8-layer stack max |kernel - plain| <= {stack_rel} max |plain|")
+          f"8-layer stack max |kernel - plain| <= {stack_rel} max |plain|; the stats kv and ks "
+          f"alone within `stats_reference_bounds` (one bf16 ulp of the sum, plus S 2^-23 sum "
+          f"|x| for the f32 orders and 2^-6 sqrt(sum x^2) for rounding flips, x = K V or K; "
+          f"at most the layer's)")
     # the forward's sites: 4 self layers on both images (G = 2B), 8 cross launches (G = B)
     for G, kind, count in ((2 * Bp, "self", 4), (Bp, "cross", 8)):
         lv = layer_values(g, C)
         x = rnd(g, G, N, C, dtype=torch.bfloat16)
         src = x if kind == "self" else rnd(g, G, N, C, dtype=torch.bfloat16)
-        got = coarse_layer_fused(x, src, lv, h)
+        got, kv, ks = coarse_layer_with_stats(x, src, lv, h)
         torch.cuda.synchronize()
         err, ok = close(got, encoder_reference(x, src, lv, h), atol, rtol)
         if not ok:
             raise AssertionError(f"coarse layer ({kind}, G={G}): max err {err:.3e}")
+        errs = stats_errors(kv, ks, src, lv, h)
+        print(f"  stats ({kind}, G={G}): " + ", ".join(
+            f"{k} max err {e:.3e}, {past} of {n} entries past their bound (largest {tol:.3e})"
+            for k, (e, past, n, tol) in errs.items()), flush=True)
+        if any(past for _, past, _, _ in errs.values()):
+            raise AssertionError(f"coarse stats ({kind}, G={G}): kv or ks past its bound")
+        # a planted fault: runs of one tile that leave each image's last tile out
+        tiles = -(-N // 64)
+        errs = stats_errors(*launch_stats(src, lv, h, 1, tiles - 1), src, lv, h)
+        print(f"  stats ({kind}, G={G}) with each image's last tile left out (a planted fault): "
+              + ", ".join(f"{k} {past} of {n} entries past" for k, (_, past, n, _) in errs.items()),
+              flush=True)
+        if not all(past for _, past, _, _ in errs.values()):
+            raise AssertionError(f"coarse stats ({kind}, G={G}): the bound misses a tile left out")
         rec.site(
             "coarse_transformer_fused", count,
             cuda_ms(lambda: coarse_layer_fused(x, src, lv, h)),
             cuda_ms(lambda: encoder_reference(x, src, lv, h), iters=3),
             total([coarse_stats_work(G, N, C, h), coarse_apply_work(G, N, C, h)]), err=err,
         )
-        apply_ms = sum(ms for ms, _, name in kernel_times(lambda: coarse_layer_fused(x, src, lv, h))
-                       if "apply_kernel" in name)
+        times = kernel_times(lambda: coarse_layer_fused(x, src, lv, h),
+                             dict.fromkeys(("stats_kernel", "merge_kernel", "apply_kernel"), 1))
+
+        def ms_of(kernel):
+            return sum(ms for ms, _, name in times if kernel in name)
+
         ab, aby = bound_ms(*coarse_apply_work(G, N, C, h))
-        print(f"  apply kernel ({kind}, G={G}): {apply_ms:.4f} ms a call (profiler) against its "
-              f"own bound {ab:.4f} ms ({aby}), x{count} a forward", flush=True)
+        sb, sby = bound_ms(*coarse_stats_work(G, N, C, h))
+        print(f"  apply kernel ({kind}, G={G}): {ms_of('apply_kernel'):.4f} ms a call (profiler) "
+              f"against its own bound {ab:.4f} ms ({aby}), x{count} a forward", flush=True)
+        print(f"  stats kernel ({kind}, G={G}): {ms_of('stats_kernel'):.4f} ms a call (profiler) "
+              f"against its own bound {sb:.4f} ms ({sby}), merge {ms_of('merge_kernel'):.4f} ms, "
+              f"x{count} a forward", flush=True)
     layers = [layer_values(g, C) for _ in range(8)]
     names = ("self", "cross") * 4
     f0, f1 = rnd(g, Bp, N, C, dtype=torch.bfloat16), rnd(g, Bp, N, C, dtype=torch.bfloat16)

@@ -16,8 +16,14 @@
 //   - Only the H diagonal [D, D] blocks of K^T V are ever read, so only they
 //     are formed (the TPU kernel forms [C, C] and masks it): 1/H of the
 //     operations. K^T 1 is K_sum repeated across columns: stored once.
-//   - The stats kernel's weights (wkv, fragment order, tiles.cuh) stream
-//     from L2 with one 16-byte load a lane for each 16x16 tile.
+//   - The stats kernel's products would read all of [wk | wv] (256 KB at C
+//     = 256) from L2 for every 64-token tile, 1.26 GB a serving forward, if
+//     a block took every column. Only a head's own K and V columns meet, so
+//     a stats block owns one head group (128 K features and their 128 V
+//     features) and holds its [C, 256] weights in shared memory for all of
+//     its tiles: they leave L2 once a block. The source tiles stream through
+//     a ring of slots; two warpgroups take alternate tiles, each product on
+//     wgmma, K^T V and K_sum on mma.sync.
 //   - The apply kernel does 80% of the operations (8 C^2 multiply-adds a
 //     token) and reads the layer's 8 C^2 bf16 weights (1 MiB at C = 256)
 //     in every block. Read once a 64-token tile, they would be 5.03 GB of
@@ -37,6 +43,8 @@
 // o * (S / (Z + eps)) in f32, rounded once; each product rounded to bf16
 // before its LayerNorm; the residual add is bf16 + bf16.
 
+#include <cuda.h>
+
 #include "tiles.cuh"
 #include "wgmma.cuh"
 
@@ -44,89 +52,272 @@ namespace {
 
 using fm::bf16;
 
-constexpr int T = 64;  // token rows of a stats tile
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr float kEps = 1e-6f;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
+
+template <int R>
+__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  fm::fence_regs(acc);
+}
+
+// ---- stats: a head group's weights resident, the source tiles streamed ----
+//
+// Work item (image g, head group hg, chunk c): the source tiles [c *
+// per_chunk, (c + 1) * per_chunk) of image g against the group's columns
+// [wk_hg | wv_hg] (N = 256; C / 128 groups). Block (g * chunks + c, hg)
+// takes it (one block an SM: 230 KB of shared memory at C = 256; the
+// wrapper picks per_chunk so that the blocks fill the card once):
+//   - its weights (ops/coarse_transformer.stats_image: the group's [C, 256]
+//     as C / 16 k-step tiles, wgmma.cuh) come by bulk copies of 16 KB, each
+//     completing on its own mbarrier, so the first tile's products start
+//     behind the first piece; they stay for all of the block's tiles;
+//   - the source tiles ([64, C] bf16) flow through a ring of three 32 KB
+//     slots, each filled by one thread with C / 64 tensor copies of [64, 64]
+//     boxes (a tensor map over the [G S, C] source, 128-byte swizzle: the
+//     layout wgmma reads as a swizzled K-major A; rows past the source come
+//     as zeros) completing on the slot's mbarrier (cp.async 16 bytes a
+//     thread into K-major positions took a warpgroup about 1.7k cycles a
+//     tile to start, and slot waits rose to 1.3-2.9k);
+//   - tile k lies in slot k % 3 and belongs to warpgroup k % 2, which, once
+//     done with the slot, fills it with tile k + 3 (the other warpgroup's):
+//     the warpgroups never wait on each other within the item. For a tile,
+//     a warpgroup runs
+//       1. [K | V] = src . W_hg, C / 16 m64n256k16 wgmma (A the slot, B the
+//          resident weights), the accumulators in registers;
+//       2. K = elu + 1, V / S, zero past S, rounded to bf16 into the slot
+//          over the source (a [64, 256] K-major tile, kmajor_index, by
+//          stmatrix);
+//       3. on mma.sync, warp w of the warpgroup takes K features [32 w, 32 w
+//          + 32) of the group: K^T (ldmatrix.trans) times V's strips of the
+//          same heads, and the same K^T fragments times ones for K_sum, in
+//          registers over the warpgroup's tiles.
+// At the end warpgroup 1 hands its sums to warpgroup 0 through its last slot
+// and warpgroup 0 adds them, in that order, and writes the item's partial:
+// part_kv[g][c] = the diagonal blocks [H][D][D] of the group's heads,
+// part_ks[g][c] = K_sum of its K features [C].
+
+constexpr int T = 64;                   // token rows of a stats tile
+constexpr int SG = 128;                 // K features of a head group (and as many of V)
+constexpr int SN = 2 * SG;              // columns of a group's product: [K_hg | V_hg]
+constexpr int kStatsThreads = 256;      // two warpgroups
+constexpr int kStatsSlots = 3;          // source tiles in flight a block
+constexpr int kStatsSlot = T * SN * 2;  // bytes of a slot: a source tile, then its K | V
+constexpr int kPiece = 16384;           // bytes of a weight copy
 
 template <int C>
-struct StatsSmem {
-  static constexpr int LDS = C + 8;       // source rows
-  static constexpr int LDKV = 2 * C + 8;  // K | V rows
-  static constexpr size_t src_off = 0;
-  static constexpr size_t kv_off = src_off + T * LDS * 2;
-  static constexpr size_t bytes = kv_off + T * LDKV * 2;
+struct StatsLayout {
+  static constexpr int KSTEPS = C / 16;
+  static constexpr int PIECES = C * SN * 2 / kPiece;
+  static constexpr int KPP = KSTEPS / PIECES;            // k-steps a piece
+  static constexpr size_t slot_off = (size_t)C * SN * 2;  // after the group's weights
+  static constexpr size_t bar_off = slot_off + (size_t)kStatsSlots * kStatsSlot;
+  // + 1024: the slots' swizzle atoms need 1024-byte aligned addresses
+  static constexpr size_t bytes = bar_off + 8 * (PIECES + kStatsSlots) + 1024;
+  static_assert(bytes <= (size_t)kSmemMax, "shared memory of a stats block");
+  static_assert(T * C * 2 <= kStatsSlot, "a source tile must fit a slot");
 };
 
-// grid (chunks, G): block (c, g) reduces the source tiles
-// [c * per_chunk, (c + 1) * per_chunk) of image g into one partial:
-// part_kv[g][c] = the H diagonal blocks [H][D][D], part_ks[g][c] = K_sum [C]
+// elu(v) + 1 as max(v, 0) + exp(min(v, 0)), exp by ex2.approx (__expf: a
+// few f32 ulp, far below K's bf16 rounding). The stats kernel's K takes
+// it: with `elu1_select`'s expf the kernel needs 255 registers, spills, and
+// runs longer (PERF.md)
+__device__ __forceinline__ float elu1_fast(float v) {
+  return fmaxf(v, 0.f) + __expf(fminf(v, 0.f));
+}
+
+// elu(v) + 1 with both sides computed: no branch a value (expf of a
+// clamped argument, so the result equals fm::elu1's)
+__device__ __forceinline__ float elu1_select(float v) {
+  const float e = expf(fminf(v, 0.f));
+  return v > 0.f ? v + 1.f : e;
+}
+
+// start the copy of the source rows [row, row + 64) into a slot: C / 64
+// boxes of [64 rows, 64 columns], each 8 KB of 128-byte swizzled rows;
+// completes on `bar` (one thread; the slot's earlier reads are ordered
+// before the copy by the caller's barrier and the proxy fence)
+template <int C>
+__device__ __forceinline__ void fill_slot(unsigned char* slot, const CUtensorMap* map, int row,
+                                          uint64_t* bar) {
+  fm::fence_proxy_async();
+  fm::mbar_arrive_expect(bar, T * C * 2);
+#pragma unroll
+  for (int j = 0; j < C / 64; ++j) fm::tma_load_2d(slot + j * T * 128, map, 64 * j, row, bar);
+}
+
 template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-stats_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wkv,
-             float* __restrict__ part_kv, float* __restrict__ part_ks, int S, int per_chunk) {
-  using L = StatsSmem<C>;
-  constexpr int H = C / D, DT = D / 16, UNITS = H * DT * DT;
-  constexpr int UPW = (UNITS + kWarps - 1) / kWarps;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ss = reinterpret_cast<bf16*>(smem + L::src_off);
-  bf16* kvs = reinterpret_cast<bf16*>(smem + L::kv_off);
+__global__ void __launch_bounds__(kStatsThreads, 1)
+stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ image,
+             float* __restrict__ part_kv, float* __restrict__ part_ks, int S, int per_chunk,
+             int chunks) {
+  using L = StatsLayout<C>;
+  constexpr int NS = kStatsSlots;
+  constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 ones
+  static_assert(D == 16 || D == 32, "head dims 16 and 32");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = wbar + L::PIECES;
+  unsigned char* slots = smem + L::slot_off;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = blockIdx.y, chunk = blockIdx.x;
-  const int tiles = (S + T - 1) / T;
-  const int t1 = min(tiles, (chunk + 1) * per_chunk);
+  const int wg = warp / 4, w = warp % 4, wt = threadIdx.x % 128;
+  const int gq = lane / 4, t = lane % 4, m = lane / 8, rr = lane % 8;
+  const int hg = blockIdx.y, img = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
+  const int t0 = chunk * per_chunk;
+  const int n = min((S + T - 1) / T, t0 + per_chunk) - t0;  // the item's tiles, >= 1
+  const int row0 = img * S + t0 * T;  // the item's first source row in [G S, C]
+  // the first tile and the weights by thread 0, the next two tiles by
+  // warpgroup 1's first thread (each copy costs the thread that starts it
+  // about 80 cycles)
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::PIECES; ++i) fm::mbar_init(&wbar[i], 1);
+    for (int i = 0; i < NS; ++i) fm::mbar_init(&full[i], 1);
+    fm::mbar_init_fence();
+    fill_slot<C>(slots, &src, row0, &full[0]);
+    const unsigned char* wimg =
+        reinterpret_cast<const unsigned char*>(image) + (size_t)hg * C * SN * 2;
+    for (int i = 0; i < L::PIECES; ++i) {
+      fm::mbar_arrive_expect(&wbar[i], kPiece);
+      fm::bulk_load(smem + (size_t)i * kPiece, wimg + (size_t)i * kPiece, kPiece, &wbar[i]);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 128)
+    for (int k = 1; k < min(n, NS); ++k)
+      fill_slot<C>(slots + k * kStatsSlot, &src, row0 + k * T, &full[k]);
+
+  const uint32_t wsm = fm::smem_u32(smem);
   const float inv_s = 1.0f / (float)S;
-
-  fm::Acc16 acc[UPW];
+  fm::Acc16 kv[2][2];  // [K strip a][V strip b] of warp w's heads (D = 16: a == b only)
+  float ks[2][4];      // K_sum of K strip a (columns alike)
 #pragma unroll
-  for (int j = 0; j < UPW; ++j) fm::zero(acc[j]);
-  float ksum = 0.f;  // column threadIdx.x of K (threads < C)
-
-  for (int t = chunk * per_chunk; t < t1; ++t) {
-    const int r0 = t * T, valid = min(T, S - r0);
-    fm::copy_rows_to_smem(ss, L::LDS, src + ((size_t)g * S + r0) * C, C, T, C, valid);
-    __syncthreads();
-    // [K | V] = src . [wk | wv]; rows past the source carry no mass
-    fm::gemm_rows64<kWarps, C, 2 * C / 16>(
-        ss, L::LDS, wkv, 0, warp, lane, [&](int r, int c, float v) {
-          float o = 0.f;
-          if (r < valid) o = c < C ? fm::elu1(v) : v * inv_s;
-          kvs[r * L::LDKV + c] = __float2bfloat16(o);
-        });
-    __syncthreads();
-    // K_h^T V_h, 16x16 tiles; A = K^T loaded transposed straight from K
+  for (int a = 0; a < 2; ++a) {
+    fm::zero(kv[a][0]);
+    fm::zero(kv[a][1]);
 #pragma unroll
-    for (int j = 0; j < UPW; ++j) {
-      const int u = warp + j * kWarps;
-      if (u < UNITS) {
-        const int h = u / (DT * DT), i = (u / DT) % DT, jj = u % DT;
-        const bf16* kp = kvs + h * D + i * 16;
-        const bf16* vp = kvs + C + h * D + jj * 16;
+    for (int e = 0; e < 4; ++e) ks[a][e] = 0.f;
+  }
+#pragma unroll 1
+  for (int k = wg; k < n; k += 2) {
+    const int s = k % NS;
+    unsigned char* slot = slots + s * kStatsSlot;
+    const uint32_t ssm = fm::smem_u32(slot);
+    fm::mbar_wait(&full[s], (k / NS) & 1);
+    {
+      float acc[SN / 2];
+      zero_regs(acc);
+      fm::wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < T / 16; ++k) {
-          uint32_t fa[4], fb[4];
-          fm::load_a_trans(fa, kp + k * 16 * L::LDKV, L::LDKV, lane);
-          fm::load_b(fb, vp + k * 16 * L::LDKV, L::LDKV, lane);
-          fm::mma16(acc[j], fa, fb);
+      for (int p = 0; p < L::PIECES; ++p) {
+        fm::mbar_wait(&wbar[p], 0);
+#pragma unroll
+        for (int i = 0; i < L::KPP; ++i) {
+          const int st = p * L::KPP + i;
+          // k-step st of A: box st / 4, 32 bytes a k-step into its rows
+          fm::wgmma_ss_n256(acc, fm::sw128_desc(ssm + (st / 4) * T * 128 + (st % 4) * 32),
+                            fm::kmajor_desc(wsm + st * 32 * SN, 128, 256), 1);
         }
+        fm::wgmma_commit();  // a group a piece: the waits lie between groups
+      }
+      fm::wgmma_wait<0>();
+      fm::fence_regs(acc);
+      fm::named_barrier(1 + wg, 128);  // every warp's product has read the slot
+      // K | V over the source; rows past S carry no mass
+      const int valid = S - (t0 + k) * T;
+      const uint32_t live[2] = {16 * w + gq < valid ? ~0u : 0u, 16 * w + gq + 8 < valid ? ~0u : 0u};
+      // stmatrix: the 8x8 matrices (rows + 8 i, strip j) for i, j + jj < 2;
+      // lane l gives row l % 8 of matrix l / 8
+      bf16* kvt = reinterpret_cast<bf16*>(slot) +
+                  fm::kmajor_index(16 * w + 8 * (m & 1) + rr, 8 * (m >> 1), SN);
+#pragma unroll
+      for (int j = 0; j < SN / 8; j += 2) {
+        uint32_t r[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int jj = j + (q >> 1), i = q & 1;
+          float v0 = acc[4 * jj + 2 * i], v1 = acc[4 * jj + 2 * i + 1];
+          if (jj < SG / 8) {
+            v0 = elu1_fast(v0);
+            v1 = elu1_fast(v1);
+          } else {
+            v0 *= inv_s;
+            v1 *= inv_s;
+          }
+          r[q] = fm::pack_bf16(v0, v1) & live[i];
+        }
+        fm::stsm_x4(kvt + 64 * j, r[0], r[1], r[2], r[3]);  // strip j: + 8 j columns
       }
     }
-    if (threadIdx.x < C)
-      for (int r = 0; r < valid; ++r) ksum += __bfloat162float(kvs[r * L::LDKV + threadIdx.x]);
-    __syncthreads();
-  }
-  const size_t part = (size_t)g * gridDim.x + chunk;
-  float* pk = part_kv + part * C * D;
+    fm::named_barrier(1 + wg, 128);
+    // K^T (A[f][token] = K[token][f]) and V (B[token][f]) by ldmatrix.trans
+    // from the K-major tile, 16 tokens a step
+    const bf16* kvt = reinterpret_cast<const bf16*>(slot);
 #pragma unroll
-  for (int j = 0; j < UPW; ++j) {
-    const int u = warp + j * kWarps;
-    if (u < UNITS) {
-      const int h = u / (DT * DT), i = (u / DT) % DT, jj = u % DT;
-      fm::tile_epilogue(acc[j], i * 16, jj * 16, lane,
-                        [&](int r, int c, float v) { pk[h * D * D + r * D + c] = v; });
+    for (int kk = 0; kk < T / 16; ++kk) {
+      uint32_t fa[2][4], fb[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int f = 16 * (2 * w + a);
+        fm::ldsm_x4_trans(fa[a],
+                          kvt + fm::kmajor_index(16 * kk + rr + 8 * (m >> 1), f + 8 * (m & 1), SN));
+        fm::ldsm_x4_trans(
+            fb[a], kvt + fm::kmajor_index(16 * kk + rr + 8 * (m & 1), SG + f + 8 * (m >> 1), SN));
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          if (D == 32 || a == b) fm::mma16(kv[a][b], fa[a], fb[b]);
+        fm::mma16x8(ks[a], fa[a], kOnes, kOnes);
+      }
+    }
+    fm::named_barrier(1 + wg, 128);  // every warp's reads of the slot are done
+    if (k + NS < n && wt == 0) fill_slot<C>(slot, &src, row0 + (k + NS) * T, &full[s]);
+  }
+
+  // warpgroup 1's sums to warpgroup 0 through warpgroup 1's last slot, which
+  // no tile takes after it (slot 1, never filled, where the item has one
+  // tile); thread wt of each warpgroup holds the same entries
+  float* xch = reinterpret_cast<float*>(slots + (n >= 2 ? ((n - 2) | 1) % NS : 1) * kStatsSlot);
+  if (wg == 1) {
+    int q = 0;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        if (D == 32 || a == b)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) xch[128 * q++ + wt] = kv[a][b].c[e];
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) xch[128 * q++ + wt] = ks[a][e];
     }
   }
-  if (threadIdx.x < C) part_ks[part * C + threadIdx.x] = ksum;
+  __syncthreads();
+  if (wg == 1) return;
+  const size_t part = (size_t)img * chunks + chunk;
+  float* pk = part_kv + part * C * D;
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int f = hg * SG + 16 * (2 * w + a);  // the strip's first K feature
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      if (D == 32 || a == b) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kv[a][b].c[e] += xch[128 * q++ + wt];
+        const int h = f / D;
+        fm::tile_epilogue(kv[a][b], f % D, 16 * (2 * w + b) % D, lane,
+                          [&](int r, int c, float v) { pk[h * D * D + r * D + c] = v; });
+      }
+    const float s0 = ks[a][0] + xch[128 * q++ + wt];
+    const float s1 = ks[a][2] + xch[128 * q++ + wt];
+    if (t == 0) {
+      part_ks[part * C + f + gq] = s0;
+      part_ks[part * C + f + gq + 8] = s1;
+    }
+  }
 }
 
 // kv[g] = bf16(sum over chunks of part_kv[g]) in fragment order (each head's
@@ -184,7 +375,6 @@ constexpr int AR = 128;                   // token rows of an apply block
 constexpr int kApplyThreads = 256;        // two warpgroups
 constexpr int kSlice = 16384;             // bytes of a weight slice (a ring slot)
 constexpr int AHC = 128;                  // FFN hidden columns a chunk
-constexpr int kSmemMax = 232448;          // dynamic shared memory a block may use
 
 template <int C, int D>
 struct ApplyLayout {
@@ -342,20 +532,6 @@ __device__ __forceinline__ void gemm_finish(float (&acc)[R], Ring& ring, int lan
   fm::wgmma_wait<0>();
   ring.handback(0, lane);
   fm::fence_regs(acc);
-}
-
-template <int R>
-__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-  fm::fence_regs(acc);
-}
-
-// elu(v) + 1 with both sides computed: no branch a value (expf of a
-// clamped argument, so the result equals fm::elu1's)
-__device__ __forceinline__ float elu1_select(float v) {
-  const float e = expf(fminf(v, 0.f));
-  return v > 0.f ? v + 1.f : e;
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -699,16 +875,49 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the tensor map of the stats kernel's source rows: [rows, C] bf16 in boxes
+// of [64 rows, 64 columns], 128-byte swizzle, rows past the end read as zeros
+// (cuTensorMapEncodeTiled, found through the runtime's entry-point query:
+// no link to libcuda)
+cudaError_t source_map(CUtensorMap* map, const void* src, int rows, int C) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                  cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)T};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(src),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int C, int D>
-cudaError_t launch_stats(const void* src, const void* wkv, float* part_kv, float* part_ks,
+cudaError_t launch_stats(const void* src, const void* image, float* part_kv, float* part_ks,
                          void* kv, void* ks, int G, int S, int per_chunk, int chunks,
                          cudaStream_t st) {
-  const size_t smem = StatsSmem<C>::bytes;
+  const size_t smem = StatsLayout<C>::bytes;
   cudaError_t e = set_smem(stats_kernel<C, D>, smem);
   if (e != cudaSuccess) return e;
-  stats_kernel<C, D><<<dim3(chunks, G), kThreads, smem, st>>>(
-      static_cast<const bf16*>(src), static_cast<const bf16*>(wkv), part_kv, part_ks, S,
-      per_chunk);
+  CUtensorMap map;
+  e = source_map(&map, src, G * S, C);
+  if (e != cudaSuccess) return e;
+  stats_kernel<C, D><<<dim3(G * chunks, C / SG), kStatsThreads, smem, st>>>(
+      map, static_cast<const bf16*>(image), part_kv, part_ks, S, per_chunk, chunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int n = C * D + C;
@@ -732,6 +941,17 @@ cudaError_t launch_apply(const void* const* p, void* out, int G, int L, int S, c
 }
 
 template <int C, int D>
+cudaError_t stats_occupancy(int* info) {
+  const size_t smem = StatsLayout<C>::bytes;
+  cudaError_t e = set_smem(stats_kernel<C, D>, smem);
+  if (e != cudaSuccess) return e;
+  info[0] = (int)smem;
+  info[1] = C / SG;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], stats_kernel<C, D>,
+                                                       kStatsThreads, smem);
+}
+
+template <int C, int D>
 cudaError_t apply_occupancy(int* info) {
   const size_t smem = ApplyLayout<C, D>::bytes;
   cudaError_t e = set_smem(apply_kernel<C, D>, smem);
@@ -746,18 +966,20 @@ cudaError_t apply_occupancy(int* info) {
 
 FM_ERROR_STRING_ENTRY
 
-// src: [G, S, C] bf16; wkv: [C, 2C] bf16 (wk | wv, [in, out]) in fragment
-// order. Scratch part_kv [G, chunks, C*D] and part_ks [G, chunks, C] f32.
-// Out: kv [G, C/D, D, D] bf16 in fragment order and ks [G, C] bf16.
-// chunks * per_chunk >= ceil(S / 64).
-extern "C" int fm_coarse_stats(const void* src, const void* wkv, void* part_kv, void* part_ks,
+// src: [G, S, C] bf16; image: the layer's stats image
+// (ops/coarse_transformer.stats_image: per head group of 128 K features,
+// [wk_hg | wv_hg] as C / 16 k-step tiles; bf16, 16-byte aligned). Scratch
+// part_kv [G, chunks, C*D] and part_ks [G, chunks, C] f32. Out: kv [G, C/D,
+// D, D] bf16 in fragment order and ks [G, C] bf16. chunks * per_chunk >=
+// ceil(S / 64) > (chunks - 1) * per_chunk.
+extern "C" int fm_coarse_stats(const void* src, const void* image, void* part_kv, void* part_ks,
                                void* kv, void* ks, int G, int S, int C, int D, int per_chunk,
                                int chunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pk = static_cast<float*>(part_kv);
   float* ps = static_cast<float*>(part_ks);
 #define FM_STATS(c, d) \
-  if (C == c && D == d) return (int)launch_stats<c, d>(src, wkv, pk, ps, kv, ks, G, S, per_chunk, chunks, st);
+  if (C == c && D == d) return (int)launch_stats<c, d>(src, image, pk, ps, kv, ks, G, S, per_chunk, chunks, st);
   FM_STATS(128, 16) FM_STATS(128, 32) FM_STATS(256, 16) FM_STATS(256, 32)
 #undef FM_STATS
   return (int)cudaErrorInvalidValue;
@@ -776,6 +998,16 @@ extern "C" int fm_coarse_apply(const void* x, const void* kv, const void* ks, co
   if (C == c && D == d) return (int)launch_apply<c, d>(p, out, G, L, S, st);
   FM_APPLY(128, 16) FM_APPLY(128, 32) FM_APPLY(256, 16) FM_APPLY(256, 32)
 #undef FM_APPLY
+  return (int)cudaErrorInvalidValue;
+}
+
+// info: the stats block's dynamic shared memory in bytes, its head groups
+// (blocks a work item of tiles) and the blocks an SM can hold, at (C, D)
+extern "C" int fm_coarse_stats_occupancy(int C, int D, int* info) {
+#define FM_OCC(c, d) \
+  if (C == c && D == d) return (int)stats_occupancy<c, d>(info);
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+#undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,10 @@
 // device memory into shared memory completed on mbarriers, and the fences
 // between them.
 //
-// Operand layout. Every shared-memory operand is K-major without swizzle,
-// in wgmma's canonical form: 8x8 "core matrices" of 8 rows (M or N) by 8 k
-// values (16 bytes), each stored as 128 contiguous bytes, row after row. A
+// Operand layout. Every shared-memory operand is K-major, without swizzle
+// unless a tensor copy writes it (`sw128_desc`), in wgmma's canonical form:
+// 8x8 "core matrices" of 8 rows (M or N) by 8 k values (16 bytes), each
+// stored as 128 contiguous bytes, row after row. A
 // tile of R rows and K columns keeps its core matrices in row-group order,
 // then k-group order (`kmajor_index`): the two core matrices of a 16-deep
 // k-step lie 128 bytes apart and consecutive 8-row groups K * 16 bytes apart.
@@ -115,6 +116,39 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// descriptor of a K-major operand tile laid out with the 128-byte swizzle
+// (as a tensor copy with CU_TENSOR_MAP_SWIZZLE_128B writes it): rows of 64
+// bf16 (128 bytes) in 1024-byte atoms of 8 rows, the 16-byte chunks of row r
+// at chunk position c ^ (r % 8); `addr` is the atom's start (1024-byte
+// aligned) plus 32 bytes for each k-step into the row
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(1024 >> 4) << 32 |
+         1ull << 62;
+}
+
+// copy the box at (c0, c1) (innermost coordinate first) of a 2-D tensor map
+// from device memory into shared memory by the tensor-copy engine;
+// completes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// store four 8x8 bf16 matrices to shared memory: register i holds this
+// lane's pair (row lane / 4, columns 2 (lane % 4), + 1) of matrix i, and
+// lane l gives the address of row l % 8 of matrix l / 8 (16 bytes)
+__device__ __forceinline__ void stsm_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // One warp's hand-back of a ring slot, called by every lane. Where `go`

@@ -11,11 +11,12 @@ encoder layer (models/transformer.EncoderLayer) is
           x·wmlp1[:C] + msg·wmlp1[C:], ReLU, ·wmlp2, LN2, residual.
 
 On a CUDA tensor `coarse_transformer_fused` launches `csrc/coarse_transformer.cu`
-for every layer (stats over token tiles with per-tile partials, a merge in a
-fixed order, then apply over pairs of 64-token row tiles on wgmma, the
-weights streamed once a pair from the layer's `apply_image`; bf16 tensor
-cores, bound by tensor-core operations); on a CPU tensor it runs
-`coarse_transformer_reference`.
+for every layer (stats over runs of 64-token tiles on wgmma, a block a head
+group with the group's columns of the layer's `stats_image` held in shared
+memory, with per-run partials and a merge in a fixed order; then apply over
+pairs of 64-token row tiles on wgmma, the weights streamed once a pair from
+the layer's `apply_image`; bf16 tensor cores, bound by tensor-core
+operations); on a CPU tensor it runs `coarse_transformer_reference`.
 
 Both follow the TPU kernel's rounding points, which differ from the flax
 stack's in bf16 only: K and V/S are rounded after the f32 product and its
@@ -40,6 +41,7 @@ from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 EPS = 1e-6
 ROW_TILE = 64  # token rows of one stats tile and of one apply warpgroup's tile
 APPLY_HIDDEN_CHUNK = 128  # FFN hidden columns the apply kernel takes at a time
+STATS_GROUP = 128  # K features of a stats block's head group (and as many V features)
 WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))  # (C, head dim) the kernel takes
 _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
 _APPLY_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR]
@@ -117,8 +119,8 @@ def pack_layer(layer, dtype: torch.dtype) -> LayerValues:
 
 
 def kstep_tiles(w: torch.Tensor) -> torch.Tensor:
-    """A weight [..., K, N] ([in, out]) as the apply kernel's shared-memory
-    image of a B operand (csrc/wgmma.cuh): K / 16 k-steps, each [N, 16]
+    """A weight [..., K, N] ([in, out]) as the apply and stats kernels'
+    shared-memory image of a B operand (csrc/wgmma.cuh): K / 16 k-steps, each [N, 16]
     K-major in 8x8 core matrices of 128 contiguous bytes, (n // 8, k // 8)
     in row-major order. [..., K * N], flat per leading index."""
     *lead, K, N = w.shape
@@ -192,6 +194,65 @@ def apply_image(lv: LayerValues) -> torch.Tensor:
     return image
 
 
+def stats_image_plain(wkv: torch.Tensor) -> torch.Tensor:
+    """The stats kernel's weight image of one layer from wkv [C, 2C] ([in,
+    out], wk | wv): for each head group hg of STATS_GROUP K features, the
+    columns [wk[:, group] | wv[:, group]] ([C, 2 STATS_GROUP]) as
+    `kstep_tiles`, the groups in order: 2 C^2 values, flat."""
+    C = wkv.shape[0]
+    groups = C // STATS_GROUP
+    wk = wkv[:, :C].reshape(C, groups, STATS_GROUP)
+    wv = wkv[:, C:].reshape(C, groups, STATS_GROUP)
+    return kstep_tiles(torch.cat([wk, wv], dim=2).transpose(0, 1)).reshape(-1)
+
+
+def stats_image_unpack(image: torch.Tensor, C: int) -> torch.Tensor:
+    """The inverse of `stats_image_plain`: wkv [C, 2C]."""
+    groups = C // STATS_GROUP
+    w = kstep_untile(image.reshape(groups, 2 * C * STATS_GROUP), C, 2 * STATS_GROUP)
+    wk = w[..., :STATS_GROUP].transpose(0, 1).reshape(C, C)
+    wv = w[..., STATS_GROUP:].transpose(0, 1).reshape(C, C)
+    return torch.cat([wk, wv], dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_index(C: int, device) -> torch.Tensor:
+    """For each entry of a layer's stats image, its index in the packed wkv
+    (`frag_pack`)."""
+    flat = torch.arange(2 * C * C)
+    return stats_image_plain(frag_unpack(flat.reshape(2 * C // 16, C // 16, 32, 8))).to(device)
+
+
+def stats_image(lv: LayerValues) -> torch.Tensor:
+    """`stats_image_plain` of a layer's packed wkv, made on its device by one
+    gather and kept on `lv.wkv` while wkv stays at the same version (as
+    `apply_image`). The serving forward's layers come from `pack_layers`'
+    cache, so their images are made once; a training step packs its layers
+    anew, so it makes one image a layer."""
+    held = getattr(lv.wkv, "_stats_image", None)
+    if held is not None and held[0] == lv.wkv._version:
+        return held[1]
+    C = lv.wkv.shape[1] * 16
+    image = lv.wkv.reshape(-1)[_stats_index(C, lv.wkv.device)]
+    lv.wkv._stats_image = (lv.wkv._version, image)
+    return image
+
+
+def stats_plan(G: int, S: int, C: int, sms: int) -> Tuple[int, int]:
+    """(per_chunk, chunks) of the stats kernel over G images of S source
+    tokens: each image's ceil(S / 64) tiles in `chunks` runs of `per_chunk`
+    (the last may be shorter), a block a run and head group. The shortest
+    runs whose blocks (G * chunks * C / STATS_GROUP) fit the card's `sms`
+    at one block an SM, or a run an image where G alone fills the card."""
+    tiles = -(-S // ROW_TILE)
+    groups = C // STATS_GROUP
+    per = -(-tiles * G * groups // sms)
+    while per < tiles and G * groups * -(-tiles // per) > sms:
+        per += 1
+    per = min(per, tiles)
+    return per, -(-tiles // per)
+
+
 def pack_layers(tf, dtype: torch.dtype) -> Tuple[LayerValues, ...]:
     """`pack_layer` of every layer of a `LocalFeatureTransformer`, cached on
     it for the serving forward. The cache is keyed on each parameter's
@@ -248,19 +309,81 @@ def unpack_heads(kv: torch.Tensor, nhead: int) -> torch.Tensor:
     return tiles.permute(0, 1, 3, 4, 2, 5).reshape(G, nhead, D, D)
 
 
+def _stats_terms(src: torch.Tensor, lv: LayerValues):
+    """K = elu(src wk) + 1 and V = src wv / S of the stats step, each rounded
+    to src's dtype after the f32 product (the TPU kernel's rounding points)."""
+    C, S, dt = src.shape[2], src.shape[1], src.dtype
+    p = src.float() @ frag_unpack(lv.wkv).float()
+    return _elu1(p[..., :C]).to(dt), (p[..., C:] * (1.0 / S)).to(dt)
+
+
 def stats_reference(src: torch.Tensor, lv: LayerValues, nhead: int):
     """The stats step with the TPU kernel's rounding points. src: [G, S, C].
     Returns (kv, ks) in src's dtype: each head's K^T V (V pre-scaled by 1/S)
     [G, H, D, D] and K_sum [G, C]."""
     G, S, C = src.shape
     D = C // nhead
-    dt = src.dtype
-    kv = src.float() @ frag_unpack(lv.wkv).float()
-    K = _elu1(kv[..., :C]).to(dt)
-    V = (kv[..., C:] * (1.0 / S)).to(dt)
+    K, V = _stats_terms(src, lv)
     KV = torch.einsum("gshd,gshv->ghdv", K.float().view(G, S, nhead, D),
-                      V.float().view(G, S, nhead, D)).to(dt)
-    return KV, K.float().sum(dim=1).to(dt)
+                      V.float().view(G, S, nhead, D)).to(src.dtype)
+    return KV, K.float().sum(dim=1).to(src.dtype)
+
+
+def _bf16_ulp(m: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at magnitude m >= 0 (2^(floor(log2 m) - 7)); 0 at 0."""
+    _, e = torch.frexp(m)
+    return torch.where(m > 0, torch.ldexp(torch.ones_like(m), e - 8), torch.zeros_like(m))
+
+
+def stats_reference_bounds(src: torch.Tensor, lv: LayerValues, nhead: int):
+    """`stats_reference`'s (kv, ks) as the stats kernel writes them (kv as
+    `pack_heads`), in float32, with the bound each entry of the kernel's must
+    keep to. Returns (kv, ks, kv_tol, ks_tol).
+
+    An entry is a sum over the S tokens of terms x (K V for kv, K for ks)
+    that the kernel and the plain stats both form from bf16 K and V and sum
+    in f32, each in its own order, then round to bf16 once. Their f32 sums
+    differ by at most
+      d = S 2^-23 sum |x|: two f32 orders of S terms, each at most S 2^-24
+          sum |x| from the exact sum; plus
+          2^-6 sqrt(sum x^2): the flips, where the kernel's f32 product
+          lands on the other side of a bf16 rounding boundary of K or V than
+          the plain one and moves its term by up to 2^-7 of it a factor. The
+          two products differ in their last f32 bits only, so flips are few;
+          the term covers one term flipped in both factors, or, with every
+          sign alike, up to sqrt(S) flips of terms of average size.
+    Both f32 sums lie below M = (1 + 2^-7) |ref| + d, so the two roundings
+    add at most one bf16 ulp at M: tol = ulp(M) + d, never looser than the
+    layer's 5e-2 + 2e-2 |ref|. At the serving shapes one 64-token tile left
+    out moves kv and ks by several times their tol."""
+    G, S, C = src.shape
+    D = C // nhead
+    kv, ks = stats_reference(src, lv, nhead)
+    K, V = (t.float() for t in _stats_terms(src, lv))
+    Kh, Vh = K.view(G, S, nhead, D), V.view(G, S, nhead, D)
+    kv_abs = pack_heads(torch.einsum("gshd,gshv->ghdv", Kh, Vh.abs()))  # K > 0
+    kv_sq = pack_heads(torch.einsum("gshd,gshv->ghdv", Kh.square(), Vh.square()))
+    kv, ks = pack_heads(kv).float(), ks.float()
+
+    def tol(ref, total, squares):
+        d = S * 2.0 ** -23 * total + 2.0 ** -6 * squares.sqrt()
+        bound = _bf16_ulp((1 + 2.0 ** -7) * ref.abs() + d) + d
+        return torch.minimum(bound, 5e-2 + 2e-2 * ref.abs())
+
+    return kv, ks, tol(kv, kv_abs, kv_sq), tol(ks, K.sum(dim=1), K.square().sum(dim=1))
+
+
+def stats_errors(kv: torch.Tensor, ks: torch.Tensor, src: torch.Tensor, lv: LayerValues,
+                 nhead: int):
+    """The stats kernel's kv and ks (as `launch_stats` returns them) against
+    the plain stats over src: {"kv": (max error, entries past
+    `stats_reference_bounds`, entries, largest bound), "ks": (...)}."""
+    ref_kv, ref_ks, kv_tol, ks_tol = stats_reference_bounds(src, lv, nhead)
+    out = {}
+    for name, got, ref, tol in (("kv", kv, ref_kv, kv_tol), ("ks", ks, ref_ks, ks_tol)):
+        err = (got.float() - ref).abs()
+        out[name] = (float(err.max()), int((err > tol).sum()), err.numel(), float(tol.max()))
+    return out
 
 
 def apply_reference(x: torch.Tensor, kv: torch.Tensor, ks: torch.Tensor, S: int,
@@ -354,6 +477,28 @@ def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int
     check_layer_values(lv, C)
 
 
+def launch_stats(src: torch.Tensor, lv: LayerValues, nhead: int, per_chunk: int,
+                 chunks: int):
+    """The stats kernel and its merge over src [G, S, C] bf16 on the card,
+    each image's ceil(S / 64) tiles in `chunks` runs of `per_chunk` (as
+    `stats_plan` gives them to `coarse_layer_with_stats`). Returns (kv, ks)
+    as that function does. Runs that do not cover an image's tiles leave
+    the last ones out of the sums: the tests plant that fault."""
+    G, S, C = src.shape
+    D = C // nhead
+    f32 = dict(device=src.device, dtype=torch.float32)
+    part_kv = torch.empty(G, chunks, C * D, **f32)
+    part_ks = torch.empty(G, chunks, C, **f32)
+    kv = torch.empty(G, C * D, device=src.device, dtype=torch.bfloat16)
+    ks = torch.empty(G, C, device=src.device, dtype=torch.bfloat16)
+    _build.launch(
+        "coarse_transformer", "fm_coarse_stats", _STATS_ARGTYPES,
+        src.data_ptr(), stats_image(lv).data_ptr(), part_kv.data_ptr(), part_ks.data_ptr(),
+        kv.data_ptr(), ks.data_ptr(), G, S, C, D, per_chunk, chunks, _build.stream(),
+    )
+    return kv, ks
+
+
 def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
                             nhead: int):
     """One encoder layer on the card: the stats kernel over src (with its
@@ -364,29 +509,15 @@ def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
     G, L, C = x.shape
     S = src.shape[1]
     D = C // nhead
-    tiles = -(-S // ROW_TILE)
-    # about two stats blocks an SM: each block reduces `per_chunk` tiles
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_chunk = -(-tiles * G // (2 * sms))
-    chunks = -(-tiles // per_chunk)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    part_kv = torch.empty(G, chunks, C * D, **f32)
-    part_ks = torch.empty(G, chunks, C, **f32)
-    kv = torch.empty(G, C * D, device=x.device, dtype=torch.bfloat16)
-    ks = torch.empty(G, C, device=x.device, dtype=torch.bfloat16)
-    st = _build.stream()
-    _build.launch(
-        "coarse_transformer", "fm_coarse_stats", _STATS_ARGTYPES,
-        src.data_ptr(), lv.wkv.data_ptr(), part_kv.data_ptr(), part_ks.data_ptr(),
-        kv.data_ptr(), ks.data_ptr(), G, S, C, D, per_chunk, chunks, st,
-    )
+    kv, ks = launch_stats(src, lv, nhead, *stats_plan(G, S, C, sms))
     image = apply_image(lv)
     out = torch.empty_like(x)
     _build.launch(
         "coarse_transformer", "fm_coarse_apply", _APPLY_ARGTYPES,
         x.data_ptr(), kv.data_ptr(), ks.data_ptr(), image.data_ptr(), lv.n1s.data_ptr(),
         lv.n1b.data_ptr(), lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D,
-        st,
+        _build.stream(),
     )
     return out, kv, ks
 

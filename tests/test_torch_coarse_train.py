@@ -28,7 +28,12 @@ from featurematching_tpu.ops.pallas_coarse_transformer import _layer_stats
 from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer_values
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
-from featurematching_tpu_torch.ops.coarse_transformer import pack_heads, pack_layer
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    pack_heads,
+    pack_layer,
+    stats_image,
+    stats_image_unpack,
+)
 from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
 
 
@@ -238,3 +243,20 @@ def test_forward_sees_weights_the_optimizer_wrote(rng):
     assert not torch.equal(got[0], o0)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def test_stats_image_sees_weights_the_optimizer_wrote(rng):
+    """The fused AdamW step writes the parameters without bumping their
+    version counters. The forward packs its layers anew each call
+    (`coarse_transformer_train`), so the stats kernel's weight image made
+    from them holds the new wk and wv."""
+    _, _, port, f0, f1 = _make(rng, 1, 64, 128, 8, ("self", "cross"))
+    o0, o1 = port(_t(f0), _t(f1))
+    (o0.square().sum() + o1.square().sum()).backward()
+    before = stats_image(pack_layer(port.layer_0, torch.float32))
+    torch.optim.AdamW(port.parameters(), lr=0.1, fused=True).step()
+    after = stats_image(pack_layer(port.layer_0, torch.float32))
+    layer = port.layer_0
+    wkv = torch.cat([layer.k_proj.weight.detach().t(), layer.v_proj.weight.detach().t()], dim=1)
+    assert not torch.equal(after, before)
+    assert torch.equal(stats_image_unpack(after, 128), wkv)

@@ -23,10 +23,14 @@ from featurematching_tpu.ops.pallas_coarse_transformer import (
 from featurematching_tpu.ops.pallas_coarse_transformer import (
     coarse_transformer_supported as jax_coarse_transformer_supported,
 )
+from featurematching_tpu.ops.pallas_coarse_transformer import _layer_stats
 from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer_values
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops.coarse_transformer import (
     APPLY_HIDDEN_CHUNK,
+    ROW_TILE,
+    STATS_GROUP,
+    _stats_terms,
     apply_image,
     apply_image_plain,
     apply_image_unpack,
@@ -36,8 +40,14 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     frag_pack,
     frag_unpack,
     layer_values,
+    pack_heads,
     pack_layer,
     pack_layers,
+    stats_image,
+    stats_image_plain,
+    stats_image_unpack,
+    stats_plan,
+    stats_reference_bounds,
 )
 from featurematching_tpu_torch.utils.weights import load_jax_params
 
@@ -178,6 +188,151 @@ def test_pack_layers_sees_new_weights(rng):
     np.testing.assert_array_equal(frag_unpack(second[1].wq).numpy(),
                                   2.0 * np.asarray(params["layer_1"]["q_proj"]["kernel"]))
     assert pack_layers(port, torch.bfloat16)[0].wq.dtype == torch.bfloat16
+
+
+def _wkv(C):
+    """wkv [C, 2C] holding distinct values."""
+    return torch.arange(2 * C * C, dtype=torch.float64).reshape(C, 2 * C)
+
+
+@pytest.mark.parametrize("C", [128, 256])
+def test_stats_image_round_trip(C):
+    """The stats kernel's weight image holds each of wkv's 2 C^2 values once
+    and unpacks to wkv; made from the packed LayerValues by one gather, it
+    equals the plain image and is kept while wkv stays the same tensor at
+    the same version."""
+    wkv = _wkv(C)
+    image = stats_image_plain(wkv)
+    assert image.shape == (2 * C * C,)
+    assert torch.equal(torch.sort(image).values, torch.arange(2.0 * C * C, dtype=torch.float64))
+    assert torch.equal(stats_image_unpack(image, C), wkv)
+    ws = _layer_weights(C)
+    ones, zeros = torch.ones(C), torch.zeros(C)
+    lv = layer_values(ws[0], wkv, ws[1], ones, zeros, ws[2], ws[3], ones, zeros)
+    got = stats_image(lv)
+    assert torch.equal(got, image)
+    assert stats_image(lv) is got
+    lv2 = lv._replace(wkv=frag_pack(2 * wkv))
+    assert torch.equal(stats_image_unpack(stats_image(lv2), C), 2 * wkv)
+    lv.wkv.mul_(3)  # an in-place change of wkv is seen
+    assert torch.equal(stats_image_unpack(stats_image(lv), C), 3 * wkv)
+
+
+@pytest.mark.parametrize("C", [128, 256])
+def test_stats_image_layout(C):
+    """Entries at the offsets the stats kernel reads them from: head group
+    hg (STATS_GROUP K features) holds 2 C STATS_GROUP values, the columns
+    wk[:, group] then wv[:, group] of a [C, 2 STATS_GROUP] product, each
+    k-step [N, 16] K-major in 8x8 core matrices, (n // 8, k // 8) row-major
+    (csrc/wgmma.cuh)."""
+    wkv = _wkv(C)
+    image = stats_image_plain(wkv)
+    sg, N = STATS_GROUP, 2 * STATS_GROUP
+
+    def at(k, n):  # offset of B[k, n] in the k-step tiles of a [C, N] operand
+        kk = k % 16
+        return (k // 16) * 16 * N + ((n // 8) * 2 + kk // 8) * 64 + (n % 8) * 8 + kk % 8
+
+    for hg in range(C // sg):
+        base = hg * C * N
+        for k, n in ((0, 0), (9, 3), (C - 1, sg - 1), (17, 77)):
+            assert image[base + at(k, n)] == wkv[k, hg * sg + n]  # a K column
+            assert image[base + at(k, sg + n)] == wkv[k, C + hg * sg + n]  # its V column
+
+
+def test_stats_image_sees_new_weights(rng):
+    """A layer of `pack_layers`' cache keeps its stats image; weights loaded
+    in place give new packed layers and so a new image."""
+    _, params, port, _, _ = _make(rng, 1, 16, 128, 8, ("self", "cross"))
+    image = stats_image(pack_layers(port, torch.float32)[1])
+    assert stats_image(pack_layers(port, torch.float32)[1]) is image
+    new = jax.tree_util.tree_map(lambda a: np.asarray(a) * 2.0, params)
+    load_jax_params(port, new)
+    got = stats_image_unpack(stats_image(pack_layers(port, torch.float32)[1]), 128)
+    want = np.concatenate([new["layer_1"]["k_proj"]["kernel"], new["layer_1"]["v_proj"]["kernel"]],
+                          axis=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("G,S,C", [(8, 4800, 256), (4, 4800, 256), (8, 4800, 128),
+                                   (200, 64, 256), (1, 4837, 256), (3, 1, 128)])
+def test_stats_plan(G, S, C):
+    """The stats grid: every tile of an image in exactly one run, no run
+    empty, and one block a run and head group filling 132 SMs at most once
+    unless the images alone need more (a run an image then)."""
+    sms = 132
+    per, chunks = stats_plan(G, S, C, sms)
+    tiles = -(-S // ROW_TILE)
+    assert (chunks - 1) * per < tiles <= chunks * per
+    blocks = G * chunks * (C // STATS_GROUP)
+    assert blocks <= sms or per == tiles
+    if per > 1:  # shorter runs would not fit the card at once
+        assert G * (C // STATS_GROUP) * -(-tiles // (per - 1)) > sms
+
+
+@pytest.mark.parametrize("C,nhead", [(128, 4), (256, 8)])
+def test_stats_bounds_hold_the_tpu_kernels_stats(rng, C, nhead):
+    """`stats_reference_bounds`, the card tests' tolerance for the stats
+    kernel, holds the TPU kernel's own stats (`_layer_stats` in interpret
+    mode on bf16 operands: another f32 summation order, rounded here once
+    as the merge rounds) against the port's plain stats, and is never
+    looser than the layer's 5e-2 + 2e-2 |x|."""
+    G, S, D = 2, 96, C // nhead
+    _, params, port, _, _ = _make(rng, 1, 16, C, nhead, ("self",))
+    jsrc = jnp.asarray(rng.standard_normal((G, S, C)).astype(np.float32)).astype(jnp.bfloat16)
+    kv, ko = _layer_stats(jsrc, jax_layer_values(params["layer_0"], jnp.bfloat16)[1], 32, True)
+    lv = pack_layer(port.layer_0, torch.bfloat16)
+    ref_kv, ref_ks, kv_tol, ks_tol = stats_reference_bounds(
+        _t(np.asarray(jsrc.astype(jnp.float32))).bfloat16(), lv, nhead)
+    m = np.asarray(kv, np.float32).reshape(G, nhead, D, nhead, D)
+    blocks = np.stack([m[:, h, :, h] for h in range(nhead)], axis=1)
+    got_kv = pack_heads(_t(blocks).bfloat16()).float()
+    got_ks = _t(np.asarray(ko, np.float32)[:, :, 0]).bfloat16().float()
+    assert ((got_kv - ref_kv).abs() <= kv_tol).all()
+    assert ((got_ks - ref_ks).abs() <= ks_tol).all()
+    assert (kv_tol <= 5e-2 + 2e-2 * ref_kv.abs()).all()
+    assert (ks_tol <= 5e-2 + 2e-2 * ref_ks.abs()).all()
+
+
+@pytest.mark.parametrize("left_out", [False, True])
+def test_stats_bounds_catch_a_tile_left_out(rng, left_out):
+    """At the serving forward's self call [8, 4800, 256] (chip_smoke.py's
+    weights: N(0, 1 / fan-in)), the plain stats summed in another f32 order
+    (64-token tiles, the tiles in reverse) keep to `stats_reference_bounds`,
+    and the same sums with one tile of one image left out (the fault a run
+    or plan off by one tile would make) break it at many entries of that
+    image, kv and ks alike."""
+    G, S, C, nhead = 8, 4800, 256, 8
+    D = C // nhead
+    g = torch.Generator().manual_seed(0)
+
+    def w(i, o):
+        return (torch.randn(i, o, generator=g) * i**-0.5).bfloat16()
+
+    ones, zeros = torch.ones(C), torch.zeros(C)
+    lv = layer_values(w(C, C), w(C, 2 * C), w(C, C), ones, zeros, w(2 * C, 2 * C), w(2 * C, C),
+                      ones, zeros)
+    src = _t(rng.standard_normal((G, S, C)).astype(np.float32)).bfloat16()
+    ref_kv, ref_ks, kv_tol, ks_tol = stats_reference_bounds(src, lv, nhead)
+    K, V = (t.float() for t in _stats_terms(src, lv))
+    if left_out:  # tile 10 of image 3
+        keep = torch.ones(G, S, 1)
+        keep[3, 640:704] = 0
+        K, V = K * keep, V * keep
+    kv = torch.zeros(G, nhead, D, D)
+    ks = torch.zeros(G, C)
+    for t0 in reversed(range(0, S, ROW_TILE)):
+        Kt, Vt = K[:, t0:t0 + ROW_TILE], V[:, t0:t0 + ROW_TILE]
+        kv += torch.einsum("gshd,gshv->ghdv", Kt.view(G, -1, nhead, D), Vt.view(G, -1, nhead, D))
+        ks += Kt.sum(dim=1)
+    kv_past = (pack_heads(kv.bfloat16()).float() - ref_kv).abs() > kv_tol
+    ks_past = (ks.bfloat16().float() - ref_ks).abs() > ks_tol
+    if not left_out:
+        assert not kv_past.any() and not ks_past.any()
+    else:
+        others = [i for i in range(G) if i != 3]
+        assert not kv_past[others].any() and not ks_past[others].any()
+        assert kv_past[3].float().mean() > 0.5 and ks_past[3].float().mean() > 0.9
 
 
 @pytest.mark.parametrize(

@@ -36,7 +36,11 @@ tiles, chunks of column tiles and batch; K5's apply kernel at row counts
 around its 64-row tiles and 128-row blocks at each width it takes, one
 block past a full wave of the card, over an odd number of tiles and
 bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
-(`ring_product`). They import neither
+(`ring_product`); K5's stats kernel alone (kv and ks within
+`stats_reference_bounds`) at source counts around its 64-row tile at each
+width, with more blocks than the card holds at once, bit-identical twice
+at the serving shapes, and a planted fault there (a tile left out) past
+that bound. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -56,13 +60,18 @@ from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
 from featurematching_tpu_torch.ops import fine_transformer_train as ftt
 from featurematching_tpu_torch.ops.coarse_transformer import (
+    STATS_GROUP,
     WIDTHS,
     coarse_layer_fused,
+    coarse_layer_with_stats,
     coarse_transformer_fused,
     encoder_reference,
     encoder_reference_with_stats,
     layer_values,
+    launch_stats,
     ring_product,
+    stats_errors,
+    stats_plan,
 )
 from featurematching_tpu_torch.ops.dual_softmax import (
     _lse_reference,
@@ -425,6 +434,70 @@ def test_coarse_apply_bit_identical(gen):
     src = _rnd(gen, 4, 4800, 256, dtype=torch.bfloat16)
     first = coarse_layer_fused(x, src, lv, 8)
     assert torch.equal(first, coarse_layer_fused(x, src, lv, 8))
+
+
+def _stats_held(x, src, lv, heads):
+    """`coarse_layer_with_stats` with its kv and ks held alone against the
+    plain stats within `stats_reference_bounds` (one bf16 ulp of the merged
+    sum, plus S 2^-23 sum |x| for the f32 summation orders and 2^-6 sqrt(sum
+    x^2) for K's and V's rounding flips, x = K V or K; never looser than the
+    layer's 5e-2 + 2e-2 |x|). Returns (out, kv, ks)."""
+    out, kv, ks = coarse_layer_with_stats(x, src, lv, heads)
+    torch.cuda.synchronize()
+    for name, (err, past, _, _) in stats_errors(kv, ks, src, lv, heads).items():
+        assert not past, f"{name}: max err {err:.3e} at {past} entries past the bound"
+    return out, kv, ks
+
+
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1000, 4837])
+@pytest.mark.parametrize("G", [1, 3])
+def test_coarse_stats_ragged_sources(gen, C, heads, S, G):
+    """The stats kernel alone at every width it takes: source counts on the
+    edges of its 64-row tile, runs of one to several tiles a warpgroup,
+    and one or three images."""
+    lv = _layer_values(gen, C)
+    src = _rnd(gen, G, S, C, dtype=torch.bfloat16)
+    _stats_held(_rnd(gen, G, 5, C, dtype=torch.bfloat16), src, lv, heads)
+
+
+@pytest.mark.parametrize("G,S,C,heads", [(200, 64, 256, 8), (150, 130, 128, 4)])
+def test_coarse_stats_more_blocks_than_the_card_holds(gen, G, S, C, heads):
+    """More work items (a run of tiles and a head group, a block each) than
+    the card's SMs hold at one block an SM: the blocks run in rounds."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per, chunks = stats_plan(G, S, C, sms)
+    assert G * chunks * (C // STATS_GROUP) > sms
+    lv = _layer_values(gen, C)
+    src = _rnd(gen, G, S, C, dtype=torch.bfloat16)
+    _stats_held(src, src, lv, heads)
+
+
+@pytest.mark.parametrize("G", [8, 4])
+def test_coarse_stats_bit_identical(gen, G):
+    """The serving forward's self (G = 8) and cross (G = 4) shapes: kv, ks
+    and the layer's output agree bit for bit across two runs (the stats
+    sum in a fixed order, without atomics)."""
+    lv = _layer_values(gen, 256)
+    x = _rnd(gen, G, 4800, 256, dtype=torch.bfloat16)
+    src = _rnd(gen, G, 4800, 256, dtype=torch.bfloat16)
+    first = _stats_held(x, src, lv, 8)
+    again = coarse_layer_with_stats(x, src, lv, 8)
+    for a, b in zip(first, again, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("G", [8, 4])
+def test_coarse_stats_bound_sees_a_tile_left_out(gen, G):
+    """A planted fault at the serving shapes: runs of one tile that leave
+    each image's last 64-token tile out of the sums come out past
+    `stats_reference_bounds` at many entries of kv and of ks."""
+    lv = _layer_values(gen, 256)
+    src = _rnd(gen, G, 4800, 256, dtype=torch.bfloat16)
+    kv, ks = launch_stats(src, lv, 8, 1, 4800 // 64 - 1)
+    torch.cuda.synchronize()
+    errs = stats_errors(kv, ks, src, lv, 8)
+    assert errs["kv"][1] > errs["kv"][2] // 4 and errs["ks"][1] > errs["ks"][2] // 2, errs
 
 
 def _fine_wave(names, heads):

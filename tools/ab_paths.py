@@ -9,7 +9,11 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
   - the serving forward (`default_config()`, 640x480, batch 4, bf16): its
     device time by the profiler over one forward after a warm-up, its
     launches, and the time of K5's kernels (stats, merge, apply) and of
-    K6's (fine_stage_kernel) in it;
+    K6's (fine_stage_kernel) in it; its host clock (median, least and most
+    of HOST_RUNS runs of chip_smoke's N_FORWARD forwards); and the host time
+    of K5's 8-layer stack alone at the forward's shapes (three stacks issued
+    with no wait for the card, median, least and most of HOST_RUNS); for
+    both, the CUDA runtime calls with the most host time (the profiler);
   - the training step (`chip_smoke.training_step`: step time, device time
     of the forward, backward and optimizer, launches);
   - the evaluation step with the per-op block (`chip_smoke.eval_forward`:
@@ -49,6 +53,7 @@ MODULES = {
 }
 K5_KERNELS = ("stats_kernel", "merge_kernel", "apply_kernel")
 K6_KERNEL = "fine_stage_kernel"
+HOST_RUNS = 7
 _profiles = []  # the rows of each chip_smoke.profile_ms call
 _profile_ms = cs.profile_ms
 
@@ -66,6 +71,52 @@ def kernel_ms(rows, name: str) -> float:
     return sum(ms for ms, _, n in rows if re.search(rf"\b{name}\b", n))
 
 
+def host_ms(fn, n: int, wait: bool) -> str:
+    """Median, least and most host ms of one fn() call over HOST_RUNS runs of
+    n calls, the card drained before each run and, where `wait`, waited for
+    at its end."""
+    runs = []
+    for _ in range(HOST_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        if wait:
+            torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) / n * 1e3)
+    runs.sort()
+    return f"{runs[len(runs) // 2]:.3f} ms (least {runs[0]:.3f}, most {runs[-1]:.3f})"
+
+
+def runtime_calls(fn, top: int = 6) -> str:
+    """The CUDA runtime and driver calls of one fn() call with the most host
+    time, from the profiler: name, calls and host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.key.startswith("cu") and e.key != "cudaDeviceSynchronize"), reverse=True)
+    return ", ".join(f"{name} x{n} {ms:.3f} ms" for ms, n, name in rows[:top])
+
+
+def k5_host() -> None:
+    """K5's 8-layer stack as the serving forward calls it, on the host clock
+    with no wait for the card: what its wrappers cost the host."""
+    from featurematching_tpu_torch.ops.coarse_transformer import coarse_transformer_fused
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = (cs.H // 8) * (cs.W // 8)
+    layers = [cs.layer_values(g, 256) for _ in range(8)]
+    f0, f1 = (cs.rnd(g, cs.B, n, 256, dtype=torch.bfloat16) for _ in range(2))
+    fn = lambda: coarse_transformer_fused(f0, f1, layers, ("self", "cross") * 4, 8)  # noqa: E731
+    fn()  # warm-up: images and plans
+    print(f"  K5's stack on the host, issued without waiting: {host_ms(fn, 3, False)} a stack; "
+          f"its runtime calls: {runtime_calls(fn)}", flush=True)
+
+
 def serving_forward() -> None:
     model = FastMatcher(default_config().model, device="cuda", seed=0)
     gi = torch.Generator(device="cuda").manual_seed(1)
@@ -79,6 +130,12 @@ def serving_forward() -> None:
           f"launches; K5 {sum(k5.values()):.4f} ms (" + ", ".join(
               f"{k} {v:.4f}" for k, v in k5.items()) + f"); K6 {kernel_ms(rows, K6_KERNEL):.4f} ms",
           flush=True)
+    with torch.no_grad():
+        host = host_ms(lambda: model(img0, img1), cs.N_FORWARD, True)
+    print(f"  serving forward, host clock: {host} a forward", flush=True)
+    with torch.no_grad():
+        print(f"  serving forward's runtime calls: {runtime_calls(lambda: model(img0, img1))}",
+              flush=True)
 
 
 def main() -> None:
@@ -90,6 +147,7 @@ def main() -> None:
     wrappers = {n: getattr(importlib.import_module(f"featurematching_tpu_torch.ops.{MODULES[n]}"),
                            n) for n in cs.EXPECTED_PER_STEP}
     serving_forward()
+    k5_host()
     cs.training_step(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the training step: "
           f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)

@@ -55,47 +55,54 @@ WIDTHS = [(128, 16), (128, 32), (256, 16), (256, 32)]
 OLD_ROWS, OLD_BLOCKS = 64, 2
 
 
-def ptxas_report(log: str) -> None:
-    """apply_kernel's registers, spills and static shared memory from ptxas."""
+def ptxas_report(log: str, kernels=("apply_kernel",)) -> None:
+    """Each of `kernels`' registers, spills and static shared memory from
+    ptxas (at each (C, head dim) where it is a template), and ptxas' notes
+    on wgmma."""
+    names = "|".join(kernels)
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*?apply_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(rf"Compiling entry function '\S*?({names})(?:ILi(\d+)ELi(\d+)E)?", line)
         if not m:
             continue
+        name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
         info = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 1:i + 4]
                         if "Compiling" not in x and "Function properties" not in x)
-        print(f"  apply_kernel<{m.group(1)}, {m.group(2)}>: {info}")
+        print(f"  {name}: {info}")
     for line in lines:
-        if "wgmma" in line.lower() or "warning" in line.lower():
+        if "gmma" in line.lower() or "warning" in line.lower():
             print(f"  ptxas: {line.strip()}")
 
 
-def code_report() -> None:
-    """apply_kernel's SASS instructions at each (C, D), from cuobjdump."""
+def code_report(kernel: str = "apply_kernel") -> None:
+    """The kernel's SASS instructions at each (C, D), from cuobjdump."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     lib = _build._lib_path("coarse_transformer")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?apply_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(rf"Function : \S*?{kernel}ILi(\d+)ELi(\d+)E", line)
         if "Function : " in line:
-            name = f"apply_kernel<{m.group(1)}, {m.group(2)}>" if m else None
+            name = f"{kernel}<{m.group(1)}, {m.group(2)}>" if m else None
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             counts[name] = counts.get(name, 0) + 1
     for n, k in sorted(counts.items()):
         print(f"  {n}: {k} SASS instructions ({16 * k} bytes)")
 
 
-def occupancy() -> dict:
-    """{(C, D): (dynamic shared memory bytes, token rows, blocks an SM)} of
-    an apply block, as the library reports it (None where it does not)."""
+def occupancy(export: str = "fm_coarse_apply_occupancy", what: str = "apply",
+              second: str = "token rows a block",
+              missing: str = f"{OLD_ROWS} rows, {OLD_BLOCKS} blocks an SM") -> dict:
+    """{(C, D): (dynamic shared memory bytes, `second`, blocks an SM)} of a
+    block of the kernel, as the library's `export` reports it (empty where
+    the library does not export it; `missing` then says what the older
+    block was)."""
     lib = _build._load("coarse_transformer")
-    if not hasattr(lib, "fm_coarse_apply_occupancy"):
-        print(f"  occupancy: not exported by this tree's library (its apply block: "
-              f"{OLD_ROWS} rows, {OLD_BLOCKS} blocks an SM by its launch bounds)")
+    if not hasattr(lib, export):
+        print(f"  occupancy: not exported by this tree's library (its {what} block: {missing})")
         return {}
-    fn = lib.fm_coarse_apply_occupancy
+    fn = getattr(lib, export)
     fn.argtypes = [_build.INT, _build.INT, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _build.INT
     out = {}
@@ -103,43 +110,58 @@ def occupancy() -> dict:
         info = (ctypes.c_int * 3)()
         err = fn(c, d, info)
         if err:
-            raise RuntimeError(f"fm_coarse_apply_occupancy({c}, {d}): CUDA error {err}")
+            raise RuntimeError(f"{export}({c}, {d}): CUDA error {err}")
         out[(c, d)] = tuple(info)
-        print(f"  C={c}, D={d}: apply {info[0]} bytes of dynamic shared memory, {info[1]} "
-              f"token rows a block, {info[2]} blocks an SM")
+        print(f"  C={c}, D={d}: {what} {info[0]} bytes of dynamic shared memory, {info[1]} "
+              f"{second}, {info[2]} blocks an SM")
     return out
 
 
-def by_kernel(fn) -> dict:
+def by_kernel(fn, kernels=("stats_kernel", "merge_kernel", "apply_kernel"),
+              tries: int = 3) -> dict:
     """Device ms of each kernel of one fn() call, by kernel name, from the
-    profiler over REPS calls."""
+    profiler over REPS calls; fn() launches each of `kernels` once, and a
+    profile that saw another count lost events and is taken again, up to
+    `tries` times, before this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if not cs.is_kernel(e):
-            continue
-        bare = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-        k = re.split(r"[<(]", bare)[0].split("::")[-1]
-        split[k] = split.get(k, 0.0) + e.device_time_total / 1e3 / REPS
-    return split
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        split, seen = {}, {}
+        for e in prof.key_averages():
+            if not cs.is_kernel(e):
+                continue
+            bare = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            k = re.split(r"[<(]", bare)[0].split("::")[-1]
+            split[k] = split.get(k, 0.0) + e.device_time_total / 1e3 / REPS
+            seen[k] = seen.get(k, 0) + e.count
+        if all(seen.get(k) == REPS for k in kernels):
+            return split
+        print(f"  profiler: launches seen {seen}, made {REPS} of each of {kernels}: profiling "
+              f"again", flush=True)
+    raise AssertionError(f"the profiler lost kernel events {tries} times")
 
 
-def main() -> int:
-    do_check = "--check" in sys.argv[1:]
+def rebuild() -> str:
+    """Build ROOT's `coarse_transformer` library anew (so that ptxas reports
+    on it), print the build's time and the card; return ptxas' log."""
     t = time.time()
-    _build._lib_path("coarse_transformer").unlink(missing_ok=True)  # rebuilt: ptxas reports
+    _build._lib_path("coarse_transformer").unlink(missing_ok=True)
     logs = _build.build(["coarse_transformer"], ptxas_verbose=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[{_build.CSRC.parent.parent}] build {time.time() - t:.1f} s; card {card}", flush=True)
-    ptxas_report(logs.get("coarse_transformer", ""))
+    return logs.get("coarse_transformer", "")
+
+
+def main() -> int:
+    do_check = "--check" in sys.argv[1:]
+    ptxas_report(rebuild())
     code_report()
     occ = occupancy()
     _, rows, per_sm = occ.get((C, C // HEADS), (0, OLD_ROWS, OLD_BLOCKS))
