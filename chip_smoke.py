@@ -9,7 +9,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   2. hold each kernel against its plain PyTorch version on the card at every
      shape the serving forward gives it (bf16, tolerances below), and time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call; print K6's block (window pairs in flight, shared
+     function, that call (K3's and K4's sites and F.layer_norm by the
+     profiler's device time, the kernels' CUDA-event time beside it; each
+     site line with the bound's share of the kernel's time); print K6's block (window pairs in flight, shared
      memory, blocks an SM, grid) for its serving call and for K10's forward;
   3. run the serving forward (`default_config()`, 640x480, batch 4, bf16,
      seeded random weights) with the launch counters set to 0 just before and
@@ -290,6 +292,19 @@ def kernel_times(fn, expected=None, tries: int = 3):
                          f"made {expected}")
 
 
+def device_ms(fn, kernel=None, reps: int = 20) -> float:
+    """Device ms of one fn() call by the profiler over `reps` calls: of the
+    kernels whose names hold `kernel`, which fn() launches once (the
+    profile is checked for those `reps` launches, `kernel_times`), or of
+    all its kernels where `kernel` is None."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    rows = kernel_times(run, None if kernel is None else {kernel: reps})
+    return sum(ms for ms, _, name in rows if kernel is None or kernel in name) / reps
+
+
 def is_kernel(event) -> bool:
     """A device event of the profiler that is a kernel, not a user-annotated
     range (such as the optimizer's step) whose time its kernels already count."""
@@ -311,9 +326,10 @@ class Record:
         self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
                   for n in SOURCES}
 
-    def site(self, name, count, ms, plain_ms, work, err, lib_ms=None):
+    def site(self, name, count, ms, plain_ms, work, err, lib_ms=None, event_ms=None):
         """One call site: `count` launches per forward or training step;
-        work = (bytes, operations)."""
+        work = (bytes, operations); `event_ms`, where given, the kernel's
+        time by CUDA events beside `ms` by the profiler."""
         nbytes, flops = work
         k = self.k[name]
         k["ms"] += count * ms
@@ -324,9 +340,10 @@ class Record:
         if lib_ms is not None:  # a kernel has a library call at all its sites or none
             k["lib"] = (k["lib"] or 0.0) + count * lib_ms
         b, by = bound_ms(nbytes, flops)
-        print(f"  site {name}: x{count} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        events = f" (profiler; events {event_ms:.4f} ms)" if event_ms is not None else ""
+        print(f"  site {name}: x{count} kernel {ms:.4f} ms{events}, plain {plain_ms:.4f} ms, "
               f"library {'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, "
-              f"bound {b:.4f} ms ({by}), max_abs_err {err:.3e}", flush=True)
+              f"bound {b:.4f} ms ({by}), {b / ms:.3f} of it, max_abs_err {err:.3e}", flush=True)
 
 
 def rnd(g, *shape, scale=1.0, shift=0.0, dtype=torch.float32):
@@ -358,12 +375,13 @@ def check_layer_norm(rec: Record, g) -> None:
             raise AssertionError(f"layer_norm_chain {shape}: max err {err:.3e} / {err2:.3e}")
         sb, bb = s.bfloat16(), b.bfloat16()
         rows = x.numel() // C
+        fn = lambda: layer_norm_chain(x, s, b)  # noqa: E731
         rec.site(
-            "layer_norm_chain", count,
-            cuda_ms(lambda: layer_norm_chain(x, s, b)),
+            "layer_norm_chain", count, device_ms(fn, "ln_chain_kernel"),
             cuda_ms(lambda: layer_norm_chain_plain(x, s, b), iters=5),
             layer_norm_work(rows, C), err=max(err, err2),
-            lib_ms=cuda_ms(lambda: F.layer_norm(x, (C,), sb, bb, eps=1e-6)),
+            lib_ms=device_ms(lambda: F.layer_norm(x, (C,), sb, bb, eps=1e-6)),
+            event_ms=cuda_ms(fn),
         )
 
 
@@ -418,8 +436,7 @@ def check_patch_expand(rec: Record, g) -> None:
         s1, b1 = rnd(g, C4, scale=0.1, shift=1.0), rnd(g, C4, scale=0.1)
         s2, b2 = rnd(g, C4, scale=0.1, shift=1.0), rnd(g, C4, scale=0.1)
         wh = rnd(g, C4, CH, scale=C4**-0.5, dtype=torch.bfloat16) if CH else None
-        bh = torch.zeros(CH, device="cuda") if CH else None
-        args = (y, h, w, s1, b1, s2, b2, wh, bh, emit)
+        args = (y, h, w, s1, b1, s2, b2, wh, None, emit)  # the heads have no bias
         got = patch_expand_ln(*args)
         torch.cuda.synchronize()
         ref = patch_expand_ln_plain(*args)
@@ -429,10 +446,11 @@ def check_patch_expand(rec: Record, g) -> None:
             err = max(err, e)
             if not ok:
                 raise AssertionError(f"patch_expand_ln C4={C4} head={CH}: max err {e:.3e}")
+        fn = lambda: patch_expand_ln(*args)  # noqa: E731
         rec.site(
-            "patch_expand_ln", 1, cuda_ms(lambda: patch_expand_ln(*args)),
+            "patch_expand_ln", 1, device_ms(fn, "patch_expand_kernel"),
             cuda_ms(lambda: patch_expand_ln_plain(*args), iters=5),
-            patch_expand_work(8, h, w, C4, CH, emit), err=err,
+            patch_expand_work(8, h, w, C4, CH, emit), err=err, event_ms=cuda_ms(fn),
         )
 
 

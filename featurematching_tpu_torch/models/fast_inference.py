@@ -55,6 +55,7 @@ from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stag
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
 from featurematching_tpu_torch.ops.patch_expand import (
     depth_to_space,
+    head_weight,
     patch_expand_ln,
     patch_expand_supported,
 )
@@ -84,13 +85,11 @@ class SwinBackbone(SwinUNetParams):
             v = layer_norm_chain(depth_to_space(y, H, W).contiguous(), pe.norm.weight,
                                  pe.norm.bias, nu.weight, nu.bias)
             return tuple(([v] if emit_ln else []) + ([dense(v, head)] if head is not None else []))
-        w_head = b_head = None
-        if head is not None:  # the heads have no bias
-            w_head = head.weight.t()
-            b_head = torch.zeros(head.out_features, device=x.device)
+        # the heads have no bias; their weights kept in the kernel's layout
+        w_head = None if head is None else head_weight(head.weight, y.dtype)
         return patch_expand_ln(
             y, H, W, pe.norm.weight, pe.norm.bias, nu.weight, nu.bias,
-            w_head=w_head, b_head=b_head, emit_ln=emit_ln,
+            w_head=w_head, emit_ln=emit_ln,
         )
 
     def forward(self, x: torch.Tensor):

@@ -40,7 +40,11 @@ bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
 `stats_reference_bounds`) at source counts around its 64-row tile at each
 width, with more blocks than the card holds at once, bit-identical twice
 at the serving shapes, and a planted fault there (a tile left out) past
-that bound. They import neither
+that bound; K3 and K4 at row and token counts that leave each level of
+their blocking partly filled (a single row, a single input token, W odd,
+more tiles than the grid), at the serving sites, with a planted fault (the
+last unit or tile left out) past the tolerance, and their launch counters
+(4 and 3 a forward). They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -89,6 +93,8 @@ from featurematching_tpu_torch.ops.fine_stage import (
     fine_stage_occupancy,
     fine_stage_reference,
 )
+from featurematching_tpu_torch.ops import layer_norm as ln_ops
+from featurematching_tpu_torch.ops import patch_expand as pe_ops
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain, layer_norm_chain_plain
 from featurematching_tpu_torch.ops.patch_expand import patch_expand_ln, patch_expand_ln_plain
 from featurematching_tpu_torch.ops.sparse_focal_loss import (
@@ -127,16 +133,60 @@ def _assert_close(got, ref, atol, rtol):
     assert not bad.any(), f"max err {float(err.max()):.3e} at {int(bad.sum())} entries"
 
 
+def _ln_rows(lead, C):
+    """Row counts for K3's blocking (ops/layer_norm.plan): "waves" is two
+    passes of the whole grid, then 5 units and 3 rows of a sixth, so the
+    grid-stride loop, the last block pass, the last unit and its last warp
+    load are each partly filled."""
+    if lead != "waves":
+        return lead
+    sms, per_sm = ln_ops._capacity(C, torch.cuda.current_device())
+    unit = ln_ops.unit_rows(C)
+    return (2 * sms * per_sm * ln_ops.WARPS * unit + 5 * unit + 3,)
+
+
 @pytest.mark.parametrize("C", [64, 128, 256])
 @pytest.mark.parametrize("two", [False, True])
-def test_layer_norm_chain_ragged_rows(gen, C, two):
-    """37 * 3 rows: the last block of 8 rows is partly empty."""
-    x = _rnd(gen, 3, 37, C, scale=2.0, shift=0.5, dtype=torch.bfloat16)
+@pytest.mark.parametrize("lead", [(3, 37), (1,), (8, 19200 - 3), "waves"])
+def test_layer_norm_chain_ragged_rows(gen, C, two, lead):
+    """111 rows (the last unit of a warp and the last block pass partly
+    empty), one row, 153,597 rows and two whole grid passes plus a ragged
+    third (`_ln_rows`)."""
+    x = _rnd(gen, *_ln_rows(lead, C), C, scale=2.0, shift=0.5, dtype=torch.bfloat16)
     s1, b1 = _rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)
     s2, b2 = (_rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)) if two else (None, None)
     got = layer_norm_chain(x, s1, b1, s2, b2)
     # one bf16 rounding of an f32 result on both sides: one ulp apart at most
     _assert_close(got, layer_norm_chain_plain(x, s1, b1, s2, b2), 1.6e-2, 1.6e-2)
+
+
+@pytest.mark.parametrize("shape,two", [((8, 19200, 64), False), ((8, 4800, 128), False),
+                                       ((8, 1200, 256), False), ((8, 1200, 256), True)])
+def test_layer_norm_chain_serving_sites(gen, shape, two):
+    """The serving forward's K3 sites (patch_norm, norm_down0, norm_down1
+    and 2) against the twin, and the LN chain at the widest."""
+    C = shape[-1]
+    x = _rnd(gen, *shape, dtype=torch.bfloat16)
+    s1, b1 = _rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)
+    s2, b2 = (_rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)) if two else (None, None)
+    _assert_close(layer_norm_chain(x, s1, b1, s2, b2),
+                  layer_norm_chain_plain(x, s1, b1, s2, b2), 1.6e-2, 1.6e-2)
+
+
+def test_layer_norm_chain_tolerance_sees_a_unit_left_out(gen):
+    """A planted fault: the kernel run over all rows but the last unit (into
+    zeros) breaks the tolerance on exactly those rows."""
+    C, rows = 64, 8 * 19200
+    x = _rnd(gen, rows, C, dtype=torch.bfloat16)
+    s, b = _rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)
+    y = torch.zeros_like(x)
+    before = layer_norm_chain.launches
+    ln_ops.launch_layer_norm(x, s, b, None, None, y, rows - ln_ops.unit_rows(C))
+    torch.cuda.synchronize()
+    err = (y.float() - layer_norm_chain_plain(x, s, b).float()).abs()
+    bad = (err > 1.6e-2 + 1.6e-2 * layer_norm_chain_plain(x, s, b).float().abs()).any(1)
+    assert bad[-ln_ops.unit_rows(C):].all() and not bad[:-ln_ops.unit_rows(C)].any()
+    assert layer_norm_chain.launches == before  # the counter counts the wrapper's launches
 
 
 def _swin_block_params(g, C):
@@ -244,22 +294,83 @@ def test_swin_block_train_forward_is_k2(gen, C):
     assert not bad.any(), f"{int(bad.sum())} probabilities off by more than one bf16 ulp"
 
 
-@pytest.mark.parametrize("C4,CH,emit_ln", [(128, 256, True), (64, 0, True), (64, 64, False),
-                                           (128, 0, True), (64, 256, True)])
-def test_patch_expand_ragged_tokens(gen, C4, CH, emit_ln):
-    """3 images of 5x7: 420 output tokens, the last block of 64 partly empty."""
-    B, H, W = 3, 5, 7
-    y = _rnd(gen, B, H * W, 4 * C4, dtype=torch.bfloat16)
-    s1, b1 = _rnd(gen, C4, scale=0.1, shift=1.0), _rnd(gen, C4, scale=0.1)
-    s2, b2 = _rnd(gen, C4, scale=0.1, shift=1.0), _rnd(gen, C4, scale=0.1)
-    wh = _rnd(gen, C4, CH, scale=C4**-0.5, dtype=torch.bfloat16) if CH else None
-    bh = _rnd(gen, CH, scale=0.1) if CH else None
-    args = (y, H, W, s1, b1, s2, b2, wh, bh, emit_ln)
+def _pe_args(g, B, H, W, C4, CH, emit_ln, bias=True):
+    y = _rnd(g, B, H * W, 4 * C4, dtype=torch.bfloat16)
+    s1, b1 = _rnd(g, C4, scale=0.1, shift=1.0), _rnd(g, C4, scale=0.1)
+    s2, b2 = _rnd(g, C4, scale=0.1, shift=1.0), _rnd(g, C4, scale=0.1)
+    wh = _rnd(g, C4, CH, scale=C4**-0.5, dtype=torch.bfloat16) if CH else None
+    bh = _rnd(g, CH, scale=0.1) if CH and bias else None
+    return (y, H, W, s1, b1, s2, b2, wh, bh, emit_ln)
+
+
+def _pe_close(args):
     got, ref = patch_expand_ln(*args), patch_expand_ln_plain(*args)
-    assert len(got) == len(ref) == int(emit_ln) + int(CH > 0)
+    assert len(got) == len(ref) == int(args[-1]) + int(args[7] is not None)
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         _assert_close(g, r, 3e-2, 1.6e-2)  # one bf16 ulp of the outputs
+
+
+@pytest.mark.parametrize("C4,CH,emit_ln", [(128, 256, True), (64, 0, True), (64, 64, False),
+                                           (128, 0, True), (64, 256, True), (128, 64, False)])
+@pytest.mark.parametrize("B,H,W", [(3, 5, 7), (1, 1, 1), (2, 9, 13), (8, 61, 83)])
+def test_patch_expand_ragged_tokens(gen, C4, CH, emit_ln, B, H, W):
+    """3 images of 5x7 (420 output tokens: the last tile of 128 or 64 partly
+    empty, tiles crossing input rows' and images' ends, W odd), one input
+    token (4 output tokens: one warp load partly filled), 2 of 9x13, and 8
+    of 61x83 (162,016 tokens: more tiles than the persistent grid, a ragged
+    last pass)."""
+    _pe_close(_pe_args(gen, B, H, W, C4, CH, emit_ln))
+
+
+@pytest.mark.parametrize("H,W,C4,CH,emit_ln", [(30, 40, 128, 256, True), (60, 80, 64, 0, True),
+                                               (120, 160, 64, 64, False)])
+def test_patch_expand_serving_sites(gen, H, W, C4, CH, emit_ln):
+    """dec0, dec1 and dec2 of the serving forward (8 images), the heads
+    without a bias as the forward calls them, against the twin."""
+    _pe_close(_pe_args(gen, 8, H, W, C4, CH, emit_ln, bias=False))
+
+
+def test_patch_expand_tolerance_sees_a_tile_left_out(gen):
+    """A planted fault: the kernel run over all tiles but the last (into
+    zeros) breaks the tolerance on exactly that tile's output tokens."""
+    B, H, W, C4, CH = 8, 120, 160, 64, 64
+    y, _, _, s1, b1, s2, b2, wh, _, _ = _pe_args(gen, B, H, W, C4, CH, True)
+    ln_out = torch.zeros(B, 4 * H * W, C4, device="cuda", dtype=torch.bfloat16)
+    head = torch.zeros(B, 4 * H * W, CH, device="cuda", dtype=torch.bfloat16)
+    total, T = 4 * B * H * W, pe_ops.tile_tokens(C4)
+    before = patch_expand_ln.launches
+    pe_ops.launch_patch_expand(y, W, s1, b1, s2, b2, wh, None, ln_out, head, total - T)
+    torch.cuda.synchronize()
+    ref = patch_expand_ln_plain(y, H, W, s1, b1, s2, b2, wh, None, True)
+    # each output token's input-ordered token q; the last tile's q are left out
+    q = pe_ops.depth_to_space(torch.arange(total, device="cuda").reshape(B, H * W, 4), H, W)
+    missing = q.reshape(-1) >= total - T
+    for got, r in zip((ln_out, head), ref):
+        bad = ((got.float() - r.float()).abs() > 3e-2 + 1.6e-2 * r.float().abs()).any(-1)
+        assert torch.equal(bad.reshape(-1), missing)
+    assert patch_expand_ln.launches == before
+
+
+def test_launch_counters_of_k3_and_k4(gen):
+    """Each wrapper call adds one launch; the serving forward makes K3 4 and
+    K4 3 (its heads' weights kept in the kernel's layout, no bias)."""
+    x = _rnd(gen, 5, 64, dtype=torch.bfloat16)
+    s = _rnd(gen, 64)
+    before = layer_norm_chain.launches, patch_expand_ln.launches
+    layer_norm_chain(x, s, s)
+    patch_expand_ln(*_pe_args(gen, 1, 2, 3, 64, 64, True))
+    assert (layer_norm_chain.launches, patch_expand_ln.launches) == (before[0] + 1, before[1] + 1)
+    a = torch.rand(1, 64, 64, 3, generator=gen, device="cuda")
+    model = FastMatcher(ModelConfig(), device="cuda", seed=0)
+    model(a, a)
+    held = [model.backbone.linear_middle.weight._head_weight[1],
+            model.backbone.linear_end.weight._head_weight[1]]
+    layer_norm_chain.launches = patch_expand_ln.launches = 0
+    model(a, a)
+    assert (layer_norm_chain.launches, patch_expand_ln.launches) == (4, 3)
+    assert held[0] is model.backbone.linear_middle.weight._head_weight[1]  # made once
+    assert held[1] is model.backbone.linear_end.weight._head_weight[1]
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])

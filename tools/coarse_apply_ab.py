@@ -16,7 +16,7 @@ an SM of an apply block (from `fm_coarse_apply_occupancy` where the library
 exports it), then, at the serving forward's self call [8, 4800, 256] and
 cross call [4, 4800, 256] (8 heads; the forward runs 4 and 8 of them):
   - the apply blocks' waves on the card;
-  - the layer's device time by kernel (the profiler over REPS calls after a
+  - the layer's device time by kernel (the profiler over `kernel_report.REPS` calls after a
     warm-up, per call), apply's beside its own bound
     (`kernel_bounds.coarse_apply_work`);
   - the whole layer by CUDA events (ITERS calls after a warm-up);
@@ -28,10 +28,7 @@ Run one tree after another in one call on one card (old, new, new, old).
 
 import ctypes
 import importlib.util
-import re
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -39,6 +36,7 @@ import torch
 import chip_smoke as cs
 from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops import coarse_transformer as ct
+from kernel_report import by_kernel, code_report, ptxas_report, rebuild
 
 _spec = importlib.util.spec_from_file_location(
     "kernel_bounds", Path(__file__).resolve().parents[1] / "featurematching_tpu_torch" / "utils"
@@ -46,49 +44,13 @@ _spec = importlib.util.spec_from_file_location(
 kb = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(kb)
 
-ITERS, REPS = 20, 10
+ITERS = 20
 N, C, HEADS = 4800, 256, 8
 CALLS = [(8, "self", 4), (4, "cross", 8)]  # (images, kind, calls a forward)
 WIDTHS = [(128, 16), (128, 32), (256, 16), (256, 32)]
 # an apply block of a library without fm_coarse_apply_occupancy (the design
 # before the wgmma kernel): 64 token rows, two blocks an SM
 OLD_ROWS, OLD_BLOCKS = 64, 2
-
-
-def ptxas_report(log: str, kernels=("apply_kernel",)) -> None:
-    """Each of `kernels`' registers, spills and static shared memory from
-    ptxas (at each (C, head dim) where it is a template), and ptxas' notes
-    on wgmma."""
-    names = "|".join(kernels)
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(rf"Compiling entry function '\S*?({names})(?:ILi(\d+)ELi(\d+)E)?", line)
-        if not m:
-            continue
-        name = m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(2) else "")
-        info = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 1:i + 4]
-                        if "Compiling" not in x and "Function properties" not in x)
-        print(f"  {name}: {info}")
-    for line in lines:
-        if "gmma" in line.lower() or "warning" in line.lower():
-            print(f"  ptxas: {line.strip()}")
-
-
-def code_report(kernel: str = "apply_kernel") -> None:
-    """The kernel's SASS instructions at each (C, D), from cuobjdump."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    lib = _build._lib_path("coarse_transformer")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(rf"Function : \S*?{kernel}ILi(\d+)ELi(\d+)E", line)
-        if "Function : " in line:
-            name = f"{kernel}<{m.group(1)}, {m.group(2)}>" if m else None
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[name] = counts.get(name, 0) + 1
-    for n, k in sorted(counts.items()):
-        print(f"  {n}: {k} SASS instructions ({16 * k} bytes)")
 
 
 def occupancy(export: str = "fm_coarse_apply_occupancy", what: str = "apply",
@@ -115,48 +77,6 @@ def occupancy(export: str = "fm_coarse_apply_occupancy", what: str = "apply",
         print(f"  C={c}, D={d}: {what} {info[0]} bytes of dynamic shared memory, {info[1]} "
               f"{second}, {info[2]} blocks an SM")
     return out
-
-
-def by_kernel(fn, kernels=("stats_kernel", "merge_kernel", "apply_kernel"),
-              tries: int = 3) -> dict:
-    """Device ms of each kernel of one fn() call, by kernel name, from the
-    profiler over REPS calls; fn() launches each of `kernels` once, and a
-    profile that saw another count lost events and is taken again, up to
-    `tries` times, before this raises."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
-        split, seen = {}, {}
-        for e in prof.key_averages():
-            if not cs.is_kernel(e):
-                continue
-            bare = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            k = re.split(r"[<(]", bare)[0].split("::")[-1]
-            split[k] = split.get(k, 0.0) + e.device_time_total / 1e3 / REPS
-            seen[k] = seen.get(k, 0) + e.count
-        if all(seen.get(k) == REPS for k in kernels):
-            return split
-        print(f"  profiler: launches seen {seen}, made {REPS} of each of {kernels}: profiling "
-              f"again", flush=True)
-    raise AssertionError(f"the profiler lost kernel events {tries} times")
-
-
-def rebuild() -> str:
-    """Build ROOT's `coarse_transformer` library anew (so that ptxas reports
-    on it), print the build's time and the card; return ptxas' log."""
-    t = time.time()
-    _build._lib_path("coarse_transformer").unlink(missing_ok=True)
-    logs = _build.build(["coarse_transformer"], ptxas_verbose=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[{_build.CSRC.parent.parent}] build {time.time() - t:.1f} s; card {card}", flush=True)
-    return logs.get("coarse_transformer", "")
 
 
 def main() -> int:

@@ -6,9 +6,9 @@ two versions of it.
 
 ROOT is a checkout of the port (`.`, or another commit unpacked with `git
 archive` into a directory `.gitignore` lists); its `chip_smoke.py` supplies
-the inputs and timers. The reports, the profiler split and the bounds come
-from `coarse_apply_ab.py` and `utils/kernel_bounds.py` of this script's
-checkout, and so does the stats tolerance
+the inputs and timers. The reports and the profiler split come from
+`kernel_report.py`, the occupancy from `coarse_apply_ab.py` and the bounds
+from `utils/kernel_bounds.py` of this script's checkout, and so does the stats tolerance
 (`ops/coarse_transformer.stats_errors`): an older ROOT is held to the same
 ones. The script builds ROOT's `coarse_transformer` library anew and prints
 what `-Xptxas -v` says of `stats_kernel` at the four (C, head dim) pairs and
@@ -33,6 +33,8 @@ import sys
 from pathlib import Path
 
 import torch
+
+import kernel_report as kr
 
 HERE = Path(__file__).resolve().parent
 
@@ -82,8 +84,8 @@ def check(x, src, lv, site: str) -> bool:
 
 def main() -> int:
     do_check = "--check" in sys.argv[1:]
-    ab.ptxas_report(ab.rebuild(), ("stats_kernel", "merge_kernel"))
-    ab.code_report("stats_kernel")
+    kr.ptxas_report(kr.rebuild(), ("stats_kernel", "merge_kernel"))
+    kr.code_report("stats_kernel")
     occ = ab.occupancy("fm_coarse_stats_occupancy", "stats", "head groups",
                        f"every column, {OLD_BLOCKS} blocks an SM by its launch bounds")
     _, groups, per_sm = occ.get((C, C // HEADS), (0, 1, OLD_BLOCKS))
@@ -103,7 +105,7 @@ def main() -> int:
               flush=True)
         if do_check and not check(x, src, lv, site):
             return 1
-        split = ab.by_kernel(lambda: ct.coarse_layer_fused(x, src, lv, HEADS))
+        split = kr.by_kernel(lambda: ct.coarse_layer_fused(x, src, lv, HEADS))
         sb, sby = kb.bound_ms(*kb.coarse_stats_work(G, N, C, HEADS))
         stats = split.get("stats_kernel", 0.0) + split.get("merge_kernel", 0.0)
         totals["stats"] += count * stats
