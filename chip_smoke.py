@@ -29,9 +29,10 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      drop-path scales (out, dx and all 13 parameter gradients against the
      plain twin's autograd), and the sparse focal loss: the pass-1
      log-sum-exps (dual_softmax_lse, K1's pass 1), the backward's softmax
-     terms (K7) and the whole loss and its gradients against the
-     materialised loss, at [4, 4800, 256] with 1024 GT pairs and at a ragged
-     size; time each kernel and its plain version;
+     terms (K7, its plan printed, bit-identical over two calls) and the
+     whole loss and its gradients against the materialised loss, at [4,
+     4800, 256] with 1024 GT pairs and at a ragged size; time each kernel
+     and its plain version;
      The differentiable coarse transformer (K9) at the step's shapes: one
      self call (G = 8) and one cross call (G = 4) of [G, 4800, 256], 8
      heads: the forward's output and kv/ks, and dx, dsrc and the 10
@@ -774,8 +775,11 @@ def gt_pairs(g, Bp, L, S, G, perm=None):
 def check_sparse_focal_loss(rec: Record, g) -> None:
     from featurematching_tpu_torch.ops.dual_softmax import _lse_reference, dual_softmax_lse
     from featurematching_tpu_torch.ops.sparse_focal_loss import (
+        UNIT_ROWS,
+        _capacity,
         _scatter_rows,
         naive_sparse_focal_loss,
+        plan,
         sparse_focal_backward,
         sparse_focal_backward_reference,
         sparse_focal_loss,
@@ -801,8 +805,17 @@ def check_sparse_focal_loss(rec: Record, g) -> None:
         e_lse = max(float((lr - rr).abs().max()), float((lc - rc).abs().max()))
         gbar = torch.rand(Bp, G, generator=g, device="cuda") * gm
         a_r, a_c = _scatter_rows(L, gi, gbar), _scatter_rows(S, gj, gbar)
+        sms, per_sm = _capacity(C, torch.cuda.current_device())
+        p = plan(Bp, L, S, sms, per_sm)
+        units = Bp * sum(p.row_blocks)
+        print(f"  K7 plan [{Bp}, {L}] x [{Bp}, {S}]: {p.grid} blocks ({per_sm} an SM, {sms} SMs), "
+              f"{units} units of {UNIT_ROWS} rows, {p.total} steps of 64 rows, "
+              f"{p.total / p.grid:.2f} steps a block")
         d0, d1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
+        x0, x1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
         torch.cuda.synchronize()
+        same = torch.equal(d0, x0) and torch.equal(d1, x1)
+        del x0, x1
         r0, r1 = sparse_focal_backward_reference(f0, f1, a_r, lr, a_c, lc, inv_temp)
         e_k7 = max(rel_err(d0, r0), rel_err(d1, r1))
         t0, t1 = f0.detach().requires_grad_(True), f1.detach().requires_grad_(True)
@@ -815,12 +828,13 @@ def check_sparse_focal_loss(rec: Record, g) -> None:
         e_loss = abs(loss - ref) / abs(ref)
         e_grad = max(rel_err(t0.grad, n0.grad), rel_err(t1.grad, n1.grad))
         print(f"  [{Bp}, {L}, {C}] x [{Bp}, {S}, {C}], {G} pairs: lse err {e_lse:.2e}, K7 "
-              f"relative err {e_k7:.2e}, loss {loss:.6f} vs {ref:.6f} (rel "
-              f"{e_loss:.2e}), gradients rel err {e_grad:.2e}")
-        if not (e_lse <= lse_atol and e_k7 <= k7_tol and e_loss <= loss_rtol
+              f"relative err {e_k7:.2e}, bit-identical twice {same}, loss {loss:.6f} vs "
+              f"{ref:.6f} (rel {e_loss:.2e}), gradients rel err {e_grad:.2e}")
+        if not (e_lse <= lse_atol and e_k7 <= k7_tol and same and e_loss <= loss_rtol
                 and e_grad <= grad_tol):
             raise AssertionError(f"sparse focal loss [{Bp}, {L}, {S}]: errors {e_lse:.2e} "
-                                 f"{e_k7:.2e} {e_loss:.2e} {e_grad:.2e}")
+                                 f"{e_k7:.2e} {e_loss:.2e} {e_grad:.2e}, K7 bit-identical "
+                                 f"twice {same}")
         if not timed:
             continue
         del ref, n0, n1

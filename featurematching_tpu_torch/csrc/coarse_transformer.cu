@@ -875,35 +875,13 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // the tensor map of the stats kernel's source rows: [rows, C] bf16 in boxes
 // of [64 rows, 64 columns], 128-byte swizzle, rows past the end read as zeros
-// (cuTensorMapEncodeTiled, found through the runtime's entry-point query:
-// no link to libcuda)
 cudaError_t source_map(CUtensorMap* map, const void* src, int rows, int C) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                                  cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
   const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)T};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(src),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return fm::bf16_tensor_map(map, src, 2, dims, strides, box);
 }
 
 template <int C, int D>

@@ -14,7 +14,8 @@ backward: dsim = 2 g (at the GT pairs) - a_r softmax_row - a_c softmax_col,
     with a_r / a_c the per-row / per-column sums of the pairs' upstream
     gradients. The dense part, df0 = dsim f1 and df1 = dsimᵀ f0s over tiles
     of sim recomputed from the pre-scaled f0s, is `csrc/sparse_focal_loss.cu`
-    on the card (`sparse_focal_backward`); the sparse direct term and the
+    on the card (`sparse_focal_backward`, one persistent launch for both
+    passes on the grid `plan` gives); the sparse direct term and the
     a_r / a_c scatter-adds are `index_add_`, as they are XLA in the JAX
     package. Each tile rounds dsim to the features' dtype before both
     products; df0 is scaled by inv_temp afterwards.
@@ -22,12 +23,90 @@ backward: dsim = 2 g (at the GT pairs) - a_r softmax_row - a_c softmax_col,
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
+
 import torch
 
 from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_lse
 
-_ARGTYPES = [_build.PTR] * 6 + [_build.FLOAT] + [_build.INT] * 4 + [_build.PTR] * 3
+_ARGTYPES = [_build.PTR] * 6 + [_build.FLOAT] + [_build.INT] * 5 + [_build.PTR] * 8
+UNIT_ROWS = 128  # owned rows of a work unit (two warpgroups of 64)
+TILE = 64        # rows of the other side a step
+
+
+class Plan(NamedTuple):
+    """The kernel's work: pass p (0: df0 over rows of f0, 1: df1 over rows of
+    f1) has B x row_blocks[p] units of steps[p] steps, one 64-row tile of the
+    other side a step; the `total` steps, pass 0's units then pass 1's, are
+    cut into `grid` equal ranges, one a block."""
+
+    grid: int
+    total: int
+    row_blocks: Tuple[int, int]
+    steps: Tuple[int, int]
+
+
+class Piece(NamedTuple):
+    """A block's run of one unit: tiles [tile0, tile1) of unit (pass, image,
+    row_block); `owner` where it holds the unit's first tile (the block that
+    adds the other pieces' partials and writes the unit's rows)."""
+
+    pass_: int
+    image: int
+    row_block: int
+    tile0: int
+    tile1: int
+    owner: bool
+
+
+def plan(B: int, L: int, S: int, sms: int, per_sm: int) -> Plan:
+    """The grid `csrc/sparse_focal_loss.cu` runs for [B, L, C] x [B, S, C]:
+    as many blocks as the card holds at once (`sms` x `per_sm`, so that a
+    unit's owner can wait for its other pieces), or one a step where the
+    steps are fewer."""
+    rows = (-(-L // UNIT_ROWS), -(-S // UNIT_ROWS))
+    steps = (-(-S // TILE), -(-L // TILE))
+    total = B * (rows[0] * steps[0] + rows[1] * steps[1])
+    return Plan(max(1, min(total, sms * per_sm)), total, rows, steps)
+
+
+def block_range(p: Plan, k: int) -> Tuple[int, int]:
+    """Block k's steps [first, end), as the kernel's `range_start` cuts them:
+    total // grid steps a block, one more for the first total % grid."""
+    q, r = divmod(p.total, p.grid)
+    return k * q + min(k, r), (k + 1) * q + min(k + 1, r)
+
+
+def pieces(B: int, p: Plan) -> List[List[Piece]]:
+    """Each block's pieces in the order it takes them (the kernel's
+    `decode` over its range)."""
+    first1 = B * p.row_blocks[0] * p.steps[0]
+    out = []
+    for k in range(p.grid):
+        x, end = block_range(p, k)
+        run = []
+        while x < end:
+            ps = int(x >= first1)
+            unit, jt = divmod(x - ps * first1, p.steps[ps])
+            b, rb = divmod(unit, p.row_blocks[ps])
+            stop = min(end, x - jt + p.steps[ps])
+            run.append(Piece(ps, b, rb, jt, jt + stop - x, jt == 0))
+            x = stop
+        out.append(run)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(C: int, device: int) -> Tuple[int, int]:
+    """(SMs, resident blocks an SM) of the kernel at width C on the card."""
+    n = ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.launch("sparse_focal_loss", "fm_sparse_focal_blocks_per_sm",
+                      [_build.INT, _build.PTR], C, ctypes.addressof(n))
+    return torch.cuda.get_device_properties(device).multi_processor_count, n.value
 
 
 def per_pair_loss_and_grad(logc: torch.Tensor, alpha: float, gamma: float):
@@ -67,13 +146,21 @@ def sparse_focal_backward(f0, f1, a_r, lse_r, a_c, lse_c, inv_temp: float):
     vecs = [_build.f32(t) for t in (a_r, lse_r, a_c, lse_c)]
     for t, n in zip(vecs, (L, L, S, S)):
         _build.check_cuda(t, "row/column vector", torch.float32, (B, n))
-    f0s = _build.bf16(f0.float() * inv_temp)
-    df0 = torch.empty(B, L, C, device=f0.device, dtype=torch.float32)
-    df1 = torch.empty(B, S, C, device=f0.device, dtype=torch.float32)
+    p = plan(B, L, S, *_capacity(C, f0.device.index or 0))
+    f32 = dict(device=f0.device, dtype=torch.float32)
+    df0, df1 = torch.empty(B, L, C, **f32), torch.empty(B, S, C, **f32)
+    # scratch: f0 * inv_temp in bf16; each side's (-a, -lse log2 e) padded to
+    # whole tiles; the partials of pieces cut from their units, and their flags
+    f0s = torch.empty_like(f0)
+    v0 = torch.empty(B, -(-L // TILE) * TILE, 2, **f32)
+    v1 = torch.empty(B, -(-S // TILE) * TILE, 2, **f32)
+    part = torch.empty(p.grid, UNIT_ROWS, C, **f32)
+    flag = torch.empty(p.grid, 2, device=f0.device, dtype=torch.int32)
     _build.launch(
         "sparse_focal_loss", "fm_sparse_focal_backward", _ARGTYPES,
-        f0s.data_ptr(), f1.data_ptr(), *[t.data_ptr() for t in vecs], float(inv_temp),
-        B, L, S, C, df0.data_ptr(), df1.data_ptr(), _build.stream(),
+        f0.data_ptr(), f1.data_ptr(), *[t.data_ptr() for t in vecs], float(inv_temp),
+        B, L, S, C, p.grid, *[t.data_ptr() for t in (f0s, v0, v1, part, flag, df0, df1)],
+        _build.stream(),
     )
     sparse_focal_backward.launches += 1
     return df0, df1

@@ -32,7 +32,10 @@ of the card, with a mask whose count divides none of the window counts and
 with masks whose -100 entries cover whole rows, and K8's forward bit-equal
 to K2 with its saved probabilities against the twin's softmax; K1 and its
 pass 1 on argmax ties inside one tile and at shapes that cross its row
-tiles, chunks of column tiles and batch; K5's apply kernel at row counts
+tiles, chunks of column tiles and batch; K7 one past a tile and one past
+a unit of its plan at B = 1 and 4, with a = 0 (exact zeros), with
+log-sum-exps far above every sim, and bit-identical twice at the training
+step's shapes; K5's apply kernel at row counts
 around its 64-row tiles and 128-row blocks at each width it takes, one
 block past a full wave of the card, over an odd number of tiles and
 bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
@@ -927,6 +930,74 @@ def test_sparse_focal_backward_ragged(gen, C):
     assert _rel(d0, r0) <= 1e-2 and _rel(d1, r1) <= 1e-2
     e0, e1 = sparse_focal_backward(f0, f1, a_r, lr, a_c, lc, inv_temp)
     assert torch.equal(d0, e0) and torch.equal(d1, e1)
+
+
+def _sfl_inputs(g, B, L, S, C):
+    """K7's inputs in chip_smoke.py's form: f1's rows near some of f0's,
+    the log-sum-exps from K1's pass 1, a_r and a_c on about a fifth of the
+    rows and columns."""
+    inv_temp = 1.0 / (C * 0.1)
+    f0 = _rnd(g, B, L, C)
+    idx = torch.randint(0, L, (S,), generator=g, device="cuda")
+    f1 = (0.8 * f0[:, idx] + 0.6 * _rnd(g, B, S, C)).bfloat16()
+    f0 = f0.bfloat16()
+    lr, lc = dual_softmax_lse(f0, f1, inv_temp)
+    a_r = torch.rand(B, L, generator=g, device="cuda") * (torch.rand(B, L, generator=g, device="cuda") < 0.2)
+    a_c = torch.rand(B, S, generator=g, device="cuda") * (torch.rand(B, S, generator=g, device="cuda") < 0.2)
+    return [f0, f1, a_r, lr, a_c, lc, inv_temp]
+
+
+def _sfl_check(args):
+    """K7 within 1e-2 of max |plain| (chip_smoke.py's tolerance), finite and
+    bit-identical over two calls; returns the kernel's (df0, df1)."""
+    d0, d1 = sparse_focal_backward(*args)
+    e0, e1 = sparse_focal_backward(*args)
+    r0, r1 = sparse_focal_backward_reference(*args)
+    assert d0.shape == r0.shape and d1.shape == r1.shape
+    assert _rel(d0, r0) <= 1e-2 and _rel(d1, r1) <= 1e-2
+    assert bool(torch.isfinite(d0).all()) and bool(torch.isfinite(d1).all())
+    assert torch.equal(d0, e0) and torch.equal(d1, e1)
+    return d0, d1
+
+
+@pytest.mark.parametrize("C", [64, 256])
+@pytest.mark.parametrize("L, S", [(65, 129), (129, 65)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_sparse_focal_backward_tile_and_unit_edges(gen, B, L, S, C):
+    """L and S one past a 64-row tile of the other side and one past a
+    planned unit of 128 owned rows (the second warpgroup of the last unit
+    holds one row, or none): a grid of fewer blocks than the card holds, with
+    units cut between blocks."""
+    _sfl_check(_sfl_inputs(gen, B, L, S, C))
+
+
+def test_sparse_focal_backward_zero_weights_give_zeros(gen):
+    """a_r = a_c = 0: df0 and df1 exactly 0, rows and columns past a tile
+    included."""
+    args = _sfl_inputs(gen, 2, 1000, 777, 256)
+    args[2], args[4] = torch.zeros_like(args[2]), torch.zeros_like(args[4])
+    d0, d1 = sparse_focal_backward(*args)
+    torch.cuda.synchronize()
+    assert not bool(d0.any()) and not bool(d1.any())
+
+
+def test_sparse_focal_backward_far_lse(gen):
+    """Rows and columns whose log-sum-exp sits far above every sim (their
+    exponentials underflow to 0): no NaN or inf, and the result within the
+    tolerance of the plain twin."""
+    args = _sfl_inputs(gen, 2, 1000, 777, 256)
+    args[2] = args[2] + 0.5  # every row and column carries weight
+    args[4] = args[4] + 0.5
+    args[3][:, ::7] = 1e4
+    args[5][:, 3::5] = 1e4
+    _sfl_check(args)
+
+
+def test_sparse_focal_backward_step_shapes_bit_identical(gen):
+    """The training step's call, [4, 4800, 256] against itself: within the
+    tolerance of the plain twin and bit-identical twice (the partials of
+    units cut between blocks are added in a fixed order)."""
+    _sfl_check(_sfl_inputs(gen, 4, 4800, 4800, 256))
 
 
 def test_training_wrappers_raise_rather_than_fall_back(gen):

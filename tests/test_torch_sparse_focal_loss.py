@@ -4,7 +4,9 @@ JAX package's `sparse_focal_loss` and `naive_sparse_focal_loss`.
 At float32, with inputs made by numpy from a seed: the loss value and
 df0 / df1 with masked rows and duplicate GT pairs, and the plain
 row / column log-sum-exps and the backward's softmax terms against the
-materialised loss.
+materialised loss. Also the kernel's work decomposition (`plan`, `pieces`):
+every owned row of both passes in one unit, every tile of the other side
+once a unit, one owner a unit, and a grid the card holds at once.
 """
 
 import jax
@@ -19,8 +21,13 @@ from featurematching_tpu.ops.sparse_focal_loss import (
 from featurematching_tpu.ops.sparse_focal_loss import sparse_focal_loss as jax_sparse_focal_loss
 from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_lse
 from featurematching_tpu_torch.ops.sparse_focal_loss import (
+    TILE,
+    UNIT_ROWS,
+    block_range,
     naive_sparse_focal_loss,
     per_pair_loss_and_grad,
+    pieces,
+    plan,
     sparse_focal_backward,
     sparse_focal_loss,
 )
@@ -92,3 +99,55 @@ def test_clipped_pairs_get_no_gradient():
     logc = torch.tensor([np.log(1e-7), np.log(0.5), np.log(1 - 1e-8)], dtype=torch.float32)
     _, d = per_pair_loss_and_grad(logc, 0.25, 2.0)
     assert d[0] == 0 and d[2] == 0 and d[1] != 0
+
+
+# L and S at tile edges (64) and planned-unit edges (128 owned rows)
+_EDGES = [1, 63, 64, 65, UNIT_ROWS + 1, 200, 4800]
+
+
+def _check_plan(B, L, S, sms, per_sm):
+    p = plan(B, L, S, sms, per_sm)
+    assert 1 <= p.grid <= sms * per_sm and p.grid <= p.total
+    runs = pieces(B, p)
+    assert len(runs) == p.grid
+    ends = [block_range(p, k) for k in range(p.grid)]
+    assert ends[0][0] == 0 and ends[-1][1] == p.total
+    assert all(a[1] == b[0] for a, b in zip(ends, ends[1:]))
+    seen = {}  # (pass, image, row block) -> [tile0, tile1) of each piece
+    owners = {}
+    for k, run in enumerate(runs):
+        assert sum(q.tile1 - q.tile0 for q in run) == ends[k][1] - ends[k][0]
+        for i, q in enumerate(run):
+            unit = (q.pass_, q.image, q.row_block)
+            seen.setdefault(unit, []).append((q.tile0, q.tile1))
+            if q.owner:
+                assert q.tile0 == 0
+                owners[unit] = owners.get(unit, 0) + 1
+            else:  # a later piece is its block's first: one partial slot a block
+                assert i == 0 and q.tile0 > 0
+    for ps, (n_own, n_oth) in enumerate(((L, S), (S, L))):
+        rows = -(-n_own // UNIT_ROWS)
+        tiles = -(-n_oth // TILE)
+        units = {(ps, b, rb) for b in range(B) for rb in range(rows)}
+        assert units <= set(seen) and {u for u in seen if u[0] == ps} == units
+        for b in range(B):  # every owned row of every image in exactly one unit
+            rows_b = sorted(r for _, ub, rb in units if ub == b
+                            for r in range(rb * UNIT_ROWS, min(n_own, (rb + 1) * UNIT_ROWS)))
+            assert rows_b == list(range(n_own))
+        for u in units:  # every tile of the other side once, one owner
+            spans = sorted(seen[u])
+            assert spans[0][0] == 0 and spans[-1][1] == tiles
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            assert owners.get(u) == 1
+
+
+@pytest.mark.parametrize("L", _EDGES)
+@pytest.mark.parametrize("C, per_sm", [(64, 2), (128, 1), (256, 1)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_plan_covers_every_row_and_tile_once(B, C, per_sm, L):
+    """Both passes' units cover every (image, row) once and every tile of
+    the other side once a unit, on a grid within what 132 SMs hold (the
+    blocks an SM as the card reports them at width C: two at 64, one at
+    128 and 256)."""
+    for S in _EDGES:
+        _check_plan(B, L, S, 132, per_sm)

@@ -19,7 +19,8 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
   - the evaluation step with the per-op block (`chip_smoke.eval_forward`:
     step time, device time, launches);
   - the device time of K6's kernel (K10's forward) in the profile of the
-    whole training step and of the whole evaluation step.
+    whole training step and of the whole evaluation step, and of K7's
+    kernels (`sfl_bwd_kernel`, `prep_kernel`) in the training step's.
 Run it once for each tree in turns (old, new, new, old) in one call on one
 card.
 """
@@ -53,6 +54,7 @@ MODULES = {
 }
 K5_KERNELS = ("stats_kernel", "merge_kernel", "apply_kernel")
 K6_KERNEL = "fine_stage_kernel"
+K7_KERNELS = ("sfl_bwd_kernel", "prep_kernel")
 HOST_RUNS = 7
 _profiles = []  # the rows of each chip_smoke.profile_ms call
 _profile_ms = cs.profile_ms
@@ -150,7 +152,8 @@ def main() -> None:
     k5_host()
     cs.training_step(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the training step: "
-          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
+          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms; K7's: " + ", ".join(
+              f"{k} {kernel_ms(_profiles[-1], k):.4f} ms" for k in K7_KERNELS), flush=True)
     cs.eval_forward(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the evaluation step: "
           f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
