@@ -44,6 +44,11 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      dsrc (the cross call's; the self call adds it into dx) and the 10
      parameter gradients of the backward against the plain twin on the same
      inputs, by K10_TOL; time the forward and backward and the plain twin's;
+     The weight-gradient products those three backwards share (wgrad, 142
+     a step in 28 launches, one a backward call) at each distinct launch of
+     the step: each product against the plain twin by WGRAD_TOL and
+     bit-identical twice, the plan printed, timed by the profiler (events
+     beside) against the twin and `torch.mm(a.t(), b)` a product;
      The window attention (K11) at every block of the backbone (the window
      count, C, heads and, on odd blocks, the shift mask of 640x480, batch
      4), by K11_ATOL / K11_RTOL, timed against its twin and against
@@ -62,7 +67,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      before the timed steps and read just after: K8 forward and backward 13
      times a step, K9 forward and backward 12 times (4 self and 8 cross
      calls), K10's forward twice (one launch a layer) and backward 3 times
-     (a self call and a cross layer's two calls), K1's pass 1 and K7 once,
+     (a self call and a cross layer's two calls), wgrad 28 times (inside
+     those backwards, one launch a call for its 4 or 6 products), K1's pass
+     1 and K7 once,
      no eager coarse or fine EncoderLayer, no K1 match statistics and no
      serving kernel (K9's and K10's forwards call K5's and K6's kernels,
      not the serving wrappers, so K5's and K6's counters read 0); print the
@@ -103,7 +110,10 @@ swin_block_train_fwd and swin_block_train_bwd (K8), coarse_layer_forward
 and coarse_layer_backward (K9, one launch an encoder call),
 fine_layer_forward (K10's forward: K6's kernel, one launch a layer) and
 fine_layer_backward (K10, one launch an encoder call), dual_softmax_lse
-(K1's pass 1, K7's forward) and sparse_focal_backward (K7). The per-op
+(K1's pass 1, K7's forward) and sparse_focal_backward (K7); and wgrad, the
+weight-gradient products of K8's, K9's and K10's backwards, one launch a
+backward call, which those backwards' wrappers count (its own wrapper,
+`ops/wgrad.wgrad_group`, serves the phase-5 check). The per-op
 block's evaluation forward adds window_attention (K11); swin_block_fused_image
 (K12) runs on its own entry point, swin_block_image.
 
@@ -153,6 +163,8 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_block_work,
     swin_sites,
     total,
+    wgrad_group_work,
+    wgrad_groups,
     window_attention_work,
 )
 
@@ -200,15 +212,21 @@ SOURCES = {
     "swin_block_fused_image": (
         "swin_block_image.cu",
         "featurematching_tpu/ops/pallas_swin_block.py:478 (swin_block_image :514)"),
+    "wgrad": (
+        "wgrad.cuh",
+        "featurematching_tpu/ops/pallas_swin_block_grad.py:326,343,363,449; "
+        "pallas_coarse_grad.py:71 (_dot_g at :158-223); pallas_fine_grad.py:142-216"),
 }
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
 # once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
-# once a layer, its backward once an encoder call: a self call and 2 cross)
+# once a layer, its backward once an encoder call: a self call and 2 cross;
+# the weight gradients inside those backwards, one launch a call for its 4
+# (K8) or 6 (K9, K10) products: 13 + 12 + 3 launches, 142 products)
 EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
     "swin_block_train_fwd": 13, "swin_block_train_bwd": 13, "dual_softmax_lse": 1,
     "sparse_focal_backward": 1, "coarse_layer_forward": 12, "coarse_layer_backward": 12,
     "fine_layer_forward": 2, "fine_layer_backward": 3, "window_attention": 0,
-    "swin_block_fused_image": 0,
+    "swin_block_fused_image": 0, "wgrad": 28,
 }
 # launches of an evaluation step with swin.fused_block='off' (the per-op
 # block, fused_attention 'auto'): K11 once a block; the coarse and fine stacks
@@ -253,6 +271,10 @@ K11_ATOL, K11_RTOL = 2e-2, 2**-7
 # a window are pad tokens in K12's map, both masked at -100, whose
 # probabilities round to 0 in bf16
 K12_K2_RTOL = 2**-8
+# wgrad against its plain twin (f32 Aᵀ B of the bf16 values), max |kernel -
+# plain| <= WGRAD_TOL max |plain|: both sum exact bf16 products in f32, in
+# another order (over 16-token k-steps and the splits' partials)
+WGRAD_TOL = 1e-4
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -742,7 +764,7 @@ def check_swin_block_train(rec: Record, g) -> None:
             split = {}
             for ms, _, name in rows:  # by kernel: mlp_bwd, attn_bwd, wgrad, sum_parts
                 bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
-                k = re.split(r"[<(]", bare)[0]
+                k = re.split(r"[<(]", bare)[0].split("::")[-1]
                 split[k] = split.get(k, 0.0) + ms
             nw = 0 if m is None else m.shape[0]
             ab, aby = bound_ms(*swin_block_train_attn_bwd_work(nwin, C, h, nw))
@@ -988,6 +1010,49 @@ def check_fine_train(rec: Record, g) -> None:
                  cuda_ms(lambda: fine_layer_backward_reference(x, src, gout, lv, h), iters=3),
                  fine_train_bwd_work(G, N, C, h, kind == "self"),
                  err=float((got["dx"] - ref["dx"]).abs().max()))
+
+
+def check_wgrad(rec: Record, g) -> None:
+    from collections import Counter
+
+    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.ops.wgrad import plan, sm_count, wgrad_group, wgrad_reference
+
+    groups = Counter(tuple(grp) for grp in wgrad_groups(default_config().model))
+    sms = sm_count(torch.cuda.current_device())
+    print(f"  the training step's {sum(len(k) * n for k, n in groups.items())} weight-gradient "
+          f"products in {sum(groups.values())} launches, {len(groups)} distinct; tolerance max "
+          f"|kernel - plain| <= {WGRAD_TOL} max |plain| a product, two launches bit-identical; "
+          f"library: torch.mm(a.t(), b) (bf16 out) a product")
+    for group, count in groups.items():
+        T = group[0][0]
+        names = {}
+        for _, M, N, a, b in group:
+            names.setdefault(a, rnd(g, T, M, dtype=torch.bfloat16))
+            names.setdefault(b, rnd(g, T, N, dtype=torch.bfloat16))
+        pairs = [(names[a], names[b]) for _, _, _, a, b in group]
+        got, again = wgrad_group(pairs), wgrad_group(pairs)
+        torch.cuda.synchronize()
+        refs = [wgrad_reference(a, b) for a, b in pairs]
+        err = max(rel_err(d, r) for d, r in zip(got, refs))
+        same = all(torch.equal(d, e) for d, e in zip(got, again))
+        cut = ", ".join(f"{M}x{N}: {p.splits}x{p.per}" for (_, M, N, _, _), p in
+                        zip(group, plan([pr[:3] for pr in group], sms)))
+        print(f"  T={T}, {len(group)} products x{count}: relative err {err:.2e}, bit-identical "
+              f"twice {same}; splits x stages {cut}")
+        if not (err <= WGRAD_TOL and same):
+            raise AssertionError(f"wgrad T={T}: error {err:.2e}, bit-identical {same}")
+
+        def library():
+            for a, b in pairs:
+                torch.mm(a.t(), b)
+
+        rec.site("wgrad", count, device_ms(lambda: wgrad_group(pairs)),
+                 device_ms(lambda: [wgrad_reference(a, b) for a, b in pairs], reps=3),
+                 wgrad_group_work(list(group)),
+                 err=max(float((d - r).abs().max()) for d, r in zip(got, refs)),
+                 lib_ms=device_ms(library), event_ms=cuda_ms(lambda: wgrad_group(pairs)))
+        del names, pairs, got, again, refs
 
 
 def backbone_blocks(cfg):
@@ -1646,6 +1711,7 @@ def main() -> int:
         swin_block_train_bwd,
         swin_block_train_fwd,
     )
+    from featurematching_tpu_torch.ops.wgrad import wgrad
     from featurematching_tpu_torch.ops.window_attention import window_attention
 
     wrappers = {
@@ -1658,6 +1724,7 @@ def main() -> int:
         "coarse_layer_backward": coarse_layer_backward,
         "fine_layer_forward": fine_layer_forward, "fine_layer_backward": fine_layer_backward,
         "window_attention": window_attention, "swin_block_fused_image": swin_block_fused_image,
+        "wgrad": wgrad,
     }
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1699,6 +1766,7 @@ def main() -> int:
     phase("check sparse_focal_loss", lambda: check_sparse_focal_loss(rec, g))
     phase("check coarse_transformer_train", lambda: check_coarse_train(rec, g))
     phase("check fine_transformer_train", lambda: check_fine_train(rec, g))
+    phase("check wgrad", lambda: check_wgrad(rec, g))
     phase("check window_attention", lambda: check_window_attention(rec, g))
     image_launches = {}  # of the backbone's 13 blocks through swin_block_image
     phase("check swin_block_fused_image",

@@ -24,11 +24,6 @@ namespace fm {
 
 constexpr int kWin = 64;  // tokens of an 8x8 window
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // B fragment of the 16x16 tile whose transpose lies row-major at s (s[n][k],
 // row stride lds): the keys' rows for Q.K^T
 __device__ __forceinline__ void load_bt(uint32_t* r, const bf16* s, int lds, int lane) {

@@ -887,7 +887,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   } while (0)
 
 template <int C, int D>
-cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, int S, int splits,
+cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, int S, int sms,
                        cudaStream_t st) {
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
   auto F = [](const void* q) { return static_cast<const float*>(q); };
@@ -942,14 +942,16 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, in
   // out: dwq [C, C], dwkv [C, 2C], dwmerge [C, C], dln [4C], dw1 [2C, 2C], dw2 [2C, C]
   const int TLi = (int)TL, TSi = (int)TS;
   FM_CHECK(fm::sum_parts(io.part_ln, G * tiles_l, (size_t)4 * C, 4 * C, out[5], st));
-  FM_CHECK(fm::wgrad(io.x, C, io.dqf, C, TLi, splits, C, C, gemm, out[2], st));
-  FM_CHECK(fm::wgrad(io.o, C, io.dm1, C, TLi, splits, C, C, gemm, out[4], st));
+  // the six weight gradients in one launch
   float* dw1 = static_cast<float*>(out[6]);
-  FM_CHECK(fm::wgrad(io.x, C, io.dy1, 2 * C, TLi, splits, C, 2 * C, gemm, dw1, st));
-  FM_CHECK(fm::wgrad(io.msg, C, io.dy1, 2 * C, TLi, splits, C, 2 * C, gemm,
-                     dw1 + (size_t)C * 2 * C, st));
-  FM_CHECK(fm::wgrad(io.h, 2 * C, io.dy2, C, TLi, splits, 2 * C, C, gemm, out[7], st));
-  return fm::wgrad(Bf(in[1]), C, dkv3, 2 * C, TSi, splits, C, 2 * C, gemm, out[3], st);
+  const fm::WgradCall calls[] = {{io.x, C, io.dqf, C, TLi, C, C, out[2]},
+                                 {io.o, C, io.dm1, C, TLi, C, C, out[4]},
+                                 {io.x, C, io.dy1, 2 * C, TLi, C, 2 * C, dw1},
+                                 {io.msg, C, io.dy1, 2 * C, TLi, C, 2 * C,
+                                  dw1 + (size_t)C * 2 * C},
+                                 {io.h, 2 * C, io.dy2, C, TLi, 2 * C, C, out[7]},
+                                 {Bf(in[1]), C, dkv3, 2 * C, TSi, C, 2 * C, out[3]}};
+  return fm::wgrad_group(calls, 6, sms, gemm, st);
 }
 
 template <int C, int D>
@@ -977,13 +979,14 @@ FM_ERROR_STRING_ENTRY
 // (f32, [in, out]); scratch: stash bf16 [(9 G L + 2 G S) C], LN partials f32
 // [G ceil(L/64)][4C], dK^T V partials f32 [G ceil(L/64)][C*D], dK_sum
 // partials f32 [G ceil(L/64)][C], dkv bf16 [G][C*D], dks bf16 [G][C],
-// weight-gradient partials f32 [splits][2 C^2]}.
+// weight-gradient partials f32 (ops/wgrad.partial_floats of the six
+// products)}; sms: the card's SMs.
 extern "C" int fm_coarse_train_bwd(const void* const* in, void* const* out, int G, int L, int S,
-                                   int C, int D, int splits, void* stream) {
-  if (G <= 0 || L <= 0 || S <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+                                   int C, int D, int sms, void* stream) {
+  if (G <= 0 || L <= 0 || S <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FM_BWD(c, d) \
-  if (C == c && D == d) return (int)launch_bwd<c, d>(in, out, G, L, S, splits, st);
+  if (C == c && D == d) return (int)launch_bwd<c, d>(in, out, G, L, S, sms, st);
   FM_BWD(128, 16) FM_BWD(128, 32) FM_BWD(256, 16) FM_BWD(256, 32)
 #undef FM_BWD
   return (int)cudaErrorInvalidValue;

@@ -210,6 +210,12 @@ __device__ __forceinline__ void copy_rows_from_smem(bf16* dst, int gld, const bf
   }
 }
 
+// two f32 as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 }  // namespace fm
 
 #define FM_ERROR_STRING_ENTRY                                   \

@@ -524,12 +524,13 @@ FM_ERROR_STRING_ENTRY
 // takes no dsrc, which may be null); dwq [C, C], dwkv [C, 2C], dwmerge [C, C],
 // dln [4C] (dn1s | dn1b | dn2s | dn2b), dw1 [2C, 2C], dw2 [2C, C] (f32, [in,
 // out]); scratch: stash bf16 [11 G N C], LN partials f32 [blocks][4C],
-// weight-gradient partials f32 [splits][2 C^2]}. blocks: the window stage's
-// grid (at most G).
+// weight-gradient partials f32 (ops/wgrad.partial_floats of the six
+// products)}. blocks: the window stage's grid (at most G); sms: the card's
+// SMs.
 extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G, int N, int D,
-                                 int blocks, int splits, void* stream) {
+                                 int blocks, int sms, void* stream) {
   if (G <= 0 || N < 1 || N > T || (D != 8 && D != 16) || blocks <= 0 || blocks > G ||
-      splits <= 0)
+      sms <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
@@ -574,12 +575,14 @@ extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G,
   // out: dwq [C, C], dwkv [C, 2C], dwmerge [C, C], dln [4C], dw1 [2C, 2C], dw2 [2C, C]
   const int TLi = (int)TL;
   FM_CHECK(fm::sum_parts(io.part_ln, blocks, (size_t)4 * C, 4 * C, out[5], st));
-  FM_CHECK(fm::wgrad(io.x, C, io.dqf, C, TLi, splits, C, C, gemm, out[2], st));
-  FM_CHECK(fm::wgrad(io.src, C, io.dkv3, 2 * C, TLi, splits, C, 2 * C, gemm, out[3], st));
-  FM_CHECK(fm::wgrad(io.o, C, io.dm1, C, TLi, splits, C, C, gemm, out[4], st));
+  // the six weight gradients in one launch
   float* dw1 = static_cast<float*>(out[6]);
-  FM_CHECK(fm::wgrad(io.x, C, io.dy1, 2 * C, TLi, splits, C, 2 * C, gemm, dw1, st));
-  FM_CHECK(fm::wgrad(io.msg, C, io.dy1, 2 * C, TLi, splits, C, 2 * C, gemm,
-                     dw1 + (size_t)C * 2 * C, st));
-  return (int)fm::wgrad(io.h, 2 * C, io.dy2, C, TLi, splits, 2 * C, C, gemm, out[7], st);
+  const fm::WgradCall calls[] = {{io.x, C, io.dqf, C, TLi, C, C, out[2]},
+                                 {io.src, C, io.dkv3, 2 * C, TLi, C, 2 * C, out[3]},
+                                 {io.o, C, io.dm1, C, TLi, C, C, out[4]},
+                                 {io.x, C, io.dy1, 2 * C, TLi, C, 2 * C, dw1},
+                                 {io.msg, C, io.dy1, 2 * C, TLi, C, 2 * C,
+                                  dw1 + (size_t)C * 2 * C},
+                                 {io.h, 2 * C, io.dy2, C, TLi, 2 * C, C, out[7]}};
+  return (int)fm::wgrad_group(calls, 6, sms, gemm, st);
 }

@@ -30,9 +30,10 @@
 //   3. the weight gradients are products over all tokens, dW = Aᵀ B: both
 //      kernels write their bf16 operands (h1, dqkv, o, do, h2, dy1, gelu(y1),
 //      dm; exactly the operands the TPU kernel feeds its bf16 products), and
-//      wgrad_kernel (wgrad.cuh, shared with K9) forms each 64x64 tile over a
-//      run of tokens into a per-split partial (raw mma.sync on ldmatrix
-//      fragments, double-buffered cp.async stages);
+//      wgrad_kernel (wgrad.cuh, shared with K9 and K10) forms the four in
+//      one launch, each tile of up to 128x256 over a run of tokens sized to
+//      the card into a per-split partial (wgmma from a ring of
+//      tensor-copied token stages);
 //   4. every reduction across blocks (the weight-gradient splits, the
 //      per-block sums of the bias, LN and rel_bias gradients) is a second
 //      pass that adds the partials in a fixed order: the gradients are
@@ -54,7 +55,6 @@ using swin::N;
 constexpr int kWarps = 8;  // the backward's blocks
 constexpr int kThreads = 32 * kWarps;
 using fm::sum_parts;
-using fm::wgrad;
 
 constexpr int HC = 128;        // hidden columns per chunk in mlp_bwd
 constexpr int LDY = HC + 4;    // f32 hidden-chunk row stride
@@ -984,7 +984,7 @@ cudaError_t launch_fwd(const void* const* in, int num_windows, int nW, cudaStrea
 
 template <int C>
 cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows, int nb,
-                       int splits, cudaStream_t st) {
+                       int sms, cudaStream_t st) {
   // in: x, s1, s2, probs, x1, g, then the 13 params (PARAM_KEYS order)
   // out: dx, the 13 grads, stash, dx1, small partials, rel_bias partials, gemm partials
   auto F = [](const void* q) { return static_cast<const float*>(q); };
@@ -1030,15 +1030,12 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows,
   }
   e = sum_parts(dbias, nb, (size_t)H * N * N, H * N * N, gr[4], st);
   if (e != cudaSuccess) return e;
-  e = wgrad(s.h1, C, s.dqkv, 3 * C, T, splits, C, 3 * C, gemm, gr[2], st);
-  if (e != cudaSuccess) return e;
-  e = wgrad(s.o, C, s.dout, C, T, splits, C, C, gemm + (size_t)splits * 3 * C * C, gr[5], st);
-  if (e != cudaSuccess) return e;
-  e = wgrad(s.h2, C, s.dy1, 4 * C, T, splits, C, 4 * C, gemm + (size_t)splits * 4 * C * C, gr[9],
-            st);
-  if (e != cudaSuccess) return e;
-  return wgrad(s.ge, 4 * C, s.dm, C, T, splits, 4 * C, C, gemm + (size_t)splits * 8 * C * C,
-               gr[11], st);
+  // the four weight gradients in one launch
+  const fm::WgradCall calls[] = {{s.h1, C, s.dqkv, 3 * C, T, C, 3 * C, gr[2]},
+                                 {s.o, C, s.dout, C, T, C, C, gr[5]},
+                                 {s.h2, C, s.dy1, 4 * C, T, C, 4 * C, gr[9]},
+                                 {s.ge, 4 * C, s.dm, C, T, 4 * C, C, gr[11]}};
+  return fm::wgrad_group(calls, 4, sms, gemm, st);
 }
 
 // Dynamic shared memory and resident blocks an SM of one backward kernel:
@@ -1082,17 +1079,18 @@ extern "C" int fm_swin_block_train_fwd(const void* const* in, int num_windows, i
 // Backward: in = {x, s1, s2, probs, x1, g, the 13 params}; out = {dx,
 // the 13 gradients (f32, the params' layouts), bf16 stash [16 C T], f32
 // dx1 [T C], f32 block partials [nb][13 C], f32 rel_bias partials
-// [nb][C/16][64][64], f32 weight-gradient partials [splits][12 C^2]}, T =
-// 64 num_windows. (The backward reads the saved probabilities, so no mask.)
+// [nb][C/16][64][64], f32 weight-gradient partials (ops/wgrad.partial_floats
+// of the four products)}, T = 64 num_windows; sms: the card's SMs. (The
+// backward reads the saved probabilities, so no mask.)
 extern "C" int fm_swin_block_train_bwd(const void* const* in, void* const* out, int num_windows,
-                                       int C, int nb, int splits, void* stream) {
-  if (nb <= 0 || splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                       int C, int nb, int sms, void* stream) {
+  if (nb <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (C) {
-    case 64: e = launch_bwd<64>(in, out, num_windows, nb, splits, st); break;
-    case 128: e = launch_bwd<128>(in, out, num_windows, nb, splits, st); break;
-    case 256: e = launch_bwd<256>(in, out, num_windows, nb, splits, st); break;
+    case 64: e = launch_bwd<64>(in, out, num_windows, nb, sms, st); break;
+    case 128: e = launch_bwd<128>(in, out, num_windows, nb, sms, st); break;
+    case 256: e = launch_bwd<256>(in, out, num_windows, nb, sms, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "layer_norm", "swin_block", "patch_expand", "dual_softmax", "coarse_transformer", "fine_stage",
     "swin_block_train", "sparse_focal_loss", "coarse_transformer_train",
-    "fine_transformer_train", "window_attention", "swin_block_image",
+    "fine_transformer_train", "window_attention", "swin_block_image", "wgrad",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

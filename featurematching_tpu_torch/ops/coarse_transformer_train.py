@@ -58,9 +58,8 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     pack_layer,
     unpack_heads,
 )
+from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
-# tokens a weight-gradient block sums over before its partial is written
-SPLIT_TOKENS = 4096
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
 # the parameters of one EncoderLayer as the Function takes them
 LAYER_PARAMS = ("q_proj.weight", "k_proj.weight", "v_proj.weight", "merge.weight",
@@ -230,6 +229,14 @@ def _ptrs(tensors) -> ctypes.Array:
                                               for t in tensors])
 
 
+def wgrad_calls(TL: int, TS: int, C: int) -> List[Tuple[int, int, int]]:
+    """(T, M, N) of the weight-gradient products K9's (and K10's) backward
+    makes, in order, over TL query and TS source tokens: xᵀ dqf, oᵀ dm1,
+    xᵀ dy1, msgᵀ dy1, hᵀ dy2 (query side), srcᵀ [dkf | dv] (source side)."""
+    return [(TL, C, C), (TL, C, C), (TL, C, 2 * C), (TL, C, 2 * C), (TL, 2 * C, C),
+            (TS, C, 2 * C)]
+
+
 def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, nhead: int):
     """One call's backward, as `coarse_layer_backward_reference` returns it.
     On a CUDA tensor the kernels of `csrc/coarse_transformer_train.cu`
@@ -251,7 +258,8 @@ def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, n
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
     tiles = G * -(-L // ROW_TILE)
-    splits = max(1, -(-G * max(L, S) // SPLIT_TOKENS))
+    sms = sm_count(dev.index or 0)
+    calls = wgrad_calls(G * L, G * S, C)
     dx, dsrc = torch.empty_like(x), torch.empty_like(src)
     dwq, dwm = torch.empty(C, C, **f32), torch.empty(C, C, **f32)
     dwkv = torch.empty(C, 2 * C, **f32)
@@ -261,15 +269,16 @@ def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, n
     part_ln, part_kv, part_ks = (torch.empty(tiles * n, **f32) for n in (4 * C, C * D, C))
     dkv = torch.empty(G * C * D, device=dev, dtype=torch.bfloat16)
     dks = torch.empty(G * C, device=dev, dtype=torch.bfloat16)
-    gemm = torch.empty(splits * 2 * C * C, **f32)
+    gemm = torch.empty(partial_floats(calls, sms), **f32)
     _build.launch(
         "coarse_transformer_train", "fm_coarse_train_bwd", _BWD_ARGS,
         _ptrs([x, src, kv, ks, g, *lv, *lt]),
         _ptrs([dx, dsrc, dwq, dwkv, dwm, dln, dw1, dw2, stash, part_ln, part_kv, part_ks, dkv,
                dks, gemm]),
-        G, L, S, C, D, splits, _build.stream(),
+        G, L, S, C, D, sms, _build.stream(),
     )
     coarse_layer_backward.launches += 1
+    wgrad.launches += 1  # the launch ran the weight gradients' kernel once
     dn1s, dn1b, dn2s, dn2b = dln.view(4, C)
     return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
 

@@ -37,7 +37,7 @@ weights [out, in]; the K and V halves of the fused [C, 2C] gradient apart).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -67,9 +67,8 @@ from featurematching_tpu_torch.ops.fine_stage import (
     MAX_TAPS,
     fine_layer_forward,
 )
+from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
-# tokens a weight-gradient block sums over before its partial is written
-SPLIT_TOKENS = 4096
 WINDOW_BLOCKS_PER_SM = 2  # window-stage blocks an SM (shared memory allows two)
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 5 + [_build.PTR]
 
@@ -163,6 +162,13 @@ def _check(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int) -> None:
         _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
 
 
+def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
+    """(T, M, N) of the weight-gradient products the backward kernel makes
+    over T = G N tokens, in order: xᵀ dqf, srcᵀ [dkf | dv], oᵀ dm1, xᵀ dy1,
+    msgᵀ dy1, hᵀ dy2."""
+    return [(T, C, C), (T, C, 2 * C), (T, C, C), (T, C, 2 * C), (T, C, 2 * C), (T, 2 * C, C)]
+
+
 def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int):
     """One encoder call's backward, as `fine_layer_backward_reference`
     returns it (a self call: dx + dsrc as dx, dsrc None). On a CUDA tensor
@@ -177,9 +183,9 @@ def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int)
     G, N, C = x.shape
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(dev.index or 0)
     blocks = min(WINDOW_BLOCKS_PER_SM * sms, G)
-    splits = max(1, -(-G * N // SPLIT_TOKENS))
+    calls = wgrad_calls(G * N, C)
     dx = torch.empty(x.shape, **f32)
     dsrc = None if _self_call(x, src) else torch.empty(x.shape, **f32)
     dwq, dwm = torch.empty(C, C, **f32), torch.empty(C, C, **f32)
@@ -188,14 +194,15 @@ def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int)
     dw1, dw2 = torch.empty(2 * C, 2 * C, **f32), torch.empty(2 * C, C, **f32)
     stash = torch.empty(11 * G * N * C, device=dev, dtype=torch.bfloat16)
     part_ln = torch.empty(blocks * 4 * C, **f32)
-    gemm = torch.empty(splits * 2 * C * C, **f32)
+    gemm = torch.empty(partial_floats(calls, sms), **f32)
     _build.launch(
         "fine_transformer_train", "fm_fine_train_bwd", _BWD_ARGS,
         _ptrs([x, src, g, *lv, *lt]),
         _ptrs([dx, dsrc, dwq, dwkv, dwm, dln, dw1, dw2, stash, part_ln, gemm]),
-        G, N, C // nhead, blocks, splits, _build.stream(),
+        G, N, C // nhead, blocks, sms, _build.stream(),
     )
     fine_layer_backward.launches += 1
+    wgrad.launches += 1  # the launch ran the weight gradients' kernel once
     dn1s, dn1b, dn2s, dn2b = dln.view(4, C)
     return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
 

@@ -24,7 +24,7 @@ parameter gradients in f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 from featurematching_tpu_torch.ops.swin_block import HEAD_DIM, WINDOW_TOKENS, _dense
+from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
 PARAM_KEYS = (
     "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "rel_bias", "w_proj", "b_proj",
@@ -41,8 +42,6 @@ _BF16_KEYS = ("w_qkv", "w_proj", "w_mlp1", "w_mlp2")
 # the backward's window loop: at most this many blocks, each owning a fixed
 # set of windows and its own partial sums of the small gradients
 MAX_BLOCKS = 264
-# tokens a weight-gradient block sums over before its partial is written
-SPLIT_TOKENS = 4096
 _FWD_ARGS = [_build.PTR, _build.INT, _build.INT, _build.INT, _build.PTR]
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 4 + [_build.PTR]
 
@@ -145,6 +144,12 @@ def swin_block_train_fwd(x, mask, s1, s2, kparams: List[torch.Tensor], num_heads
     return out, probs, x1
 
 
+def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
+    """(T, M, N) of the weight-gradient products the backward kernel makes,
+    in order: h1ᵀ dqkv, oᵀ dout, h2ᵀ dy1, gelu(y1)ᵀ dm."""
+    return [(T, C, 3 * C), (T, C, C), (T, C, 4 * C), (T, 4 * C, C)]
+
+
 def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
                          num_heads: int):
     """Backward kernels: (dx in x's dtype, the 13 parameter gradients in f32
@@ -153,7 +158,7 @@ def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
     T = B_ * N
     dev = x.device
     nb = min(B_, MAX_BLOCKS)
-    splits = max(1, -(-T // SPLIT_TOKENS))
+    sms = sm_count(dev.index or 0)
     f32 = dict(device=dev, dtype=torch.float32)
     grads = [torch.empty(p.shape, **f32) for p in kparams]
     dx = torch.empty_like(x)
@@ -161,15 +166,16 @@ def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
     dx1 = torch.empty(T * C, **f32)
     small = torch.empty(nb * 13 * C, **f32)
     dbias = torch.empty(nb * num_heads * N * N, **f32)
-    gemm = torch.empty(splits * 12 * C * C, **f32)
+    gemm = torch.empty(partial_floats(wgrad_calls(T, C), sms), **f32)
     g = g.contiguous()
     _build.check_cuda(g, "g", x.dtype, x.shape)
     _build.launch(
         "swin_block_train", "fm_swin_block_train_bwd", _BWD_ARGS,
         _ptrs([x, s1, s2, probs, x1, g, *kparams]),
-        _ptrs([dx, *grads, stash, dx1, small, dbias, gemm]), B_, C, nb, splits, _build.stream(),
+        _ptrs([dx, *grads, stash, dx1, small, dbias, gemm]), B_, C, nb, sms, _build.stream(),
     )
     swin_block_train_bwd.launches += 1
+    wgrad.launches += 1  # the launch ran the weight gradients' kernel once
     return dx, grads
 
 

@@ -23,7 +23,12 @@ apart, K7 as the backward's softmax terms plus the pass-1 log-sum-exps of
 its forward, K9 per encoder call, its forward (K5's stats and apply work)
 and backward apart, and K10 per encoder call likewise (its forward a share
 of K6's one-layer launch); the command line prints the forward and backward
-of K9 and K10 on rows of their own.
+of K9 and K10 on rows of their own. The weight-gradient products those
+backwards share (`wgrad`, 142 a step in 28 launches, one a backward call)
+are counted apart, on rows of their own, by `wgrad_work` for a product
+alone and by `wgrad_group_work` for a backward's launch, where an operand
+two products read (K9's and K10's x and dy1) is read once; they are part
+of the K8, K9 and K10 backward rows, not added to them.
 """
 
 from __future__ import annotations
@@ -262,6 +267,65 @@ def fine_train_bwd_work(G: int, N: int, C: int, heads: int, self_call: bool) -> 
     return nbytes, 2 * fine_train_fwd_work(G, N, C, heads)[1]
 
 
+def wgrad_work(T: int, M: int, N: int) -> Work:
+    """One weight-gradient product dW = Aᵀ B (`csrc/wgrad.cuh`, inside K8's,
+    K9's and K10's backwards): A [T, M] and B [T, N] read once (bf16), dW
+    [M, N] written once (f32); 2 T M N operations."""
+    return T * (M + N) * BF16 + M * N * F32, 2 * T * M * N
+
+
+# a weight-gradient product with the names of its two operands: (T, M, N, A, B)
+WgradProduct = Tuple[int, int, int, str, str]
+
+
+def wgrad_group_work(group: List[WgradProduct]) -> Work:
+    """One launch of weight-gradient products (a backward's group): each
+    operand the group reads (by name) read once, each dW written once (f32);
+    the products' operations."""
+    reads = {}
+    for T, M, N, a, b in group:
+        reads[a], reads[b] = T * M * BF16, T * N * BF16
+    return (sum(reads.values()) + sum(M * N * F32 for _, M, N, _, _ in group),
+            sum(2 * T * M * N for T, M, N, _, _ in group))
+
+
+def wgrad_groups(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[List[WgradProduct]]:
+    """The weight-gradient products of one training step, a group a backward
+    call, in the backwards' order: K8's four a Swin block (h1ᵀ dqkv, oᵀ dout,
+    h2ᵀ dy1, gelu(y1)ᵀ dm over the block's windows' tokens), K9's six an
+    encoder call (xᵀ dqf, oᵀ dm1, xᵀ dy1, msgᵀ dy1, hᵀ dy2 over the query
+    tokens, srcᵀ [dkf | dv] over the source tokens; src is x in a self call)
+    and K10's six an encoder call over its windows' taps (xᵀ dqf, srcᵀ [dkf |
+    dv], oᵀ dm1, xᵀ dy1, msgᵀ dy1, hᵀ dy2)."""
+    co, fi = cfg.coarse, cfg.fine
+    L = (H // cfg.resolution[0]) * (W // cfg.resolution[0])
+    taps = fi.window_size**2
+    groups = []
+    for st in swin_sites(cfg, 2 * batch, H, W):
+        T, C = st.windows * WINDOW, st.C
+        groups.append([(T, C, 3 * C, "h1", "dqkv"), (T, C, C, "o", "dout"),
+                       (T, C, 4 * C, "h2", "dy1"), (T, 4 * C, C, "gelu(y1)", "dm")])
+    C = co.d_model
+    for G, self_call in train_calls(co.layer_names, 2 * batch):
+        T, src = G * L, "x" if self_call else "src"
+        groups.append([(T, C, C, "x", "dqf"), (T, C, C, "o", "dm1"), (T, C, 2 * C, "x", "dy1"),
+                       (T, C, 2 * C, "msg", "dy1"), (T, 2 * C, C, "h", "dy2"),
+                       (T, C, 2 * C, src, "dkv")])
+    C = fi.d_model
+    for G, self_call in train_calls(fi.layer_names, 2 * batch * cfg.match_coarse.max_gt_matches):
+        T, src = G * taps, "x" if self_call else "src"
+        groups.append([(T, C, C, "x", "dqf"), (T, C, 2 * C, src, "dkv"), (T, C, C, "o", "dm1"),
+                       (T, C, 2 * C, "x", "dy1"), (T, C, 2 * C, "msg", "dy1"),
+                       (T, 2 * C, C, "h", "dy2")])
+    return groups
+
+
+def wgrad_calls(cfg, batch: int = 4, H: int = 480, W: int = 640) -> List[Tuple[int, int, int]]:
+    """(T, M, N) of every weight-gradient product of one training step
+    (`wgrad_groups`, flat)."""
+    return [pr[:3] for grp in wgrad_groups(cfg, batch, H, W) for pr in grp]
+
+
 def train_stack_work(cfg, batch: int = 4, H: int = 480,
                      W: int = 640) -> Dict[str, Tuple[Work, Work]]:
     """The forward and backward Work of K9 and K10 in one training step
@@ -381,6 +445,18 @@ def main() -> None:
     b, by = bound_ms(nbytes, flops)
     print(f"| K11 (tpu_optimized_config, head dim 64) | pallas_window_attention."
           f"window_attention_pallas | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    groups = wgrad_groups(cfg)
+    for label, works in (
+            ("each product alone", [wgrad_work(*c) for c in wgrad_calls(cfg)]),
+            (f"{len(groups)} launches of a backward's products", [wgrad_group_work(grp)
+                                                                   for grp in groups])):
+        nbytes, flops = total(works)
+        bounds = [bound_ms(*w) for w in works]
+        by = sum(1 for _, x in bounds if x == "bytes")
+        print(f"| wgrad (142 products a step in K8, K9 and K10 bwd; {label}) | "
+              f"csrc/wgrad.cuh fm::wgrad_group | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | "
+              f"{sum(b for b, _ in bounds):.4f} (summed) | bytes for {by}, operations for "
+              f"{len(works) - by} |")
 
 
 if __name__ == "__main__":

@@ -47,7 +47,11 @@ that bound; K3 and K4 at row and token counts that leave each level of
 their blocking partly filled (a single row, a single input token, W odd,
 more tiles than the grid), at the serving sites, with a planted fault (the
 last unit or tile left out) past the tolerance, and their launch counters
-(4 and 3 a forward). They import neither
+(4 and 3 a forward); the weight gradients (`wgrad`) at every (M, N) of the
+training step at its T and at ragged T, each backward's products in one
+launch as the step makes them, operands inside a stash with later blocks
+behind their last row, bit-identical twice, the wrapper's refusals, and one
+launch counted a backward call. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -113,6 +117,8 @@ from featurematching_tpu_torch.ops.swin_block_train import (
     swin_block_train_fwd,
     swin_block_train_reference,
 )
+from featurematching_tpu_torch.ops.wgrad import wgrad, wgrad_group, wgrad_reference
+from featurematching_tpu_torch.utils.kernel_bounds import wgrad_calls, wgrad_groups
 
 pytestmark = pytest.mark.cuda
 
@@ -842,17 +848,17 @@ def _bwd_keeping_dx1(x, s1, s2, probs, x1, g, kp, h):
 
     B_, N, C = x.shape
     T = B_ * N
-    nb, splits = min(B_, sbt.MAX_BLOCKS), max(1, -(-T // sbt.SPLIT_TOKENS))
+    nb, sms = min(B_, sbt.MAX_BLOCKS), sbt.sm_count(x.device.index or 0)
     f32 = dict(device=x.device, dtype=torch.float32)
     grads = [torch.empty(p.shape, **f32) for p in kp]
     dx = torch.empty_like(x)
     stash = torch.empty(16 * C * T, device=x.device, dtype=torch.bfloat16)
     dx1 = torch.empty(T * C, **f32)
     scratch = [torch.empty(nb * 13 * C, **f32), torch.empty(nb * h * N * N, **f32),
-               torch.empty(splits * 12 * C * C, **f32)]
+               torch.empty(sbt.partial_floats(sbt.wgrad_calls(T, C), sms), **f32)]
     _build.launch("swin_block_train", "fm_swin_block_train_bwd", sbt._BWD_ARGS,
                   sbt._ptrs([x, s1, s2, probs, x1, g, *kp]),
-                  sbt._ptrs([dx, *grads, stash, dx1, *scratch]), B_, C, nb, splits,
+                  sbt._ptrs([dx, *grads, stash, dx1, *scratch]), B_, C, nb, sms,
                   _build.stream())
     torch.cuda.synchronize()
     return dx, dict(zip(PARAM_KEYS, grads)), dx1.view(B_, N, C)
@@ -998,6 +1004,105 @@ def test_sparse_focal_backward_step_shapes_bit_identical(gen):
     tolerance of the plain twin and bit-identical twice (the partials of
     units cut between blocks are added in a fixed order)."""
     _sfl_check(_sfl_inputs(gen, 4, 4800, 4800, 256))
+
+
+# the training step's weight-gradient products: the first T of each (M, N)
+WGRAD_STEP_T = {}
+for _T, _M, _N in wgrad_calls(ModelConfig()):
+    WGRAD_STEP_T.setdefault((_M, _N), _T)
+
+
+@pytest.mark.parametrize("M, N", sorted(WGRAD_STEP_T))
+def test_wgrad_against_the_twin(gen, M, N):
+    """Every (M, N) of the step at its T and at T = 1, 63, 65 (a stage and
+    one past it) and 4097 (a ragged last split): within 1e-4 of max |plain|
+    (f32 sums of exact bf16 products in another order), and two calls bit
+    for bit (the splits' partials added in a fixed order)."""
+    for T in (1, 63, 65, 4097, WGRAD_STEP_T[(M, N)]):
+        a = _rnd(gen, T, M, dtype=torch.bfloat16)
+        b = _rnd(gen, T, N, dtype=torch.bfloat16)
+        got, again = wgrad(a, b), wgrad(a, b)
+        ref = wgrad_reference(a, b)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= 1e-4, (T, err)
+        assert torch.equal(got, again), T
+
+
+@pytest.mark.parametrize("kind", ["K8 C=64", "K8 C=128", "K8 C=256", "K9", "K10"])
+def test_wgrad_group_of_a_backward(gen, kind):
+    """A backward's products in one launch, as the step makes them (an
+    operand two products read is one tensor), at a ragged token count (301
+    windows of 64 or 49 tokens, 4801 tokens for K9) and at the step's own:
+    each within 1e-4 of max |plain|, and two launches bit for bit."""
+    step = {f"K8 C={g[0][1]}": g for g in wgrad_groups(ModelConfig()) if len(g) == 4}
+    step |= {"K9": wgrad_groups(ModelConfig())[13], "K10": wgrad_groups(ModelConfig())[-1]}
+    group = step[kind]
+    ragged = {"K9": 4801, "K10": 49 * 301}.get(kind, 64 * 301)
+    for T in (ragged, group[0][0]):
+        names = {}
+        for _, M, N, a, b in group:
+            names.setdefault(a, _rnd(gen, T, M, dtype=torch.bfloat16))
+            names.setdefault(b, _rnd(gen, T, N, dtype=torch.bfloat16))
+        pairs = [(names[a], names[b]) for _, _, _, a, b in group]
+        got, again = wgrad_group(pairs), wgrad_group(pairs)
+        torch.cuda.synchronize()
+        for q, ((a, b), d, e) in enumerate(zip(pairs, got, again)):
+            ref = wgrad_reference(a, b)
+            assert float((d - ref).abs().max() / ref.abs().max()) <= 1e-4, (T, q)
+            assert torch.equal(d, e), (T, q)
+
+
+def test_wgrad_operands_inside_a_stash(gen):
+    """Operands at the offsets K10's stash gives them (T C bf16 apart, T =
+    49 G, so no multiple of a 64-token stage) with the stash's later blocks
+    behind their last row: the rows past T read as zeros, not as the next
+    block."""
+    G, C = 301, 64
+    T = 49 * G
+    stash = _rnd(gen, 3 * T * C, dtype=torch.bfloat16)
+    a, b = stash[T * C:2 * T * C].view(T, C), stash[:T * C].view(T, C)
+    got, ref = wgrad(a, b), wgrad_reference(a, b)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+def test_wgrad_raises_rather_than_fall_back(gen):
+    """float32 operands, M = 96, N = 32, no token, a strided operand: the
+    wrapper raises and launches nothing."""
+    before = wgrad.launches
+    a, b = _rnd(gen, 70, 64, dtype=torch.bfloat16), _rnd(gen, 70, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wgrad(a.float(), b)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        wgrad(_rnd(gen, 70, 96, dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        wgrad(a, b[:, :32].contiguous())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        wgrad(a[:0], b[:0])
+    with pytest.raises(ValueError, match="contiguous"):
+        wgrad(a, b[:, ::2])
+    assert wgrad.launches == before
+
+
+def test_backwards_count_their_wgrad_launches(gen):
+    """A K8 backward makes its four weight-gradient products, K9's and
+    K10's their six, in one launch: each wrapper adds it to wgrad's
+    counter."""
+    before = wgrad.launches
+    x = _rnd(gen, 12, 64, 64, dtype=torch.bfloat16)
+    _block_train_grads(x, None, None, None, _block_params(gen, 64, 4), 4, torch.ones_like(x),
+                       plain=False)
+    torch.cuda.synchronize()
+    assert wgrad.launches == before + 1
+    lv = _layer_values(gen, 256)
+    xc = _rnd(gen, 1, 100, 256, dtype=torch.bfloat16)
+    _k9_call(xc, xc, lv, 8, torch.ones_like(xc), plain=False)
+    assert wgrad.launches == before + 2
+    lf = _layer_values(gen, 64)
+    xf = _rnd(gen, 3, 49, 64, dtype=torch.bfloat16)
+    _k10_call(xf, xf, lf, 8, torch.ones(3, 49, 64, device="cuda"), plain=False)
+    assert wgrad.launches == before + 3
 
 
 def test_training_wrappers_raise_rather_than_fall_back(gen):
@@ -1210,7 +1315,7 @@ def _k9_bwd_keeping_stash(x, src, kv, ks, g, lv, lt, heads):
     S, D = src.shape[1], C // heads
     f32 = dict(device=x.device, dtype=torch.float32)
     tiles = G * -(-L // 64)
-    splits = max(1, -(-G * max(L, S) // ctt.SPLIT_TOKENS))
+    sms = ctt.sm_count(x.device.index or 0)
     outs = [torch.empty_like(x), torch.empty_like(src), torch.empty(C, C, **f32),
             torch.empty(C, 2 * C, **f32), torch.empty(C, C, **f32), torch.empty(4 * C, **f32),
             torch.empty(2 * C, 2 * C, **f32), torch.empty(2 * C, C, **f32),
@@ -1219,10 +1324,10 @@ def _k9_bwd_keeping_stash(x, src, kv, ks, g, lv, lt, heads):
             torch.empty(tiles * C, **f32),
             torch.empty(G * C * D, device=x.device, dtype=torch.bfloat16),
             torch.empty(G * C, device=x.device, dtype=torch.bfloat16),
-            torch.empty(splits * 2 * C * C, **f32)]
+            torch.empty(ctt.partial_floats(ctt.wgrad_calls(G * L, G * S, C), sms), **f32)]
     _build.launch("coarse_transformer_train", "fm_coarse_train_bwd", ctt._BWD_ARGS,
                   ctt._ptrs([x, src, kv, ks, g, *lv, *lt]), ctt._ptrs(outs), G, L, S, C, D,
-                  splits, _build.stream())
+                  sms, _build.stream())
     torch.cuda.synchronize()
     T = G * L
     # the stash: o, msg (C), h (2C), dy2 (C), dy1 (2C), ...

@@ -20,7 +20,12 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
     step time, device time, launches);
   - the device time of K6's kernel (K10's forward) in the profile of the
     whole training step and of the whole evaluation step, and of K7's
-    kernels (`sfl_bwd_kernel`, `prep_kernel`) in the training step's.
+    kernels (`sfl_bwd_kernel`, `prep_kernel`) and the weight gradients'
+    (`wgrad_kernel`, `sum_parts_group_kernel`; `sum_parts_kernel`, which
+    also add the backwards' other partials) in the training step's;
+  - the training step's backward on the host clock (`loss.backward()` after
+    a forward, the card drained before and waited for after: median, least
+    and most of HOST_RUNS).
 Run it once for each tree in turns (old, new, new, old) in one call on one
 card.
 """
@@ -51,10 +56,12 @@ MODULES = {
     "coarse_layer_backward": "coarse_transformer_train",
     "fine_layer_forward": "fine_stage", "fine_layer_backward": "fine_transformer_train",
     "window_attention": "window_attention", "swin_block_fused_image": "swin_block_image",
+    "wgrad": "wgrad",
 }
 K5_KERNELS = ("stats_kernel", "merge_kernel", "apply_kernel")
 K6_KERNEL = "fine_stage_kernel"
 K7_KERNELS = ("sfl_bwd_kernel", "prep_kernel")
+WGRAD_KERNELS = ("wgrad_kernel", "sum_parts_group_kernel", "sum_parts_kernel")
 HOST_RUNS = 7
 _profiles = []  # the rows of each chip_smoke.profile_ms call
 _profile_ms = cs.profile_ms
@@ -71,6 +78,10 @@ cs.profile_ms = _recording_profile_ms
 
 def kernel_ms(rows, name: str) -> float:
     return sum(ms for ms, _, n in rows if re.search(rf"\b{name}\b", n))
+
+
+def kernel_launches(rows, name: str) -> int:
+    return sum(c for _, c, n in rows if re.search(rf"\b{name}\b", n))
 
 
 def host_ms(fn, n: int, wait: bool) -> str:
@@ -119,6 +130,34 @@ def k5_host() -> None:
           f"its runtime calls: {runtime_calls(fn)}", flush=True)
 
 
+def backward_host() -> None:
+    """The training step's backward on the host clock, as
+    chip_smoke.training_step runs the step."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.train.step import create_train_state, forward_with_loss
+
+    cfg = cs.training_config()
+    state = create_train_state(cfg, device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=cs.B, image_size=(cs.H, cs.W),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    runs = []
+    for i in range(HOST_RUNS + 1):
+        state.model.zero_grad(set_to_none=True)
+        losses, _ = forward_with_loss(state.model, cfg, batch, train=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.loss.backward()
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            runs.append((time.perf_counter() - t) * 1e3)
+    runs.sort()
+    print(f"  training step's backward, host clock: {runs[len(runs) // 2]:.3f} ms (least "
+          f"{runs[0]:.3f}, most {runs[-1]:.3f})", flush=True)
+
+
 def serving_forward() -> None:
     model = FastMatcher(default_config().model, device="cuda", seed=0)
     gi = torch.Generator(device="cuda").manual_seed(1)
@@ -153,7 +192,11 @@ def main() -> None:
     cs.training_step(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the training step: "
           f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms; K7's: " + ", ".join(
-              f"{k} {kernel_ms(_profiles[-1], k):.4f} ms" for k in K7_KERNELS), flush=True)
+              f"{k} {kernel_ms(_profiles[-1], k):.4f} ms" for k in K7_KERNELS)
+          + "; the weight gradients': " + ", ".join(
+              f"{k} {kernel_ms(_profiles[-1], k):.4f} ms x{kernel_launches(_profiles[-1], k)}"
+              for k in WGRAD_KERNELS), flush=True)
+    backward_host()
     cs.eval_forward(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the evaluation step: "
           f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
