@@ -160,6 +160,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
+    swin_block_train_mlp_bwd_work,
     swin_block_work,
     swin_sites,
     total,
@@ -716,6 +717,7 @@ def check_swin_block_train(rec: Record, g) -> None:
     from featurematching_tpu_torch.ops.swin_block_train import (
         PARAM_KEYS,
         _kernel_params,
+        bwd_launch,
         swin_block_train_bwd,
         swin_block_train_fwd,
         swin_block_train_reference,
@@ -768,9 +770,23 @@ def check_swin_block_train(rec: Record, g) -> None:
                 split[k] = split.get(k, 0.0) + ms
             nw = 0 if m is None else m.shape[0]
             ab, aby = bound_ms(*swin_block_train_attn_bwd_work(nwin, C, h, nw))
+            mb, mby = bound_ms(*swin_block_train_mlp_bwd_work(nwin, C, h, nw))
             print("    backward by kernel: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-                  + f"; attn_bwd bound {ab:.4f} ms ({aby})")
+                  + f"; attn_bwd bound {ab:.4f} ms ({aby}); mlp_bwd bound {mb:.4f} ms ({mby})")
+            if C == 256 and m is not None:
+                # a planted fault: mlp_bwd leaves the last window out
+                fdx, fgrads, _ = bwd_launch(x, a, b, probs, x1, gout, kp, h, nwin - 1)
+                torch.cuda.synchronize()
+                ferrs = {"dx": rel_err(fdx, xr.grad)}
+                ferrs |= {k: rel_err(gr, pr[k].grad) for k, gr in zip(PARAM_KEYS, fgrads)}
+                fworst = max(ferrs, key=ferrs.get)
+                print(f"    planted fault, mlp_bwd's last window left out: worst {fworst} "
+                      f"{ferrs[fworst]:.2e}, {sum(v > K8_TOL for v in ferrs.values())} of "
+                      f"{len(ferrs)} tensors past {K8_TOL}")
+                if not ferrs[fworst] > K8_TOL:
+                    raise AssertionError("swin_block_train: the check misses mlp_bwd's window "
+                                         "left out")
             pf = cuda_ms(lambda: swin_block_train_reference(x, m, a, b, p, h), iters=3)
             pfb = cuda_ms(plain_fb, iters=3)
             rec.site("swin_block_train_fwd", count,

@@ -55,13 +55,6 @@ using fm::bf16;
 constexpr float kEps = 1e-6f;
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
 
-template <int R>
-__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-  fm::fence_regs(acc);
-}
-
 // ---- stats: a head group's weights resident, the source tiles streamed ----
 //
 // Work item (image g, head group hg, chunk c): the source tiles [c *
@@ -207,7 +200,7 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
     fm::mbar_wait(&full[s], (k / NS) & 1);
     {
       float acc[SN / 2];
-      zero_regs(acc);
+      fm::zero_regs(acc);
       fm::wgmma_fence();
 #pragma unroll
       for (int p = 0; p < L::PIECES; ++p) {
@@ -699,7 +692,7 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
   // its own 16 rows
   {
     float acc[C / 2];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     gemm_ss<C, C / 16>(acc, xt, C, 0, ring, lane);
     gemm_finish(acc, ring, lane);
     store_acc<C>(ot, acc, wr, gq, t, [](float v) { return elu1_select(v); });
@@ -761,7 +754,7 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
   // msg = LN1(bf16(o . wmerge)), over o in the same tile
   {
     float acc[C / 2];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     gemm_ss<C, C / 16>(acc, ot, C, 0, ring, lane);
     gemm_finish(acc, ring, lane);
     fm::named_barrier(1 + wg, 128);  // every warp's reads of o are done
@@ -778,13 +771,13 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
   // chunks; a chunk's hidden . wmlp2 stays in flight into the next chunk's
   // first wmlp1 slice
   float y[C / 2];
-  zero_regs(y);
+  fm::zero_regs(y);
 #pragma unroll 1
   for (int c = 0; c < Lt::CHUNKS; ++c) {
     uint32_t hf[AHC / 16][4];
     {
       float acc[AHC / 2];
-      zero_regs(acc);
+      fm::zero_regs(acc);
       gemm_ss<AHC, C / 16>(acc, xt, C, 0, ring, lane);
       gemm_ss<AHC, C / 16>(acc, ot, C, 0, ring, lane);
       gemm_finish(acc, ring, lane);
@@ -850,7 +843,7 @@ ring_product_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bimg,
   fm::fence_proxy_async();
   __syncthreads();
   float acc[N / 2];
-  zero_regs(acc);
+  fm::zero_regs(acc);
 #pragma unroll 1
   for (int s = 0; s < K / 16; ++s) {
     const uint32_t slot = ring.acquire();

@@ -145,13 +145,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// the sum over the 8 lanes of a column (g = 0..7)
-__device__ __forceinline__ float column_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-
 __device__ __forceinline__ float2 unpack2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
@@ -179,15 +172,6 @@ __device__ __forceinline__ void product(float (&acc)[N / 2], const uint32_t (&a)
     else
       fm::wgmma_rs_n128(acc, a[kk], desc, 1);
   }
-}
-
-// (accumulators are cleared, not left to the first k-step's scale-d = 0: with
-// that, left uninitialised, the kernel's results came out wrong)
-template <int R>
-__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-  fm::fence_regs(acc);
 }
 
 template <int R>
@@ -286,7 +270,7 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
 #pragma unroll
       for (int r = 0; r < 4; ++r) src[kk][r] = cross ? other[kk][r] : x[kk][r];
     float acc[64];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     fm::wgmma_fence();
     product<2 * C, 4>(acc, src, wimg + WKV_OFF);
     finish(acc);
@@ -311,7 +295,7 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
   Frag q;
   {
     float acc[32];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     fm::wgmma_fence();
     product<C, 4>(acc, x, wimg + WQ_OFF);
     finish(acc);
@@ -383,7 +367,7 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
   Frag msg;
   {
     float acc[32];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     fm::wgmma_fence();
     product<C, 4>(acc, o, wimg + WM_OFF);
     finish(acc);
@@ -396,7 +380,7 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float acc[32];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     fm::wgmma_fence();
     product<C, 4>(acc, x, wimg + W1_OFF + h * 32 * C, 32 * 2 * C);
     product<C, 4>(acc, msg, wimg + W1_OFF + 4 * 32 * 2 * C + h * 32 * C, 32 * 2 * C);
@@ -410,7 +394,7 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
   // x = x + bf16(LN2(bf16(hidden . w2)))
   {
     float acc[32];
-    zero_regs(acc);
+    fm::zero_regs(acc);
     fm::wgmma_fence();
     product<C, 8>(acc, hid, wimg + W2_OFF);
     finish(acc);
@@ -466,7 +450,7 @@ __device__ __forceinline__ void mix_partial(const Frag& x, const float* mixw, fl
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float2 a = unpack2(x[kk][2 * h]), b = unpack2(x[kk][2 * h + 1]);
-      const float p0 = column_sum(m0 * a.x + m1 * b.x), p1 = column_sum(m0 * a.y + m1 * b.y);
+      const float p0 = fm::column_sum(m0 * a.x + m1 * b.x), p1 = fm::column_sum(m0 * a.y + m1 * b.y);
       if (g == 0) *reinterpret_cast<float2*>(out + 16 * kk + 8 * h + 2 * t) = make_float2(p0, p1);
     }
 }

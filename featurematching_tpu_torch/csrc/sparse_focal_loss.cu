@@ -160,15 +160,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// keep the A fragments of a register-A wgmma in their registers until the
-// wait that follows it (the product reads them after its issue)
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
 // Predicated forms (no branch, so ptxas keeps the products asynchronous):
 // each acts only where `p` is not 0.
 __device__ __forceinline__ void expect_if(uint32_t p, uint64_t* bar, uint32_t bytes) {
@@ -358,7 +349,7 @@ sfl_bwd_kernel(const __grid_constant__ CUtensorMap map0, const __grid_constant__
     fm::wgmma_wait<0>();  // this product and the last step's second one
     fm::fence_regs(sim);
     fm::fence_regs(acc);
-    fence_frags(af);
+    fm::fence_frags(af);
     {  // the last step's slot is free: hand it back
       const int xr = x - 1 + NS, sp = (it + NS - 1) % NS;
       handback<C>(pending & (uint32_t)(lane == 0), &count[sp], xr < s1,
@@ -419,7 +410,7 @@ sfl_bwd_kernel(const __grid_constant__ CUtensorMap map0, const __grid_constant__
     // the piece ends: drain, hand the slot back, then its output
     fm::wgmma_wait<0>();
     fm::fence_regs(acc);
-    fence_frags(af);
+    fm::fence_frags(af);
     {
       const int xr = x + NS;
       Step sr = rf;

@@ -16,11 +16,13 @@
 // parallel and a block has 227 KB of shared memory (the forward alone needs
 // 213 KB at C = 256), so the backward is split where the gradient of the residual
 // stream crosses between the two branches:
-//   1. mlp_bwd: per window (a persistent block walks a fixed set of windows)
-//      LN2 is recomputed from x1, the hidden width is streamed in chunks of
-//      128 columns (y1 = h2 W1 + b1, gelu, dge = dm W2ᵀ, dy1), dh2 = dy1 W1ᵀ
-//      accumulates in registers, and the LN2 backward gives dx1 = g + ...
-//      (f32, to device memory);
+//   1. mlp_bwd: per window (a persistent grid of the blocks the card holds
+//      walks the windows) LN2 is recomputed from x1, the hidden width is
+//      streamed in slices of 64 columns of W1 and W2 by tensor copies into
+//      shared memory (y1 = h2 W1 + b1, gelu, dge = dm W2ᵀ, dy1, dh2 += dy1
+//      W1ᵀ on wgmma, two warpgroups on alternate slices), and the LN2
+//      backward gives dx1 = g + ... (f32, to device memory) (section 1 says
+//      how);
 //   2. attn_bwd: per window LN1 and qkv are recomputed, o = P v from the
 //      saved P, do = dx1 s1, da = do Wprojᵀ, then two heads at a time dP,
 //      dS = P (dP - rowsum(dP P)), dq, dk, dv on register-resident units,
@@ -41,226 +43,107 @@
 // Rounding follows the TPU kernel: bf16 operands, f32 accumulation; the
 // bias, LN and rel_bias gradients sum f32 values.
 
+#include <type_traits>
+
 #include "swin_block.cuh"
 #include "tiles.cuh"
+#include "wgmma.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
 using fm::Acc16;
 using fm::bf16;
-namespace wmma = fm::wmma;
 using swin::D;
 using swin::N;
 constexpr int kWarps = 8;  // the backward's blocks
 constexpr int kThreads = 32 * kWarps;
 using fm::sum_parts;
 
-constexpr int HC = 128;        // hidden columns per chunk in mlp_bwd
-constexpr int LDY = HC + 4;    // f32 hidden-chunk row stride
-constexpr int LDYB = HC + 8;   // bf16 hidden-chunk row stride
 constexpr int LDP = N + 8;     // bf16 [64][64] tile row stride
-constexpr int kScratch = kWarps * 256 * 4;  // a 16x16 f32 epilogue tile a warp
 constexpr float kSqrtHalf = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 constexpr float kScale = 0.25f;  // head_dim ** -0.5
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
-// mlp_bwd's products: WMMA 16x16x16 tiles, each accumulator handed to its
-// epilogue through a per-warp 16x16 f32 scratch in shared memory.
-
-// Store an accumulator tile through the warp's scratch and hand each of its
-// 256 values to epi(row, col, value).
-template <typename Epi>
-__device__ __forceinline__ void tile_epilogue(const fm::FragC& acc, float* scr, int lane,
-                                              Epi epi) {
-  wmma::store_matrix_sync(scr, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-#pragma unroll
-  for (int e = lane; e < 256; e += 32) epi(e / 16, e % 16, scr[e]);
-  __syncwarp();
-}
-
-// acc[i] += A[16i .. 16i+16, 0..K) . B[0..K, 16 columns] for RT row tiles;
-// A in shared memory (row stride lda), B row-major in global (row stride ldb)
-template <int K, int RT>
-__device__ __forceinline__ void strip_mma(fm::FragC* acc, const bf16* a, int lda,
-                                          const bf16* b, int ldb) {
-#pragma unroll
-  for (int k = 0; k < K / 16; ++k) {
-    fm::FragBRow fb;
-    wmma::load_matrix_sync(fb, b + (size_t)k * 16 * ldb, ldb);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      fm::FragA fa;
-      wmma::load_matrix_sync(fa, a + i * 16 * lda + k * 16, lda);
-      wmma::mma_sync(acc[i], fa, fb, acc[i]);
-    }
-  }
-}
-
-// row tiles per work unit: 4 when the strips alone keep all warps busy
-__host__ __device__ constexpr int rows_per_unit(int strips) { return strips % kWarps == 0 ? 4 : 2; }
-
-// out[64][16 * STRIPS] = A[64][K] . B[K][16 * STRIPS], handed to epi(row, col, v)
-template <int K, int STRIPS, typename Epi>
-__device__ __forceinline__ void gemm_rows64(const bf16* a, int lda, const bf16* b, int ldb,
-                                            float* scr, int warp, int lane, Epi epi) {
-  constexpr int RT = rows_per_unit(STRIPS), GROUPS = 4 / RT;
-  for (int u = warp; u < STRIPS * GROUPS; u += kWarps) {
-    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
-    fm::FragC acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-    strip_mma<K, RT>(acc, a + tm0 * 16 * lda, lda, b + tn * 16, ldb);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      tile_epilogue(acc[i], scr, lane,
-                    [&](int r, int c, float v) { epi((tm0 + i) * 16 + r, tn * 16 + c, v); });
-  }
-}
-
-// acc[i] += A[16i .., 0..K) . Wᵀ for RT row tiles, W row-major [n][k] (row
-// stride ldw) read as a col-major B: element (k, n) at w[n * ldw + k]
-template <int K, int RT>
-__device__ __forceinline__ void strip_mma_wt(fm::FragC* acc, const bf16* a, int lda,
-                                             const bf16* w, int ldw) {
-#pragma unroll 4
-  for (int k = 0; k < K / 16; ++k) {
-    fm::FragBCol fb;
-    wmma::load_matrix_sync(fb, w + k * 16, ldw);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      fm::FragA fa;
-      wmma::load_matrix_sync(fa, a + i * 16 * lda + k * 16, lda);
-      wmma::mma_sync(acc[i], fa, fb, acc[i]);
-    }
-  }
-}
-
-// out[64][16 * STRIPS] = A[64][K] . Wᵀ, W row-major [16 * STRIPS][K] (row
-// stride ldw), handed to epi(row, col, v)
-template <int K, int STRIPS, typename Epi>
-__device__ __forceinline__ void gemm_rows64_wt(const bf16* a, int lda, const bf16* w, int ldw,
-                                               float* scr, int warp, int lane, Epi epi) {
-  constexpr int RT = rows_per_unit(STRIPS), GROUPS = 4 / RT;
-  for (int u = warp; u < STRIPS * GROUPS; u += kWarps) {
-    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
-    fm::FragC acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) wmma::fill_fragment(acc[i], 0.f);
-    strip_mma_wt<K, RT>(acc, a + tm0 * 16 * lda, lda, w + (size_t)tn * 16 * ldw, ldw);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      tile_epilogue(acc[i], scr, lane,
-                    [&](int r, int c, float v) { epi((tm0 + i) * 16 + r, tn * 16 + c, v); });
-  }
-}
-
-// LN statistics and output of 64 rows, 8 rows a warp, as the forward
-// computes them (fm::warp_layer_norm): rows from `src` (row stride lds),
-// mean and rstd to mu/rs, the bf16 output to dst (row stride ldd).
-template <int C>
-__device__ __forceinline__ void ln_rows(const bf16* src, int lds, const float* s, const float* b,
-                                        float* mu, float* rs, bf16* dst, int ldd, int warp,
-                                        int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float v[V];
-    fm::load_bf16<V>(src + (size_t)r * lds + lane * V, v);
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) t += v[i];
-    const float m = fm::warp_sum(t) * (1.0f / C);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      v[i] -= m;
-      q += v[i] * v[i];
-    }
-    const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = v[i] * rr * s[lane * V + i] + b[lane * V + i];
-    fm::store_bf16<V>(dst + r * ldd + lane * V, v);
-    if (lane == 0) {
-      mu[r] = m;
-      rs[r] = rr;
-    }
-  }
-}
-
-// LN backward of one window. dh [64][ldh] f32 (gradient of the LN output),
-// the LN input xin (bf16, row stride ldx) with its mu/rs; adds
-// sum dh * xhat and sum dh into the block's accumulators acc_s / acc_b
-// (column-owned), and writes out = base + rs (dxhat - mean(dxhat) -
-// xhat mean(dxhat xhat)), dxhat = dh * scale, through store(row, col, v).
-template <int C, typename Base, typename Store>
-__device__ __forceinline__ void ln_backward(const float* dh, int ldh, const bf16* xin, int ldx,
-                                            const float* mu, const float* rs, const float* scale,
-                                            float* acc_s, float* acc_b, int warp, int lane,
-                                            Base base, Store store) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float ss = 0.f, sb = 0.f;
-    for (int r = 0; r < N; ++r) {
-      const float d = dh[r * ldh + c];
-      ss += d * ((bf(xin[(size_t)r * ldx + c]) - mu[r]) * rs[r]);
-      sb += d;
-    }
-    acc_s[c] += ss;
-    acc_b[c] += sb;
-  }
-  constexpr int V = C / 32;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float xh[V], dxh[V];
-    fm::load_bf16<V>(xin + (size_t)r * ldx + lane * V, xh);
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = lane * V + i;
-      xh[i] = (xh[i] - mu[r]) * rs[r];
-      dxh[i] = dh[r * ldh + c] * scale[c];
-      m1 += dxh[i];
-      m2 += dxh[i] * xh[i];
-    }
-    m1 = fm::warp_sum(m1) * (1.0f / C);
-    m2 = fm::warp_sum(m2) * (1.0f / C);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = lane * V + i;
-      store(r, c, base(r, c) + rs[r] * (dxh[i] - m1 - xh[i] * m2));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 1. the MLP branch
 // ---------------------------------------------------------------------------
+//
+// Bound on the H100 by bytes: 28 C bytes a token (x1, g, f32 dx1 and the
+// stash's h2, dm, dy1, gelu(y1)) against 16 C^2 operations of dge and dh2
+// (kernel_bounds.swin_block_train_mlp_bwd_work). A block of two warpgroups
+// takes one window (64 rows, one wgmma tile) at a time; a persistent grid
+// of the blocks the card holds at once walks the windows in turn
+// (ops/swin_block_train.mlp_grid). Per window:
+//   - prologue (8 warps of 8 rows, each lane V = C / 32 columns): LN2 of x1
+//     gives h2; dm = bf16(g s2); h2, dm and g itself go into three [64, C]
+//     bf16 tiles in shared memory in the 128-byte swizzle (h2 and dm are
+//     wgmma's K-major A operands, g is read back by the LN2 backward, so g
+//     leaves device memory once), h2 and dm also to the stash, a whole row
+//     piece a lane (16 bytes at C = 256);
+//   - the hidden width in slices of HS = 64 columns: slice s's W1 columns
+//     [C, 64] and W2 rows [64, C] come by tensor copies into a slot of a
+//     ring in shared memory, and warpgroup s % 2 takes it: y1 = h2 W1s (W1s
+//     read MN-major, y1 starting at b1) and dge = dm W2sᵀ on m64n64k16 from
+//     shared memory; GELU and its derivative in registers; ge and dy1
+//     (bf16) to the stash; db1's column sums of the f32 dy1 by shuffles
+//     over the warp's rows; then dh2 += dy1 W1sᵀ, dy1 as register A fragments (the
+//     accumulator's layout) and the same W1s read K-major, so W1 leaves L2
+//     once a window. dh2 [64, C] f32 stays in each warpgroup's registers
+//     across its slices (C / 2 a thread);
+//   - the two warpgroups' dh2 added in shared memory (over h2 and dm, in a
+//     fixed order), then the LN2 backward, rows as in the prologue: dx1 = g
+//     + rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) in f32.
+// The ring: slot q % SLOTS holds the block's q-th slice (its windows in
+// order, NS slices each). SLOTS and NS are even, so a slot serves one
+// warpgroup, whose last warp to hand it back refills it (predicated, no
+// producer warp). At C = 64 the four slices are the whole of W1 and W2
+// (64 KB): they are copied once and stay for the block's life.
+// Column sums, each in a fixed order, no atomics: db1 by shuffles over a
+// warp's 16 rows into the block's per-warp partial rows in device memory
+// (one owner an entry), added over the warps at the block's end; db2 and
+// LN2's dscale and dbias in each lane's registers over its warp's 8 rows,
+// then over the 8 warps through shared memory into the block's partial row.
+
+constexpr int HS = 64;  // hidden columns a slice
 
 template <int C>
-struct MlpSmem {
-  static constexpr int LDX = C + 8, LDD = C + 4;
-  static constexpr size_t x_off = 0;                                  // bf16 [64][LDX] x1
-  static constexpr size_t h_off = x_off + N * LDX * 2;                // bf16 [64][LDX] h2
-  static constexpr size_t m_off = h_off + N * LDX * 2;                // bf16 [64][LDX] dm
-  static constexpr size_t y_off = m_off + N * LDX * 2;                // f32 [64][LDY] y1 / dy1
-  static constexpr size_t yb_off = y_off + N * LDY * 4;               // bf16 [64][LDYB] dy1
-  static constexpr size_t st_off = yb_off + N * LDYB * 2;             // f32 mu[64], rs[64]
-  static constexpr size_t acc_off = st_off + 2 * N * 4;               // f32 [7C] sums
-  static constexpr size_t scr_off = acc_off + 7 * C * 4;              // epilogue scratch
-  static constexpr size_t bytes = scr_off + kScratch;
-  // after the hidden loop dh2 (f32 [64][LDD]) lives over h2 and dm
-  static_assert(N * LDD * 4 <= 2 * N * LDX * 2, "dh2 must fit over h2 and dm");
+struct MlpLayout {
+  static constexpr int NS = 4 * C / HS;          // slices a window
+  static constexpr int SLICE = 256 * C;          // bytes: W1's [C][64] box, W2's C / 64 [64][64]
+  static constexpr int W2_OFF = 128 * C;
+  static constexpr int SLOTS = C == 256 ? 2 : 4;
+  static constexpr bool RESIDENT = SLOTS == NS;  // C = 64: W1 and W2 whole, copied once
+  static constexpr int TILE = 128 * C;           // a [64, C] bf16 tile: C / 64 boxes of [64][64]
+  static constexpr size_t h_off = (size_t)SLOTS * SLICE;
+  static constexpr size_t m_off = h_off + TILE;  // dh2 (f32 [64][C]) lies over h2 and dm
+  static constexpr size_t g_off = m_off + TILE;
+  static constexpr size_t st_off = g_off + TILE;         // f32 mu[64], rs[64]
+  static constexpr size_t bar_off = st_off + 2 * N * 4;  // full[SLOTS], then count[SLOTS]
+  // + 1024: the swizzle atoms need 1024-byte aligned addresses
+  static constexpr size_t bytes = bar_off + 12 * SLOTS + 1024;
+  static_assert(SLOTS % 2 == 0 && NS % 2 == 0, "a slot serves one warpgroup");
+  static_assert(bytes <= 232448, "shared memory of a block");
+  static_assert(kWarps * 3 * C * 4 <= 2 * TILE, "the LN partials of the 8 warps fit over h2, dm");
 };
 
-// Partial sums a block writes, 13*C floats: the MLP kernel's db2 [C],
-// db1 [4C], dln2_scale [C], dln2_bias [C]; the attention kernel's
-// dbqkv [3C], dbproj [C], dln1_scale [C], dln1_bias [C].
+// The partial row mlp_bwd's block writes, 19 C floats: db2, dl2s, dl2b,
+// then db1 [4 warps][4C] (the warps' sums added into warp 0's row at the
+// block's end).
+template <int C>
+struct MlpPart {
+  static constexpr int db2 = 0, dl2s = C, dl2b = 2 * C, db1 = 3 * C;
+  static constexpr int stride = 19 * C;
+};
+
+// Partial sums attn_bwd's block writes, 6 C floats: dbqkv [3C], dbproj [C],
+// dln1_scale [C], dln1_bias [C].
 template <int C>
 struct Part {
-  static constexpr int db2 = 0, db1 = C, dl2s = 5 * C, dl2b = 6 * C;
-  static constexpr int dbqkv = 7 * C, dbproj = 10 * C, dl1s = 11 * C, dl1b = 12 * C;
-  static constexpr int stride = 13 * C;
+  static constexpr int dbqkv = 0, dbproj = 3 * C, dl1s = 4 * C, dl1b = 5 * C;
+  static constexpr int stride = 6 * C;
 };
 
 // Stash of the weight-gradient operands, bf16 [T][width] each.
@@ -273,109 +156,446 @@ struct Stash {
         ge(base + 12 * C * T) {}
 };
 
+// element (r, k) of a [64, C] bf16 tile in C / 64 boxes of [64 rows][64
+// columns], 128-byte swizzle (as a tensor copy writes one): the 16-byte
+// chunk k / 8 of row r at chunk position (k / 8) ^ (r % 8)
+__device__ __forceinline__ int sw_index(int r, int k) {
+  return (k >> 6) * 4096 + r * 64 + ((((k >> 3) ^ r) & 7) << 3) + (k & 7);
+}
+
+// element (r, c) of the f32 dh2 [64][C] in shared memory: the 16-byte
+// chunks c / 4 of row r permuted by (c / 4) ^ (r % 8), so neither the
+// accumulators' pair stores nor the rows' loads meet in a bank
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-mlp_bwd_kernel(const bf16* __restrict__ x1g, const bf16* __restrict__ g, const float* s2,
+__device__ __forceinline__ int dh_index(int r, int c) {
+  return r * C + ((c >> 2) ^ (r & 7)) * 4 + (c & 3);
+}
+
+// V consecutive bf16 <-> f32 in one access (V = 2, 4 or 8; the pointer
+// aligned to 2 V bytes)
+template <int V>
+__device__ __forceinline__ void load_piece(const bf16* p, float* v) {
+  uint32_t w[V / 2];
+  if constexpr (V == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x, w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_piece(bf16* p, const float* v) {
+  uint32_t w[V / 2];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) w[i] = fm::pack_bf16(v[2 * i], v[2 * i + 1]);
+  if constexpr (V == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+}
+
+// V consecutive f32 of dh2's row r from column c (a multiple of V)
+template <int C, int V>
+__device__ __forceinline__ void load_dh(const float* dh, int r, int c, float* v) {
+  if constexpr (V == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(dh + dh_index<C>(r, c));
+    v[0] = u.x, v[1] = u.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(dh + dh_index<C>(r, c + i));
+      v[i] = u.x, v[i + 1] = u.y, v[i + 2] = u.z, v[i + 3] = u.w;
+    }
+  }
+}
+
+// The normal CDF of y for GELU and its derivative, 0.5 (1 + erf(y / √2)),
+// with erf by Abramowitz and Stegun 7.1.26 (absolute error below 1.5e-7,
+// as f32 erff's rounding of 1 +- erf in the tails), given ex = exp(-y² / 2),
+// which the derivative uses too: no branch, one reciprocal
+__device__ __forceinline__ float gelu_cdf(float y, float ex) {
+  const float x = fabsf(y) * kSqrtHalf;
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, x, 1.0f));
+  const float p =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float erf_abs = fmaf(-p, ex, 1.0f);
+  return 0.5f * (1.0f + copysignf(erf_abs, y));
+}
+
+// 4 x 4 transpose of 32-bit words across the quad (t = lane % 4): word k of
+// lane t becomes word t of lane k, by two exchanges (lanes t ^ 1, t ^ 2)
+// that each send the two words whose index differs from t in that bit
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int t) {
+#pragma unroll
+  for (int bit = 1; bit <= 2; bit <<= 1) {
+    const bool hi = t & bit;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k & bit) continue;  // the pair (k, k + bit)
+      const uint32_t send = hi ? x[k] : x[k + bit];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, send, bit);
+      x[k] = hi ? got : x[k];  // selects, not branches: the products may be in flight
+      x[k + bit] = hi ? x[k + bit] : got;
+    }
+  }
+}
+
+// dh2 += dy1 (register A fragments of a k-step) . B (descriptor), m64nCk16
+template <int C>
+__device__ __forceinline__ void dh2_step(float (&acc)[C / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (C == 256)
+    fm::wgmma_rs_n256(acc, a, b, 1);
+  else if constexpr (C == 128)
+    fm::wgmma_rs_n128(acc, a, b, 1);
+  else
+    fm::wgmma_rs_n64(acc, a, b, 1);
+}
+
+// Windows blockIdx.x, + gridDim.x, .. below run_windows (num_windows, but
+// for a check that leaves windows out); num_windows sets the stash's layout.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_bwd_kernel(const __grid_constant__ CUtensorMap map_w1,
+               const __grid_constant__ CUtensorMap map_w2,
+               const bf16* __restrict__ x1g, const bf16* __restrict__ g, const float* s2,
                const float* __restrict__ ln2s, const float* __restrict__ ln2b,
-               const bf16* __restrict__ w1, const float* __restrict__ b1,
-               const bf16* __restrict__ w2, int num_windows, bf16* stash_base,
+               const float* __restrict__ b1, int num_windows, int run_windows, bf16* stash_base,
                float* __restrict__ dx1, float* __restrict__ part) {
-  using S = MlpSmem<C>;
-  using P = Part<C>;
-  constexpr int HID = 4 * C, LDX = S::LDX, LDD = S::LDD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + S::x_off);
-  bf16* hs = reinterpret_cast<bf16*>(smem + S::h_off);
-  bf16* dms = reinterpret_cast<bf16*>(smem + S::m_off);
-  float* ys = reinterpret_cast<float*>(smem + S::y_off);
-  bf16* dys = reinterpret_cast<bf16*>(smem + S::yb_off);
-  float* mu = reinterpret_cast<float*>(smem + S::st_off);
+  using L = MlpLayout<C>;
+  using P = MlpPart<C>;
+  constexpr int HID = 4 * C, NS = L::NS, SLOTS = L::SLOTS, V = C / 32;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* hs = reinterpret_cast<bf16*>(smem + L::h_off);
+  bf16* dms = reinterpret_cast<bf16*>(smem + L::m_off);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L::g_off);
+  float* mu = reinterpret_cast<float*>(smem + L::st_off);
   float* rs = mu + N;
-  float* acc = reinterpret_cast<float*>(smem + S::acc_off);  // db2 | db1 | dl2s | dl2b
-  float* dh2 = reinterpret_cast<float*>(smem + S::h_off);
+  float* dh = reinterpret_cast<float*>(smem + L::h_off);  // dh2, then the LN partials
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  int* count = reinterpret_cast<int*>(full + SLOTS);
+  const uint32_t ring = fm::smem_u32(smem), h_u32 = ring + L::h_off, m_u32 = ring + L::m_off;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* scr = reinterpret_cast<float*>(smem + S::scr_off) + warp * 256;
-  const size_t T = (size_t)num_windows * N;
-  Stash<C> st(stash_base, T);
+  // the warpgroup by a shuffle, which ptxas takes as uniform: the operand
+  // descriptors are then too, and the products stay asynchronous
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int w = warp % 4, gq = lane / 4, t = lane % 4;
+  const Stash<C> st(stash_base, (size_t)num_windows * N);
+  float* pb = part + (size_t)blockIdx.x * P::stride;
+  const int wins = (run_windows - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (wins <= 0) {  // no window (run_windows below the grid): a zero partial row
+    for (int i = threadIdx.x; i < P::stride; i += kThreads) pb[i] = 0.f;
+    return;
+  }
+  const int total = wins * NS;  // the block's slices
 
-  for (int i = threadIdx.x; i < 7 * C; i += blockDim.x) acc[i] = 0.f;
-  constexpr int S2 = C / 16, RT2 = rows_per_unit(S2), G2 = 4 / RT2, UPW = S2 * G2 / kWarps;
-  static_assert(S2 * G2 % kWarps == 0, "dh2 units must spread evenly over the warps");
+  // slice q into its slot where p: W1's columns [64 s, + 64) as one [C][64]
+  // box, then W2's rows [64 s, + 64) as C / 64 boxes of [64][64]
+  auto load_slice = [&](uint32_t p, int q) {
+    const int slot = q % SLOTS, s = q % NS;
+    const uint32_t dst = ring + slot * L::SLICE;
+    fm::expect_if(p, &full[slot], L::SLICE);
+    fm::tma_2d_if(p, dst, &map_w1, HS * s, 0, &full[slot]);
+#pragma unroll
+    for (int kb = 0; kb < C / 64; ++kb)
+      fm::tma_2d_if(p, dst + L::W2_OFF + kb * 8192, &map_w2, 64 * kb, HS * s, &full[slot]);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      fm::mbar_init(&full[i], 1);
+      count[i] = 0;
+    }
+    fm::mbar_init_fence();
+    for (int q = 0; q < min(SLOTS, total); ++q) load_slice(1u, q);
+  }
 
-  for (int win = blockIdx.x; win < num_windows; win += gridDim.x) {
+#pragma unroll 1
+  for (int it = 0; it < wins; ++it) {
+    const int win = blockIdx.x + it * gridDim.x;
     const size_t row0 = (size_t)win * N;
     const float sc2 = s2 ? s2[win] : 1.0f;
-    __syncthreads();  // the previous window is done with shared memory
-    fm::copy_rows_to_smem(xs, LDX, x1g + row0 * C, C, N, C, N);
-    // dm = g * s2 (f32 column sums into db2), bf16 for the products
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      float sum = 0.f;
-      for (int r = 0; r < N; ++r) {
-        const float v = bf(g[(row0 + r) * C + c]) * sc2;
-        dms[r * LDX + c] = __float2bfloat16(v);
-        sum += v;
+    __syncthreads();  // the previous window is done with the tiles (the barriers are set)
+    // prologue: h2 = LN2(x1), g and dm = bf16(g s2) into their tiles; h2, dm
+    // to the stash; the warp's 8 rows loaded before the first reduction
+    {
+      const int c = lane * V;
+      float v[8][V], gv[8][V];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        load_piece<V>(x1g + (row0 + warp * 8 + i) * C + c, v[i]);
+        load_piece<V>(g + (row0 + warp * 8 + i) * C + c, gv[i]);
       }
-      acc[P::db2 + c] += sum;
-    }
-    __syncthreads();
-    ln_rows<C>(xs, LDX, ln2s, ln2b, mu, rs, hs, LDX, warp, lane);
-    __syncthreads();
-    fm::copy_rows_from_smem(st.h2 + row0 * C, C, hs, LDX, N, C);
-    fm::copy_rows_from_smem(st.dm + row0 * C, C, dms, LDX, N, C);
-
-    fm::FragC dacc[UPW][RT2];
 #pragma unroll
-    for (int j = 0; j < UPW; ++j)
-#pragma unroll
-      for (int i = 0; i < RT2; ++i) wmma::fill_fragment(dacc[j][i], 0.f);
-    for (int c0 = 0; c0 < HID; c0 += HC) {
-      // y1 = h2 W1[:, chunk] + b1 (f32)
-      gemm_rows64<C, HC / 16>(hs, LDX, w1 + c0, HID, scr, warp, lane,
-                                    [&](int r, int c, float v) { ys[r * LDY + c] = v + b1[c0 + c]; });
-      __syncthreads();
-      // dge = dm W2[chunk, :]ᵀ; ge = gelu(y1) to the stash; dy1 = dge gelu'(y1)
-      gemm_rows64_wt<C, HC / 16>(dms, LDX, w2 + (size_t)c0 * C, C, scr, warp, lane,
-                                 [&](int r, int c, float v) {
-                                   const float y = ys[r * LDY + c];
-                                   const float cdf = 0.5f * (1.0f + erff(y * kSqrtHalf));
-                                   st.ge[(row0 + r) * HID + c0 + c] = __float2bfloat16(y * cdf);
-                                   const float dy = v * (cdf + y * kInvSqrt2Pi * expf(-0.5f * y * y));
-                                   ys[r * LDY + c] = dy;
-                                   dys[r * LDYB + c] = __float2bfloat16(dy);
-                                 });
-      __syncthreads();
-      for (int c = threadIdx.x; c < HC; c += blockDim.x) {
+      for (int i = 0; i < 8; ++i) {
+        const int r = warp * 8 + i;
         float sum = 0.f;
-        for (int r = 0; r < N; ++r) sum += ys[r * LDY + c];
-        acc[P::db1 + c0 + c] += sum;
-      }
-      fm::copy_rows_from_smem(st.dy1 + row0 * HID + c0, HID, dys, LDYB, N, HC);
-      // dh2 += dy1 W1[:, chunk]ᵀ
 #pragma unroll
-      for (int j = 0; j < UPW; ++j) {
-        const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
-        strip_mma_wt<HC, RT2>(dacc[j], dys + tm0 * 16 * LDYB, LDYB,
-                              w1 + (size_t)tn * 16 * HID + c0, HID);
+        for (int j = 0; j < V; ++j) sum += v[i][j];
+        const float m = fm::warp_sum(sum) * (1.0f / C);
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          v[i][j] -= m;
+          q += v[i][j] * v[i][j];
+        }
+        const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[i][j] = v[i][j] * rr * ln2s[c + j] + ln2b[c + j];
+        store_piece<V>(hs + sw_index(r, c), v[i]);
+        store_piece<V>(st.h2 + (row0 + r) * C + c, v[i]);
+        store_piece<V>(gs + sw_index(r, c), gv[i]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) gv[i][j] *= sc2;
+        store_piece<V>(dms + sw_index(r, c), gv[i]);
+        store_piece<V>(st.dm + (row0 + r) * C + c, gv[i]);
+        if (lane == 0) {
+          mu[r] = m;
+          rs[r] = rr;
+        }
       }
-      __syncthreads();
     }
+    fm::fence_proxy_async();  // the tiles' writes, before wgmma reads them
+    __syncthreads();
+
+    // the next window's x1 and g rows into L2 while this one's products run
+    if (threadIdx.x == 0 && it + 1 < wins) {
+      const size_t next = (row0 + (size_t)gridDim.x * N) * C;
+      fm::prefetch_l2(x1g + next, N * C * 2);
+      fm::prefetch_l2(g + next, N * C * 2);
+    }
+    // the hidden loop: warpgroup wg takes slices wg, wg + 2, .. Where a
+    // warpgroup has two slots (C = 64, 128), slice s + 2's y1 and dge are
+    // issued before slice s's stores and its dh2 product's wait, so they
+    // overlap; at C = 256 slice s + 2 takes slice s's slot
+    constexpr bool AHEAD = SLOTS >= 4;
+    float dh2[C / 2], y[32], dg[32];
+    fm::zero_regs(dh2);
+    // slice s's y1 = h2 W1s + b1 (y starts at b1, so the product adds to the
+    // bias in f32) and dge = dm W2sᵀ, as one group; y[4 j + 2 i + e]: row 16 w
+    // + gq + 8 i, hidden column 64 s + 8 j + 2 t + e
+    auto issue_first = [&](int s) {
+      const int q = it * NS + s, slot = q % SLOTS;
+      const uint32_t w1s = ring + slot * L::SLICE, w2s = w1s + L::W2_OFF;
 #pragma unroll
-    for (int j = 0; j < UPW; ++j) {
-      const int u = warp + j * kWarps, tn = u / G2, tm0 = (u % G2) * RT2;
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(b1 + HS * s + 8 * j + 2 * t);
+        y[4 * j] = y[4 * j + 2] = bb.x;
+        y[4 * j + 1] = y[4 * j + 3] = bb.y;
+      }
+      fm::fence_regs(y);
+      fm::zero_regs(dg);
+      fm::mbar_wait(&full[slot], L::RESIDENT ? 0u : (uint32_t)(q / SLOTS) & 1u);
+      fm::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < RT2; ++i)
-        wmma::store_matrix_sync(dh2 + (tm0 + i) * 16 * LDD + tn * 16, dacc[j][i], LDD,
-                                wmma::mem_row_major);
+      for (int ks = 0; ks < C / 16; ++ks)  // k-step ks: rows 16 ks.. of W1's box, read MN-major
+        fm::wgmma_ss_n64<1>(y, fm::sw128_desc(h_u32 + (ks >> 2) * 8192 + (ks & 3) * 32),
+                            fm::sw128_mn_desc(w1s + ks * 2048, 8192), 1);
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks)
+        fm::wgmma_ss_n64(dg, fm::sw128_desc(m_u32 + (ks >> 2) * 8192 + (ks & 3) * 32),
+                         fm::sw128_desc(w2s + (ks >> 2) * 8192 + (ks & 3) * 32), 1);
+      fm::wgmma_commit();
+    };
+    // the rest of slice s (its y1 and dge issued); `ahead`: slice s + 2's
+    // are issued after its dh2 product (compile-time, so no branch lies
+    // between a product's issue and its wait)
+    auto finish_slice = [&](int s, auto ahead) {
+      constexpr bool kAhead = decltype(ahead)::value;
+      const int q = it * NS + s, slot = q % SLOTS, c0 = HS * s;
+      const uint32_t w1s = ring + slot * L::SLICE;
+      fm::wgmma_wait<0>();
+      fm::fence_regs(y);
+      fm::fence_regs(dg);
+      uint32_t f[4][4];   // bf16 dy1 as the A fragments of its four k-steps
+      uint32_t gw[2][8];  // bf16 ge pairs: row + 8 i, columns 8 j + 2 t, + 1
+      float2 csum[8];     // db1: the f32 dy1's sums over the warp's 16 rows, columns 8 j + 2 t, + 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float gev[2], dyv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float yv = y[4 * j + 2 * i + e], ex = __expf(-0.5f * yv * yv);
+            const float cdf = gelu_cdf(yv, ex);
+            gev[e] = yv * cdf;
+            dyv[e] = dg[4 * j + 2 * i + e] * (cdf + yv * kInvSqrt2Pi * ex);
+            dg[4 * j + 2 * i + e] = dyv[e];
+          }
+          gw[i][j] = fm::pack_bf16(gev[0], gev[1]);
+          f[j >> 1][2 * (j & 1) + i] = fm::pack_bf16(dyv[0], dyv[1]);
+        }
+        csum[j] = make_float2(fm::column_sum(dg[4 * j] + dg[4 * j + 2]),
+                              fm::column_sum(dg[4 * j + 1] + dg[4 * j + 3]));
+      }
+      // dh2 += dy1 W1sᵀ: k-step kk, hidden columns 16 kk.., 32 bytes into the box's rows
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) dh2_step<C>(dh2, f[kk], fm::sw128_desc(w1s + 32 * kk));
+      fm::wgmma_commit();
+      if constexpr (kAhead) issue_first(s + 2);
+      // while they run, ge and dy1 to the stash in whole 16-byte pieces of a
+      // row: the quad's 4 x 4 transposes give lane t columns 8 (4 h + t) ..
+      // + 8 of each half h of the slice
+      const size_t ra = row0 + 16 * w + gq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t a[4], b[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            a[k] = gw[i][4 * h + k];
+            b[k] = f[2 * h + (k >> 1)][2 * (k & 1) + i];
+          }
+          quad_transpose(a, t);
+          quad_transpose(b, t);
+          const size_t at = (ra + 8 * i) * HID + c0 + 8 * (4 * h + t);
+          *reinterpret_cast<uint4*>(st.ge + at) = make_uint4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<uint4*>(st.dy1 + at) = make_uint4(b[0], b[1], b[2], b[3]);
+        }
+      // and db1's sums into the warp's partial row (the same lanes own the
+      // same columns every window; a column's 8 lanes all hold its sum and
+      // store the same value: no branch between the products' issue and
+      // their wait)
+      float* db1w = pb + P::db1 + w * HID + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2* p = reinterpret_cast<float2*>(db1w + 8 * j);
+        float2 o = *p;
+        o = it ? o : make_float2(0.f, 0.f);
+        *p = make_float2(o.x + csum[j].x, o.y + csum[j].y);
+      }
+      if constexpr (kAhead)
+        fm::wgmma_wait<1>();  // dh2's product is done; slice s + 2's may run on
+      else
+        fm::wgmma_wait<0>();
+      fm::fence_regs(dh2);
+      fm::fence_frags(f);
+      if constexpr (!L::RESIDENT) {  // the slot goes back; the warpgroup's last warp refills it
+        const uint32_t last = fm::handback((uint32_t)(lane == 0), &count[slot], 3);
+        load_slice(last & (uint32_t)(q + SLOTS < total), q + SLOTS);
+      }
+    };
+    if constexpr (AHEAD) {
+      issue_first(wg);
+      int s = wg;
+#pragma unroll 1
+      for (; s + 2 < NS; s += 2) finish_slice(s, std::true_type{});
+      finish_slice(s, std::false_type{});
+    } else {
+#pragma unroll 1
+      for (int s = wg; s < NS; s += 2) {
+        issue_first(s);
+        finish_slice(s, std::false_type{});
+      }
+    }
+
+    // dh2 = warpgroup 1's + warpgroup 0's, over h2 and dm
+    __syncthreads();  // every product is done with h2 and dm
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(dh + dh_index<C>(16 * w + gq + 8 * i, 8 * j + 2 * t)) =
+              make_float2(dh2[4 * j + 2 * i], dh2[4 * j + 2 * i + 1]);
     }
     __syncthreads();
-    // LN2 backward: dx1 = g + LN2ᵀ(dh2)
-    ln_backward<C>(dh2, LDD, xs, LDX, mu, rs, ln2s, acc + P::dl2s, acc + P::dl2b, warp, lane,
-                   [&](int r, int c) { return bf(g[(row0 + r) * C + c]); },
-                   [&](int r, int c, float v) { dx1[(row0 + r) * C + c] = v; });
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float2* p =
+              reinterpret_cast<float2*>(dh + dh_index<C>(16 * w + gq + 8 * i, 8 * j + 2 * t));
+          const float2 o = *p;
+          *p = make_float2(o.x + dh2[4 * j + 2 * i], o.y + dh2[4 * j + 2 * i + 1]);
+        }
+    }
+    __syncthreads();
+
+    // LN2 backward: dx1 = g + rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+    // dxhat = dh2 scale; the lane's column sums over its warp's 8 rows
+    float pg[V], ps[V], pbias[V], sc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      pg[j] = ps[j] = pbias[j] = 0.f;
+      sc[j] = ln2s[lane * V + j];
+    }
+    float xr[8][V];  // the warp's 8 rows of x1, loaded before the first reduction
+#pragma unroll
+    for (int i = 0; i < 8; ++i) load_piece<V>(x1g + (row0 + warp * 8 + i) * C + lane * V, xr[i]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp * 8 + i, c = lane * V;
+      float* xh = xr[i];
+      float gv[V], d[V], dxh[V];
+      load_piece<V>(gs + sw_index(r, c), gv);
+      load_dh<C, V>(dh, r, c, d);
+      const float m = mu[r], rr = rs[r];
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        xh[j] = (xh[j] - m) * rr;
+        dxh[j] = d[j] * sc[j];
+        m1 += dxh[j];
+        m2 += dxh[j] * xh[j];
+        ps[j] += d[j] * xh[j];
+        pbias[j] += d[j];
+        pg[j] += gv[j] * sc2;
+      }
+      m1 = fm::warp_sum(m1) * (1.0f / C);
+      m2 = fm::warp_sum(m2) * (1.0f / C);
+      float out[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = gv[j] + rr * (dxh[j] - m1 - xh[j] * m2);
+      float* o = dx1 + (row0 + r) * C + c;
+      if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(o) = make_float2(out[0], out[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(o + j) =
+              make_float4(out[j], out[j + 1], out[j + 2], out[j + 3]);
+      }
+    }
+    __syncthreads();  // every warp is done with dh2 and g
+    float* stage = dh;  // [8 warps][db2 | dl2s | dl2b]
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      stage[warp * 3 * C + P::db2 + lane * V + j] = pg[j];
+      stage[warp * 3 * C + P::dl2s + lane * V + j] = ps[j];
+      stage[warp * 3 * C + P::dl2b + lane * V + j] = pbias[j];
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < 3 * C; c += kThreads) {
+      float v = stage[c];
+#pragma unroll
+      for (int k = 1; k < kWarps; ++k) v += stage[k * 3 * C + c];
+      pb[c] = it ? pb[c] + v : v;  // db2 | dl2s | dl2b
+    }
   }
+  // db1: the four warps' rows, in order, into warp 0's
   __syncthreads();
-  for (int i = threadIdx.x; i < 7 * C; i += blockDim.x)
-    part[(size_t)blockIdx.x * P::stride + i] = acc[i];
+  for (int c = threadIdx.x; c < HID; c += kThreads) {
+    const float* r = pb + P::db1 + c;
+    pb[P::db1 + c] = r[0] + r[HID] + r[2 * HID] + r[3 * HID];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -735,7 +955,7 @@ __device__ __forceinline__ void grad_unit_keys(bf16* qkv, const bf16* das, const
 }
 
 // h1 = LN1(x) for the window's 64 rows (x in device memory, row stride C),
-// 8 rows a warp, with ln_rows's arithmetic; all of a warp's rows are loaded
+// 8 rows a warp, with mlp_bwd's LN2 arithmetic; all of a warp's rows are loaded
 // before the first reduction, so their loads are in flight together.
 template <int C>
 __device__ __forceinline__ void ln1_rows(const bf16* src, const float* s, const float* b,
@@ -769,8 +989,8 @@ __device__ __forceinline__ void ln1_rows(const bf16* src, const float* s, const 
   }
 }
 
-// The rows of the LN1 backward of one window, with ln_backward's
-// arithmetic: dx = dx1 + rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+// The rows of the LN1 backward of one window, with mlp_bwd's LN2
+// backward's arithmetic: dx = dx1 + rs (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
 // dxhat = dh1 * scale; 8 rows a warp, G at a time, the rows' x and dx1
 // loaded before the first reduction.
 template <int C>
@@ -982,11 +1202,22 @@ cudaError_t launch_fwd(const void* const* in, int num_windows, int nW, cudaStrea
                                num_windows, st);
 }
 
+// mlp_bwd's operands W1 [C][4C] and W2 [4C][C] (bf16) as tensor maps: W1's
+// [C rows][64 columns] boxes (a slice's columns), W2's [64][64]
+template <int C>
+cudaError_t mlp_maps(const bf16* w1, const bf16* w2, CUtensorMap* m1, CUtensorMap* m2) {
+  const cuuint64_t d1[2] = {4 * C, C}, s1[1] = {8 * C}, d2[2] = {C, 4 * C}, s2[1] = {2 * C};
+  const cuuint32_t b1[2] = {HS, C}, b2[2] = {64, HS};
+  const cudaError_t e = fm::bf16_tensor_map(m1, w1, 2, d1, s1, b1);
+  return e != cudaSuccess ? e : fm::bf16_tensor_map(m2, w2, 2, d2, s2, b2);
+}
+
 template <int C>
 cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows, int nb,
-                       int sms, cudaStream_t st) {
+                       int nbm, int mlp_windows, int sms, cudaStream_t st) {
   // in: x, s1, s2, probs, x1, g, then the 13 params (PARAM_KEYS order)
-  // out: dx, the 13 grads, stash, dx1, small partials, rel_bias partials, gemm partials
+  // out: dx, the 13 grads, stash, dx1, attn_bwd's partials, mlp_bwd's
+  // partials, rel_bias partials, gemm partials
   auto F = [](const void* q) { return static_cast<const float*>(q); };
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
   const void* const* p = in + 6;
@@ -994,20 +1225,24 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows,
   bf16* stash = static_cast<bf16*>(out[14]);
   float* dx1 = static_cast<float*>(out[15]);
   float* small = static_cast<float*>(out[16]);
-  float* dbias = static_cast<float*>(out[17]);
-  float* gemm = static_cast<float*>(out[18]);
+  float* mpart = static_cast<float*>(out[17]);
+  float* dbias = static_cast<float*>(out[18]);
+  float* gemm = static_cast<float*>(out[19]);
   using P = Part<C>;
+  using MP = MlpPart<C>;
 
-  cudaError_t e = cudaFuncSetAttribute(mlp_bwd_kernel<C>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)MlpSmem<C>::bytes);
+  CUtensorMap m1, m2;
+  cudaError_t e = mlp_maps<C>(Bf(p[9]), Bf(p[11]), &m1, &m2);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mlp_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)MlpLayout<C>::bytes);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(attn_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)AttnSmem<C>::bytes);
   if (e != cudaSuccess) return e;
-  mlp_bwd_kernel<C><<<nb, kThreads, MlpSmem<C>::bytes, st>>>(
-      Bf(in[4]), Bf(in[5]), F(in[2]), F(p[7]), F(p[8]), Bf(p[9]), F(p[10]), Bf(p[11]),
-      num_windows, stash, dx1, small);
+  mlp_bwd_kernel<C><<<nbm, kThreads, MlpLayout<C>::bytes, st>>>(
+      m1, m2, Bf(in[4]), Bf(in[5]), F(in[2]), F(p[7]), F(p[8]), F(p[10]), num_windows,
+      mlp_windows, stash, dx1, mpart);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   attn_bwd_kernel<C><<<nb, kThreads, AttnSmem<C>::bytes, st>>>(
@@ -1018,16 +1253,19 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows,
 
   Stash<C> s(stash, (size_t)T);
   // grads in PARAM_KEYS order: ln1_scale, ln1_bias, w_qkv, b_qkv, rel_bias,
-  // w_proj, b_proj, ln2_scale, ln2_bias, w_mlp1, b_mlp1, w_mlp2, b_mlp2
+  // w_proj, b_proj, ln2_scale, ln2_bias, w_mlp1, b_mlp1, w_mlp2, b_mlp2;
+  // each kernel's block partials added over its own blocks in order
   void* const* gr = out + 1;
-  const size_t stride = P::stride;
   const struct { int off, len, out; } sums[] = {
-      {P::dl1s, C, 0}, {P::dl1b, C, 1}, {P::dbqkv, 3 * C, 3}, {P::dbproj, C, 6},
-      {P::dl2s, C, 7}, {P::dl2b, C, 8}, {P::db1, 4 * C, 10}, {P::db2, C, 12}};
+      {P::dl1s, C, 0}, {P::dl1b, C, 1}, {P::dbqkv, 3 * C, 3}, {P::dbproj, C, 6}};
   for (const auto& q : sums) {
-    e = sum_parts(small + q.off, nb, stride, q.len, gr[q.out], st);
+    e = sum_parts(small + q.off, nb, P::stride, q.len, gr[q.out], st);
     if (e != cudaSuccess) return e;
   }
+  // mlp_bwd's db2 | dl2s | dl2b | db1 in one sum: the gradients of b_mlp2,
+  // ln2_scale, ln2_bias and b_mlp1 lie contiguous in that order
+  e = sum_parts(mpart, nbm, MP::stride, MP::db1 + 4 * C, gr[12], st);
+  if (e != cudaSuccess) return e;
   e = sum_parts(dbias, nb, (size_t)H * N * N, H * N * N, gr[4], st);
   if (e != cudaSuccess) return e;
   // the four weight gradients in one launch
@@ -1052,7 +1290,7 @@ template <int C>
 cudaError_t bwd_occupancy(int* info) {
   cudaError_t e = occupancy(attn_bwd_kernel<C>, (int)AttnSmem<C>::bytes, info);
   if (e != cudaSuccess) return e;
-  return occupancy(mlp_bwd_kernel<C>, (int)MlpSmem<C>::bytes, info + 2);
+  return occupancy(mlp_bwd_kernel<C>, (int)MlpLayout<C>::bytes, info + 2);
 }
 
 }  // namespace
@@ -1078,19 +1316,28 @@ extern "C" int fm_swin_block_train_fwd(const void* const* in, int num_windows, i
 
 // Backward: in = {x, s1, s2, probs, x1, g, the 13 params}; out = {dx,
 // the 13 gradients (f32, the params' layouts), bf16 stash [16 C T], f32
-// dx1 [T C], f32 block partials [nb][13 C], f32 rel_bias partials
-// [nb][C/16][64][64], f32 weight-gradient partials (ops/wgrad.partial_floats
-// of the four products)}, T = 64 num_windows; sms: the card's SMs. (The
-// backward reads the saved probabilities, so no mask.)
+// dx1 [T C], f32 attn_bwd block partials [nb][6 C], f32 mlp_bwd block
+// partials [nbm][19 C], f32 rel_bias partials [nb][C/16][64][64], f32
+// weight-gradient partials (ops/wgrad.partial_floats of the four
+// products)}, T = 64 num_windows (the gradients of b_mlp2, ln2_scale,
+// ln2_bias and b_mlp1 contiguous in that order); nb: attn_bwd's blocks; nbm: mlp_bwd's
+// (ops/swin_block_train.mlp_grid); mlp_windows: the windows mlp_bwd takes
+// (num_windows; fewer only to check that a check sees windows left out);
+// sms: the card's SMs. (The backward reads the saved probabilities, so no
+// mask.)
 extern "C" int fm_swin_block_train_bwd(const void* const* in, void* const* out, int num_windows,
-                                       int C, int nb, int sms, void* stream) {
-  if (nb <= 0 || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                       int C, int nb, int nbm, int mlp_windows, int sms,
+                                       void* stream) {
+  const float* b2 = static_cast<const float*>(out[13]);  // b_mlp2's gradient, then ln2_scale's, ..
+  if (nb <= 0 || nbm <= 0 || sms <= 0 || mlp_windows > num_windows || out[8] != b2 + C ||
+      out[9] != b2 + 2 * C || out[11] != b2 + 3 * C)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (C) {
-    case 64: e = launch_bwd<64>(in, out, num_windows, nb, sms, st); break;
-    case 128: e = launch_bwd<128>(in, out, num_windows, nb, sms, st); break;
-    case 256: e = launch_bwd<256>(in, out, num_windows, nb, sms, st); break;
+    case 64: e = launch_bwd<64>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
+    case 128: e = launch_bwd<128>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
+    case 256: e = launch_bwd<256>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);

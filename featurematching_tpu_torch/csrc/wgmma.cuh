@@ -74,6 +74,32 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// accumulators are cleared, not left to the first k-step's scale-d = 0: with
+// that, left uninitialised, a kernel's results came out wrong
+template <int R>
+__device__ __forceinline__ void zero_regs(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+}
+
+// keep the A fragments of a register-A wgmma in their registers until the
+// wait that follows it (the product reads them after its issue)
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// the sum over the 8 lanes that hold a column of an accumulator (lane / 4 =
+// 0..7), which all receive it
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
 // generic-proxy writes to shared memory made visible to wgmma and bulk copies
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -120,6 +146,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// start bringing `bytes` (a multiple of 16, the address 16-byte aligned)
+// from device memory into L2 by the bulk-copy engine; nothing waits for it
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // descriptor of a K-major operand tile laid out with the 128-byte swizzle
@@ -205,6 +237,47 @@ __device__ __forceinline__ void ring_handback(bool go, uint32_t counter, uint32_
       : "memory");
 }
 
+// Predicated forms (no branch between a wgmma's issue and its wait, so
+// ptxas keeps the products asynchronous): each acts only where `p` is not 0.
+__device__ __forceinline__ void expect_if(uint32_t p, uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n}\n" ::"r"(p),
+      "r"(smem_u32(bar)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d_if(uint32_t p, uint32_t dst, const CUtensorMap* map, int c0,
+                                          int c1, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%1], [%2, {%3, %4}], [%5];\n}\n" ::"r"(p),
+      "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One warp's hand-back of a ring slot (every lane calls it): where `go`,
+// lane 0 counts it in the slot's counter; the hand-back that finds `last`
+// there resets the counter and reports it (then the slot may be refilled).
+__device__ __forceinline__ uint32_t handback(uint32_t go, int* count, uint32_t last) {
+  uint32_t was_last;
+  asm volatile(
+      "{\n.reg .pred p0, p1;\n.reg .u32 old;\nmov.u32 old, 0;\n"
+      "setp.ne.u32 p0, %1, 0;\n"
+      "@p0 fence.acq_rel.cta;\n"
+      "@p0 atom.shared.add.u32 old, [%2], 1;\n"
+      "setp.eq.and.u32 p1, old, %3, p0;\n"
+      "@p1 st.shared.u32 [%2], 0;\n"
+      "@p1 fence.acq_rel.cta;\n"
+      "@p1 fence.proxy.async.shared::cta;\n"
+      "selp.u32 %0, 1, 0, p1;\n}\n"
+      : "=r"(was_last)
+      : "r"(go), "r"(smem_u32(count)), "r"(last)
+      : "memory");
+  return was_last;
+}
+
 // d[64] += A (descriptor a) . B (descriptor b), m64n128k16; scale_d = 0 ignores d
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
@@ -223,18 +296,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d[32] += A (descriptor a) . B (descriptor b), m64n64k16; scale_d = 0 ignores d
+// d[32] += A (descriptor a, K-major) . B (descriptor b: K-major, or MN-major
+// where TB = 1), m64n64k16; scale_d = 0 ignores d
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // d[128] += A (descriptor a) . B (descriptor b), m64n256k16; scale_d = 0 ignores d

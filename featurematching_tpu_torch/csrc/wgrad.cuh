@@ -88,26 +88,6 @@ struct Group {
   int n;
 };
 
-// Predicated forms (no branch between a wgmma's issue and its wait, so
-// ptxas keeps the products asynchronous): each acts only where `p` is not 0.
-__device__ __forceinline__ void expect_if(uint32_t p, uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
-      "@q mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n}\n" ::"r"(p),
-      "r"(smem_u32(bar)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_2d_if(uint32_t p, uint32_t dst, const CUtensorMap* map, int c0,
-                                          int c1, uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
-      "@q cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%1], [%2, {%3, %4}], [%5];\n}\n" ::"r"(p),
-      "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A stage into the slot at `dst`, completing on `bar`, where p: A's `wgs`
 // boxes from column m0, B's NT / 64 from column n0, tokens from t0.
 template <int NT>
@@ -119,27 +99,6 @@ __device__ __forceinline__ void load_stage(uint32_t p, uint32_t dst, uint64_t* b
   tma_2d_if(p & (uint32_t)(wgs > 1), dst + kBox, ma, m0 + 64, t0, bar);
 #pragma unroll
   for (int j = 0; j < NT / 64; ++j) tma_2d_if(p, dst + (2 + j) * kBox, mb, n0 + 64 * j, t0, bar);
-}
-
-// One warp's hand-back of a ring slot (every lane calls it): where `go`,
-// lane 0 counts it in the slot's counter; the hand-back that finds `last`
-// there resets the counter and reports it (then the slot may be refilled).
-__device__ __forceinline__ uint32_t handback(uint32_t go, int* count, uint32_t last) {
-  uint32_t was_last;
-  asm volatile(
-      "{\n.reg .pred p0, p1;\n.reg .u32 old;\nmov.u32 old, 0;\n"
-      "setp.ne.u32 p0, %1, 0;\n"
-      "@p0 fence.acq_rel.cta;\n"
-      "@p0 atom.shared.add.u32 old, [%2], 1;\n"
-      "setp.eq.and.u32 p1, old, %3, p0;\n"
-      "@p1 st.shared.u32 [%2], 0;\n"
-      "@p1 fence.acq_rel.cta;\n"
-      "@p1 fence.proxy.async.shared::cta;\n"
-      "selp.u32 %0, 1, 0, p1;\n}\n"
-      : "=r"(was_last)
-      : "r"(go), "r"(smem_u32(count)), "r"(last)
-      : "memory");
-  return was_last;
 }
 
 template <int NT>

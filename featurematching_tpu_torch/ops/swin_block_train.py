@@ -39,11 +39,16 @@ PARAM_KEYS = (
     "ln2_scale", "ln2_bias", "w_mlp1", "b_mlp1", "w_mlp2", "b_mlp2",
 )
 _BF16_KEYS = ("w_qkv", "w_proj", "w_mlp1", "w_mlp2")
-# the backward's window loop: at most this many blocks, each owning a fixed
-# set of windows and its own partial sums of the small gradients
+# attn_bwd's window loop: at most this many blocks, each owning a fixed set
+# of windows and its own partial sums of the small gradients
 MAX_BLOCKS = 264
+# floats of a block's partial row: attn_bwd's (dbqkv, dbproj, LN1's two) and
+# mlp_bwd's (db2, LN2's two, then db1 for each warp of a warpgroup)
+ATTN_PART, MLP_PART = 6, 19
 _FWD_ARGS = [_build.PTR, _build.INT, _build.INT, _build.INT, _build.PTR]
-_BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 4 + [_build.PTR]
+_BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
+_OCC_ARGS = [_build.INT, ctypes.POINTER(ctypes.c_int)]
+_occupancy: Dict[Tuple[int, int], Tuple[int, int, int, int]] = {}
 
 
 def swin_block_train_reference(
@@ -150,21 +155,55 @@ def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
     return [(T, C, 3 * C), (T, C, C), (T, C, 4 * C), (T, 4 * C, C)]
 
 
-def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
-                         num_heads: int):
-    """Backward kernels: (dx in x's dtype, the 13 parameter gradients in f32
-    in PARAM_KEYS order and the kernel's layouts)."""
+def mlp_grid(windows: int, blocks_per_sm: int, sms: int) -> int:
+    """mlp_bwd's grid: the blocks the card holds at once, each walking
+    windows blockIdx, + grid, ..; no more blocks than windows."""
+    return max(1, min(windows, blocks_per_sm * sms))
+
+
+def bwd_occupancy(C: int, device: int = 0) -> Tuple[int, int, int, int]:
+    """(attn_bwd's dynamic shared memory in bytes, its resident blocks an SM,
+    mlp_bwd's bytes, its blocks an SM) at width C on the card, as the runtime
+    reports them."""
+    key = (C, device)
+    if key not in _occupancy:
+        info = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            _build.launch("swin_block_train", "fm_swin_block_train_bwd_occupancy", _OCC_ARGS,
+                          C, info)
+        _occupancy[key] = tuple(info)
+    return _occupancy[key]
+
+
+def bwd_launch(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor], num_heads: int,
+               mlp_windows: Optional[int] = None):
+    """One launch of the backward kernels: (dx in x's dtype, the 13 parameter
+    gradients in f32 in PARAM_KEYS order and the kernel's layouts, the f32
+    gradient of the residual stream after the attention branch, dx1 [B_, 64,
+    C], which mlp_bwd writes and attn_bwd reads). mlp_windows < B_ makes
+    mlp_bwd leave the last windows out (their dx1 and stash rows zero): a
+    fault for checking that a check sees it."""
     B_, N, C = x.shape
     T = B_ * N
     dev = x.device
+    mlp_windows = B_ if mlp_windows is None else mlp_windows
     nb = min(B_, MAX_BLOCKS)
     sms = sm_count(dev.index or 0)
+    nbm = mlp_grid(B_, bwd_occupancy(C, dev.index or 0)[3], sms)
     f32 = dict(device=dev, dtype=torch.float32)
+    alloc = torch.empty if mlp_windows == B_ else torch.zeros
     grads = [torch.empty(p.shape, **f32) for p in kparams]
+    # the kernel adds mlp_bwd's partials in one sum into b_mlp2's, ln2_scale's,
+    # ln2_bias's and b_mlp1's gradients, which lie contiguous in that order
+    mlp_small = torch.empty(7 * C, **f32)
+    for k, lo, hi in (("b_mlp2", 0, C), ("ln2_scale", C, 2 * C), ("ln2_bias", 2 * C, 3 * C),
+                      ("b_mlp1", 3 * C, 7 * C)):
+        grads[PARAM_KEYS.index(k)] = mlp_small[lo:hi]
     dx = torch.empty_like(x)
-    stash = torch.empty(16 * C * T, device=dev, dtype=torch.bfloat16)
-    dx1 = torch.empty(T * C, **f32)
-    small = torch.empty(nb * 13 * C, **f32)
+    stash = alloc(16 * C * T, device=dev, dtype=torch.bfloat16)
+    dx1 = alloc(T * C, **f32)
+    small = torch.empty(nb * ATTN_PART * C, **f32)
+    mpart = torch.empty(nbm * MLP_PART * C, **f32)
     dbias = torch.empty(nb * num_heads * N * N, **f32)
     gemm = torch.empty(partial_floats(wgrad_calls(T, C), sms), **f32)
     g = g.contiguous()
@@ -172,8 +211,17 @@ def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
     _build.launch(
         "swin_block_train", "fm_swin_block_train_bwd", _BWD_ARGS,
         _ptrs([x, s1, s2, probs, x1, g, *kparams]),
-        _ptrs([dx, *grads, stash, dx1, small, dbias, gemm]), B_, C, nb, sms, _build.stream(),
+        _ptrs([dx, *grads, stash, dx1, small, mpart, dbias, gemm]), B_, C, nb, nbm,
+        mlp_windows, sms, _build.stream(),
     )
+    return dx, grads, dx1.view(B_, N, C)
+
+
+def swin_block_train_bwd(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor],
+                         num_heads: int):
+    """Backward kernels: (dx in x's dtype, the 13 parameter gradients in f32
+    in PARAM_KEYS order and the kernel's layouts)."""
+    dx, grads, _ = bwd_launch(x, s1, s2, probs, x1, g, kparams, num_heads)
     swin_block_train_bwd.launches += 1
     wgrad.launches += 1  # the launch ran the weight gradients' kernel once
     return dx, grads

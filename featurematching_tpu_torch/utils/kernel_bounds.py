@@ -188,6 +188,25 @@ def swin_block_train_attn_bwd_work(windows: int, C: int, heads: int,
     return nbytes, 2 * tokens * (4 * C * C + 4 * WINDOW * C)
 
 
+def swin_block_train_mlp_bwd_work(windows: int, C: int, heads: int,
+                                  mask_windows: int) -> Work:
+    """`mlp_bwd`, the MLP branch of K8's backward, alone, under the same split
+    as `swin_block_train_attn_bwd_work`: it must read x1 and the output
+    gradient g (bf16), the drop-path scale and its weights W1 and W2 (bf16)
+    with b1 and LN2's scale and bias (f32), and write dx1 (f32) and the
+    stash's h2, dm (C each), dy1 and gelu(y1) (4 C each, bf16). Its products
+    are the activation gradients dge = dm W2ᵀ and dh2 = dy1 W1ᵀ (8 C²
+    multiply-adds a token); the recomputed y1 = h2 W1 is the kernel's
+    choice, not counted. `heads` and `mask_windows` are taken for the
+    sites' signature: the MLP branch has neither."""
+    del heads, mask_windows
+    tokens = windows * WINDOW
+    weights = 8 * C * C * BF16 + (4 * C + 2 * C) * F32
+    nbytes = (tokens * C * (BF16 + BF16 + F32) + tokens * 10 * C * BF16 + windows * F32
+              + weights)
+    return nbytes, 2 * tokens * 8 * C * C
+
+
 def coarse_train_fwd_work(G: int, L: int, S: int, C: int, heads: int) -> Work:
     """K9's forward for one encoder call (L query tokens of G images over S
     source tokens): K5's stats and apply launches."""
@@ -445,6 +464,14 @@ def main() -> None:
     b, by = bound_ms(nbytes, flops)
     print(f"| K11 (tpu_optimized_config, head dim 64) | pallas_window_attention."
           f"window_attention_pallas | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    sites = swin_sites(cfg, 8, 480, 640)  # the step's 13 blocks over both images of 4 pairs
+    for name, fn in (("attn_bwd", swin_block_train_attn_bwd_work),
+                     ("mlp_bwd", swin_block_train_mlp_bwd_work)):
+        works = [fn(*st[:4]) for st in sites]
+        nbytes, flops = total(works)
+        b, by = bound_ms(nbytes, flops)
+        print(f"| K8 bwd's {name} alone (13 launches a step) | csrc/swin_block_train.cu "
+              f"{name}_kernel | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
     groups = wgrad_groups(cfg)
     for label, works in (
             ("each product alone", [wgrad_work(*c) for c in wgrad_calls(cfg)]),

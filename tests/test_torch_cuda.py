@@ -838,30 +838,15 @@ def test_swin_block_train_gradients_are_bit_identical(gen, C, nwin):
         assert torch.equal(a, b), name
 
 
-def _bwd_keeping_dx1(x, s1, s2, probs, x1, g, kp, h):
-    """swin_block_train_bwd's launch, its buffers allocated as the wrapper
-    does, returning the f32 gradient of the residual stream after the
-    attention branch (dx1, which mlp_bwd writes and attn_bwd reads) beside
-    dx and the 13 gradients."""
-    from featurematching_tpu_torch.ops import _build
+def _bwd_keeping_dx1(x, s1, s2, probs, x1, g, kp, h, mlp_windows=None):
+    """swin_block_train_bwd's launch (`bwd_launch`), returning the f32
+    gradient of the residual stream after the attention branch (dx1, which
+    mlp_bwd writes and attn_bwd reads) beside dx and the 13 gradients."""
     from featurematching_tpu_torch.ops import swin_block_train as sbt
 
-    B_, N, C = x.shape
-    T = B_ * N
-    nb, sms = min(B_, sbt.MAX_BLOCKS), sbt.sm_count(x.device.index or 0)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    grads = [torch.empty(p.shape, **f32) for p in kp]
-    dx = torch.empty_like(x)
-    stash = torch.empty(16 * C * T, device=x.device, dtype=torch.bfloat16)
-    dx1 = torch.empty(T * C, **f32)
-    scratch = [torch.empty(nb * 13 * C, **f32), torch.empty(nb * h * N * N, **f32),
-               torch.empty(sbt.partial_floats(sbt.wgrad_calls(T, C), sms), **f32)]
-    _build.launch("swin_block_train", "fm_swin_block_train_bwd", sbt._BWD_ARGS,
-                  sbt._ptrs([x, s1, s2, probs, x1, g, *kp]),
-                  sbt._ptrs([dx, *grads, stash, dx1, *scratch]), B_, C, nb, sms,
-                  _build.stream())
+    dx, grads, dx1 = sbt.bwd_launch(x, s1, s2, probs, x1, g, kp, h, mlp_windows)
     torch.cuda.synchronize()
-    return dx, dict(zip(PARAM_KEYS, grads)), dx1.view(B_, N, C)
+    return dx, dict(zip(PARAM_KEYS, grads)), dx1
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])
@@ -884,6 +869,57 @@ def test_swin_block_train_backward_with_the_attention_branch_dropped(gen, C):
     for k in ("ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "rel_bias", "w_proj", "b_proj"):
         assert not bool(grads[k].any()), k
     assert bool(grads["w_mlp1"].abs().max() > 0)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_train_backward_with_the_mlp_branch_dropped(gen, C):
+    """s2 = 0 on every window: dm = 0, so dge, dy1 and dh2 are 0, dx1 = g +
+    LN2ᵀ(0) is the output gradient itself in f32, bit for bit, and the
+    gradients of the MLP branch's parameters (LN2, w_mlp1, b_mlp1, w_mlp2,
+    b_mlp2) are exactly 0."""
+    h, nwin = C // 16, 301
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    kp = _kernel_params(_block_params(gen, C, h), C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    s1 = torch.full((nwin,), 1 / 0.8, device="cuda")
+    s2 = torch.zeros(nwin, device="cuda")
+    _, probs, x1 = swin_block_train_fwd(x, mask, s1, s2, kp, h)
+    dx, grads, dx1 = _bwd_keeping_dx1(x, s1, s2, probs, x1, gout, kp, h)
+    assert torch.equal(dx1, gout.float())
+    for k in ("ln2_scale", "ln2_bias", "w_mlp1", "b_mlp1", "w_mlp2", "b_mlp2"):
+        assert not bool(grads[k].any()), k
+    assert bool(grads["w_qkv"].abs().max() > 0)
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_swin_block_train_mlp_bwd_at_its_grid_edges(gen, C):
+    """mlp_bwd's persistent grid (`mlp_grid`: the blocks the card holds at
+    once) at 1 window, one window a block (a full wave of the grid) and one
+    more (a block walks its window loop twice), and at C = 256 the training
+    step's 160 windows and 161, with the shift mask and drop-path scales of
+    0 and 1/keep: the output, dx and the 13 gradients within chip_smoke.py's
+    K8 tolerance (5e-2 of max |plain|) of the twin's autograd, and two
+    backward runs bit-identical."""
+    from featurematching_tpu_torch.ops import swin_block_train as sbt
+
+    h = C // 16
+    full = sbt.mlp_grid(10**9, sbt.bwd_occupancy(C)[3], sbt.sm_count(0))
+    counts = [1, full, full + 1] + ([160, 161] if C == 256 else [])
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    for nwin in counts:
+        x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+        gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+        p = _block_params(gen, C, h)
+        s1 = torch.where(torch.arange(nwin, device="cuda") % 3 == 2, 0.0, 1 / 0.8)
+        s2 = torch.where(torch.arange(nwin, device="cuda") % 5 == 1, 0.0, 1 / 0.8)
+        got = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+        ref = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=True)
+        for name, a, r in zip(["out", "dx", *PARAM_KEYS], got, ref, strict=True):
+            assert _rel(a, r) <= 5e-2, (nwin, name)
+        again = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+        for name, a, b in zip(["out", "dx", *PARAM_KEYS], got, again, strict=True):
+            assert torch.equal(a, b), (nwin, name)
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])

@@ -17,6 +17,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
     swin_block_train_fwd_work,
+    swin_block_train_mlp_bwd_work,
     swin_block_work,
     swin_sites,
     total,
@@ -95,6 +96,28 @@ def test_attn_bwd_counts_its_own_split():
     # a part of K8's backward: fewer products than the whole
     whole = swin_block_train_bwd_work(W, C, h, 80)
     assert flops < whole[1]
+
+
+def test_mlp_bwd_counts_its_own_split():
+    """K8's MLP backward alone at C = 256 on 160 windows (16 heads), by hand:
+    a token's x1 and g (bf16) in, f32 dx1 and the four stash operands h2,
+    dm, dy1 and gelu(y1) (C, C, 4 C, 4 C, bf16) out, 28 C bytes; the
+    drop-path scales, W1, W2, b1 and LN2's scale and bias once; products
+    2 T (8 C^2), the recomputed y1 not counted. Its products are fewer than
+    the whole backward's, and the two branches' together are too."""
+    W, C, h = 160, 256, 16
+    T = W * 64
+    nbytes, flops = swin_block_train_mlp_bwd_work(W, C, h, 20)
+    token = 2 * C + 2 * C + 4 * C + 2 * (C + C + 4 * C + 4 * C)
+    assert token == 28 * C
+    weights = 2 * (4 * C * C) * 2 + (4 * C + C + C) * 4  # w_mlp1, w_mlp2; b_mlp1, LN2
+    assert nbytes == T * token + W * 4 + weights
+    assert flops == 2 * T * 8 * C * C
+    whole = swin_block_train_bwd_work(W, C, h, 20)
+    attn = swin_block_train_attn_bwd_work(W, C, h, 20)
+    assert flops < whole[1] and flops + attn[1] < whole[1]
+    # the mask does not enter the MLP branch
+    assert swin_block_train_mlp_bwd_work(W, C, h, 0) == (nbytes, flops)
 
 
 def test_apply_bwd_counts_its_own_split():

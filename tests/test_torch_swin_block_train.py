@@ -141,3 +141,24 @@ def test_no_gradient_reaches_mask_or_scales():
     # scales of 1 are no scales
     ref = swin_block_train_reference(x.detach(), None, None, None, p, h)
     np.testing.assert_allclose(out.detach().numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("windows,per_sm,sms,grid", [
+    (1, 1, 132, 1),          # one window: one block
+    (132, 1, 132, 132),      # one window a block: a full wave
+    (133, 1, 132, 132),      # one past it: block 0 walks two windows
+    (160, 1, 132, 132),      # the training step's C = 256 sites
+    (640, 1, 132, 132),      # its C = 128 sites: five rounds
+    (2400, 1, 132, 132),     # its C = 64 sites
+    (2400, 2, 132, 264),     # two blocks an SM
+])
+def test_mlp_grid_takes_the_blocks_the_card_holds(windows, per_sm, sms, grid):
+    """mlp_bwd's persistent grid: the blocks resident at once (blocks an SM
+    x SMs), never more than the windows; each block then walks windows
+    blockIdx, + grid, .., so the rounds are ceil(windows / grid)."""
+    from featurematching_tpu_torch.ops.swin_block_train import mlp_grid
+
+    assert mlp_grid(windows, per_sm, sms) == grid
+    walked = sorted(b + k * grid for b in range(grid) for k in range(-(-windows // grid))
+                    if b + k * grid < windows)
+    assert walked == list(range(windows))

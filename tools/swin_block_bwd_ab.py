@@ -10,14 +10,17 @@ the inputs and the timers (the bounds are this script's checkout's
 `utils/kernel_bounds.py`, so an older ROOT is held to the same ones). The
 script builds ROOT's `swin_block_train` library anew and prints what `-Xptxas -v`
 says of `attn_bwd_kernel` and `mlp_bwd_kernel` at C = 64, 128 and 256
-(registers, spills, static shared memory), the dynamic shared memory and
-resident blocks an SM the runtime reports for them (where the library
-exports `fm_swin_block_train_bwd_occupancy`), then, at the six sites of
+(registers, spills, static shared memory, and any C7518 line: wgmma
+serialized), the dynamic shared memory and resident blocks an SM the
+runtime reports for them, and mlp_bwd's grid, blocks an SM and waves at
+each width's window count (where the library exports
+`fm_swin_block_train_bwd_occupancy`), then, at the six sites of
 `chip_smoke.check_swin_block_train` (the training step's 13 blocks: C = 64,
 128 and 256 without and with the shift mask and drop-path scales):
   - the backward's device time by kernel (the profiler over REPS calls
-    after a warm-up, per call), attn_bwd's beside its own bound
-    (`kernel_bounds.swin_block_train_attn_bwd_work`);
+    after a warm-up, per call), attn_bwd's and mlp_bwd's each beside its own
+    bound (`kernel_bounds.swin_block_train_attn_bwd_work`,
+    `swin_block_train_mlp_bwd_work`);
   - the whole backward by CUDA events (ITERS calls after a warm-up);
   - each summed over the step's 13 launches.
 With --check it first holds the backward against the plain twin's autograd
@@ -39,6 +42,7 @@ import torch
 import chip_smoke as cs
 from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
 from featurematching_tpu_torch.ops import _build
+from featurematching_tpu_torch.ops import swin_block_train as sbt
 from featurematching_tpu_torch.ops.swin_block_train import (
     PARAM_KEYS,
     _kernel_params,
@@ -62,8 +66,11 @@ SITES = [(2400, 64, 4, (120, 160), 2, 1), (640, 128, 8, (64, 80), 2, 1),
 
 def ptxas_report(log: str) -> None:
     """attn_bwd's and mlp_bwd's registers, spills and static shared memory
-    from ptxas, and the blocks an SM the registers allow at 256 threads."""
+    from ptxas, the blocks an SM the registers allow at 256 threads, and
+    ptxas's C7518 lines (wgmma serialized), or that it printed none."""
     lines = log.splitlines()
+    c7518 = [x.strip() for x in lines if "C7518" in x]
+    print(f"  C7518 (wgmma serialized): {len(c7518)} lines" + "".join(f"\n    {x}" for x in c7518))
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*?((?:attn|mlp)_bwd_kernel)ILi(\d+)E", line)
         if not m:
@@ -76,6 +83,14 @@ def ptxas_report(log: str) -> None:
         print(f"  {m.group(1)}<{m.group(2)}>: {info} -> {by_regs} blocks an SM by registers")
 
 
+def mlp_blocks(nwin: int, per_sm: int, sms: int) -> int:
+    """mlp_bwd's grid in this tree: its own (`mlp_grid`) where it has one,
+    else attn_bwd's min(windows, MAX_BLOCKS)."""
+    if hasattr(sbt, "mlp_grid"):
+        return sbt.mlp_grid(nwin, per_sm, sms)
+    return min(nwin, sbt.MAX_BLOCKS)
+
+
 def occupancy_report() -> None:
     lib = _build._load("swin_block_train")
     if not hasattr(lib, "fm_swin_block_train_bwd_occupancy"):
@@ -84,13 +99,19 @@ def occupancy_report() -> None:
     fn = lib.fm_swin_block_train_bwd_occupancy
     fn.argtypes = [_build.INT, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _build.INT
-    for C in (64, 128, 256):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nwin, C, *_ in SITES:
         info = (ctypes.c_int * 4)()
         err = fn(C, info)
         if err:
             raise RuntimeError(f"fm_swin_block_train_bwd_occupancy({C}): CUDA error {err}")
+        grid = mlp_blocks(nwin, info[3], sms)
+        slots = info[3] * sms  # blocks resident at once
+        waves = -(-grid // slots) * -(-nwin // grid)  # a window a block at a time
         print(f"  C={C}: attn_bwd {info[0]} bytes of dynamic shared memory, {info[1]} blocks an "
-              f"SM; mlp_bwd {info[2]} bytes, {info[3]} blocks an SM")
+              f"SM; mlp_bwd {info[2]} bytes, {info[3]} blocks an SM; mlp_bwd's grid at {nwin} "
+              f"windows: {grid} blocks, {slots} resident on {sms} SMs, {waves} waves of a "
+              f"window a block, fill {nwin / (waves * slots):.0%}")
 
 
 def by_kernel(fn) -> dict:
@@ -139,7 +160,7 @@ def main() -> int:
     ptxas_report(logs.get("swin_block_train", ""))
     occupancy_report()
     g = torch.Generator(device="cuda").manual_seed(0)
-    totals = dict(attn=0.0, attn_bound=0.0, bwd=0.0, bwd_bound=0.0)
+    totals = dict(attn=0.0, attn_bound=0.0, mlp=0.0, mlp_bound=0.0, bwd=0.0, bwd_bound=0.0)
     kernels = {}
     for nwin, C, h, (Hp, Wp), n_plain, n_mask in SITES:
         x = cs.rnd(g, nwin, 64, C, dtype=torch.bfloat16)
@@ -167,18 +188,24 @@ def main() -> int:
             whole = cs.cuda_ms(bwd, iters=ITERS)
             nw = 0 if m is None else m.shape[0]
             ab, aby = kb.bound_ms(*kb.swin_block_train_attn_bwd_work(nwin, C, h, nw))
+            mb, mby = kb.bound_ms(*kb.swin_block_train_mlp_bwd_work(nwin, C, h, nw))
             wb, _ = kb.bound_ms(*kb.swin_block_train_bwd_work(nwin, C, h, nw))
             attn = split.get("attn_bwd_kernel", 0.0)
+            mlp = split.get("mlp_bwd_kernel", 0.0)
             totals["attn"] += count * attn
             totals["attn_bound"] += count * ab
+            totals["mlp"] += count * mlp
+            totals["mlp_bound"] += count * mb
             totals["bwd"] += count * whole
             totals["bwd_bound"] += count * wb
             for k, v in split.items():
                 kernels[k] = kernels.get(k, 0.0) + count * v
             print(f"  {site} x{count}: backward {whole:.4f} ms (bound {wb:.4f}); attn_bwd "
                   f"{attn:.4f} ms against its bound {ab:.4f} ms ({aby}, {attn / ab:.1f}x); "
+                  f"mlp_bwd {mlp:.4f} ms against its bound {mb:.4f} ms ({mby}, {mlp / mb:.1f}x); "
                   "by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
     print(f"  13 launches: attn_bwd {totals['attn']:.4f} ms (bound {totals['attn_bound']:.4f} ms); "
+          f"mlp_bwd {totals['mlp']:.4f} ms (bound {totals['mlp_bound']:.4f} ms); "
           f"K8 backward {totals['bwd']:.4f} ms (bound {totals['bwd_bound']:.4f} ms); by kernel: "
           + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items()), flush=True)
     return 0
