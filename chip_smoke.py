@@ -43,7 +43,10 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      heads: each layer's forward output (K6's kernel, one layer), and dx,
      dsrc (the cross call's; the self call adds it into dx) and the 10
      parameter gradients of the backward against the plain twin on the same
-     inputs, by K10_TOL; time the forward and backward and the plain twin's;
+     inputs, by K10_TOL, and twice bit for bit; print the window stage's
+     block and its time beside its own bound; once, at the cross call, a
+     planted fault (the window stage's last window left out) must break the
+     check; time the forward and backward and the plain twin's;
      The weight-gradient products those three backwards share (wgrad, 142
      a step in 28 launches, one a backward call) at each distinct launch of
      the step: each product against the plain twin by WGRAD_TOL and
@@ -154,6 +157,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     fine_stage_work,
     fine_train_bwd_work,
     fine_train_fwd_work,
+    fine_train_window_bwd_work,
     layer_norm_work,
     patch_expand_work,
     sparse_focal_backward_work,
@@ -962,16 +966,26 @@ def check_coarse_train(rec: Record, g) -> None:
                  err=float((got["dx"].float() - ref["dx"].float()).abs().max()))
 
 
+def print_window_bwd_block(occ: dict, windows: int) -> None:
+    """K10's window stage as its library reports it, for `windows` windows."""
+    slots = occ["grid"] * occ["warpgroups"]
+    print(f"  K10 window_bwd block: {occ['warpgroups']} windows in flight (one a warpgroup), "
+          f"{occ['smem_bytes']} bytes of shared memory, {occ['blocks_per_sm']} block(s) an SM; "
+          f"grid {occ['grid']}: {windows} windows are {windows / slots:.3f} rounds of its {slots} "
+          f"window slots (fill {windows / (-(-windows // slots) * slots):.0%})", flush=True)
+
+
 def check_fine_train(rec: Record, g) -> None:
-    from featurematching_tpu_torch.ops.coarse_transformer_train import train_values
     from featurematching_tpu_torch.ops.fine_stage import (
         fine_layer_forward,
         fine_layer_reference,
         fine_stage_occupancy,
     )
     from featurematching_tpu_torch.ops.fine_transformer_train import (
+        bwd_launch,
         fine_layer_backward,
         fine_layer_backward_reference,
+        window_bwd_occupancy,
     )
 
     nwin, N, C, h = B * 1024, 49, 64, 8  # max_gt_matches windows a pair, 7x7 taps
@@ -982,16 +996,18 @@ def check_fine_train(rec: Record, g) -> None:
     # the step's layers: a self layer (one backward call on both sides' windows,
     # G = 2 nwin) and a cross layer (two backward calls, G = nwin; the first here)
     for kind, G, count in (("self", 2 * nwin, 1), ("cross", nwin, 2)):
+        print_window_bwd_block(window_bwd_occupancy(h, G), G)
         lv = layer_values(g, C)
-        lt = train_values(lv)
         w0, w1 = rnd(g, nwin, N, C, dtype=torch.bfloat16), rnd(g, nwin, N, C, dtype=torch.bfloat16)
         out = fine_layer_forward(w0, w1, lv, kind, h)
         ref_out = fine_layer_reference(w0, w1, lv, kind, h)
         x = torch.cat([w0, w1]) if kind == "self" else w0
         src = x if kind == "self" else w1
         gout = rnd(g, G, N, C)
-        got = k9_tensors(None, fine_layer_backward(x, src, gout, lv, lt, h))
+        got = k9_tensors(None, fine_layer_backward(x, src, gout, lv, h))
+        again = k9_tensors(None, fine_layer_backward(x, src, gout, lv, h))
         torch.cuda.synchronize()
+        same = all(torch.equal(got[n], again[n]) for n in got)
         ref = k9_tensors(None, fine_layer_backward_reference(x, src, gout, lv, h))
         got |= {"out0": out[0], "out1": out[1]}
         ref |= {"out0": ref_out[0], "out1": ref_out[1]}
@@ -1002,11 +1018,25 @@ def check_fine_train(rec: Record, g) -> None:
         dsrc = f"dsrc {errs['dsrc']:.2e}" if "dsrc" in errs else "dsrc added into dx"
         print(f"  {kind} layer, backward call G={G}: norm errors out0 {errs['out0']:.2e}, dx "
               f"{errs['dx']:.2e}, {dsrc}, worst {worst} {errs[worst]:.2e}; "
-              f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}")
+              f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}; bit-identical "
+              f"twice {same}")
         bad = {k: v for k, v in errs.items() if not v <= K10_TOL}
-        if bad:
-            raise AssertionError(f"fine_transformer_train ({kind}, G={G}): {bad}")
-        bwd = lambda: fine_layer_backward(x, src, gout, lv, lt, h)  # noqa: E731
+        if bad or not same:
+            raise AssertionError(f"fine_transformer_train ({kind}, G={G}): {bad}, "
+                                 f"bit-identical twice {same}")
+        if kind == "cross":
+            # a planted fault: the window stage leaves the last window out
+            fault = k9_tensors(None, bwd_launch(x, src, gout, lv, h, G - 1))
+            torch.cuda.synchronize()
+            ferrs = {n: norm_err(fault[n], ref[n]) for n in fault}
+            fworst = max(ferrs, key=ferrs.get)
+            print(f"    planted fault, window_bwd's last window left out: worst {fworst} "
+                  f"{ferrs[fworst]:.2e}, {sum(v > K10_TOL for v in ferrs.values())} of "
+                  f"{len(ferrs)} tensors past {K10_TOL}")
+            if not ferrs[fworst] > K10_TOL:
+                raise AssertionError("fine_transformer_train: the check misses window_bwd's "
+                                     "window left out")
+        bwd = lambda: fine_layer_backward(x, src, gout, lv, h)  # noqa: E731
         profile_ms(bwd)
         _, rows = profile_ms(bwd)
         split = {}
@@ -1014,7 +1044,9 @@ def check_fine_train(rec: Record, g) -> None:
             bare = name.replace("(anonymous namespace)::", "").replace("void ", "")
             k = re.split(r"[<(]", bare)[0].split("::")[-1]
             split[k] = split.get(k, 0.0) + ms
-        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        wb, wby = bound_ms(*fine_train_window_bwd_work(G, N, C, h, kind == "self"))
+        print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+              + f"; window_bwd bound {wb:.4f} ms ({wby})")
         calls = 1 if kind == "self" else 2
         rec.site("fine_layer_forward", 1,
                  cuda_ms(lambda: fine_layer_forward(w0, w1, lv, kind, h)),
@@ -1604,7 +1636,7 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
         plain = k9_tensors(None, ctt.coarse_layer_backward_reference(x, src, kv, ks, gk, lv, h))
         at = f"call {i} ({'self' if src is x else 'cross'}, G={x.shape[0]})"
         pairs["k9"] += [(f"{at} {n}", kern[n], plain[n]) for n in kern]
-    for i, ((x, src, gk, lv, lt, h), got_k10) in enumerate(k10.calls):
+    for i, ((x, src, gk, lv, h), got_k10) in enumerate(k10.calls):
         kern = k9_tensors(None, got_k10)
         plain = k9_tensors(None, ftt.fine_layer_backward_reference(x, src, gk, lv, h))
         at = f"call {i} ({'self' if src is x else 'cross'}, G={x.shape[0]})"

@@ -6,43 +6,88 @@
 // fine_transformer_train (_fine_bwd_kernel through _layer_bwd_call:
 // _enc_fwd_stash, then _enc_bwd).
 //
-// Bound on the H100 by operations: twice the forward's products (about
-// 20 C^2 multiply-adds a token) against the function's bytes at the TPU
-// kernel's dtypes, x, src and the upstream gradient in and dx and dsrc out
-// in bf16, 6-10 C bytes a token (utils/kernel_bounds.fine_train_bwd_work).
-// This kernel moves more: the upstream gradient in and dx and dsrc out in
-// f32, which keeps a layer's cotangents in f32 between its calls as the TPU
-// kernel keeps them inside its one call a layer. The TPU kernel holds a chunk of windows in
-// VMEM and adds each chunk's weight gradients into one output block across
-// its sequential grid. On the H100 blocks run in parallel, so:
-//   1. window_bwd: two blocks an SM, each looping over windows (a window of
-//      49 taps is padded to four 16-row tensor-core tiles and masked). For a
-//      window it recomputes the forward in shared memory in K6's rounding
-//      (Q, K | V, the head-block-diagonal K^T V and K_sum, Z, o, the LN
-//      statistics, msg, the ReLU mask as bits, h, y2), then runs the
-//      backward on mma.sync tiles with the fragment-ordered weights of
-//      tiles.cuh: LN2, the FFN, LN1, the merge, the per-head attention
-//      gradients (dKV = Q^T dA and dK_sum on chip, only the heads' diagonal
-//      blocks), the Q and K feature maps, and writes dx and dsrc (f32: a
-//      layer's cotangents are added in f32, as the TPU kernel adds them; in
-//      a self call, where src is x, dsrc is added into dx).
-//      It writes, per token in bf16, the operands of the weight products:
-//      o, msg, dm1, dqf, dy2, h, dy1 and [dkf | dv]; and per block the
-//      partial sums of the LN parameter gradients, over its windows in
-//      order. Shared memory is reused phase by phase (x, then dmsg, then
-//      dA; src, o, msg, y2 | dy2, dmsg, dqf; h, then dy1; m1, then dm1;
-//      K | V, then [dkf | dv]) to 115,200 bytes, so two blocks fit an SM.
-//      The attention output before its rounding (A) is recomputed beside
-//      the merge gradient instead of kept: one 16-deep product a tile.
-//   2. the weight gradients dW = A^T B over the G N tokens (wgrad.cuh,
-//      shared with K8 and K9) and the LN gradients' block partials added in
-//      a fixed order: no float atomics, so the gradients repeat bit for bit.
-// Head dim 8 is below the tensor cores' K of 16, so attention keeps the
-// block-diagonal packed [C, C] form of K6: K^T V and dKV are formed on their
-// four diagonal 16x16 tiles and masked to the heads' D x D blocks. Only the
-// row sums of the TPU kernel's dKOnes are kept (dK_sum [C], as K9 does).
+// The TPU kernel holds a chunk of windows in VMEM and adds each chunk's
+// weight gradients into one output block across its sequential grid. On the
+// H100 blocks run in parallel, so the backward is split where the weight
+// gradients begin:
+//   1. window_bwd_kernel: each window's forward recomputed in K6's rounding
+//      and its backward, writing dx and dsrc (f32: a layer's cotangents stay
+//      in f32 between its calls, as the TPU kernel keeps them inside its one
+//      call a layer; in a self call, where src is x, dsrc is added into dx),
+//      per token in bf16 the operands of the weight products (o, msg, dm1,
+//      dqf, dy2, h, dy1 and [dkf | dv], the stash), and per block the
+//      partial sums of the LN parameters' gradients;
+//   2. the weight gradients dW = A^T B over the G N tokens (wgrad.cuh, shared
+//      with K8 and K9) and the LN partials added in a fixed order by one
+//      sum_parts: no float atomics, so the gradients repeat bit for bit.
+//
+// window_bwd is bound on the H100 by bytes: x (and src) in bf16, g in f32,
+// dx (and dsrc) in f32 and the 11 C bf16 stash, 2048 bytes a token in a self
+// call and 2432 in a cross call, against 10 C^2 + 4 C D multiply-adds of its
+// activation-gradient and attention products
+// (kernel_bounds.fine_train_window_bwd_work). Its first design (one window a
+// 256-thread block, two blocks an SM, 21 block barriers a window, every
+// weight product on mma.sync reading its packed fragments from L2: 160 KB a
+// window) took 3.07 ms over the training step's three calls against 0.54.
+// Design (that of K6, fine_stage.cu):
+//   - One window a warpgroup. The 49 taps are padded to one 64-row wgmma
+//     tile and masked out of every sum; the warpgroup synchronises only
+//     itself (named barrier 1 + its index, six a window). A block holds
+//     kWarpgroups windows in flight; the grid is persistent, one block an
+//     SM, and windows go to warpgroups in a fixed order.
+//   - The layer's weights leave L2 once a block: the block bulk-copies the
+//     layer's image (ops/fine_transformer_train.train_image, 80 KB: each
+//     weight [in, out] as [out, 64] boxes of bf16 in the 128-byte swizzle,
+//     one a 64-column block of its input) into shared memory when it starts.
+//     The forward's products read a box K-major (sw128_desc), the backward's
+//     dY W^T products read the same box MN-major (sw128_mn_desc), so one
+//     copy of the weights serves both: 80 KB, where a second image of the
+//     transposes would take 160 KB and leave room for one window a block.
+//   - Every product is a wgmma, the weight products with A from registers:
+//     each product's accumulator, after its epilogue, is the next product's
+//     A fragments (wgmma.cuh: a row's 64 values lie in one quad of lanes).
+//     The forward: [K | V], Q, o = Q KV_bd, the merge, FFN1 over [x | msg]
+//     (its two halves of 64 hidden columns in one group), FFN2. The
+//     backward: dy1 = dy2
+//     w2^T, dmsg = dy1 w1[C:]^T beside dx = g + dy1 w1[:C]^T (accumulated
+//     on g), do = dm1 wmerge^T, dQ = dA KV_bd^T, dx += dqf wq^T, and dsrc =
+//     [dkf | dv] wkv^T.
+//   - Attention's head-block-diagonal C x C matrices are whole 64x64
+//     products on [64, 64] tiles in shared memory, masked to the heads' D x
+//     D blocks: K^T V and dKV = Q^T dA with both operands MN-major, and K
+//     dKV, V dKV^T and Q KV_bd, dA KV_bd^T reading the same tile MN-major or
+//     K-major.
+//   - Row work in registers over the quad: the LN statistics and backwards,
+//     elu and its derivative (by __expf), Z = Q_h . K_sum_h, N / (Z + eps),
+//     the head sums of dZ, and the ReLU mask as two words of bits a thread.
+//     Column sums (K_sum, dK_sum and the four LN gradients) are
+//     reduce-scatters over a column's 8 lanes, then over the 4 warps (or a
+//     block's warps and warpgroups) in a fixed order.
+//   - g is read once, as the dx accumulator's first value; dx is written
+//     once. The stash goes out in 8-byte pieces of a row, a quad's store 32
+//     bytes, after one exchange between lane pairs (16-byte pieces by quad
+//     transposes, twice the shuffles, took 1.31 ms against 1.22).
+//   - Registers: the recomputed forward keeps Q's and K's feature-map
+//     inputs (x wq and src wk) for their derivatives by computing them again
+//     where the backward needs them (4 k-steps each); m1 waits for the LN1
+//     backward in the tile Q later takes, elu'(x wq) for dqf and the lanes'
+//     running LN column sums in shared memory (a thread's own entries). With
+//     either in registers, or FFN1's halves in two groups, ptxas spilled
+//     8-104 bytes at the 255 registers a 256-thread block allows; so two
+//     warpgroups a block (three would cap a thread at 168 registers).
+//
+// Measured (tools/fine_train_bwd_ab.py, NVIDIA H100 80GB HBM3, 700 W): about
+// 1.22 ms over the step's three calls, against 3.07 for the first design;
+// with one warpgroup a block (what shared memory would hold beside a second
+// image of the transposes) the self call took 0.90 ms against 0.59.
+//
+// Rounding follows the TPU kernel as the plain twin
+// (ops/fine_transformer_train.fine_layer_backward_reference) has it: bf16
+// operands, f32 accumulation; K, V/N, Q, K^T V, K_sum, o, m1, msg, h, y2,
+// dy2, dy1, dm1, dA, dZ, dKV, dK_sum, dqf, dkf and dv rounded to bf16. Every
+// sum runs in a fixed order: two runs agree bit for bit.
 
-#include "tiles.cuh"
+#include "wgmma.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -50,450 +95,812 @@ namespace {
 using fm::bf16;
 
 constexpr int C = 64;
-constexpr int T = 64;  // taps padded to four 16-row tiles
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxHeads = 8;
 constexpr float kEps = 1e-6f;
-constexpr int LDA = C + 8;      // [64, C] bf16 rows
-constexpr int LD2 = 2 * C + 8;  // [64, 2C] bf16 rows
-constexpr int MW = 2 * C / 32;  // relu mask words a row
+constexpr int kWarpgroups = 2;  // windows in flight a block, one a warpgroup
+constexpr int kThreads = 128 * kWarpgroups;
 
-// shared memory regions, by the phases that use them
-constexpr size_t RA = 0;                      // x; dmsg (f32, over RA and RB); dA
-constexpr size_t RB = RA + T * LDA * 2;       // src; o; msg; y2 | dy2; dqf
-constexpr size_t RC = RB + T * LDA * 2;       // Q
-constexpr size_t RD = RC + T * LDA * 2;       // K | V, then [dkf | dv]
-constexpr size_t RE = RD + T * LD2 * 2;       // h, then dy1
-constexpr size_t RF = RE + T * LD2 * 2;       // m1, then dm1
-constexpr size_t QFAC = RF + T * LDA * 2;     // f32 elu'(x . wq) [64][C]
-constexpr size_t KFAC = QFAC + T * C * 4;     // f32 elu'(src . wk) [64][C]
-constexpr size_t KVD = KFAC + T * C * 4;      // bf16 K^T V diagonal tiles [4][16][16]
-constexpr size_t DKVD = KVD + 4 * 256 * 2;    // bf16 dKV diagonal tiles
-constexpr size_t KSUM = DKVD + 4 * 256 * 2;   // f32 K_sum [C] (bf16 values)
-constexpr size_t DKS = KSUM + C * 4;          // f32 dK_sum [C] (bf16 values)
-constexpr size_t ZS = DKS + C * 4;            // f32 Z [64][kMaxHeads]
-constexpr size_t DZH = ZS + T * kMaxHeads * 4;  // f32 head sums of dZ [64][kMaxHeads]
-constexpr size_t MASK = DZH + T * kMaxHeads * 4;  // relu(y1) > 0 bits [64][MW]
-constexpr size_t STATS = MASK + T * MW * 4;   // f32 mu1, rs1, mu2, rs2 [64]
-constexpr size_t kSmemBytes = STATS + 4 * T * 4;
-static_assert(T * C * 4 <= 2 * T * LDA * 2, "f32 dmsg must fit regions A and B");
-static_assert(2 * (kSmemBytes + 1024) <= 233472, "two blocks an SM");
+// the layer's weight image (bytes): [out, 64] boxes of bf16, 128-byte swizzle
+constexpr uint32_t WQ = 0;                    // wq: [64][64]
+constexpr uint32_t WKV = WQ + 8192;           // wkv: [128][64], K's 64 outputs, then V's
+constexpr uint32_t WM = WKV + 16384;          // wmerge: [64][64]
+constexpr uint32_t W1X = WM + 8192;           // w1[:C] (the window's half): [128][64]
+constexpr uint32_t W1M = W1X + 16384;         // w1[C:] (the message's half): [128][64]
+constexpr uint32_t W2 = W1M + 16384;          // w2: hidden 0..63, then 64..127, [64][64] each
+constexpr uint32_t kImageBytes = W2 + 16384;  // 81920
+constexpr uint32_t kCopyBytes = 16384;        // one bulk copy
+static_assert(kImageBytes % kCopyBytes == 0, "the image goes in whole copies");
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+// a warpgroup's window (bytes): [64][64] bf16 tiles in the 128-byte swizzle,
+// then f32 vectors
+constexpr uint32_t KT = 0;                // K [token][d]
+constexpr uint32_t VT = KT + 8192;        // V [token][e]
+constexpr uint32_t KVT = VT + 8192;       // KV_bd [d][e]
+constexpr uint32_t QT = KVT + 8192;       // m1 [token][c]; then Q [token][d]; then dKV [d][e]
+constexpr uint32_t AT = QT + 8192;        // dA [token][e]
+constexpr uint32_t KS = AT + 8192;        // K_sum [C] (bf16 values)
+constexpr uint32_t DKS = KS + 4 * C;      // dK_sum [C] (bf16 values)
+constexpr uint32_t COLP = DKS + 4 * C;    // the 4 warps' column partials [4][C]
+constexpr uint32_t QF = COLP + 4 * 4 * C; // f32 elu'(x . wq): [16 pairs][128 threads] float2
+constexpr uint32_t LNP = QF + 16 * 128 * 8;  // f32 LN gradients' column sums: [4][4 warps][32 lanes] float2
+constexpr uint32_t kWgBytes = (LNP + 16 * 32 * 8 + 1023) / 1024 * 1024;  // whole atoms: 63488
 
-// [64][C] f32 tile, columns swizzled by row so fragment-order stores spread
-// over the banks
-__device__ __forceinline__ int fidx(int r, int c) { return r * C + (c ^ ((r & 7) << 2)); }
-
-// B fragment of the 16x16 tile whose B[k][n] is s[n * lds + k]
-__device__ __forceinline__ void load_b_t(uint32_t* r, const bf16* s, int lds, int lane) {
-  const int m = lane >> 3;
-  fm::ldsm_x4(r, s + ((lane & 7) + (m >> 1) * 8) * lds + (m & 1) * 8);
-}
-
-// LayerNorm of 64 rows from src to dst (bf16) as fm::warp_layer_norm
-// computes it, keeping each row's mean and reciprocal deviation
-__device__ void ln_fwd_rows(const bf16* src, const float* s, const float* b, float* mu,
-                            float* rs, bf16* dst, int warp, int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {
-    float v[V];
-    fm::load_bf16<V>(src + r * LDA + lane * V, v);
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) t += v[i];
-    const float m = fm::warp_sum(t) * (1.0f / C);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      v[i] -= m;
-      q += v[i] * v[i];
-    }
-    const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = v[i] * rr * s[lane * V + i] + b[lane * V + i];
-    fm::store_bf16<V>(dst + r * LDA + lane * V, v);
-    if (lane == 0) {
-      mu[r] = m;
-      rs[r] = rr;
-    }
-  }
-}
-
-// the statistics alone
-__device__ void ln_stats_rows(const bf16* src, float* mu, float* rs, int warp, int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {
-    float v[V];
-    fm::load_bf16<V>(src + r * LDA + lane * V, v);
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) t += v[i];
-    const float m = fm::warp_sum(t) * (1.0f / C);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) q += (v[i] - m) * (v[i] - m);
-    const float rr = rsqrtf(fm::warp_sum(q) * (1.0f / C) + fm::kLnEps);
-    if (lane == 0) {
-      mu[r] = m;
-      rs[r] = rr;
-    }
-  }
-}
-
-// the LN parameter gradients of the window's valid rows, added to the
-// column's running sums by the thread owning column c < C
-template <typename Dh>
-__device__ __forceinline__ void ln_bwd_columns(const bf16* xin, const float* mu, const float* rs,
-                                               int valid, Dh dh, float& acc_s, float& acc_b) {
-  const int c = threadIdx.x;
-  if (c >= C) return;
-  float ss = 0.f, sb = 0.f;
-  for (int r = 0; r < valid; ++r) {
-    const float d = dh(r, c);
-    ss += d * ((bf(xin[r * LDA + c]) - mu[r]) * rs[r]);
-    sb += d;
-  }
-  acc_s += ss;
-  acc_b += sb;
-}
-
-// LN backward of the rows in place: dx = rs (dxhat - mean(dxhat) - xhat
-// mean(dxhat xhat)), dxhat = dh * scale, rounded to bf16 (rows past valid: 0)
-template <typename Dh>
-__device__ void ln_bwd_rows(bf16* rows, const float* mu, const float* rs, const float* scale,
-                            int valid, Dh dh, int warp, int lane) {
-  constexpr int V = C / 32;
-  for (int r = warp; r < T; r += kWarps) {
-    float out[V];
-    if (r < valid) {
-      float xh[V], dxh[V];
-      fm::load_bf16<V>(rows + r * LDA + lane * V, xh);
-      float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const int c = lane * V + i;
-        xh[i] = (xh[i] - mu[r]) * rs[r];
-        dxh[i] = dh(r, c) * scale[c];
-        m1 += dxh[i];
-        m2 += dxh[i] * xh[i];
-      }
-      m1 = fm::warp_sum(m1) * (1.0f / C);
-      m2 = fm::warp_sum(m2) * (1.0f / C);
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = rs[r] * (dxh[i] - m1 - xh[i] * m2);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) out[i] = 0.f;
-    }
-    fm::store_bf16<V>(rows + r * LDA + lane * V, out);
-  }
-}
+// the block: the image, LN1's scale and bias and LN2's scale, the windows,
+// the image's mbarrier; + 1024 for aligning the atoms
+constexpr uint32_t LN_OFF = kImageBytes;
+constexpr uint32_t WG_OFF = LN_OFF + 1024;
+constexpr uint32_t BAR_OFF = WG_OFF + kWarpgroups * kWgBytes;
+constexpr size_t kSmemBytes = BAR_OFF + 16 + 1024;
+static_assert(kSmemBytes <= 232448, "shared memory of a block");
 
 struct Io {
   const bf16 *x, *src;
   const float* g;
-  const bf16 *wq, *wkv, *wm, *w1, *w2;  // forward operands, packed [in, out]
-  const float *n1s, *n1b, *n2s, *n2b;
-  const bf16 *w2t, *w1mt, *wmt, *wdxt, *wkvt;  // packed transposes
-  float *dx, *dsrc;
-  bf16 *o, *msg, *dm1, *dqf, *dy2, *h, *dy1, *dkv3;  // stash [G N][width]
-  float* part_ln;  // [blocks][4C]: dn1s | dn1b | dn2s | dn2b
-  int G, N, self_call;
+  const unsigned char* image;                        // the layer's image
+  const float *n1s, *n1b, *n2s;                      // [C]
+  float *dx, *dsrc;                                  // [G N][C]
+  bf16 *o, *msg, *dm1, *dqf, *dy2, *h, *dy1, *dkv;  // stash [G N][width]
+  float* part_ln;  // [grid][4C]: dn1s | dn1b | dn2s | dn2b
+  int N, run, self_call;
 };
 
+// A [64, 16 KS] bf16 matrix as its warp's m16n8k16 A fragments, KS k-steps:
+// f[kk][r] holds rows r0 = 16 w + g and r0 + 8 (r & 1), columns 16 kk + 8
+// (r >> 1) + 2 t and the next, which is also where a [64, 16 KS] wgmma
+// accumulator keeps them: acc[8 kk + 2 r] and the next (wgmma.cuh).
+using Frag = uint32_t[4][4];
+using Frag8 = uint32_t[8][4];
+
+// elu(v) + 1 = max(v, 0) + exp(min(v, 0)), and its derivative exp(min(v,
+// 0)), by ex2.approx (__expf)
+__device__ __forceinline__ float elu1(float v) { return fmaxf(v, 0.f) + __expf(fminf(v, 0.f)); }
+__device__ __forceinline__ float delu(float v) { return __expf(fminf(v, 0.f)); }
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// bf16 pair of (relu(lo), relu(hi)), the first in the low half: one cvt
+__device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// v, computed here: an asm statement the compiler keeps in order with the
+// wgmma statements around it, so no descriptor is computed ahead and held
+__device__ __forceinline__ uint32_t pinned(uint32_t v) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
+__device__ __forceinline__ uint64_t kdesc(uint32_t a) { return fm::sw128_desc(pinned(a)); }
+__device__ __forceinline__ uint64_t mdesc(uint32_t a) {
+  return fm::sw128_mn_desc(pinned(a), 8192);
+}
+
+template <int KS>
+__device__ __forceinline__ void keep(uint32_t (&f)[KS][4]) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void finish(float (&acc)[R]) {
+  fm::wgmma_wait<0>();
+  fm::fence_regs(acc);
+}
+
+// byte offset of (row r, column c) in a [rows][64] bf16 tile, 128-byte swizzle
+__device__ __forceinline__ uint32_t sw(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ void st_tile(unsigned char* tile, int r, int c, uint32_t w) {
+  *reinterpret_cast<uint32_t*>(tile + sw(r, c)) = w;
+}
+
+__device__ __forceinline__ uint32_t ld_tile(const unsigned char* tile, int r, int c) {
+  return *reinterpret_cast<const uint32_t*>(tile + sw(r, c));
+}
+
+// bf16 fragments of f(acc) (see Frag)
+template <int KS, typename F>
+__device__ __forceinline__ void to_frags(uint32_t (&f)[KS][4], const float (&acc)[8 * KS], F fn) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f[kk][r] = fm::pack_bf16(fn(acc[8 * kk + 2 * r]), fn(acc[8 * kk + 2 * r + 1]));
+}
+
+// rows r0, r0 + 8 of a window's [N, C] bf16 rows `w` as fragments, zeros past N
+__device__ __forceinline__ void load_rows(Frag& f, const bf16* __restrict__ w, int r0, int N,
+                                          int t) {
+  const bf16* base = w + (size_t)r0 * C + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t* p =
+          reinterpret_cast<const uint32_t*>(base + 8 * C * (r & 1) + 16 * kk + 8 * (r >> 1));
+      f[kk][r] = r0 + 8 * (r & 1) < N ? __ldg(p) : 0u;
+    }
+}
+
+// rows r0, r0 + 8 (those below N) of fragments f into a window's [N, 16 KS]
+// bf16 rows at dst, 8 bytes a store: lanes t and t ^ 1 exchange a word so
+// that each holds 4 columns of one 8-column strip (a quad's store: 32 bytes)
+template <int KS>
+__device__ __forceinline__ void store_rows(bf16* dst, const uint32_t (&f)[KS][4], int r0, int N,
+                                           int t) {
+  const bool odd = t & 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int m = 0; m < KS; ++m) {  // strips 2 m (words f[m][i]) and 2 m + 1 (f[m][2 + i])
+      const uint32_t w0 = f[m][i], w1 = f[m][2 + i];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? w0 : w1, 1);
+      const int r = r0 + 8 * i, c = odd ? 16 * m + 8 + 2 * (t - 1) : 16 * m + 2 * t;
+      if (r < N)
+        *reinterpret_cast<uint2*>(dst + (size_t)r * 16 * KS + c) =
+            odd ? make_uint2(got, w1) : make_uint2(w0, got);
+    }
+}
+
+// v[2 j + e]: this lane's part of column 8 j + 2 t + e. Returns the sums
+// over a column's 8 lanes (lane bits 2-4) of columns 8 g + 2 t and the next:
+// a reduce-scatter, 14 shuffles, in a fixed order
+__device__ __forceinline__ float2 column_sums(float (&v)[16], int g) {
+#pragma unroll
+  for (int s = 2; s >= 0; --s) {
+    const bool up = (g >> s) & 1;
+#pragma unroll
+    for (int j = 0; j < (1 << s); ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lo = v[2 * j + e], hi = v[2 * (j + (1 << s)) + e];
+        const float got = __shfl_xor_sync(0xffffffffu, up ? lo : hi, 4 << s);
+        v[2 * j + e] = (up ? hi : lo) + got;
+      }
+  }
+  return make_float2(v[0], v[1]);
+}
+
+// mean and reciprocal deviation of the thread's two rows of a [64, C]
+// accumulator (a row over its quad)
+__device__ __forceinline__ void row_stats(const float (&a)[32], float (&mu)[2], float (&rs)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += a[4 * j + 2 * i] + a[4 * j + 2 * i + 1];
+    mu[i] = quad_sum(s) * (1.0f / C);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = a[4 * j + 2 * i + e] - mu[i];
+        q += d * d;
+      }
+    rs[i] = rsqrtf(quad_sum(q) * (1.0f / C) + fm::kLnEps);
+  }
+}
+
+// A LayerNorm's backward in place: dh (the output's gradient) becomes
+// rs (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dh scale, for xh (the
+// normalised input); the lane's running column sums ps and pb (shared
+// memory) += the warp's column sums of dh xh and dh
+__device__ __forceinline__ void ln_backward(float (&dh)[32], const float (&xh)[32],
+                                            const float (&rs)[2], const float* scale,
+                                            float2* ps, float2* pb, int g, int t) {
+  {
+    float cs[16], cb[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int a0 = 4 * j + e, a1 = a0 + 2;
+        cs[2 * j + e] = dh[a0] * xh[a0] + dh[a1] * xh[a1];
+        cb[2 * j + e] = dh[a0] + dh[a1];
+      }
+    const float2 s = column_sums(cs, g), b = column_sums(cb, g);
+    const float2 os = *ps, ob = *pb;
+    *ps = make_float2(os.x + s.x, os.y + s.y);
+    *pb = make_float2(ob.x + b.x, ob.y + b.y);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 sc = *reinterpret_cast<const float2*>(scale + 8 * j + 2 * t);
+      const int a = 4 * j + 2 * i;
+      dh[a] *= sc.x;
+      dh[a + 1] *= sc.y;
+      m1 += dh[a] + dh[a + 1];
+      m2 += dh[a] * xh[a] + dh[a + 1] * xh[a + 1];
+    }
+    m1 = quad_sum(m1) * (1.0f / C);
+    m2 = quad_sum(m2) * (1.0f / C);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int a = 4 * j + 2 * i + e;
+        dh[a] = rs[i] * (dh[a] - m1 - xh[a] * m2);
+      }
+  }
+}
+
+// Z = Q_h . K_sum_h for the thread's rows over k-step kk of Q's fragments
+// (qk = q[kk]): z[r] for row r0 + 8 (r & 1) and the head of columns 16 kk +
+// 8 (r >> 1) ..
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2) window_bwd_kernel(Io io) {
-  constexpr int H = C / D;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + RA);
-  bf16* das = xs;
-  float* dmsg = reinterpret_cast<float*>(smem + RA);
-  bf16* rb = reinterpret_cast<bf16*>(smem + RB);  // src, o, msg, y2 | dy2, dqf
-  bf16* ss = io.self_call ? xs : rb;
-  bf16* qs = reinterpret_cast<bf16*>(smem + RC);
-  bf16* kvs = reinterpret_cast<bf16*>(smem + RD);
-  bf16* hs = reinterpret_cast<bf16*>(smem + RE);
-  bf16* m1s = reinterpret_cast<bf16*>(smem + RF);
-  float* qfac = reinterpret_cast<float*>(smem + QFAC);
-  float* kfac = reinterpret_cast<float*>(smem + KFAC);
-  bf16* kvd = reinterpret_cast<bf16*>(smem + KVD);
-  bf16* dkvd = reinterpret_cast<bf16*>(smem + DKVD);
-  float* ksum = reinterpret_cast<float*>(smem + KSUM);
-  float* dks = reinterpret_cast<float*>(smem + DKS);
-  float* zs = reinterpret_cast<float*>(smem + ZS);
-  float* dzh = reinterpret_cast<float*>(smem + DZH);
-  unsigned* mask = reinterpret_cast<unsigned*>(smem + MASK);
-  float* mu1 = reinterpret_cast<float*>(smem + STATS);
-  float* rs1 = mu1 + T;
-  float* mu2 = rs1 + T;
-  float* rs2 = mu2 + T;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+__device__ __forceinline__ void z_of(const uint32_t (&qk)[4], const float* ks, int kk,
+                                     float (&z)[4], int t) {
+  const float2 k0 = *reinterpret_cast<const float2*>(ks + 16 * kk + 2 * t);
+  const float2 k1 = *reinterpret_cast<const float2*>(ks + 16 * kk + 8 + 2 * t);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 qv = unpack2(qk[r]), kc = r < 2 ? k0 : k1;
+    z[r] = qv.x * kc.x + qv.y * kc.y;
+  }
+  if (D == 16) {  // one head a tile
+    z[0] = z[2] = quad_sum(z[0] + z[2]);
+    z[1] = z[3] = quad_sum(z[1] + z[3]);
+  } else {  // two heads a tile
+#pragma unroll
+    for (int r = 0; r < 4; ++r) z[r] = quad_sum(z[r]);
+  }
+}
+
+// a [64, 64] accumulator's head-diagonal D x D blocks (rows r0, r0 + 8,
+// columns 8 j + 2 t, + 1), rounded, into a tile; zeros elsewhere
+template <int D>
+__device__ __forceinline__ void masked_to_tile(unsigned char* tile, const float (&a)[32], int r0,
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i, c = 8 * j + 2 * t;
+      st_tile(tile, r, c, r / D == c / D ? fm::pack_bf16(a[4 * j + 2 * i], a[4 * j + 2 * i + 1]) : 0u);
+    }
+}
+
+// the sums of the 4 warps' column partials, in order, rounded to bf16
+__device__ __forceinline__ float colp_total(const float* colp, int c) {
+  return bfr(((colp[c] + colp[C + c]) + colp[2 * C + c]) + colp[3 * C + c]);
+}
+
+// kWarpgroups warpgroups, each taking windows blockIdx.x + k gridDim.x, k =
+// wg, wg + kWarpgroups, .. below io.run (G but for a check that leaves
+// windows out)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) window_bwd_kernel(Io io) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t img = fm::smem_u32(smem);
+  float* n1s = reinterpret_cast<float*>(smem + LN_OFF);  // n1s, n1b, n2s
+  const float* n1b = n1s + C;
+  const float* n2s = n1b + C;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  // the warpgroup by a shuffle, which ptxas takes as uniform: the operand
+  // descriptors are then too, and the products stay asynchronous
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int wt = threadIdx.x & 127, w = wt >> 5, lane = threadIdx.x & 31, g = lane >> 2,
+            t = lane & 3;
+  const int r0 = 16 * w + g;  // the thread's rows: r0, r0 + 8
+  unsigned char* ws = smem + WG_OFF + wg * kWgBytes;
+  const uint32_t wsa = img + WG_OFF + wg * kWgBytes;
+  float* ks = reinterpret_cast<float*>(ws + KS);
+  float* dks = reinterpret_cast<float*>(ws + DKS);
+  float* colp = reinterpret_cast<float*>(ws + COLP);
+  float2* qfac = reinterpret_cast<float2*>(ws + QF) + wt;  // this thread's 16 pairs, 128 apart
+  // the lane's running column sums of dn1s, dn1b, dn2s, dn2b (columns 8 g + 2 t, + 1)
+  float2* lnp = reinterpret_cast<float2*>(ws + LNP) + w * 32 + lane;  // + 128 a gradient
   const int N = io.N;
   const float n_f = (float)N, inv_n = 1.0f / (float)N;
-  float acc_n1s = 0.f, acc_n1b = 0.f, acc_n2s = 0.f, acc_n2b = 0.f;
 
-  for (int w = blockIdx.x; w < io.G; w += gridDim.x) {
-    const size_t row0 = (size_t)w * N;  // first token of the window
-    const float* gg = io.g + row0 * C;
-    auto gval = [&](int r, int c) { return gg[(size_t)r * C + c]; };
+  if (threadIdx.x == 0) {
+    fm::mbar_init(bar, 1);
+    fm::mbar_init_fence();
+    fm::mbar_arrive_expect(bar, kImageBytes);
+    for (uint32_t off = 0; off < kImageBytes; off += kCopyBytes)
+      fm::bulk_load(smem + off, io.image + off, kCopyBytes, bar);
+  }
+  for (int c = threadIdx.x; c < 3 * C; c += kThreads)
+    n1s[c] = (c < C ? io.n1s : c < 2 * C ? io.n1b : io.n2s)[c % C];
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < 4; ++p) lnp[128 * p] = make_float2(0.f, 0.f);
+  fm::mbar_wait(bar, 0);  // the image is in
 
-    // ---- forward recompute, in K6's rounding ----
-    fm::copy_rows_to_smem(xs, LDA, io.x + row0 * C, C, T, C, N);
-    if (!io.self_call) fm::copy_rows_to_smem(rb, LDA, io.src + row0 * C, C, T, C, N);
-    for (int i = threadIdx.x; i < T * MW; i += kThreads) mask[i] = 0u;
-    __syncthreads();
-    // Q = elu(x . wq) + 1, keeping elu'(x . wq)
-    fm::gemm_rows64<kWarps, C, C / 16>(xs, LDA, io.wq, 0, warp, lane, [&](int r, int c, float v) {
-      qs[r * LDA + c] = __float2bfloat16(fm::elu1(v));
-      qfac[fidx(r, c)] = v > 0.f ? 1.0f : expf(v);
-    });
-    // [K | V] = [elu(src . wk) + 1 | src . wv / N], no mass past N; elu'(src . wk)
-    fm::gemm_rows64<kWarps, C, 2 * C / 16>(ss, LDA, io.wkv, 0, warp, lane,
-                                           [&](int r, int c, float v) {
-                                             float o = 0.f;
-                                             if (r < N) o = c < C ? fm::elu1(v) : v * inv_n;
-                                             if (c < C) kfac[fidx(r, c)] = v > 0.f ? 1.0f : expf(v);
-                                             kvs[r * LD2 + c] = __float2bfloat16(o);
-                                           });
-    __syncthreads();
-    if (warp < 4) {  // diagonal tile `warp` of K^T V, masked to the heads' blocks
-      fm::Acc16 acc;
-      fm::zero(acc);
-#pragma unroll
-      for (int k = 0; k < T / 16; ++k) {
-        uint32_t fa[4], fb[4];
-        fm::load_a_trans(fa, kvs + k * 16 * LD2 + warp * 16, LD2, lane);
-        fm::load_b(fb, kvs + k * 16 * LD2 + C + warp * 16, LD2, lane);
-        fm::mma16(acc, fa, fb);
+  // ---- the block's windows ----
+#pragma unroll 1
+  for (int k = wg;; k += kWarpgroups) {
+    const int win = blockIdx.x + k * gridDim.x;
+    if (win >= io.run) break;
+    const size_t row0 = (size_t)win * N;
+    const bf16* xw = io.x + row0 * C;
+    const bf16* sp = io.src + row0 * C;
+    if (wt == 0) {  // this window's g, and the next window's x and src, into L2
+      fm::prefetch_l2(io.g + row0 * C, N * C * 4);
+      const int next = win + kWarpgroups * gridDim.x;
+      if (next < io.run) {
+        fm::prefetch_l2(io.x + (size_t)next * N * C, N * C * 2);
+        if (!io.self_call) fm::prefetch_l2(io.src + (size_t)next * N * C, N * C * 2);
       }
-      fm::tile_epilogue(acc, 0, 0, lane, [&](int r, int c, float v) {
-        const bool same = (warp * 16 + r) / D == (warp * 16 + c) / D;
-        kvd[warp * 256 + r * 16 + c] = __float2bfloat16(same ? v : 0.f);
-      });
-    } else if (threadIdx.x < 4 * 32 + C) {
-      const int c = threadIdx.x - 4 * 32;
-      float s = 0.f;
-      for (int r = 0; r < N; ++r) s += bf(kvs[r * LD2 + c]);
-      ksum[c] = fm::round_bf16(s);
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < T * H; e += kThreads) {  // Z[r][h] = Q_h . K_sum_h
-      const int r = e / H, hh = e % H;
-      float z = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) z += bf(qs[r * LDA + hh * D + d]) * ksum[hh * D + d];
-      zs[r * kMaxHeads + hh] = z;
-    }
-    __syncthreads();
-    // o = Q . KV_bd * (N / (Z + eps)) into region B
-    for (int u = warp; u < 16; u += kWarps) {
-      const int tm = u / 4, j = u % 4;
-      uint32_t fa[4], fb[4];
-      fm::Acc16 acc;
-      fm::zero(acc);
-      fm::load_a(fa, qs + tm * 16 * LDA + j * 16, LDA, lane);
-      fm::load_b(fb, kvd + j * 256, 16, lane);
-      fm::mma16(acc, fa, fb);
-      fm::tile_epilogue(acc, tm * 16, j * 16, lane, [&](int row, int col, float v) {
-        rb[row * LDA + col] =
-            __float2bfloat16(v * (n_f / (zs[row * kMaxHeads + col / D] + kEps)));
-      });
-    }
-    __syncthreads();
-    // m1 = bf16(o . wmerge)
-    fm::gemm_rows64<kWarps, C, C / 16>(rb, LDA, io.wm, 0, warp, lane, [&](int r, int c, float v) {
-      m1s[r * LDA + c] = __float2bfloat16(v);
-    });
-    fm::copy_rows_from_smem(io.o + row0 * C, C, rb, LDA, N, C);
-    __syncthreads();
-    ln_fwd_rows(m1s, io.n1s, io.n1b, mu1, rs1, rb, warp, lane);  // msg over o
-    __syncthreads();
-    fm::copy_rows_from_smem(io.msg + row0 * C, C, rb, LDA, N, C);
-    // h = relu(x . w1[:C] + msg . w1[C:]) with its mask bits
-    fm::gemm_rows64_split<kWarps, C, C, 2 * C / 16>(
-        xs, LDA, rb, LDA, io.w1, 0, warp, lane, [&](int r, int c, float v) {
-          hs[r * LD2 + c] = __float2bfloat16(fmaxf(v, 0.f));
-          if (v > 0.f) atomicOr(&mask[r * MW + c / 32], 1u << (c % 32));
-        });
-    __syncthreads();
-    fm::copy_rows_from_smem(io.h + row0 * 2 * C, 2 * C, hs, LD2, N, 2 * C);
-    // y2 = bf16(h . w2) over msg
-    fm::gemm_rows64<kWarps, 2 * C, C / 16>(hs, LD2, io.w2, 0, warp, lane,
-                                           [&](int r, int c, float v) {
-                                             rb[r * LDA + c] = __float2bfloat16(v);
-                                           });
-    __syncthreads();
 
-    // ---- backward ----
-    ln_stats_rows(rb, mu2, rs2, warp, lane);
-    __syncthreads();
-    ln_bwd_columns(rb, mu2, rs2, N, gval, acc_n2s, acc_n2b);
-    __syncthreads();
-    ln_bwd_rows(rb, mu2, rs2, io.n2s, N, gval, warp, lane);  // dy2 over y2
-    __syncthreads();
-    fm::copy_rows_from_smem(io.dy2 + row0 * C, C, rb, LDA, N, C);
-    // dy1 = (dy2 . w2ᵀ) * (y1 > 0) over h
-    fm::gemm_rows64<kWarps, C, 2 * C / 16>(rb, LDA, io.w2t, 0, warp, lane,
-                                           [&](int r, int c, float v) {
-                                             const bool on = (mask[r * MW + c / 32] >> (c % 32)) & 1u;
-                                             hs[r * LD2 + c] = __float2bfloat16(on ? v : 0.f);
-                                           });
-    __syncthreads();
-    fm::copy_rows_from_smem(io.dy1 + row0 * 2 * C, 2 * C, hs, LD2, N, 2 * C);
-    // dmsg = dy1 . w1[C:]ᵀ (f32, over regions A and B)
-    fm::gemm_rows64<kWarps, 2 * C, C / 16>(hs, LD2, io.w1mt, 0, warp, lane,
-                                           [&](int r, int c, float v) { dmsg[fidx(r, c)] = v; });
-    __syncthreads();
-    auto dmsgv = [&](int r, int c) { return dmsg[fidx(r, c)]; };
-    ln_bwd_columns(m1s, mu1, rs1, N, dmsgv, acc_n1s, acc_n1b);
-    __syncthreads();
-    ln_bwd_rows(m1s, mu1, rs1, io.n1s, N, dmsgv, warp, lane);  // dm1 over m1
-    __syncthreads();
-    fm::copy_rows_from_smem(io.dm1 + row0 * C, C, m1s, LDA, N, C);
-    // per (16 rows, 16 columns): do = dm1 . wmergeᵀ beside the recomputed
-    // A = Q . KV_bd; dA = do n into region A; head sums of dZ = -(do o) / (Z + eps)
-    for (int u = warp; u < 16; u += kWarps) {
-      const int tm = u / 4, j = u % 4;
-      fm::Acc16 ad, ao;
-      fm::zero(ad);
-      fm::zero(ao);
+    // ---- the window's forward, recomputed ----
+    Frag q;  // Q = bf16(elu(x . wq) + 1)
+    {
+      Frag xf, sf;
+      load_rows(xf, xw, r0, N, t);
+      load_rows(sf, sp, r0, N, t);
+      float kv[64], qa[32];
+      fm::zero_regs(kv);
+      fm::zero_regs(qa);
+      fm::wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < C / 16; ++k) {
-        uint32_t fa[4], fb[4];
-        fm::load_a(fa, m1s + tm * 16 * LDA + k * 16, LDA, lane);
-        fm::load_b_packed(fb, fm::packed_tile(io.wmt, C, k, j), lane);
-        fm::mma16(ad, fa, fb);
-      }
-      {
-        uint32_t fa[4], fb[4];
-        fm::load_a(fa, qs + tm * 16 * LDA + j * 16, LDA, lane);
-        fm::load_b(fb, kvd + j * 256, 16, lane);
-        fm::mma16(ao, fa, fb);
-      }
-      float dz[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [column half][row lane/4, lane/4 + 8]
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n128(kv, sf[kk], kdesc(img + WKV + 32 * kk), 1);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = tm * 16 + (lane >> 2) + 8 * ((q >> 1) & 1);
-        const int col = j * 16 + 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-        const float zz = zs[row * kMaxHeads + col / D] + kEps;
-        const float nf = n_f / zz;
-        const float dov = ad.c[q];
-        das[row * LDA + col] = __float2bfloat16(dov * nf);
-        dz[q >> 2][(q >> 1) & 1] += fm::round_bf16(-(dov * (ao.c[q] * nf)) / zz);
-      }
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64(qa, xf[kk], kdesc(img + WQ + 32 * kk), 1);
+      fm::wgmma_commit();
+      finish(kv);
+      fm::fence_regs(qa);
+      keep(xf);
+      keep(sf);
+      // K = elu(src . wk) + 1 and V = src . wv / N into their tiles, no mass
+      // past N; K's column sums over the warp's rows
+      float cs[16];
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+      for (int j = 0; j < 8; ++j) {
+        float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          dz[a][b] += __shfl_xor_sync(0xffffffffu, dz[a][b], 1);
-          dz[a][b] += __shfl_xor_sync(0xffffffffu, dz[a][b], 2);
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t m = r0 + 8 * i < N ? ~0u : 0u;
+          const int a = 4 * j + 2 * i;
+          const uint32_t kw = fm::pack_bf16(elu1(kv[a]), elu1(kv[a + 1])) & m;
+          const uint32_t vw = fm::pack_bf16(kv[32 + a] * inv_n, kv[32 + a + 1] * inv_n) & m;
+          st_tile(ws + KT, r0 + 8 * i, 8 * j + 2 * t, kw);
+          st_tile(ws + VT, r0 + 8 * i, 8 * j + 2 * t, vw);
+          const float2 kf = unpack2(kw);
+          s0 += kf.x;
+          s1 += kf.y;
         }
-      if ((lane & 3) == 0) {
+        cs[2 * j] = s0;
+        cs[2 * j + 1] = s1;
+      }
+      *reinterpret_cast<float2*>(colp + w * C + 8 * g + 2 * t) = column_sums(cs, g);
+      to_frags(q, qa, [](float v) { return elu1(v); });
+    }
+    fm::fence_proxy_async();
+    fm::named_barrier(1 + wg, 128);
+    // ---- K^T V and K_sum ----
+    {
+      float kvd[32];
+      fm::zero_regs(kvd);
+      fm::wgmma_fence();
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int row = tm * 16 + (lane >> 2) + 8 * b;
-          if (D == 16) {
-            dzh[row * kMaxHeads + j] = dz[0][b] + dz[1][b];
+      for (int kk = 0; kk < 4; ++kk)  // k-step kk: tokens 16 kk.., two atoms
+        fm::wgmma_ss_mn_n64(kvd, mdesc(wsa + KT + kk * 2048), mdesc(wsa + VT + kk * 2048), 1);
+      fm::wgmma_commit();
+      finish(kvd);
+      if (wt < C) ks[wt] = colp_total(colp, wt);
+      masked_to_tile<D>(ws + KVT, kvd, r0, t);
+    }
+    fm::fence_proxy_async();
+    fm::named_barrier(1 + wg, 128);
+    // ---- Z and o ----
+    Frag o;  // o = bf16(Q . KV_bd * (N / (Z + eps)))
+    {
+      float z[4][4], a[32];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) z_of<D>(q[kk], ks, kk, z[kk], t);
+      fm::zero_regs(a);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64<1>(a, q[kk], mdesc(wsa + KVT + kk * 2048), 1);
+      fm::wgmma_commit();
+      finish(a);
+      keep(q);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float s = __fdividef(n_f, z[kk][r] + kEps);  // z > 0: Q, K > 0
+          o[kk][r] = fm::pack_bf16(a[8 * kk + 2 * r] * s, a[8 * kk + 2 * r + 1] * s);
+        }
+    }
+    // ---- m1, LN1, msg ----
+    Frag msg;  // msg = bf16(LN1(m1)), m1 = bf16(o . wmerge), m1 kept in QT
+    {
+      float m[32];
+      fm::zero_regs(m);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64(m, o[kk], kdesc(img + WM + 32 * kk), 1);
+      fm::wgmma_commit();
+      store_rows(io.o + row0 * C, o, r0, N, t);
+      finish(m);
+      keep(o);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int a = 4 * j + 2 * i;
+          const uint32_t mw = fm::pack_bf16(m[a], m[a + 1]);
+          st_tile(ws + QT, r0 + 8 * i, 8 * j + 2 * t, mw);
+          const float2 mf = unpack2(mw);
+          m[a] = mf.x;
+          m[a + 1] = mf.y;
+        }
+      float mu[2], rs[2];
+      row_stats(m, mu, rs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(n1s + 8 * j + 2 * t);
+        const float2 bi = *reinterpret_cast<const float2*>(n1b + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int a = 4 * j + 2 * i;
+          m[a] = (m[a] - mu[i]) * rs[i] * sc.x + bi.x;
+          m[a + 1] = (m[a + 1] - mu[i]) * rs[i] * sc.y + bi.y;
+        }
+      }
+      to_frags(msg, m, [](float v) { return v; });
+    }
+    // ---- h ----
+    Frag8 hid;          // h = bf16(relu(x . w1[:C] + msg . w1[C:]))
+    uint32_t mask[2];   // y1 > 0: bit a of word hh is y1's accumulator entry a of half hh
+    {
+      Frag xf;
+      load_rows(xf, xw, r0, N, t);
+      float y[2][32];
+      fm::zero_regs(y[0]);
+      fm::zero_regs(y[1]);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          fm::wgmma_rs_n64(y[hh], xf[kk], kdesc(img + W1X + hh * 8192 + 32 * kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          fm::wgmma_rs_n64(y[hh], msg[kk], kdesc(img + W1M + hh * 8192 + 32 * kk), 1);
+      }
+      fm::wgmma_commit();
+      store_rows(io.msg + row0 * C, msg, r0, N, t);
+      finish(y[0]);
+      fm::fence_regs(y[1]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t bits = 0u;
+#pragma unroll
+        for (int a = 0; a < 32; ++a) bits |= (y[hh][a] > 0.f ? 1u : 0u) << a;
+        mask[hh] = bits;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            hid[4 * hh + kk][r] = pack_relu(y[hh][8 * kk + 2 * r], y[hh][8 * kk + 2 * r + 1]);
+      }
+      keep(xf);
+      keep(msg);
+    }
+    // ---- y2, LN2 ----
+    float xh2[32];  // y2 = bf16(h . w2), then its normalised values
+    float rs2[2];
+    {
+      fm::zero_regs(xh2);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        fm::wgmma_rs_n64(xh2, hid[kk], kdesc(img + W2 + (kk >> 2) * 8192 + 32 * (kk & 3)), 1);
+      fm::wgmma_commit();
+      store_rows(io.h + row0 * 2 * C, hid, r0, N, t);
+      finish(xh2);
+      keep(hid);
+#pragma unroll
+      for (int a = 0; a < 32; ++a) xh2[a] = bfr(xh2[a]);
+      float mu2[2];
+      row_stats(xh2, mu2, rs2);
+#pragma unroll
+      for (int a = 0; a < 32; ++a) xh2[a] = (xh2[a] - mu2[(a >> 1) & 1]) * rs2[(a >> 1) & 1];
+    }
+    // ---- the backward: LN2 ----
+    float dx[32];  // g, then dx = g + dy1 . w1[:C]ᵀ + dqf . wqᵀ (+ dsrc in a self call)
+    Frag dy2;
+    {
+      const float* gw = io.g + row0 * C;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 v = r0 + 8 * i < N
+              ? *reinterpret_cast<const float2*>(gw + (size_t)(r0 + 8 * i) * C + 8 * j + 2 * t)
+              : make_float2(0.f, 0.f);
+          dx[4 * j + 2 * i] = v.x;
+          dx[4 * j + 2 * i + 1] = v.y;
+        }
+      float d[32];
+#pragma unroll
+      for (int a = 0; a < 32; ++a) d[a] = dx[a];
+      ln_backward(d, xh2, rs2, n2s, lnp + 256, lnp + 384, g, t);
+      to_frags(dy2, d, [](float v) { return v; });
+    }
+    // ---- dy1 ----
+    Frag8 dy1;  // dy1 = bf16((dy2 . w2ᵀ) (y1 > 0))
+    {
+      float dh[64];
+      fm::zero_regs(dh);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // w2's boxes read MN-major: k-step kk, rows 16 kk..
+        fm::wgmma_rs_n128<1>(dh, dy2[kk], mdesc(img + W2 + kk * 2048), 1);
+      fm::wgmma_commit();
+      store_rows(io.dy2 + row0 * C, dy2, r0, N, t);
+      finish(dh);
+      keep(dy2);
+#pragma unroll
+      for (int a = 0; a < 64; ++a)
+        if (!((mask[a >> 5] >> (a & 31)) & 1u)) dh[a] = 0.f;
+      to_frags(dy1, dh, [](float v) { return v; });
+    }
+    // ---- dmsg, LN1 backward ----
+    Frag dm1;  // dm1 = bf16(LN1's backward of dmsg = dy1 . w1[C:]ᵀ)
+    {
+      float dm[32];
+      fm::zero_regs(dm);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        fm::wgmma_rs_n64<1>(dm, dy1[kk], mdesc(img + W1M + kk * 2048), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        fm::wgmma_rs_n64<1>(dx, dy1[kk], mdesc(img + W1X + kk * 2048), 1);
+      fm::wgmma_commit();
+      store_rows(io.dy1 + row0 * 2 * C, dy1, r0, N, t);
+      finish(dm);
+      fm::fence_regs(dx);
+      keep(dy1);
+      float xh1[32];  // m1 from its tile, normalised
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 mf = unpack2(ld_tile(ws + QT, r0 + 8 * i, 8 * j + 2 * t));
+          xh1[4 * j + 2 * i] = mf.x;
+          xh1[4 * j + 2 * i + 1] = mf.y;
+        }
+      float mu1[2], rs1[2];
+      row_stats(xh1, mu1, rs1);
+#pragma unroll
+      for (int a = 0; a < 32; ++a) xh1[a] = (xh1[a] - mu1[(a >> 1) & 1]) * rs1[(a >> 1) & 1];
+      ln_backward(dm, xh1, rs1, n1s, lnp, lnp + 128, g, t);
+      to_frags(dm1, dm, [](float v) { return v; });
+    }
+    // ---- do ----
+    float dov[32], qf[32];  // do = dm1 . wmergeᵀ; x . wq again, for Q and elu'(x . wq)
+    {
+      Frag xf;
+      load_rows(xf, xw, r0, N, t);
+      fm::zero_regs(dov);
+      fm::zero_regs(qf);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64<1>(dov, dm1[kk], mdesc(img + WM + kk * 2048), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64(qf, xf[kk], kdesc(img + WQ + 32 * kk), 1);
+      fm::wgmma_commit();
+      store_rows(io.dm1 + row0 * C, dm1, r0, N, t);
+      finish(dov);
+      fm::fence_regs(qf);
+      keep(dm1);
+      keep(xf);
+    }
+    // ---- dA, dZ ----
+    Frag da;          // dA = bf16(do (N / (Z + eps)))
+    float dzh[4][4];  // the head sums of dZ = bf16(-(do o32) / (Z + eps)), as z_of
+    {
+      to_frags(q, qf, [](float v) { return elu1(v); });
+      // elu'(x . wq) waits for dqf in shared memory (the thread's own pairs)
+#pragma unroll
+      for (int p = 0; p < 16; ++p) qfac[128 * p] = make_float2(delu(qf[2 * p]), delu(qf[2 * p + 1]));
+      float a[32];
+      fm::zero_regs(a);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64<1>(a, q[kk], mdesc(wsa + KVT + kk * 2048), 1);
+      fm::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // Q into its tile, over m1
+#pragma unroll
+        for (int r = 0; r < 4; ++r) st_tile(ws + QT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t, q[kk][r]);
+      finish(a);
+      keep(q);
+      // a k-step at a time, Q back from its tile (the thread's own entries):
+      // Z, dA, dZ's head sums and dK_sum's parts Q[r, c] dZ_h(c)[r]
+      float cs[16];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t qk[4];
+        float z[4], zs[4];  // zs: this lane's two columns' sum of dZ
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qk[r] = ld_tile(ws + QT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t);
+        z_of<D>(qk, ks, kk, z, t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float zi = __frcp_rn(z[r] + kEps), nf = n_f * zi;
+          float dzv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ai = 8 * kk + 2 * r + e;
+            dzv[e] = bfr(-(dov[ai] * (a[ai] * nf)) * zi);
+            dov[ai] *= nf;
+          }
+          da[kk][r] = fm::pack_bf16(dov[8 * kk + 2 * r], dov[8 * kk + 2 * r + 1]);
+          st_tile(ws + AT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t, da[kk][r]);
+          zs[r] = dzv[0] + dzv[1];
+        }
+        if (D == 16) {
+          dzh[kk][0] = dzh[kk][2] = quad_sum(zs[0] + zs[2]);
+          dzh[kk][1] = dzh[kk][3] = quad_sum(zs[1] + zs[3]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dzh[kk][r] = quad_sum(zs[r]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // strip j = 2 kk + h: rows r = 2 h, 2 h + 1
+          const float2 qa = unpack2(qk[2 * h]), qb = unpack2(qk[2 * h + 1]);
+          cs[4 * kk + 2 * h] = qa.x * dzh[kk][2 * h] + qb.x * dzh[kk][2 * h + 1];
+          cs[4 * kk + 2 * h + 1] = qa.y * dzh[kk][2 * h] + qb.y * dzh[kk][2 * h + 1];
+        }
+      }
+      *reinterpret_cast<float2*>(colp + w * C + 8 * g + 2 * t) = column_sums(cs, g);
+    }
+    fm::fence_proxy_async();
+    fm::named_barrier(1 + wg, 128);
+    // ---- dKV, dQ ----
+    Frag dqf;  // dqf = bf16((dA . KV_bdᵀ + dZ_h K_sum) elu'(x . wq))
+    {
+      float dkv[32], dq[32];
+      fm::zero_regs(dkv);
+      fm::zero_regs(dq);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // Qᵀ dA: k-step kk, tokens 16 kk..
+        fm::wgmma_ss_mn_n64(dkv, mdesc(wsa + QT + kk * 2048), mdesc(wsa + AT + kk * 2048), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // KV_bd's tile read K-major: its transpose
+        fm::wgmma_rs_n64(dq, da[kk], kdesc(wsa + KVT + 32 * kk), 1);
+      fm::wgmma_commit();
+      finish(dkv);
+      fm::fence_regs(dq);
+      keep(da);
+      if (wt < C) dks[wt] = colp_total(colp, wt);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 kc = *reinterpret_cast<const float2*>(ks + 16 * kk + 8 * (r >> 1) + 2 * t);
+          const float2 qd = qfac[128 * (4 * kk + r)];
+          const int a = 8 * kk + 2 * r;
+          dqf[kk][r] = fm::pack_bf16((dq[a] + dzh[kk][r] * kc.x) * qd.x,
+                                     (dq[a + 1] + dzh[kk][r] * kc.y) * qd.y);
+        }
+      fm::named_barrier(1 + wg, 128);  // every warp's products are done with Q's tile
+      masked_to_tile<D>(ws + QT, dkv, r0, t);
+    }
+    fm::fence_proxy_async();
+    fm::named_barrier(1 + wg, 128);
+    // ---- dV, dK ----
+    Frag8 dkv;  // [dkf | dv] = bf16([(V . dKVᵀ + dK_sum) elu'(src . wk) | K . dKV / N])
+    {
+      Frag sf;  // for src . wk again, wkv's first 64 rows (its own product below)
+      load_rows(sf, sp, r0, N, t);
+      float dv[32], dk[32];
+      fm::zero_regs(dv);
+      fm::zero_regs(dk);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // K . dKV: dKV's tile read MN-major
+        fm::wgmma_ss_n64<1>(dv, kdesc(wsa + KT + 32 * kk), mdesc(wsa + QT + kk * 2048), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // V . dKVᵀ: read K-major
+        fm::wgmma_ss_n64(dk, kdesc(wsa + VT + 32 * kk), kdesc(wsa + QT + 32 * kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dx += dqf . wqᵀ
+        fm::wgmma_rs_n64<1>(dx, dqf[kk], mdesc(img + WQ + kk * 2048), 1);
+      fm::wgmma_commit();
+      store_rows(io.dqf + row0 * C, dqf, r0, N, t);
+      finish(dv);
+      fm::fence_regs(dk);
+      fm::fence_regs(dx);
+      keep(dqf);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int a = 8 * kk + 2 * r;
+          dkv[4 + kk][r] = r0 + 8 * (r & 1) < N ? fm::pack_bf16(dv[a] * inv_n, dv[a + 1] * inv_n) : 0u;
+        }
+      float kf[32];
+      fm::zero_regs(kf);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fm::wgmma_rs_n64(kf, sf[kk], kdesc(img + WKV + 32 * kk), 1);
+      fm::wgmma_commit();
+      finish(kf);
+      keep(sf);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 kc = *reinterpret_cast<const float2*>(dks + 16 * kk + 8 * (r >> 1) + 2 * t);
+          const int a = 8 * kk + 2 * r;
+          dkv[kk][r] = r0 + 8 * (r & 1) < N ? fm::pack_bf16((dk[a] + kc.x) * delu(kf[a]),
+                                                           (dk[a + 1] + kc.y) * delu(kf[a + 1]))
+                                            : 0u;
+        }
+    }
+    // ---- dsrc, dx ----
+    {
+      float ds[32];  // dsrc = [dkf | dv] . wkvᵀ
+      fm::zero_regs(ds);
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) fm::wgmma_rs_n64<1>(ds, dkv[kk], mdesc(img + WKV + kk * 2048), 1);
+      fm::wgmma_commit();
+      store_rows(io.dkv + row0 * 2 * C, dkv, r0, N, t);
+      finish(ds);
+      keep(dkv);
+      float* dxw = io.dx + row0 * C;
+      float* dsw = io.dsrc + row0 * C;  // (a cross call)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (r0 + 8 * i >= N) continue;
+          const size_t at = (size_t)(r0 + 8 * i) * C + 8 * j + 2 * t;
+          const int a = 4 * j + 2 * i;
+          if (io.self_call) {
+            *reinterpret_cast<float2*>(dxw + at) = make_float2(dx[a] + ds[a], dx[a + 1] + ds[a + 1]);
           } else {
-            dzh[row * kMaxHeads + 2 * j] = dz[0][b];
-            dzh[row * kMaxHeads + 2 * j + 1] = dz[1][b];
+            *reinterpret_cast<float2*>(dxw + at) = make_float2(dx[a], dx[a + 1]);
+            *reinterpret_cast<float2*>(dsw + at) = make_float2(ds[a], ds[a + 1]);
           }
         }
-      }
     }
-    __syncthreads();
-    if (warp < 4) {  // dKV = Q^T dA on diagonal tile `warp`, masked, rounded
-      fm::Acc16 acc;
-      fm::zero(acc);
-#pragma unroll
-      for (int k = 0; k < T / 16; ++k) {
-        uint32_t fa[4], fb[4];
-        fm::load_a_trans(fa, qs + k * 16 * LDA + warp * 16, LDA, lane);
-        fm::load_b(fb, das + k * 16 * LDA + warp * 16, LDA, lane);
-        fm::mma16(acc, fa, fb);
-      }
-      fm::tile_epilogue(acc, 0, 0, lane, [&](int r, int c, float v) {
-        const bool same = (warp * 16 + r) / D == (warp * 16 + c) / D;
-        dkvd[warp * 256 + r * 16 + c] = __float2bfloat16(same ? v : 0.f);
-      });
-    } else if (threadIdx.x < 4 * 32 + C) {  // dK_sum[c] = sum_r Q[r, c] dZ_h[r]
-      const int c = threadIdx.x - 4 * 32;
-      float s = 0.f;
-      for (int r = 0; r < N; ++r) s += bf(qs[r * LDA + c]) * dzh[r * kMaxHeads + c / D];
-      dks[c] = fm::round_bf16(s);
-    }
-    __syncthreads();
-    // dqf = (dA . KV_bdᵀ + dZ_h K_sum) elu'(x . wq) into region B
-    for (int u = warp; u < 16; u += kWarps) {
-      const int tm = u / 4, j = u % 4;
-      uint32_t fa[4], fb[4];
-      fm::Acc16 acc;
-      fm::zero(acc);
-      fm::load_a(fa, das + tm * 16 * LDA + j * 16, LDA, lane);
-      load_b_t(fb, kvd + j * 256, 16, lane);
-      fm::mma16(acc, fa, fb);
-      fm::tile_epilogue(acc, tm * 16, j * 16, lane, [&](int row, int col, float v) {
-        const float dq = v + dzh[row * kMaxHeads + col / D] * ksum[col];
-        rb[row * LDA + col] = __float2bfloat16(dq * qfac[fidx(row, col)]);
-      });
-    }
-    __syncthreads();
-    fm::copy_rows_from_smem(io.dqf + row0 * C, C, rb, LDA, N, C);
-    // dx = g + [dy1 | dqf] . [w1[:C]ᵀ ; wqᵀ]
-    float* dxg = io.dx + row0 * C;
-    fm::gemm_rows64_split<kWarps, 2 * C, C, C / 16>(
-        hs, LD2, rb, LDA, io.wdxt, 0, warp, lane, [&](int r, int c, float v) {
-          if (r < N) dxg[(size_t)r * C + c] = gval(r, c) + v;
-        });
-    // per (16 rows, 16 columns), over K | V in place: dv = K . dKV / N;
-    // dkf = (V . dKVᵀ + dK_sum) elu'(src . wk)
-    for (int u = warp; u < 16; u += kWarps) {
-      const int tm = u / 4, j = u % 4;
-      fm::Acc16 av, ak;
-      fm::zero(av);
-      fm::zero(ak);
-      uint32_t fk[4], fv[4], fb[4], ft[4];
-      fm::load_a(fk, kvs + tm * 16 * LD2 + j * 16, LD2, lane);
-      fm::load_a(fv, kvs + tm * 16 * LD2 + C + j * 16, LD2, lane);
-      fm::load_b(fb, dkvd + j * 256, 16, lane);
-      load_b_t(ft, dkvd + j * 256, 16, lane);
-      fm::mma16(av, fk, fb);
-      fm::mma16(ak, fv, ft);
-      __syncwarp();  // every lane has read the unit's K and V before any writes over them
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = tm * 16 + (lane >> 2) + 8 * ((q >> 1) & 1);
-        const int col = j * 16 + 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-        float dkf = 0.f, dv = 0.f;
-        if (row < N) {
-          dkf = (ak.c[q] + dks[col]) * kfac[fidx(row, col)];
-          dv = av.c[q] * inv_n;
-        }
-        kvs[row * LD2 + col] = __float2bfloat16(dkf);
-        kvs[row * LD2 + C + col] = __float2bfloat16(dv);
-      }
-    }
-    __syncthreads();
-    fm::copy_rows_from_smem(io.dkv3 + row0 * 2 * C, 2 * C, kvs, LD2, N, 2 * C);
-    // dsrc = [dkf | dv] . wkvᵀ; a self call adds it into dx (written above,
-    // before the barrier)
-    float* dsg = (io.self_call ? io.dx : io.dsrc) + row0 * C;
-    fm::gemm_rows64<kWarps, 2 * C, C / 16>(kvs, LD2, io.wkvt, 0, warp, lane,
-                                           [&](int r, int c, float v) {
-                                             if (r >= N) return;
-                                             float& d = dsg[(size_t)r * C + c];
-                                             d = io.self_call ? d + v : v;
-                                           });
-    __syncthreads();  // the window's buffers are free for the next
+    // ---- the window is done ----
+    fm::named_barrier(1 + wg, 128);  // every warp is done with the window's tiles
   }
-  if (threadIdx.x < C) {
-    float* p = io.part_ln + (size_t)blockIdx.x * 4 * C + threadIdx.x;
-    p[0] = acc_n1s;
-    p[C] = acc_n1b;
-    p[2 * C] = acc_n2s;
-    p[3 * C] = acc_n2b;
+  // ---- the block's windows are done ----
+  // the LN gradients' partial row: the lanes' column sums over the block's
+  // warpgroups and warps, in order
+  __syncthreads();
+  for (int e = threadIdx.x; e < 4 * C; e += kThreads) {
+    const int p = e / C, c = e % C, ln = (c >> 3) * 4 + ((c & 7) >> 1);
+    float s = 0.f;
+    for (int v = 0; v < kWarpgroups; ++v) {
+      const float* q4 = reinterpret_cast<const float*>(smem + WG_OFF + v * kWgBytes + LNP);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s += q4[2 * ((4 * p + u) * 32 + ln) + (c & 1)];
+    }
+    io.part_ln[(size_t)blockIdx.x * 4 * C + e] = s;
   }
 }
 
@@ -503,12 +910,30 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_kernel(Io io) {
     if (e_ != cudaSuccess) return e_; \
   } while (0)
 
+// the persistent grid: a block an SM, none without a window
+int grid_for(int run, int sms) {
+  const int blocks = (run + kWarpgroups - 1) / kWarpgroups;
+  return sms < blocks ? sms : blocks;
+}
+
 template <int D>
-cudaError_t launch_bwd(const Io& io, int blocks, cudaStream_t st) {
-  FM_CHECK(cudaFuncSetAttribute(window_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)kSmemBytes));
-  window_bwd_kernel<D><<<blocks, kThreads, kSmemBytes, st>>>(io);
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(window_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmemBytes);
+}
+
+template <int D>
+cudaError_t launch_bwd(const Io& io, int grid, cudaStream_t st) {
+  FM_CHECK(set_smem<D>());
+  window_bwd_kernel<D><<<grid, kThreads, kSmemBytes, st>>>(io);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t occupancy(int* blocks_per_sm) {
+  FM_CHECK(set_smem<D>());
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, window_bwd_kernel<D>,
+                                                       kThreads, kSmemBytes);
 }
 
 }  // namespace
@@ -517,20 +942,18 @@ FM_ERROR_STRING_ENTRY
 
 // One encoder call's backward over G windows of N taps (C = 64, head dim D).
 // in = {x [G, N, C], src [G, N, C] (bf16; the same pointer for a self call),
-// g [G, N, C] (f32); wq, wkv, wmerge, n1s, n1b, w1, w2, n2s, n2b (fm_fine_stage's
-// operands of one layer); w2t [C, 2C], w1mt [2C, C], wmt [C, C], wdxt [3C, C],
-// wkvt [2C, C] (bf16, packed: w2ᵀ, w1[C:]ᵀ, wmergeᵀ, [w1[:C]ᵀ ; wqᵀ], wkvᵀ)}.
+// g [G, N, C] (f32); the layer's weight image (ops/fine_transformer_train.
+// train_image, 81920 bytes, 16-byte aligned); n1s, n1b, n2s (f32 [C])}.
 // out = {dx, dsrc [G, N, C] (f32; a self call writes dx + dsrc to dx and
 // takes no dsrc, which may be null); dwq [C, C], dwkv [C, 2C], dwmerge [C, C],
 // dln [4C] (dn1s | dn1b | dn2s | dn2b), dw1 [2C, 2C], dw2 [2C, C] (f32, [in,
-// out]); scratch: stash bf16 [11 G N C], LN partials f32 [blocks][4C],
+// out]); scratch: stash bf16 [11 G N C], LN partials f32 [sms][4C],
 // weight-gradient partials f32 (ops/wgrad.partial_floats of the six
-// products)}. blocks: the window stage's grid (at most G); sms: the card's
-// SMs.
+// products)}. run: the windows the window stage runs (G, or fewer for a
+// check that leaves the last windows out); sms: the card's SMs.
 extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G, int N, int D,
-                                 int blocks, int sms, void* stream) {
-  if (G <= 0 || N < 1 || N > T || (D != 8 && D != 16) || blocks <= 0 || blocks > G ||
-      sms <= 0)
+                                 int run, int sms, void* stream) {
+  if (G <= 0 || N < 1 || N > 64 || (D != 8 && D != 16) || run <= 0 || run > G || sms <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
@@ -540,20 +963,10 @@ extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G,
   io.x = Bf(in[0]);
   io.src = Bf(in[1]);
   io.g = F(in[2]);
-  io.wq = Bf(in[3]);
-  io.wkv = Bf(in[4]);
-  io.wm = Bf(in[5]);
-  io.n1s = F(in[6]);
-  io.n1b = F(in[7]);
-  io.w1 = Bf(in[8]);
-  io.w2 = Bf(in[9]);
-  io.n2s = F(in[10]);
-  io.n2b = F(in[11]);
-  io.w2t = Bf(in[12]);
-  io.w1mt = Bf(in[13]);
-  io.wmt = Bf(in[14]);
-  io.wdxt = Bf(in[15]);
-  io.wkvt = Bf(in[16]);
+  io.image = static_cast<const unsigned char*>(in[3]);
+  io.n1s = F(in[4]);
+  io.n1b = F(in[5]);
+  io.n2s = F(in[6]);
   io.dx = static_cast<float*>(out[0]);
   io.dsrc = static_cast<float*>(out[1]);
   bf16* stash = static_cast<bf16*>(out[8]);
@@ -564,25 +977,36 @@ extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G,
   io.dy2 = io.dqf + TL * C;
   io.h = io.dy2 + TL * C;
   io.dy1 = io.h + TL * 2 * C;
-  io.dkv3 = io.dy1 + TL * 2 * C;
+  io.dkv = io.dy1 + TL * 2 * C;
   io.part_ln = static_cast<float*>(out[9]);
-  io.G = G;
   io.N = N;
+  io.run = run;
   io.self_call = in[0] == in[1];
-  float* gemm = static_cast<float*>(out[10]);
-  FM_CHECK(D == 8 ? launch_bwd<8>(io, blocks, st) : launch_bwd<16>(io, blocks, st));
+  const int grid = grid_for(run, sms);
+  FM_CHECK(D == 8 ? launch_bwd<8>(io, grid, st) : launch_bwd<16>(io, grid, st));
 
   // out: dwq [C, C], dwkv [C, 2C], dwmerge [C, C], dln [4C], dw1 [2C, 2C], dw2 [2C, C]
   const int TLi = (int)TL;
-  FM_CHECK(fm::sum_parts(io.part_ln, blocks, (size_t)4 * C, 4 * C, out[5], st));
+  FM_CHECK(fm::sum_parts(io.part_ln, grid, (size_t)4 * C, 4 * C, out[5], st));
   // the six weight gradients in one launch
   float* dw1 = static_cast<float*>(out[6]);
   const fm::WgradCall calls[] = {{io.x, C, io.dqf, C, TLi, C, C, out[2]},
-                                 {io.src, C, io.dkv3, 2 * C, TLi, C, 2 * C, out[3]},
+                                 {io.src, C, io.dkv, 2 * C, TLi, C, 2 * C, out[3]},
                                  {io.o, C, io.dm1, C, TLi, C, C, out[4]},
                                  {io.x, C, io.dy1, 2 * C, TLi, C, 2 * C, dw1},
                                  {io.msg, C, io.dy1, 2 * C, TLi, C, 2 * C,
                                   dw1 + (size_t)C * 2 * C},
                                  {io.h, 2 * C, io.dy2, C, TLi, 2 * C, C, out[7]}};
-  return (int)fm::wgrad_group(calls, 6, sms, gemm, st);
+  return (int)fm::wgrad_group(calls, 6, sms, static_cast<float*>(out[10]), st);
+}
+
+// info: the block's windows in flight (one a warpgroup), its dynamic shared
+// memory in bytes, the blocks an SM can hold and the grid for G windows, at
+// head dim D
+extern "C" int fm_fine_train_bwd_occupancy(int D, int G, int sms, int* info) {
+  if ((D != 8 && D != 16) || G < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  info[0] = kWarpgroups;
+  info[1] = (int)kSmemBytes;
+  info[3] = grid_for(G, sms);
+  return (int)(D == 8 ? occupancy<8>(&info[2]) : occupancy<16>(&info[2]));
 }

@@ -119,34 +119,41 @@ def fine_image_unpack(image: torch.Tensor, C: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _fine_image_index(C: int, device) -> torch.Tensor:
-    """For each entry of a layer's image, its index in the flat concatenation
-    of the packed wq, wkv, wmerge, wmlp1 and wmlp2 (`frag_pack`)."""
+def _image_index(plain, C: int, device) -> torch.Tensor:
+    """For each entry of the image `plain` makes of a layer's weights, its
+    index in the flat concatenation of the packed wq, wkv, wmerge, wmlp1 and
+    wmlp2 (`frag_pack`)."""
     shapes = _image_shapes(C)
     sizes = [k * n for k, n in shapes]
     flat = torch.arange(sum(sizes))
     parts = [frag_unpack(p.reshape(n // 16, k // 16, 32, 8))
              for p, (k, n) in zip(torch.split(flat, sizes), shapes, strict=True)]
-    return fine_image_plain(*parts).to(device)
+    return plain(*parts).to(device)
 
 
-def fine_image(lv: LayerValues) -> torch.Tensor:
-    """`fine_image_plain` of a layer's packed weights, made on their device by
-    one concatenation and one gather and kept on `lv.wq` while wq, wkv,
-    wmerge, wmlp1 and wmlp2 stay the same tensors at the same versions. The
-    serving forward's layers come from `pack_layers`' cache, so their images
-    are made once; a training or evaluation step packs its layers anew
-    (`fine_transformer_train`), so it makes one image a layer."""
+def layer_image(lv: LayerValues, plain, attr: str) -> torch.Tensor:
+    """The image `plain` makes of a layer's packed weights (wq, wkv, wmerge,
+    wmlp1, wmlp2 [in, out]), made on their device by one concatenation and
+    one gather and kept on `lv.wq` as `attr` while those five stay the same
+    tensors at the same versions."""
     ws = (lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2)
     key = tuple(w._version for w in ws)
-    held = getattr(lv.wq, "_fine_image", None)
+    held = getattr(lv.wq, attr, None)
     if held is not None and held[1] == key and all(r() is w for r, w in zip(held[0], ws)):
         return held[2]
     C = lv.wq.shape[0] * 16
     flat = torch.cat([w.reshape(-1) for w in ws])
-    image = flat[_fine_image_index(C, flat.device)]
-    lv.wq._fine_image = (tuple(weakref.ref(w) for w in ws), key, image)
+    image = flat[_image_index(plain, C, flat.device)]
+    setattr(lv.wq, attr, (tuple(weakref.ref(w) for w in ws), key, image))
     return image
+
+
+def fine_image(lv: LayerValues) -> torch.Tensor:
+    """`fine_image_plain` of a layer's packed weights (`layer_image`). The
+    serving forward's layers come from `pack_layers`' cache, so their images
+    are made once; a training or evaluation step packs its layers anew
+    (`fine_transformer_train`), so it makes one image a layer."""
+    return layer_image(lv, fine_image_plain, "_fine_image")
 
 
 def fine_stage_reference(w0, w1, layers: Sequence[LayerValues], mix0, mix1,

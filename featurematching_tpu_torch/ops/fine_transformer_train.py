@@ -15,12 +15,12 @@ fine_transformer_train`, as a `torch.autograd.Function`:
              is the saved o0, which is the JAX kernel's `has_o0` without a
              replay. The weight gradients of a layer's calls are summed.
              Each call runs `fine_layer_backward`: on a CUDA tensor the
-             kernels of `csrc/fine_transformer_train.cu` (a window stage
-             that recomputes the window's forward in shared memory and runs
-             its backward on tensor cores, then the weight gradients dW =
-             Aᵀ B of `csrc/wgrad.cuh`), bound on the H100 by its
-             operations; on a CPU tensor its plain twin,
-             `fine_layer_backward_reference`.
+             kernels of `csrc/fine_transformer_train.cu` (a window stage,
+             one window a warpgroup, that recomputes the window's forward
+             and runs its backward on `wgmma` with the layer's weights
+             resident in shared memory as `train_image`, then the weight
+             gradients dW = Aᵀ B of `csrc/wgrad.cuh`); on a CPU tensor its
+             plain twin, `fine_layer_backward_reference`.
 
 The plain twin follows `_enc_fwd_stash` and `_enc_bwd` at their rounding
 points: bf16 operands with f32 accumulation; dy2, dy1, dm1, dA, dZ, dKV, dqf
@@ -37,7 +37,8 @@ weights [out, in]; the K and V halves of the fused [C, 2C] gradient apart).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,25 +53,26 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
 )
 from featurematching_tpu_torch.ops.coarse_transformer_train import (
     LAYER_PARAMS,
-    TrainValues,
     _ln_bwd,
     _ln_stats,
     _param_grads,
     _ptrs,
     _tok,
     layer_params,
-    train_values,
 )
 from featurematching_tpu_torch.ops.fine_stage import (
     C_KERNEL,
     HEAD_DIMS,
     MAX_TAPS,
+    _image_shapes,
     fine_layer_forward,
+    layer_image,
 )
 from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
-WINDOW_BLOCKS_PER_SM = 2  # window-stage blocks an SM (shared memory allows two)
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 5 + [_build.PTR]
+_OCC_ARGS = [_build.INT] * 3 + [ctypes.POINTER(ctypes.c_int)]
+BOX = 64  # a box of the weight image: [out, 64] columns of the input
 
 
 def _dfeat(v: torch.Tensor) -> torch.Tensor:
@@ -147,7 +149,48 @@ def fine_layer_backward_reference(x, src, g, lv: LayerValues, nhead: int):
     return (dx + dsrc, None, wg) if _self_call(x, src) else (dx, dsrc, wg)
 
 
-def _check(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int) -> None:
+def _swizzle(box: torch.Tensor) -> torch.Tensor:
+    """A [rows, 64] box in the 128-byte swizzle, flat: row r's 16-byte chunk
+    c (8 values) at chunk position c ^ (r % 8), as a tensor copy with
+    CU_TENSOR_MAP_SWIZZLE_128B writes it. Its own inverse."""
+    rows = box.shape[0]
+    r = torch.arange(rows, device=box.device)[:, None]
+    chunk = torch.arange(8, device=box.device)[None, :] ^ (r % 8)
+    return box.reshape(rows, 8, 8)[r, chunk].reshape(-1)
+
+
+def train_image_plain(wq: torch.Tensor, wkv: torch.Tensor, wmerge: torch.Tensor,
+                      wmlp1: torch.Tensor, wmlp2: torch.Tensor) -> torch.Tensor:
+    """The window stage's weight image of one layer from weights [in, out]
+    (wq [C, C], wkv [C, 2C], wmerge [C, C], wmlp1 [2C, 2C], wmlp2 [2C, C]):
+    each weight, in that order, as its boxes W[64 b : 64 b + 64]ᵀ ([out,
+    64], one a 64-row block b of its input) in the 128-byte swizzle, one
+    flat tensor of 10 C² values. The kernel reads a box K-major for the
+    forward's x W and MN-major for the backward's dY Wᵀ."""
+    return torch.cat([_swizzle(w[b:b + BOX].t()) for w in (wq, wkv, wmerge, wmlp1, wmlp2)
+                      for b in range(0, w.shape[0], BOX)])
+
+
+def train_image_unpack(image: torch.Tensor, C: int):
+    """The inverse of `train_image_plain`: (wq, wkv, wmerge, wmlp1, wmlp2) [in, out]."""
+    out, at = [], 0
+    for k, n in _image_shapes(C):
+        boxes = []
+        for _ in range(0, k, BOX):
+            boxes.append(_swizzle(image[at:at + n * BOX].reshape(n, BOX)).reshape(n, BOX).t())
+            at += n * BOX
+        out.append(torch.cat(boxes))
+    return tuple(out)
+
+
+def train_image(lv: LayerValues) -> torch.Tensor:
+    """`train_image_plain` of a layer's packed weights (`fine_stage.
+    layer_image`, kept on `lv.wq`; a training step packs its layers anew,
+    `fine_transformer_train`, so it makes one image a layer)."""
+    return layer_image(lv, train_image_plain, "_train_image")
+
+
+def _check(x, src, g, lv: LayerValues, nhead: int) -> None:
     G, N, C = x.shape
     if C != C_KERNEL or C % nhead or C // nhead not in HEAD_DIMS or not 1 <= N <= MAX_TAPS:
         raise ValueError(
@@ -157,9 +200,6 @@ def _check(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int) -> None:
     _build.check_cuda(src, "src", torch.bfloat16, x.shape)
     _build.check_cuda(g, "g", torch.float32, x.shape)
     check_layer_values(lv, C)
-    for t, name, k, n in zip(lt, TrainValues._fields,
-                             (C, 2 * C, C, 3 * C, 2 * C), (2 * C, C, C, C, C)):
-        _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
 
 
 def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
@@ -169,49 +209,69 @@ def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
     return [(T, C, C), (T, C, 2 * C), (T, C, C), (T, C, 2 * C), (T, C, 2 * C), (T, 2 * C, C)]
 
 
-def fine_layer_backward(x, src, g, lv: LayerValues, lt: TrainValues, nhead: int):
-    """One encoder call's backward, as `fine_layer_backward_reference`
-    returns it (a self call: dx + dsrc as dx, dsrc None). On a CUDA tensor
-    the kernels of `csrc/fine_transformer_train.cu` (raises for what they do
-    not take: bf16 x and src, f32 g, C = 64, a head dim in HEAD_DIMS, at
-    most MAX_TAPS taps), counted in `launches`; on a CPU tensor the plain
-    twin."""
-    if x.device.type == "cpu":
-        return fine_layer_backward_reference(x, src, g, lv, nhead)
+def bwd_launch(x, src, g, lv: LayerValues, nhead: int, run: Optional[int] = None):
+    """One launch of `csrc/fine_transformer_train.cu` on CUDA tensors (checked:
+    raises for what the kernels do not take, bf16 x and src, f32 g, C = 64,
+    a head dim in HEAD_DIMS, at most MAX_TAPS taps), returned as
+    `fine_layer_backward` returns it. run < G makes the window stage leave
+    the last windows out (their dx, dsrc and stash rows zero): a fault for
+    checking that a check sees it."""
     g = g.contiguous()
-    _check(x, src, g, lv, lt, nhead)
+    _check(x, src, g, lv, nhead)
     G, N, C = x.shape
+    run = G if run is None else run
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
+    alloc = torch.empty if run == G else torch.zeros
     sms = sm_count(dev.index or 0)
-    blocks = min(WINDOW_BLOCKS_PER_SM * sms, G)
     calls = wgrad_calls(G * N, C)
-    dx = torch.empty(x.shape, **f32)
-    dsrc = None if _self_call(x, src) else torch.empty(x.shape, **f32)
+    dx = alloc(x.shape, **f32)
+    dsrc = None if _self_call(x, src) else alloc(x.shape, **f32)
     dwq, dwm = torch.empty(C, C, **f32), torch.empty(C, C, **f32)
     dwkv = torch.empty(C, 2 * C, **f32)
     dln = torch.empty(4 * C, **f32)
     dw1, dw2 = torch.empty(2 * C, 2 * C, **f32), torch.empty(2 * C, C, **f32)
-    stash = torch.empty(11 * G * N * C, device=dev, dtype=torch.bfloat16)
-    part_ln = torch.empty(blocks * 4 * C, **f32)
+    stash = alloc(11 * G * N * C, device=dev, dtype=torch.bfloat16)
+    part_ln = torch.empty(sms * 4 * C, **f32)  # a row a block, one block an SM at most
     gemm = torch.empty(partial_floats(calls, sms), **f32)
     _build.launch(
         "fine_transformer_train", "fm_fine_train_bwd", _BWD_ARGS,
-        _ptrs([x, src, g, *lv, *lt]),
+        _ptrs([x, src, g, train_image(lv), lv.n1s, lv.n1b, lv.n2s]),
         _ptrs([dx, dsrc, dwq, dwkv, dwm, dln, dw1, dw2, stash, part_ln, gemm]),
-        G, N, C // nhead, blocks, sms, _build.stream(),
+        G, N, C // nhead, run, sms, _build.stream(),
     )
-    fine_layer_backward.launches += 1
-    wgrad.launches += 1  # the launch ran the weight gradients' kernel once
     dn1s, dn1b, dn2s, dn2b = dln.view(4, C)
     return dx, dsrc, (dwq, dwkv, dwm, dn1s, dn1b, dw1, dw2, dn2s, dn2b)
+
+
+def fine_layer_backward(x, src, g, lv: LayerValues, nhead: int):
+    """One encoder call's backward, as `fine_layer_backward_reference`
+    returns it (a self call: dx + dsrc as dx, dsrc None). On a CUDA tensor
+    the kernels of `csrc/fine_transformer_train.cu` (`bwd_launch`), counted
+    in `launches`; on a CPU tensor the plain twin."""
+    if x.device.type == "cpu":
+        return fine_layer_backward_reference(x, src, g, lv, nhead)
+    out = bwd_launch(x, src, g, lv, nhead)
+    fine_layer_backward.launches += 1
+    wgrad.launches += 1  # the launch ran the weight gradients' kernel once
+    return out
 
 
 fine_layer_backward.launches = 0
 
 
-def layer_backward(name: str, x0, x1, o0, d0, d1, lv: LayerValues, lt: TrainValues,
-                   nhead: int):
+def window_bwd_occupancy(nhead: int, G: int) -> dict:
+    """The window stage's block on the current card at head dim C // nhead,
+    as its library reports it: windows in flight a block (one a warpgroup),
+    dynamic shared memory (bytes), blocks an SM and the grid for G windows."""
+    info = (ctypes.c_int * 4)()
+    dev = torch.cuda.current_device()
+    _build.launch("fine_transformer_train", "fm_fine_train_bwd_occupancy", _OCC_ARGS,
+                  C_KERNEL // nhead, G, sm_count(dev), info)
+    return dict(warpgroups=info[0], smem_bytes=info[1], blocks_per_sm=info[2], grid=info[3])
+
+
+def layer_backward(name: str, x0, x1, o0, d0, d1, lv: LayerValues, nhead: int):
     """One layer's backward from its input pair (x0, x1), its first output
     o0 = enc(x0, x1) (used by a cross layer) and the output pair's gradient
     (d0, d1), one `fine_layer_backward` an encoder call. Returns (d0, d1) in
@@ -222,12 +282,12 @@ def layer_backward(name: str, x0, x1, o0, d0, d1, lv: LayerValues, lt: TrainValu
     if name == "self":
         G = x0.shape[0]
         both = torch.cat([x0, x1], dim=0)
-        dx, _, wg = bwd(both, both, torch.cat([d0, d1], dim=0).float(), lv, lt, nhead)
+        dx, _, wg = bwd(both, both, torch.cat([d0, d1], dim=0).float(), lv, nhead)
         d0, d1 = dx.to(dt).split(G)
         return d0, d1, wg
     # o1 = enc(x1, o0) first: its dsrc is a cotangent of o0 = enc(x0, x1)
-    dx1, do0, wg1 = bwd(x1, o0, d1.float().contiguous(), lv, lt, nhead)
-    dx0, dsrc1, wg0 = bwd(x0, x1, d0.float() + do0, lv, lt, nhead)
+    dx1, do0, wg1 = bwd(x1, o0, d1.float().contiguous(), lv, nhead)
+    dx0, dsrc1, wg0 = bwd(x0, x1, d0.float() + do0, lv, nhead)
     return dx0.to(dt), (dx1 + dsrc1).to(dt), tuple(a + b for a, b in zip(wg1, wg0))
 
 
@@ -246,10 +306,10 @@ class FineTransformerTrain(torch.autograd.Function):
     in every layer's LAYER_PARAMS (passed flat after the packed operands)."""
 
     @staticmethod
-    def forward(ctx, w0, w1, layer_names, nhead, layers, tvalues, *params):
+    def forward(ctx, w0, w1, layer_names, nhead, layers, *params):
         out, saved = _forward(w0, w1, layers, layer_names, nhead)
         ctx.save_for_backward(*saved)
-        ctx.layer_names, ctx.nhead, ctx.layers, ctx.tvalues = layer_names, nhead, layers, tvalues
+        ctx.layer_names, ctx.nhead, ctx.layers = layer_names, nhead, layers
         ctx.param_dtypes = [p.dtype for p in params]
         return out
 
@@ -263,11 +323,11 @@ class FineTransformerTrain(torch.autograd.Function):
         for i in range(len(ctx.layer_names) - 1, -1, -1):
             x0, x1, o0 = saved[2 * i], saved[2 * i + 1], saved[2 * i + 2]
             d0, d1, wgrads[i] = layer_backward(ctx.layer_names[i], x0, x1, o0, d0, d1,
-                                               ctx.layers[i], ctx.tvalues[i], ctx.nhead)
+                                               ctx.layers[i], ctx.nhead)
         n = len(LAYER_PARAMS)
         grads = [gr for i, wg in enumerate(wgrads)
                  for gr in _param_grads(wg, C, ctx.param_dtypes[i * n:(i + 1) * n])]
-        return (d0, d1, None, None, None, None, *grads)
+        return (d0, d1, None, None, None, *grads)
 
 
 def fine_transformer_train(w0: torch.Tensor, w1: torch.Tensor, tf,
@@ -288,5 +348,4 @@ def fine_transformer_train(w0: torch.Tensor, w1: torch.Tensor, tf,
     wants = w0.requires_grad or w1.requires_grad or any(p.requires_grad for p in params)
     if not (torch.is_grad_enabled() and wants):
         return _forward(w0, w1, layers, layer_names, nhead)[0]
-    tvalues = tuple(train_values(lv) for lv in layers)
-    return FineTransformerTrain.apply(w0, w1, layer_names, nhead, layers, tvalues, *params)
+    return FineTransformerTrain.apply(w0, w1, layer_names, nhead, layers, *params)

@@ -39,6 +39,7 @@ from typing import Dict, List, NamedTuple, Tuple
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 WINDOW = 64  # tokens of an 8x8 Swin window
+SMS = 132  # streaming multiprocessors of the H100 SXM
 BF16, F32 = 2, 4
 
 Work = Tuple[float, float]  # (bytes, operations)
@@ -286,6 +287,33 @@ def fine_train_bwd_work(G: int, N: int, C: int, heads: int, self_call: bool) -> 
     return nbytes, 2 * fine_train_fwd_work(G, N, C, heads)[1]
 
 
+def fine_train_window_bwd_work(G: int, N: int, C: int, heads: int, self_call: bool) -> Work:
+    """`window_bwd`, the window stage of K10's backward for one encoder call
+    over G windows of N taps, alone. The backward is split where the
+    weight gradients begin (`csrc/fine_transformer_train.cu`): they are
+    products over all tokens in `wgrad`, which reads the bf16 operands
+    window_bwd stashes for it, and the LN gradients are its per-block
+    partials added by one `sum_parts`. Under that split window_bwd must read
+    x (and src in a cross call; bf16), the output gradient g (f32), the
+    weights wq, wkv, wmerge, w1 and w2 once (bf16: the transposed products
+    read the kernel's packing of the same values) and LN1's scale and bias
+    and LN2's scale (f32); and write dx (and dsrc in a cross call; f32), the
+    stash's o, msg, dm1, dqf, dy2 (C each), h, dy1 and [dkf | dv] (2 C each),
+    11 C bf16 a token, and the f32 partial row of the LN gradients (4 C) of
+    each of its blocks, one an SM at most. Its products are the activation
+    gradients dy1 = dy2 w2ᵀ, dmsg = dy1 w1[C:]ᵀ, do = dm1 wmergeᵀ, dx =
+    [dy1 | dqf] [w1[:C]ᵀ ; wqᵀ] and dsrc = [dkf | dv] wkvᵀ (10 C² multiply-
+    adds a token) and each head's attention gradients dQ = dA KVᵀ, dKV = Qᵀ
+    dA, dV = K dKV and dK = V dKVᵀ (4 C D); the recomputed forward is the
+    kernel's choice, not counted."""
+    D = C // heads
+    tokens = G * N
+    acts = 1 if self_call else 2
+    nbytes = (tokens * (acts * C * BF16 + C * F32 + acts * C * F32 + 11 * C * BF16)
+              + 10 * C * C * BF16 + 3 * C * F32 + min(G, SMS) * 4 * C * F32)
+    return nbytes, 2 * tokens * (10 * C * C + 4 * C * D)
+
+
 def wgrad_work(T: int, M: int, N: int) -> Work:
     """One weight-gradient product dW = Aᵀ B (`csrc/wgrad.cuh`, inside K8's,
     K9's and K10's backwards): A [T, M] and B [T, N] read once (bf16), dW
@@ -472,6 +500,14 @@ def main() -> None:
         b, by = bound_ms(nbytes, flops)
         print(f"| K8 bwd's {name} alone (13 launches a step) | csrc/swin_block_train.cu "
               f"{name}_kernel | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    fi = cfg.fine
+    works = [fine_train_window_bwd_work(G, fi.window_size**2, fi.d_model, fi.nhead, s)
+             for G, s in train_calls(fi.layer_names, 8 * cfg.match_coarse.max_gt_matches)]
+    nbytes, flops = total(works)
+    b, by = bound_ms(nbytes, flops)
+    print(f"| K10 bwd's window_bwd alone ({len(works)} launches a step) | "
+          f"csrc/fine_transformer_train.cu window_bwd_kernel | {nbytes / 1e6:.1f} | "
+          f"{flops / 1e9:.1f} | {b:.4f} | {by} |")
     groups = wgrad_groups(cfg)
     for label, works in (
             ("each product alone", [wgrad_work(*c) for c in wgrad_calls(cfg)]),

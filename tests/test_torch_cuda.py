@@ -22,7 +22,11 @@ tile's edges (1, 63, 65 and 4801 at 1 and 2 images, bit-identical twice),
 at the training step's cross call within chip_smoke.py's K9_TOL, with g = 0
 (every output exactly 0) and with w1 = 0 (an empty ReLU mask: the stashed
 dy1, dw1 and dw2 exactly 0), K10 at ragged window counts and tap counts and
-through a whole stack, the serving forward's per-op branches where the
+through a whole stack, K10's window stage at one window and one past a
+full round of its window slots at 1, 48, 49 and 64 taps and both head dims
+(bit for bit twice), with g = 0 (every output exactly 0), with weights
+changed in place between two calls and in a second training step after a
+fused AdamW step, the serving forward's per-op branches where the
 kernels' limits fail, and that chip_smoke.py's training semantic check
 sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
 window counts and each head dim, K12 on odd maps against its twin and K2
@@ -1444,7 +1448,7 @@ def test_coarse_train_wrapper_raises_rather_than_fall_back(gen):
 def _k10_call(x, src, lv, heads, gout, plain):
     if plain:
         return list(ftt.fine_layer_backward_reference(x, src, gout, lv, heads))
-    return list(ftt.fine_layer_backward(x, src, gout, lv, ctt.train_values(lv), heads))
+    return list(ftt.fine_layer_backward(x, src, gout, lv, heads))
 
 
 K10_NAMES = ["dx", "dsrc", "dwq", "dwkv", "dwmerge", "dn1s", "dn1b", "dw1", "dw2", "dn2s",
@@ -1486,6 +1490,105 @@ def test_fine_train_call_ragged_windows(gen, G, N, kind, heads):
         assert torch.equal(a, again[name]), name  # fixed-order sums: bit for bit
 
 
+def _window_slots():
+    """The window stage's window slots on this card: blocks x warpgroups."""
+    occ = ftt.window_bwd_occupancy(8, 1 << 20)
+    return occ["grid"] * occ["warpgroups"]
+
+
+@pytest.mark.parametrize("windows", ["one", "ragged_round"])
+@pytest.mark.parametrize("N", [1, 48, 49, 64])
+@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("self", 4), ("cross", 4)])
+def test_window_bwd_edges(gen, windows, N, kind, heads):
+    """The window stage at its grid's edges: one window, and one past a full
+    round of its window slots (the last round holds one window of a
+    warpgroup); 1, 48, 49 and 64 taps (the 64-row tile with 63, 16, 15 and
+    no padded rows); head dims 8 and 16; self and cross calls: every output
+    against the plain twin as test_fine_train_call_ragged_windows holds
+    them, and twice bit for bit."""
+    C = 64
+    G = 1 if windows == "one" else _window_slots() + 1
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, G, N, C)
+    got = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
+    again = _flat(_k10_call(x, src, lv, heads, gout, plain=False))
+    ref = _flat(_k10_call(x, src, lv, heads, gout, plain=True))
+    x32 = x.float()
+    src32 = x32 if kind == "self" else src.float()
+    exact = _flat(_k10_call(x32, src32, type(lv)(*[t.float() for t in lv]), heads, gout,
+                            plain=True))
+    assert list(got) == list(ref)
+    for name, a in got.items():
+        assert a.shape == ref[name].shape and a.dtype == ref[name].dtype, name
+        assert torch.isfinite(a).all(), name
+        _k9_close(a, ref[name], exact[name], name)
+        assert torch.equal(a, again[name]), name
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_window_bwd_zero_gradient(gen, kind):
+    """g = 0: dx, dsrc and every gradient exactly 0 (the padded rows and
+    masked heads add nothing either)."""
+    G, N, C = 300, 49, 64
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    src = x if kind == "self" else _rnd(gen, G, N, C, dtype=torch.bfloat16)
+    got = _flat(_k10_call(x, src, lv, 8, torch.zeros(G, N, C, device="cuda"), plain=False))
+    torch.cuda.synchronize()
+    for name, a in got.items():
+        assert (a == 0).all(), name
+
+
+def test_window_bwd_sees_weights_changed_in_place(gen):
+    """The kernel's weight image is kept on the packed layer while its
+    tensors stay the same at the same versions: a weight changed in place
+    between two calls is seen by the second (against the twin on the new
+    weights)."""
+    G, N, C = 300, 49, 64
+    lv = _layer_values(gen, C)
+    x, src = (_rnd(gen, G, N, C, dtype=torch.bfloat16) for _ in range(2))
+    gout = _rnd(gen, G, N, C)
+    first = _flat(_k10_call(x, src, lv, 8, gout, plain=False))
+    lv.wkv.mul_(2)
+    lv.wmlp1.mul_(-1)
+    got = _flat(_k10_call(x, src, lv, 8, gout, plain=False))
+    ref = _flat(_k10_call(x, src, lv, 8, gout, plain=True))
+    exact = _flat(_k10_call(x.float(), src.float(), type(lv)(*[t.float() for t in lv]), 8, gout,
+                            plain=True))
+    assert not torch.equal(got["dx"], first["dx"])
+    for name, a in got.items():
+        _k9_close(a, ref[name], exact[name], name)
+
+
+def test_fine_train_second_step_after_fused_adamw(gen, monkeypatch):
+    """Two training steps of a self + cross stack through
+    fine_transformer_train with a fused AdamW step between, which writes
+    the weights without bumping their versions: the second step's gradients
+    against the same Function on the plain twins with the weights the
+    optimizer wrote (`_k9_close`)."""
+    torch.manual_seed(0)
+    tf = LocalFeatureTransformer(64, 8, ("self", "cross"), use_fused_train=True).cuda()
+    f0, f1 = (_rnd(gen, 300, 49, 64, scale=0.5, dtype=torch.bfloat16) for _ in range(2))
+    w0, w1 = _rnd(gen, 300, 49, 64), _rnd(gen, 300, 49, 64)
+    first = _stack_grads(tf, f0, f1, w0, w1)
+    versions = [p._version for p in tf.parameters()]
+    torch.optim.AdamW(tf.parameters(), lr=0.05, fused=True).step()
+    assert [p._version for p in tf.parameters()] == versions  # the writes the cache must see
+    got = _stack_grads(tf, f0, f1, w0, w1)
+    assert not torch.equal(got[2], first[2])
+    monkeypatch.setattr(ftt, "fine_layer_forward", fine_layer_reference)
+    monkeypatch.setattr(ftt, "fine_layer_backward", ftt.fine_layer_backward_reference)
+    ref = _stack_grads(tf, f0, f1, w0, w1)
+    exact = _stack_grads(tf, f0.float(), f1.float(), w0, w1)
+    for i, (a, r, e) in enumerate(zip(got, ref, exact, strict=True)):
+        if i < 2:  # the stack's outputs: K6's window tolerance
+            _assert_close(a, r, 5e-2, 2e-2)
+        else:
+            _k9_close(a, r, e, i)
+
+
 def test_fine_train_stack_against_the_twin(gen, monkeypatch):
     """A self + cross stack (C = 64, 8 heads, 2 x 300 windows of 49 taps)
     through fine_transformer_train: the outputs (K6's tolerance), both
@@ -1505,8 +1608,7 @@ def test_fine_train_stack_against_the_twin(gen, monkeypatch):
     assert tuple(a - b for a, b in zip(after, before)) == (2, 3, 0)
     monkeypatch.setattr(ftt, "fine_layer_forward", fine_layer_reference)
     twin = ftt.fine_layer_backward_reference
-    monkeypatch.setattr(ftt, "fine_layer_backward",
-                        lambda x, s, g, lv, lt, h: twin(x, s, g, lv, h))
+    monkeypatch.setattr(ftt, "fine_layer_backward", twin)
     ref = _stack_grads(tf, f0, f1, w0, w1)
     exact = _stack_grads(tf, f0.float(), f1.float(), w0, w1)
     for i, (a, r, e) in enumerate(zip(got, ref, exact, strict=True)):
@@ -1521,22 +1623,20 @@ def test_fine_train_wrapper_raises_rather_than_fall_back(gen):
     """C = 128, head dim 4, 65 taps, a bf16 upstream gradient: the K10
     wrapper raises and launches nothing."""
     lv = _layer_values(gen, 64)
-    lt = ctt.train_values(lv)
     x = _rnd(gen, 2, 49, 64, dtype=torch.bfloat16)
     g = _rnd(gen, 2, 49, 64)
     before = ftt.fine_layer_backward.launches
     lv128 = _layer_values(gen, 128)
     x128 = _rnd(gen, 2, 49, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="C=64"):
-        ftt.fine_layer_backward(x128, x128, _rnd(gen, 2, 49, 128), lv128,
-                                ctt.train_values(lv128), 8)
+        ftt.fine_layer_backward(x128, x128, _rnd(gen, 2, 49, 128), lv128, 8)
     with pytest.raises(ValueError, match="head dim"):
-        ftt.fine_layer_backward(x, x, g, lv, lt, 16)  # head dim 4
+        ftt.fine_layer_backward(x, x, g, lv, 16)  # head dim 4
     x65 = _rnd(gen, 2, 65, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="taps"):
-        ftt.fine_layer_backward(x65, x65, _rnd(gen, 2, 65, 64), lv, lt, 8)
+        ftt.fine_layer_backward(x65, x65, _rnd(gen, 2, 65, 64), lv, 8)
     with pytest.raises(ValueError, match="float32"):
-        ftt.fine_layer_backward(x, x, g.bfloat16(), lv, lt, 8)
+        ftt.fine_layer_backward(x, x, g.bfloat16(), lv, 8)
     assert ftt.fine_layer_backward.launches == before
 
 

@@ -12,7 +12,9 @@ made by numpy from a seed and flax weights carried across by
   `pallas_fine_grad._layer_bwd_call` in interpret mode, in f32 and in bf16,
   the cross layer with and without the saved o0;
 - the gate, the `use_fused_train` dispatch, no saving under no_grad, and
-  weights written by a fused optimizer step seen by the next forward.
+  weights written by a fused optimizer step seen by the next forward;
+- the window stage's weight image (`train_image`): its layout, its round
+  trip, and its cache.
 """
 
 import jax
@@ -29,8 +31,12 @@ from featurematching_tpu.ops.pallas_fine_stage import _layer_values as jax_layer
 from featurematching_tpu.ops.pallas_fine_stage import fine_stage_fused as jax_fine_stage_fused
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops import fine_transformer_train as ftt
-from featurematching_tpu_torch.ops.coarse_transformer import encoder_reference, pack_layer
-from featurematching_tpu_torch.ops.coarse_transformer_train import train_values
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    encoder_reference,
+    frag_pack,
+    layer_values,
+    pack_layer,
+)
 from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward, fine_train_supported
 from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
 
@@ -146,8 +152,7 @@ def test_layer_backward_matches_pallas_kernel(rng, kind, with_o0, dtype):
     wvals = jax_layer_values(params["layer_0"], jdt)
     jo0 = jo0 if with_o0 else None  # None: the TPU kernel replays it
     rdx0, rdx1, rwg = _layer_bwd_call(kind, jx0, jx1, jd0, jd1, wvals, nhead, N, G, True, o0=jo0)
-    gdx0, gdx1, gwg = ftt.layer_backward(kind, tx0, tx1, o0, td0, td1, lv, train_values(lv),
-                                         nhead)
+    gdx0, gdx1, gwg = ftt.layer_backward(kind, tx0, tx1, o0, td0, td1, lv, nhead)
     rel = 1e-5 if dtype == "float32" else BF16_REL
     _close(gdx0.float().numpy(), rdx0, rel, "dx0")
     _close(gdx1.float().numpy(), rdx1, rel, "dx1")
@@ -244,3 +249,36 @@ def test_forward_sees_weights_the_optimizer_wrote(rng):
     assert not torch.equal(got[0], o0)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("C", [64, 128])
+def test_train_image_round_trip(C):
+    """The window stage's weight image holds every weight once, 10 C^2
+    values, each weight W [in, out] as the 64-row blocks of its input
+    transposed, [out, 64] boxes in the 128-byte swizzle (row r's 16-byte
+    chunk c at chunk position c ^ (r % 8)); it unpacks to the weights; made
+    from the packed LayerValues by one gather it equals the plain image, and
+    it is kept while the weights stay the same tensors at the same
+    versions."""
+    shapes = ((C, C), (C, 2 * C), (C, C), (2 * C, 2 * C), (2 * C, C))
+    sizes = [k * n for k, n in shapes]
+    flat = torch.arange(sum(sizes), dtype=torch.float64)
+    ws = [p.reshape(shape) for p, shape in zip(torch.split(flat, sizes), shapes, strict=True)]
+    image = ftt.train_image_plain(*ws)
+    assert image.shape == (10 * C * C,)
+    assert torch.equal(torch.sort(image).values, flat)
+    for got, w in zip(ftt.train_image_unpack(image, C), ws, strict=True):
+        assert torch.equal(got, w)
+    # wkv's box (the image's second): element (r, c) of W[:64]ᵀ, r = its output
+    box = image[C * C:C * C + 2 * C * 64]
+    for r, c in ((0, 0), (1, 0), (5, 17), (9, 63), (2 * C - 1, 40)):
+        assert box[r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8] == ws[1][c, r]
+    ones, zeros = torch.ones(C), torch.zeros(C)
+    lv = layer_values(ws[0], ws[1], ws[2], ones, zeros, ws[3], ws[4], ones, zeros)
+    got = ftt.train_image(lv)
+    assert torch.equal(got, image)
+    assert ftt.train_image(lv) is got
+    lv2 = lv._replace(wkv=frag_pack(2 * ws[1]))
+    assert torch.equal(ftt.train_image_unpack(ftt.train_image(lv2), C)[1], 2 * ws[1])
+    lv.wmlp2.mul_(2)  # an in-place change of a weight is seen
+    assert torch.equal(ftt.train_image_unpack(ftt.train_image(lv), C)[4], 2 * ws[4])

@@ -1,5 +1,7 @@
 """The work counts behind the kernels' bounds in chip_smoke.py and PERF.md."""
 
+import pytest
+
 from featurematching_tpu_torch.config import ModelConfig
 from featurematching_tpu_torch.utils.kernel_bounds import (
     all_kernels,
@@ -13,6 +15,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     fine_stage_work,
     fine_train_bwd_work,
     fine_train_fwd_work,
+    fine_train_window_bwd_work,
     sparse_focal_backward_work,
     swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
@@ -118,6 +121,35 @@ def test_mlp_bwd_counts_its_own_split():
     assert flops < whole[1] and flops + attn[1] < whole[1]
     # the mask does not enter the MLP branch
     assert swin_block_train_mlp_bwd_work(W, C, h, 0) == (nbytes, flops)
+
+
+@pytest.mark.parametrize("kind,G", [("self", 8192), ("cross", 4096), ("cross", 7)])
+def test_window_bwd_counts_its_own_split(kind, G):
+    """K10's window stage alone at the training step's self call (8192
+    windows of 49 taps, 8 heads) and cross call (4096), and at a grid that
+    is not full (7 windows), by hand: a token's x (and src) in bf16 and g in
+    f32 in, dx (and dsrc) in f32 and the 11 C bf16 stash out: 2048 bytes a
+    token in the self call, 2432 in the cross call at C = 64; the weights
+    once (bf16), LN1's scale and bias and LN2's scale (f32), a 4 C f32
+    partial row a block (one an SM at most); products 2 T (10 C^2 + 4 C D),
+    the recomputed forward not counted."""
+    N, C, h = 49, 64, 8
+    D, T = C // h, G * N
+    nbytes, flops = fine_train_window_bwd_work(G, N, C, h, kind == "self")
+    token = {"self": 2048, "cross": 2432}[kind]
+    acts = 1 if kind == "self" else 2
+    assert token == acts * C * 2 + C * 4 + acts * C * 4 + 11 * C * 2
+    weights = (C * C + 2 * C * C + C * C + 4 * C * C + 2 * C * C) * 2 + 3 * C * 4
+    assert nbytes == T * token + weights + min(G, 132) * 4 * C * 4
+    assert flops == 2 * T * (10 * C * C + 4 * C * D)
+    # a part of K10's backward: fewer products than the whole
+    assert flops < fine_train_bwd_work(G, N, C, h, kind == "self")[1]
+    # the step's three calls are bound by their bytes, about 0.54 ms together
+    if G > 7:
+        assert bound_ms(nbytes, flops)[1] == "bytes"
+    step = total([fine_train_window_bwd_work(8192, N, C, h, True)]
+                 + [fine_train_window_bwd_work(4096, N, C, h, False)] * 2)
+    assert 0.53 < bound_ms(*step)[0] < 0.545
 
 
 def test_apply_bwd_counts_its_own_split():

@@ -28,17 +28,16 @@ Run one tree after another in one call on one card (old, new, new, old).
 """
 
 import importlib.util
-import re
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 
 import chip_smoke as cs
-from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops import fine_stage as fs
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import kernel_report as kr  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "kernel_bounds", Path(__file__).resolve().parents[1] / "featurematching_tpu_torch" / "utils"
@@ -48,38 +47,7 @@ _spec.loader.exec_module(kb)
 
 ITERS, REPS = 20, 10
 PAIRS, N, C, HEADS = 4096, 49, 64, 8  # the serving forward's windows: max_matches a pair x 4
-
-
-def ptxas_report(log: str) -> None:
-    """Each fine_stage_kernel's registers, spills and static shared memory."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '(\S*?fine_stage_kernel\S*)'", line)
-        if not m:
-            continue
-        info = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 1:i + 4]
-                        if "Compiling" not in x and "Function properties" not in x)
-        print(f"  {m.group(1)}: {info}")
-    for line in lines:
-        if "wgmma" in line.lower() or "warning" in line.lower():
-            print(f"  ptxas: {line.strip()}")
-
-
-def code_report() -> None:
-    """Each fine_stage_kernel's SASS instructions, from cuobjdump."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    lib = _build._lib_path("fine_stage")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            m = re.search(r"Function : (\S*fine_stage_kernel\S*)", line)
-            name = m.group(1) if m else None
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[name] = counts.get(name, 0) + 1
-    for n, k in sorted(counts.items()):
-        print(f"  {n}: {k} SASS instructions ({16 * k} bytes)")
+KERNEL = r"\S*?fine_stage_kernel\S*"  # kernel_report's pattern for the whole mangled name
 
 
 def occupancy() -> None:
@@ -98,29 +66,8 @@ def occupancy() -> None:
                   f"{PAIRS / slots:.3f} rounds of its {slots} pair slots")
 
 
-def by_kernel(fn) -> dict:
-    """Device ms of each kernel of one fn() call, by kernel name, from the
-    profiler over REPS calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if not cs.is_kernel(e):
-            continue
-        bare = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-        k = re.split(r"[<(]", bare)[0].split("::")[-1]
-        split[k] = split.get(k, 0.0) + e.device_time_total / 1e3 / REPS
-    return split
-
-
 def report(site: str, fn, work) -> float:
-    split = by_kernel(fn)
+    split = kr.by_kernel(fn, ("fine_stage_kernel",))
     whole = cs.cuda_ms(fn, iters=ITERS)
     b, by = kb.bound_ms(*work)
     kern = split.get("fine_stage_kernel", 0.0)
@@ -152,14 +99,9 @@ def check_serving(args) -> bool:
 
 def main() -> int:
     do_check = "--check" in sys.argv[1:]
-    t = time.time()
-    _build._lib_path("fine_stage").unlink(missing_ok=True)  # rebuilt: ptxas reports
-    logs = _build.build(["fine_stage"], ptxas_verbose=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[{_build.CSRC.parent.parent}] build {time.time() - t:.1f} s; card {card}", flush=True)
-    ptxas_report(logs.get("fine_stage", ""))
-    code_report()
+    log = kr.rebuild("fine_stage")
+    kr.ptxas_report(log, (KERNEL,))  # the full mangled names
+    kr.code_report(KERNEL, "fine_stage")
     occupancy()
     g = torch.Generator(device="cuda").manual_seed(0)
     names = ("self", "cross")
