@@ -152,6 +152,7 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     coarse_train_apply_bwd_work,
     coarse_train_bwd_work,
     coarse_train_fwd_work,
+    coarse_train_stats_bwd_work,
     dual_softmax_lse_work,
     dual_softmax_work,
     fine_stage_work,
@@ -951,8 +952,10 @@ def check_coarse_train(rec: Record, g) -> None:
             k = re.split(r"[<(]", bare)[0].split("::")[-1]
             split[k] = split.get(k, 0.0) + ms
         ab, aby = bound_ms(*coarse_train_apply_bwd_work(G, N, N, C, h))
+        sb, sby = bound_ms(*coarse_train_stats_bwd_work(G, N, C, h))
         print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-              + f"; apply_bwd bound {ab:.4f} ms ({aby})")
+              + f"; apply_bwd bound {ab:.4f} ms ({aby}); stats_bwd "
+              f"{split.get('stats_bwd_kernel', 0.0):.4f} ms against its bound {sb:.4f} ms ({sby})")
         rec.site("coarse_layer_forward", count,
                  cuda_ms(lambda: coarse_layer_forward(x, src, lv, h)),
                  cuda_ms(lambda: encoder_reference_with_stats(x, src, lv, h), iters=3),

@@ -57,16 +57,15 @@
 //      and the head-summed dK_sum [C] (only K^T 1's row sums are ever read).
 //   2. bwd_merge: the partials of each image added in a fixed order and
 //      rounded to bf16, as the stats backward reads them.
-//   3. stats_bwd: one block a 64-token source tile recomputes K and V, forms
-//      [dkf | dv] over K | V in place (per (head, 16-row) unit, with the
-//      recomputed src.wk for the feature map's derivative in registers) and
-//      dsrc = [dkf | dv] . wkvᵀ.
+//   3. stats_bwd (on wgmma; its design where it is defined): 64-token source
+//      tiles recompute K and V, form [dkf | dv] and dsrc = [dkf | dv] . wkvᵀ,
+//      the layer's wkv read both ways from one image.
 //   4. the weight gradients dW = Aᵀ B over the tokens (wgrad.cuh, shared with
 //      K8) and the LN gradients' fixed-order sums: no float atomics, so the
 //      gradients repeat bit for bit.
 // Only each head's diagonal [D, D] block of dK^T V is formed (the TPU kernel
-// forms [C, C] and masks it). The weights' transposes (the B operands of
-// the dY . Wᵀ products) come packed from the wrapper.
+// forms [C, C] and masks it). apply_bwd's weight transposes (the B operands
+// of its dY . Wᵀ products) come packed from the wrapper.
 
 #include "tiles.cuh"
 #include "wgrad.cuh"
@@ -728,8 +727,9 @@ apply_bwd_kernel(const __grid_constant__ BwdIO io, int L, int S) {
     for_pairs_of<NT>(j, warp, lane, [&](int i, int jp, int, int r, int c) {
       const float zd = dzs[r * H + c / D];
       const float q0 = qj[i].c[2 * jp], q1 = qj[i].c[2 * jp + 1];
-      const float v0 = (t[i].c[2 * jp] + zd * kss[c]) * (q0 > 0.f ? 1.0f : expf(q0));
-      const float v1 = (t[i].c[2 * jp + 1] + zd * kss[c + 1]) * (q1 > 0.f ? 1.0f : expf(q1));
+      // elu's derivative exp(min(qf, 0)), by ex2.approx (__expf)
+      const float v0 = (t[i].c[2 * jp] + zd * kss[c]) * __expf(fminf(q0, 0.f));
+      const float v1 = (t[i].c[2 * jp + 1] + zd * kss[c + 1]) * __expf(fminf(q1, 0.f));
       put2(qs + r * LD1 + c, v0, v1);
     });
   }
@@ -765,114 +765,303 @@ __global__ void bwd_merge_kernel(const float* __restrict__ part_kv,
   }
 }
 
+// ---- stats_bwd: the source side, on wgmma ----
+//
+// For each source token: [K | V] = elu(src . wk) + 1 | src . wv / S
+// recomputed, then per head dV = K_h dKV_h / S and dK = V_h dKV_hᵀ +
+// dK_sum, dkf = dK elu'(src . wk), the stash's [dkf | dv] and dsrc = [dkf |
+// dv] wkvᵀ. Bound on the H100 by bytes (src in, dsrc and [dkf | dv] out:
+// 8 C bytes a token, against 2 C² + 2 C D multiply-adds; kernel_bounds.
+// coarse_train_stats_bwd_work). The first design (one 64-token tile a block
+// of 8 warps on mma.sync, every B fragment read from L2 by ld.global.nc, src
+// . wk computed twice, wkv and a packed wkvᵀ both read a tile: about 8 KB of
+// L2 reads a token) took 1.89 ms over the training step's 12 calls against
+// 0.189. Design:
+//   - A persistent grid of one 256-thread block an SM; block b takes a run
+//     of the G images' 64-token tiles (numbered image by image; the runs
+//     differ by one tile at most) and its two warpgroups take alternate
+//     tiles of the run. A warpgroup synchronises only itself (named barrier
+//     1 + its index).
+//   - The weights come as units of SU = 32 K features and their V features
+//     (ops/coarse_transformer_train.stats_bwd_image: a unit's [C, 64]
+//     columns [wk_u | wv_u] as C / 64 boxes [64 outputs][64 inputs] of bf16
+//     in the 128-byte swizzle, C * 128 bytes) through a ring of kSbSlots
+//     slots, each filled by one bulk copy completing on its mbarrier. Both
+//     warpgroups read every unit, so a unit leaves L2 once for 128 tokens,
+//     and each reads it twice: K-major (sw128_desc) as the B of [K | V] =
+//     src W_u, MN-major (sw128_mn_desc) as the B of dsrc += [dkf | dv]
+//     W_uᵀ. So the weights leave L2 once a tile pair for both products (2
+//     C² bf16) where a separate transposed image would double that. A warp
+//     hands a slot back when its dsrc product has completed; the last of
+//     the round's warps to hand it back starts the copy of the unit
+//     kSbSlots further on (no producer warp).
+//   - The source tile comes by C / 64 tensor copies of [64, 64] boxes (a
+//     tensor map over [G S, C], 128-byte swizzle: the A of [K | V] read
+//     K-major; rows past G S read as zeros) into the warpgroup's slot; the
+//     next tile's copy starts as soon as the last unit's [K | V] has read it.
+//   - A unit, in registers: [K | V] on m64n64k16 wgmma (C / 16 k-steps),
+//     the pre-activation kf kept for elu's derivative; K and V as m16n8k16
+//     A fragments (wgmma.cuh: an accumulator's 16 columns are the fragment
+//     of a k-step); each warp's 16 rows of dV and dK per head on mma.sync
+//     (a head is 16 or 32 columns wide, too narrow for wgmma) with the
+//     image's dKᵀV read by ldmatrix from shared memory (plain rows [C][D +
+//     8], loaded when a warpgroup's tile starts a new image); [dkf | dv]
+//     rounded once to bf16, as A fragments of dsrc += [dkf | dv] W_uᵀ on
+//     m64nCk16 wgmma (4 k-steps a unit, the [64, C] accumulator in
+//     registers over the units, C / 2 a thread) and as the stash's values,
+//     stored from the same registers in 8-byte pieces after one exchange
+//     between lane pairs. Units of 32 keep a thread's registers below 255:
+//     the dsrc accumulator, the unit's [K | V] (32) and its fragments.
+//   - No atomics and no cross-block sums: each output is written once, so
+//     two runs agree bit for bit.
+// Rounding as `stats_backward_reference`: K and V rounded to bf16 before the
+// products, dKᵀV and dK_sum read as bf16, [dkf | dv] rounded once, f32 sums;
+// elu and its derivative by __expf (as K5's stats kernel forms K).
+// Measured (tools/coarse_train_bwd_ab.py, tools/coarse_stats_bwd_probe.py;
+// NVIDIA H100 80GB HBM3, 700 W): about 0.50 ms over the step's 12 calls
+// against 1.89 for the first design. A block's start-up (its first source
+// tile and units) takes about 5 us, a tile pair about 17.5 us and a tile
+// alone about 9.5; at 64-token tiles a cross call's 300 tiles leave 36
+// blocks a third tile. Neither issuing the next unit's [K | V] behind dsrc's
+// product (ptxas then serialized the products for want of registers), nor
+// the warpgroups taking turns at [K | V], nor 16-byte or 4-byte stash
+// stores in place of the 8-byte ones, was faster.
+
+constexpr int SU = 32;           // K features of a unit, and as many V features
+constexpr int kSbThreads = 256;  // two warpgroups, a 64-token tile each
+constexpr int kSbSlots = 3;      // weight units in flight a block
+
 template <int C, int D>
-struct StatsSmem {
-  static constexpr int LD1 = C + 8, LD2 = 2 * C + 8, LDKV = D + 8;
-  static constexpr size_t s_off = 0;                       // src
-  static constexpr size_t kv_off = s_off + T * LD1 * 2;    // K | V, then dkf | dv
-  static constexpr size_t d_off = kv_off + T * LD2 * 2;    // dK^T V, plain [H][D][LDKV]
-  static constexpr size_t ks_off = d_off + C * LDKV * 2;   // f32 dK_sum [C]
-  static constexpr size_t bytes = ks_off + C * 4;
+struct SbLayout {
+  static constexpr int UNITS = C / SU;
+  static constexpr uint32_t UNIT = (uint32_t)C * 128;  // a unit's image: C / 64 boxes [64][64]
+  static constexpr uint32_t SRC = (uint32_t)T * C * 2;  // a source tile: C / 64 boxes [64][64]
+  static constexpr int LDKV = D + 8;                    // dKᵀV rows, plain [C][D + 8]
+  static constexpr uint32_t DKV = (uint32_t)C * LDKV * 2;
+  static constexpr uint32_t w_off = 0;                          // the ring's slots
+  static constexpr uint32_t src_off = w_off + kSbSlots * UNIT;  // a source tile a warpgroup
+  static constexpr uint32_t dkv_off = src_off + 2 * SRC;        // dKᵀV a warpgroup
+  static constexpr uint32_t dks_off = dkv_off + 2 * DKV;        // f32 dK_sum [C] a warpgroup
+  static constexpr uint32_t bar_off = dks_off + 2 * C * 4;      // mbarriers, slot counters
+  // + 1024: the slots' swizzle atoms need 1024-byte aligned addresses
+  static constexpr size_t bytes = bar_off + 8 * (kSbSlots + 2) + 4 * kSbSlots + 1024;
   static_assert(bytes <= kMaxSmem, "stats_bwd shared memory");
+  static_assert(C % 64 == 0 && SU % D == 0, "whole boxes, whole heads a unit");
 };
 
-// grid (ceil(S / 64), G): block (b, g) takes source rows [64 b, 64 b + 64) of image g
-template <int C, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-stats_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ dkv,
-                 const bf16* __restrict__ dks, const bf16* __restrict__ wkv,
-                 const bf16* __restrict__ wkvt, bf16* __restrict__ dkv3, bf16* __restrict__ dsrc,
-                 int S) {
-  using Sm = StatsSmem<C, D>;
-  constexpr int H = C / D, DT = D / 16, LD1 = Sm::LD1, LD2 = Sm::LD2, LDKV = Sm::LDKV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ss = reinterpret_cast<bf16*>(smem + Sm::s_off);
-  bf16* kvs = reinterpret_cast<bf16*>(smem + Sm::kv_off);
-  bf16* dkvp = reinterpret_cast<bf16*>(smem + Sm::d_off);
-  float* dkss = reinterpret_cast<float*>(smem + Sm::ks_off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = blockIdx.y, r0 = blockIdx.x * T, valid = min(T, S - r0);
-  const size_t row0 = (size_t)g * S + r0;
-  const float inv_s = 1.0f / (float)S;
+struct SbIO {
+  const bf16* dkv;             // merged dKᵀV, plain [G][H][D][D]
+  const bf16* dks;             // merged dK_sum [G][C]
+  const unsigned char* image;  // stats_bwd_image
+  bf16* dkv3;                  // the stash's [dkf | dv] [G S][2C]
+  bf16* dsrc;                  // [G S][C]
+  int S, tiles;                // tiles: G ceil(S / 64)
+};
 
-  fm::copy_rows_to_smem(ss, LD1, src + row0 * C, C, T, C, valid);
-  const bf16* dg = dkv + (size_t)g * C * D;
-  for (int e = threadIdx.x; e < C * D / 8; e += kThreads) {
-    const int row = e / (D / 8), c = (e % (D / 8)) * 8;  // row = h * D + d
-    *reinterpret_cast<uint4*>(dkvp + row * LDKV + c) =
-        *reinterpret_cast<const uint4*>(dg + (size_t)row * D + c);
+// operand descriptors computed where they are used (fm::pinned): a box
+// K-major, or MN-major with its 64-wide column blocks 8 KB (a box) apart
+__device__ __forceinline__ uint64_t kdesc(uint32_t a) { return fm::sw128_desc(fm::pinned(a)); }
+__device__ __forceinline__ uint64_t mdesc(uint32_t a) {
+  return fm::sw128_mn_desc(fm::pinned(a), 8192);
+}
+
+// The thread's part of a 16-column group of its rows r0 and r0 + 8 (those
+// below `valid`), f[r] its bf16 pairs as an m16n8k16 A fragment holds them,
+// into rows of `ld` values at dst: 8 bytes a store after one exchange
+// between lanes t and t ^ 1 (a quad's store: 32 bytes of a row)
+__device__ __forceinline__ void store16(bf16* dst, int ld, const uint32_t (&f)[4], int r0,
+                                        int valid, int t) {
+  const bool odd = t & 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t w0 = f[i], w1 = f[2 + i];
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? w0 : w1, 1);
+    const int r = r0 + 8 * i, c = odd ? 8 + 2 * (t - 1) : 2 * t;
+    if (r < valid)
+      *reinterpret_cast<uint2*>(dst + (size_t)r * ld + c) =
+          odd ? make_uint2(got, w1) : make_uint2(w0, got);
   }
-  for (int c = threadIdx.x; c < C; c += kThreads) dkss[c] = bf(dks[(size_t)g * C + c]);
+}
+
+// start the copy of the source rows [row, row + 64) into a warpgroup's slot:
+// C / 64 boxes of [64 rows, 64 columns], 8 KB each; completes on `bar`
+template <int C>
+__device__ __forceinline__ void fill_src(unsigned char* slot, const CUtensorMap* map, int row,
+                                         uint64_t* bar) {
+  fm::fence_proxy_async();
+  fm::mbar_arrive_expect(bar, T * C * 2);
+#pragma unroll
+  for (int j = 0; j < C / 64; ++j) fm::tma_load_2d(slot + j * T * 128, map, 64 * j, row, bar);
+}
+
+template <int C, int D>
+__global__ void __launch_bounds__(kSbThreads, 1)
+stats_bwd_kernel(const __grid_constant__ CUtensorMap src, const __grid_constant__ SbIO io) {
+  using L = SbLayout<C, D>;
+  constexpr int UNITS = L::UNITS, NS = kSbSlots, LDKV = L::LDKV;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* sfull = full + NS;
+  int* counts = reinterpret_cast<int*>(sfull + 2);
+  // the warpgroup by a shuffle, which ptxas takes as uniform: the operand
+  // descriptors are then too, and the products stay asynchronous
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int wt = threadIdx.x & 127, w = wt >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * w + (lane >> 2);  // the thread's rows: r0, r0 + 8
+  const uint32_t sm = fm::smem_u32(smem);
+  unsigned char* srcs = smem + L::src_off + wg * L::SRC;
+  const uint32_t ssrc = fm::smem_u32(srcs);
+  bf16* dkvp = reinterpret_cast<bf16*>(smem + L::dkv_off + wg * L::DKV);
+  float* dkss = reinterpret_cast<float*>(smem + L::dks_off) + wg * C;
+  const int S = io.S, per_img = (S + T - 1) / T;
+  const float inv_s = 1.0f / (float)S;
+  // the block's run of tiles [t0, t1): warpgroup 0 takes t0, t0 + 2, ..,
+  // warpgroup 1 t0 + 1, t0 + 3, ..; round k is each one's k-th tile
+  const int t0 = (int)((long long)blockIdx.x * io.tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * io.tiles / gridDim.x);
+  const int rounds = (t1 - t0 + 1) / 2, mine = (t1 - t0 + 1 - wg) / 2;
+  const int items = rounds * UNITS;  // the units the ring brings in
+  auto tile_row = [&](int tile) { return (tile / per_img) * S + tile % per_img * T; };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS + 2; ++i) fm::mbar_init(&full[i], 1);
+    fm::mbar_init_fence();
+    for (int i = 0; i < NS && i < items; ++i) {
+      fm::mbar_arrive_expect(&full[i], L::UNIT);
+      fm::bulk_load(smem + L::w_off + i * L::UNIT, io.image + (size_t)(i % UNITS) * L::UNIT,
+                    L::UNIT, &full[i]);
+    }
+  }
+  if (threadIdx.x < NS) counts[threadIdx.x] = 0;
   __syncthreads();
-  // [K | V] = elu(src . wk) + 1 | src . wv / S, as the forward's stats kernel
-  fm::gemm_rows64<kWarps, C, 2 * C / 16>(ss, LD1, wkv, 0, warp, lane,
-                                         [&](int r, int c, float v) {
-                                           float o = 0.f;
-                                           if (r < valid) o = c < C ? fm::elu1(v) : v * inv_s;
-                                           kvs[r * LD2 + c] = __float2bfloat16(o);
-                                         });
-  __syncthreads();
-  // per (head, 16 rows), over K_h | V_h in place: dv = K_h . dKV_h / S;
-  // dkf = (V_h . dKV_hᵀ + dK_sum) elu'(kf) with kf = src . wk recomputed
-  for (int u = warp; u < H * (T / 16); u += kWarps) {
-    const int h = u / (T / 16), tm = u % (T / 16);
-    fm::Acc16 af[DT], av[DT], ak[DT];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      fm::zero(af[j]);
-      fm::zero(av[j]);
-      fm::zero(ak[j]);
-    }
-    for (int k = 0; k < C / 16; ++k) {
-      uint32_t fa[4];
-      fm::load_a(fa, ss + tm * 16 * LD1 + k * 16, LD1, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4];
-        fm::load_b_packed(fb, fm::packed_tile(wkv, C, k, h * DT + j), lane);
-        fm::mma16(af[j], fa, fb);
+  if (wt == 0 && mine > 0) fill_src<C>(srcs, &src, tile_row(t0 + wg), &sfull[wg]);
+
+  int img = -1;  // the image whose dKᵀV and dK_sum are in place
+#pragma unroll 1
+  for (int k = 0; k < mine; ++k) {
+    const int tile = t0 + 2 * k + wg, gi = tile / per_img;
+    const int valid = min(T, S - tile % per_img * T);
+    const size_t row0 = (size_t)tile_row(tile);
+    // the warps that hand back this round's units, less one
+    const uint32_t last = t0 + 2 * k + 1 < t1 ? 7 : 3;
+    if (gi != img) {
+      fm::named_barrier(1 + wg, 128);  // every warp is done with the last image's
+      const bf16* dg = io.dkv + (size_t)gi * C * D;
+      for (int e = wt; e < C * D / 8; e += 128) {
+        const int row = e / (D / 8), c = e % (D / 8) * 8;  // row = h D + d
+        *reinterpret_cast<uint4*>(dkvp + row * LDKV + c) =
+            *reinterpret_cast<const uint4*>(dg + (size_t)row * D + c);
       }
+      for (int c = wt; c < C; c += 128) dkss[c] = __bfloat162float(io.dks[(size_t)gi * C + c]);
+      fm::named_barrier(1 + wg, 128);
+      img = gi;
     }
+    float ds[C / 2];  // dsrc [64, C] over the units
+    fm::zero_regs(ds);
+    fm::mbar_wait(&sfull[wg], k & 1);
+#pragma unroll 1
+    for (int q = 0; q < UNITS; ++q) {
+      const int i = k * UNITS + q, s = i % NS;
+      const uint32_t slot = sm + L::w_off + s * L::UNIT;
+      fm::mbar_wait(&full[s], (i / NS) & 1);
+      float acc[32];  // [kf | v] of the unit's 32 features, 16 columns an 8-entry group
+      fm::zero_regs(acc);
+      fm::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < DT; ++k) {
-      uint32_t fk[4], fv[4];
-      fm::load_a(fk, kvs + tm * 16 * LD2 + h * D + k * 16, LD2, lane);
-      fm::load_a(fv, kvs + tm * 16 * LD2 + C + h * D + k * 16, LD2, lane);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        uint32_t fb[4], ft[4];
-        fm::load_b(fb, dkvp + (h * D + k * 16) * LDKV + j * 16, LDKV, lane);
-        fm::mma16(av[j], fk, fb);
-        load_b_t(ft, dkvp + (h * D + j * 16) * LDKV + k * 16, LDKV, lane);
-        fm::mma16(ak[j], fv, ft);
+      for (int st = 0; st < C / 16; ++st) {  // k-step st: box st / 4, 32 bytes a k-step in
+        const uint32_t at = (st / 4) * (T * 128) + (st % 4) * 32;
+        fm::wgmma_ss_n64(acc, kdesc(ssrc + at), kdesc(slot + at), 1);
       }
-    }
-    __syncwarp();  // every lane has read the unit's K and V before any writes over them
+      fm::wgmma_commit();
+      fm::wgmma_wait<0>();
+      fm::fence_regs(acc);
+      if (q == UNITS - 1) {
+        fm::named_barrier(1 + wg, 128);  // every warp's products have read the source tile
+        if (wt == 0 && k + 1 < mine) fill_src<C>(srcs, &src, tile_row(tile + 2), &sfull[wg]);
+      }
+      // K and V (bf16) as the A fragments of the unit's two k-steps; kf
+      // gives way to elu's derivative exp(min(kf, 0)) (elu(kf) + 1 is
+      // max(kf, 0) + exp(min(kf, 0)), by ex2.approx, as K5's stats kernel
+      // forms K)
+      uint32_t kfr[2][4], vfr[2][4];
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
+      for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int row = tm * 16 + (lane >> 2) + 8 * ((q >> 1) & 1);
-        const int col = h * D + j * 16 + 8 * (q >> 2) + 2 * (lane & 3) + (q & 1);
-        const float kf = af[j].c[q];
-        float dkf = 0.f, dv = 0.f;
-        if (row < valid) {
-          dkf = (ak[j].c[q] + dkss[col]) * (kf > 0.f ? 1.0f : expf(kf));
-          dv = av[j].c[q] * inv_s;
+        for (int r = 0; r < 4; ++r) {
+          const int a = 8 * kk + 2 * r;
+          const float e0 = __expf(fminf(acc[a], 0.f)), e1 = __expf(fminf(acc[a + 1], 0.f));
+          kfr[kk][r] = fm::pack_bf16(fmaxf(acc[a], 0.f) + e0, fmaxf(acc[a + 1], 0.f) + e1);
+          acc[a] = e0;
+          acc[a + 1] = e1;
+          vfr[kk][r] = fm::pack_bf16(acc[16 + a] * inv_s, acc[16 + a + 1] * inv_s);
         }
-        kvs[row * LD2 + col] = __float2bfloat16(dkf);
-        kvs[row * LD2 + C + col] = __float2bfloat16(dv);
+      // per 16 features: dV = K_h dKV_h, dK = V_h dKV_hᵀ (mma.sync, the warp's
+      // 16 rows); [dkf | dv] as the A fragments of dsrc's k-steps (dkf 0, 1; dv 2, 3)
+      uint32_t af[4][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int f0 = SU * q + 16 * n, h = f0 / D, e0 = f0 % D;
+        const int kk0 = (h * D - SU * q) / 16;  // the unit's first k-step of head h
+        fm::Acc16 dv, dk;
+        fm::zero(dv);
+        fm::zero(dk);
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t fb[4], ft[4];
+          fm::load_b(fb, dkvp + (h * D + 16 * dd) * LDKV + e0, LDKV, lane);
+          fm::mma16(dv, kfr[kk0 + dd], fb);
+          load_b_t(ft, dkvp + (h * D + e0) * LDKV + 16 * dd, LDKV, lane);
+          fm::mma16(dk, vfr[kk0 + dd], ft);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int c = f0 + 8 * (r >> 1) + 2 * t;  // the pair's first feature
+          const float2 dks = *reinterpret_cast<const float2*>(dkss + c);
+          af[n][r] = fm::pack_bf16((dk.c[2 * r] + dks.x) * acc[8 * n + 2 * r],
+                                   (dk.c[2 * r + 1] + dks.y) * acc[8 * n + 2 * r + 1]);
+          af[2 + n][r] = fm::pack_bf16(dv.c[2 * r] * inv_s, dv.c[2 * r + 1] * inv_s);
+        }
       }
+      // dsrc += [dkf | dv] W_uᵀ: B the unit's boxes read MN-major, k-step kk
+      // its output rows 16 kk .. (two atoms), the C inputs in 64-wide blocks
+      fm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (C == 256)
+          fm::wgmma_rs_n256<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);
+        else
+          fm::wgmma_rs_n128<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);
+      }
+      fm::wgmma_commit();
+      // the stash's [dkf | dv] while the product runs
+      bf16* st = io.dkv3 + row0 * 2 * C + SU * q;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        store16(st + 16 * n, 2 * C, af[n], r0, valid, t);
+        store16(st + C + 16 * n, 2 * C, af[2 + n], r0, valid, t);
+      }
+      fm::wgmma_wait<0>();
+      fm::fence_regs(ds);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(af[kk][r])::"memory");
+      // the slot back; the round's last warp to hand it back refills it
+      const int next = i + NS;
+      fm::ring_handback(lane == 0, fm::smem_u32(counts + s), last, next < items,
+                        fm::smem_u32(&full[s]), slot,
+                        io.image + (size_t)(next % UNITS) * L::UNIT, L::UNIT);
+    }
+    bf16* dst = io.dsrc + row0 * C;
+#pragma unroll
+    for (int n = 0; n < C / 16; ++n) {
+      uint32_t f[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) f[r] = fm::pack_bf16(ds[8 * n + 2 * r], ds[8 * n + 2 * r + 1]);
+      store16(dst + 16 * n, C, f, r0, valid, t);
     }
   }
-  __syncthreads();
-  fm::copy_rows_from_smem(dkv3 + row0 * 2 * C, 2 * C, kvs, LD2, valid, 2 * C);
-  // dsrc = [dkf | dv] . wkvᵀ
-  bf16* dsg = dsrc + row0 * C;
-  fm::gemm_rows64<kWarps, 2 * C, C / 16>(
-      kvs, LD2, wkvt, 0, warp, lane, [&](int r, int c, float v) {
-        if (r < valid) dsg[(size_t)r * C + c] = __float2bfloat16(v);
-      });
 }
 
 template <typename K>
@@ -885,6 +1074,47 @@ cudaError_t set_smem(K kernel, size_t bytes) {
     cudaError_t e_ = (expr);            \
     if (e_ != cudaSuccess) return e_;   \
   } while (0)
+
+// the tensor map of stats_bwd's source rows: [rows, C] bf16 in boxes of [64
+// rows, 64 columns], 128-byte swizzle, rows past the end read as zeros
+cudaError_t source_map(CUtensorMap* map, const void* src, int rows, int C) {
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)T};
+  return fm::bf16_tensor_map(map, src, 2, dims, strides, box);
+}
+
+// stats_bwd's dynamic shared memory and resident blocks an SM (computed once)
+template <int C, int D>
+cudaError_t stats_bwd_occupancy(int* info) {
+  static int blocks = 0;
+  const int bytes = (int)SbLayout<C, D>::bytes;
+  if (blocks == 0) {
+    FM_CHECK(set_smem(stats_bwd_kernel<C, D>, bytes));
+    FM_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, stats_bwd_kernel<C, D>,
+                                                           kSbThreads, bytes));
+  }
+  info[0] = bytes;
+  info[1] = blocks;
+  return blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// stats_bwd over G images of S source tokens: a persistent grid of the
+// blocks the card holds at once (at most one a tile)
+template <int C, int D>
+cudaError_t launch_stats_bwd(const void* src, const bf16* dkv, const bf16* dks, const void* image,
+                             bf16* dkv3, bf16* dsrc, int G, int S, int sms, cudaStream_t st) {
+  int occ[2];
+  FM_CHECK((stats_bwd_occupancy<C, D>(occ)));
+  FM_CHECK(set_smem(stats_bwd_kernel<C, D>, SbLayout<C, D>::bytes));
+  CUtensorMap map;
+  FM_CHECK(source_map(&map, src, G * S, C));
+  const SbIO io{dkv, dks, static_cast<const unsigned char*>(image), dkv3, dsrc, S,
+                G * ((S + T - 1) / T)};
+  const int grid = std::min(io.tiles, sms * occ[1]);
+  stats_bwd_kernel<C, D><<<grid, kSbThreads, SbLayout<C, D>::bytes, st>>>(map, io);
+  return cudaGetLastError();
+}
 
 template <int C, int D>
 cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, int S, int sms,
@@ -925,7 +1155,7 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, in
   bf16* dkv = static_cast<bf16*>(out[12]);
   bf16* dks = static_cast<bf16*>(out[13]);
   float* gemm = static_cast<float*>(out[14]);
-  const int tiles_l = (L + T - 1) / T, tiles_s = (S + T - 1) / T;
+  const int tiles_l = (L + T - 1) / T;
 
   FM_CHECK(set_smem(apply_bwd_kernel<C, D>, BwdSmem<C, D>::bytes));
   apply_bwd_kernel<C, D><<<dim3(tiles_l, G), kThreads, BwdSmem<C, D>::bytes, st>>>(io, L, S);
@@ -934,10 +1164,8 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int G, int L, in
   bwd_merge_kernel<<<dim3((n + 255) / 256, G), 256, 0, st>>>(io.part_kv, io.part_ks, dkv, dks,
                                                              tiles_l, C, D);
   FM_CHECK(cudaGetLastError());
-  FM_CHECK(set_smem(stats_bwd_kernel<C, D>, StatsSmem<C, D>::bytes));
-  stats_bwd_kernel<C, D><<<dim3(tiles_s, G), kThreads, StatsSmem<C, D>::bytes, st>>>(
-      Bf(in[1]), dkv, dks, Bf(in[6]), Bf(in[18]), dkv3, static_cast<bf16*>(out[1]), S);
-  FM_CHECK(cudaGetLastError());
+  FM_CHECK((launch_stats_bwd<C, D>(in[1], dkv, dks, in[18], dkv3, static_cast<bf16*>(out[1]), G,
+                                    S, sms, st)));
 
   // out: dwq [C, C], dwkv [C, 2C], dwmerge [C, C], dln [4C], dw1 [2C, 2C], dw2 [2C, C]
   const int TLi = (int)TL, TSi = (int)TS;
@@ -972,8 +1200,9 @@ FM_ERROR_STRING_ENTRY
 // in = {x [G, L, C], src [G, S, C], kv [G, C*D] (fm_coarse_stats' fragment
 // order), ks [G, C], g [G, L, C] (all bf16); wq, wkv, wmerge, n1s, n1b, w1,
 // w2, n2s, n2b (fm_coarse_apply's operands); w2t [C, 2C], w1mt [2C, C], wmt
-// [C, C], wdxt [3C, C], wkvt [2C, C] (bf16, packed: w2ᵀ, w1[C:]ᵀ, wmergeᵀ,
-// [w1[:C]ᵀ ; wqᵀ], wkvᵀ)}.
+// [C, C], wdxt [3C, C] (bf16, packed: w2ᵀ, w1[C:]ᵀ, wmergeᵀ, [w1[:C]ᵀ ;
+// wqᵀ]); wkv's stats_bwd image (ops/coarse_transformer_train.stats_bwd_image,
+// 2 C² bf16, 16-byte aligned)}.
 // out = {dx [G, L, C], dsrc [G, S, C] (bf16); dwq [C, C], dwkv [C, 2C], dwmerge
 // [C, C], dln [4C] (dn1s | dn1b | dn2s | dn2b), dw1 [2C, 2C], dw2 [2C, C]
 // (f32, [in, out]); scratch: stash bf16 [(9 G L + 2 G S) C], LN partials f32
@@ -997,6 +1226,16 @@ extern "C" int fm_coarse_train_bwd(const void* const* in, void* const* out, int 
 extern "C" int fm_coarse_train_bwd_occupancy(int C, int D, int* info) {
 #define FM_OCC(c, d) \
   if (C == c && D == d) return (int)bwd_occupancy<c, d>(info);
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+#undef FM_OCC
+  return (int)cudaErrorInvalidValue;
+}
+
+// stats_bwd's dynamic shared memory and resident blocks an SM at (C, D):
+// info = {bytes, blocks}
+extern "C" int fm_coarse_train_stats_bwd_occupancy(int C, int D, int* info) {
+#define FM_OCC(c, d) \
+  if (C == c && D == d) return (int)stats_bwd_occupancy<c, d>(info);
   FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
 #undef FM_OCC
   return (int)cudaErrorInvalidValue;

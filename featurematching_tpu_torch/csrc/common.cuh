@@ -1,24 +1,15 @@
 // Helpers shared by the port's kernels: bf16 conversion, warp reductions,
-// WMMA fragment types and the error-string entry every library exports.
+// row LayerNorms and the error-string entry every library exports.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace fm {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-// 16x16x16 bf16 tensor-core tiles with f32 accumulation
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr float kLnEps = 1e-6f;
 

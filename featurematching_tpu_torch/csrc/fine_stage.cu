@@ -149,15 +149,6 @@ __device__ __forceinline__ float2 unpack2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
-// v, computed here: an asm statement the compiler keeps in order with the
-// wgmma statements around it, so no descriptor is computed ahead and held
-// (the compiler had hoisted the layer's 28 descriptors and spilled them)
-__device__ __forceinline__ uint32_t pinned(uint32_t v) {
-  uint32_t r;
-  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
-  return r;
-}
-
 // acc += A (KS k-steps of register fragments) . B (KS k-steps of [N, 16]
 // K-major tiles from shared address b, `step` bytes apart: 32 N for a whole
 // weight, more for N columns of a wider one)
@@ -166,7 +157,7 @@ __device__ __forceinline__ void product(float (&acc)[N / 2], const uint32_t (&a)
                                         uint32_t b, uint32_t step = 32 * N) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint64_t desc = fm::kmajor_desc(pinned(b + kk * step), 128, 256);
+    const uint64_t desc = fm::kmajor_desc(fm::pinned(b + kk * step), 128, 256);
     if constexpr (N == 64)
       fm::wgmma_rs_n64(acc, a[kk], desc, 1);
     else

@@ -173,17 +173,10 @@ __device__ __forceinline__ uint32_t pack_relu(float lo, float hi) {
   return r;
 }
 
-// v, computed here: an asm statement the compiler keeps in order with the
-// wgmma statements around it, so no descriptor is computed ahead and held
-__device__ __forceinline__ uint32_t pinned(uint32_t v) {
-  uint32_t r;
-  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
-  return r;
-}
-
-__device__ __forceinline__ uint64_t kdesc(uint32_t a) { return fm::sw128_desc(pinned(a)); }
+// operand descriptors computed where they are used (fm::pinned)
+__device__ __forceinline__ uint64_t kdesc(uint32_t a) { return fm::sw128_desc(fm::pinned(a)); }
 __device__ __forceinline__ uint64_t mdesc(uint32_t a) {
-  return fm::sw128_mn_desc(pinned(a), 8192);
+  return fm::sw128_mn_desc(fm::pinned(a), 8192);
 }
 
 template <int KS>

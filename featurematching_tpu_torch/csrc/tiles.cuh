@@ -88,15 +88,6 @@ __device__ __forceinline__ void load_b(uint32_t* r, const bf16* s, int lds, int 
   ldsm_x4_trans(r, s + ((lane & 7) + (m & 1) * 8) * lds + (m >> 1) * 8);
 }
 
-// B fragment of a packed tile (16-byte aligned): this lane's 16 bytes
-__device__ __forceinline__ void load_b_packed(uint32_t* r, const bf16* tile, int lane) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(tile) + lane);
-  r[0] = v.x;
-  r[1] = v.y;
-  r[2] = v.z;
-  r[3] = v.w;
-}
-
 // The packed tile (k-step kt, strip nt) of a [K, N] weight: strips are
 // contiguous runs of K / 16 tiles of 256 bf16
 __device__ __forceinline__ const bf16* packed_tile(const bf16* w, int K, int kt, int nt) {
@@ -111,77 +102,6 @@ __device__ __forceinline__ void tile_epilogue(const Acc16& acc, int row0, int co
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     epi(row0 + g + 8 * ((j >> 1) & 1), col0 + 8 * (j >> 2) + 2 * t + (j & 1), acc.c[j]);
-}
-
-// acc[i] += A[16i .. 16i+16, 0..K) . B[kt0*16 .. kt0*16 + K, strip nt] for RT
-// row tiles; A in shared memory, B packed with KB rows in all
-template <int K, int RT>
-__device__ __forceinline__ void strip_mma(Acc16* acc, const bf16* a, int lda, const bf16* b,
-                                          int KB, int kt0, int nt, int lane) {
-#pragma unroll
-  for (int k = 0; k < K / 16; ++k) {
-    uint32_t fb[4];
-    load_b_packed(fb, packed_tile(b, KB, kt0 + k, nt), lane);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      uint32_t fa[4];
-      load_a(fa, a + i * 16 * lda + k * 16, lda, lane);
-      mma16(acc[i], fa, fb);
-    }
-  }
-}
-
-// row tiles per work unit: 4 when the strips alone keep all warps busy
-__host__ __device__ constexpr int rows_per_unit(int strips, int warps) {
-  return strips % warps == 0 ? 4 : 2;
-}
-
-// out[64][16 * STRIPS] = A1[64][K1] . B[0..K1) + A2[64][K2] . B[K1..K1+K2)
-// for the strips [nt0, nt0 + STRIPS) of a packed B with K1 + K2 rows,
-// handed to epi(row, col, v) with col counted from the first strip. K2 = 0
-// gives a plain product; K2 > 0 a product over [A1 | A2] without the concat.
-template <int WARPS, int K1, int K2, int STRIPS, typename Epi>
-__device__ __forceinline__ void gemm_rows64_split(const bf16* a1, int lda1, const bf16* a2,
-                                                  int lda2, const bf16* b, int nt0, int warp,
-                                                  int lane, Epi epi) {
-  constexpr int RT = rows_per_unit(STRIPS, WARPS), GROUPS = 4 / RT;
-  for (int u = warp; u < STRIPS * GROUPS; u += WARPS) {
-    const int tn = u / GROUPS, tm0 = (u % GROUPS) * RT;
-    Acc16 acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) zero(acc[i]);
-    strip_mma<K1, RT>(acc, a1 + tm0 * 16 * lda1, lda1, b, K1 + K2, 0, nt0 + tn, lane);
-    if (K2 > 0)
-      strip_mma<K2, RT>(acc, a2 + tm0 * 16 * lda2, lda2, b, K1 + K2, K1 / 16, nt0 + tn, lane);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) tile_epilogue(acc[i], (tm0 + i) * 16, tn * 16, lane, epi);
-  }
-}
-
-template <int WARPS, int K, int STRIPS, typename Epi>
-__device__ __forceinline__ void gemm_rows64(const bf16* a, int lda, const bf16* b, int nt0,
-                                            int warp, int lane, Epi epi) {
-  gemm_rows64_split<WARPS, K, 0, STRIPS>(a, lda, a, lda, b, nt0, warp, lane, epi);
-}
-
-// LayerNorm of 64 rows (bf16, row stride ld) in place, rows spread over the
-// block's warps; C / 32 values a lane, statistics in f32.
-template <int WARPS, int C>
-__device__ __forceinline__ void layer_norm_rows64(bf16* rows, int ld, const float* s,
-                                                  const float* b, int warp, int lane) {
-  constexpr int V = C / 32;
-  float sv[V], bv[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    sv[i] = s[lane * V + i];
-    bv[i] = b[lane * V + i];
-  }
-  for (int r = warp; r < 64; r += WARPS) {
-    float v[V];
-    load_bf16<V>(rows + r * ld + lane * V, v);
-    warp_layer_norm<V, C>(v, sv, bv);
-    store_bf16<V>(rows + r * ld + lane * V, v);
-  }
 }
 
 __device__ __forceinline__ float elu1(float v) { return v > 0.f ? v + 1.f : expf(v); }

@@ -100,6 +100,15 @@ __device__ __forceinline__ float column_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
+// v, computed here: an asm statement the compiler keeps in order with the
+// wgmma statements around it, so no descriptor is computed ahead and held
+// (K6's kernel had hoisted a layer's 28 descriptors and spilled them)
+__device__ __forceinline__ uint32_t pinned(uint32_t v) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
 // generic-proxy writes to shared memory made visible to wgmma and bulk copies
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

@@ -137,6 +137,16 @@ def kstep_untile(t: torch.Tensor, K: int, N: int) -> torch.Tensor:
     return u.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3).reshape(*lead, K, N)
 
 
+def swizzle128(box: torch.Tensor) -> torch.Tensor:
+    """A [rows, 64] box in the 128-byte swizzle, flat: row r's 16-byte chunk
+    c (8 values) at chunk position c ^ (r % 8), as a tensor copy with
+    CU_TENSOR_MAP_SWIZZLE_128B writes it. Its own inverse."""
+    rows = box.shape[0]
+    r = torch.arange(rows, device=box.device)[:, None]
+    chunk = torch.arange(8, device=box.device)[None, :] ^ (r % 8)
+    return box.reshape(rows, 8, 8)[r, chunk].reshape(-1)
+
+
 def apply_image_plain(wq: torch.Tensor, wmerge: torch.Tensor, wmlp1: torch.Tensor,
                       wmlp2: torch.Tensor) -> torch.Tensor:
     """The apply kernel's weight image of one layer from weights [in, out]:

@@ -38,6 +38,7 @@ weights [out, in]; the K and V halves of the fused [C, 2C] gradient apart).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -56,11 +57,14 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     frag_pack,
     frag_unpack,
     pack_layer,
+    swizzle128,
     unpack_heads,
 )
 from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
+_OCC_ARGS = [_build.INT] * 2 + [ctypes.POINTER(ctypes.c_int)]
+SB_UNIT = 32  # K features of a stats_bwd unit (and as many V features)
 # the parameters of one EncoderLayer as the Function takes them
 LAYER_PARAMS = ("q_proj.weight", "k_proj.weight", "v_proj.weight", "merge.weight",
                 "norm1.weight", "norm1.bias", "mlp1.weight", "mlp2.weight", "norm2.weight",
@@ -68,26 +72,81 @@ LAYER_PARAMS = ("q_proj.weight", "k_proj.weight", "v_proj.weight", "merge.weight
 
 
 class TrainValues(NamedTuple):
-    """The weights' transposes that the backward's dY . Wᵀ products take as
-    B operands, packed (`frag_pack`): w2ᵀ [C, 2C], w1[C:]ᵀ [2C, C], wmergeᵀ
-    [C, C], [w1[:C]ᵀ ; wqᵀ] [3C, C] (both products of dx in one) and wkvᵀ
-    [2C, C]. Build with `train_values`."""
+    """The weights' transposes that apply_bwd's dY . Wᵀ products take as B
+    operands, packed (`frag_pack`): w2ᵀ [C, 2C], w1[C:]ᵀ [2C, C], wmergeᵀ
+    [C, C] and [w1[:C]ᵀ ; wqᵀ] [3C, C] (both products of dx in one). Build
+    with `train_values`. (stats_bwd reads wkv both ways from one image,
+    `stats_bwd_image`.)"""
 
     w2t: torch.Tensor
     w1mt: torch.Tensor
     wmt: torch.Tensor
     wdxt: torch.Tensor
-    wkvt: torch.Tensor
 
 
 def train_values(lv: LayerValues) -> TrainValues:
     """The transposed operands of a layer packed as `LayerValues`."""
-    wq, wkv, wm, w1, w2 = (frag_unpack(w) for w in (lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2))
+    wq, wm, w1, w2 = (frag_unpack(w) for w in (lv.wq, lv.wmerge, lv.wmlp1, lv.wmlp2))
     C = wq.shape[0]
     return TrainValues(frag_pack(w2.t().contiguous()), frag_pack(w1[C:].t().contiguous()),
                        frag_pack(wm.t().contiguous()),
-                       frag_pack(torch.cat([w1[:C].t(), wq.t()], dim=0).contiguous()),
-                       frag_pack(wkv.t().contiguous()))
+                       frag_pack(torch.cat([w1[:C].t(), wq.t()], dim=0).contiguous()))
+
+
+def stats_bwd_image_plain(wkv: torch.Tensor) -> torch.Tensor:
+    """stats_bwd's weight image of one layer from wkv [C, 2C] ([in, out], wk
+    | wv): for each unit u of SB_UNIT K features, W_u = [wk[:, unit] |
+    wv[:, unit]] ([C, 2 SB_UNIT]) as its boxes W_u[64 b : 64 b + 64]ᵀ ([64
+    outputs, 64 inputs], one a 64-row block b of the input) in the 128-byte
+    swizzle (`swizzle128`), the units in order: 2 C² values, flat. The kernel
+    reads a unit's boxes K-major as the B of [K | V] = src W_u and MN-major
+    as the B of dsrc += [dkf | dv] W_uᵀ."""
+    C = wkv.shape[0]
+    boxes = []
+    for u in range(0, C, SB_UNIT):
+        wu = torch.cat([wkv[:, u:u + SB_UNIT], wkv[:, C + u:C + u + SB_UNIT]], dim=1)
+        boxes += [swizzle128(wu[b:b + 64].t()) for b in range(0, C, 64)]
+    return torch.cat(boxes)
+
+
+def stats_bwd_image_unpack(image: torch.Tensor, C: int) -> torch.Tensor:
+    """The inverse of `stats_bwd_image_plain`: wkv [C, 2C]."""
+    boxes = image.reshape(C // SB_UNIT, C // 64, 64 * 64)
+    units = [torch.cat([swizzle128(box.reshape(64, 64)).reshape(64, 64).t() for box in unit])
+             for unit in boxes]  # W_u [C, 2 SB_UNIT]
+    return torch.cat([w[:, :SB_UNIT] for w in units] + [w[:, SB_UNIT:] for w in units], dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_bwd_index(C: int, device) -> torch.Tensor:
+    """For each entry of a layer's stats_bwd image, its index in the packed
+    wkv (`frag_pack`)."""
+    flat = torch.arange(2 * C * C)
+    return stats_bwd_image_plain(frag_unpack(flat.reshape(2 * C // 16, C // 16, 32, 8))).to(device)
+
+
+def stats_bwd_image(lv: LayerValues) -> torch.Tensor:
+    """`stats_bwd_image_plain` of a layer's packed wkv, made on its device by
+    one gather and kept on `lv.wkv` while wkv stays at the same version. A
+    training step packs its layers anew (`coarse_transformer_train`), so it
+    makes one image a layer, which the layer's backward calls share."""
+    held = getattr(lv.wkv, "_stats_bwd_image", None)
+    if held is not None and held[0] == lv.wkv._version:
+        return held[1]
+    C = lv.wkv.shape[1] * 16
+    image = lv.wkv.reshape(-1)[_stats_bwd_index(C, lv.wkv.device)]
+    lv.wkv._stats_bwd_image = (lv.wkv._version, image)
+    return image
+
+
+def stats_bwd_occupancy(C: int, D: int) -> dict:
+    """stats_bwd's block as the library reports it at (C, head dim D): its
+    dynamic shared memory and the blocks an SM holds (its persistent grid is
+    that many an SM, at most one a 64-token tile)."""
+    info = (ctypes.c_int * 2)()
+    _build.launch("coarse_transformer_train", "fm_coarse_train_stats_bwd_occupancy", _OCC_ARGS,
+                  C, D, info)
+    return {"smem_bytes": info[0], "blocks_per_sm": info[1]}
 
 
 def coarse_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
@@ -252,9 +311,10 @@ def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, n
     _build.check_cuda(g, "g", torch.bfloat16, x.shape)
     _build.check_cuda(kv, "kv", torch.bfloat16, (G, C * D))
     _build.check_cuda(ks, "ks", torch.bfloat16, (G, C))
-    for t, name, k, n in zip(lt, TrainValues._fields,
-                             (C, 2 * C, C, 3 * C, 2 * C), (2 * C, C, C, C, C)):
+    for t, name, k, n in zip(lt, TrainValues._fields, (C, 2 * C, C, 3 * C), (2 * C, C, C, C),
+                             strict=True):
         _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
+    image = stats_bwd_image(lv)
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
     tiles = G * -(-L // ROW_TILE)
@@ -272,7 +332,7 @@ def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, n
     gemm = torch.empty(partial_floats(calls, sms), **f32)
     _build.launch(
         "coarse_transformer_train", "fm_coarse_train_bwd", _BWD_ARGS,
-        _ptrs([x, src, kv, ks, g, *lv, *lt]),
+        _ptrs([x, src, kv, ks, g, *lv, *lt, image]),
         _ptrs([dx, dsrc, dwq, dwkv, dwm, dln, dw1, dw2, stash, part_ln, part_kv, part_ks, dkv,
                dks, gemm]),
         G, L, S, C, D, sms, _build.stream(),

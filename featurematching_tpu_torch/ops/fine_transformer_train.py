@@ -50,6 +50,7 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     check_layer_values,
     frag_unpack,
     pack_layer,
+    swizzle128,
 )
 from featurematching_tpu_torch.ops.coarse_transformer_train import (
     LAYER_PARAMS,
@@ -149,16 +150,6 @@ def fine_layer_backward_reference(x, src, g, lv: LayerValues, nhead: int):
     return (dx + dsrc, None, wg) if _self_call(x, src) else (dx, dsrc, wg)
 
 
-def _swizzle(box: torch.Tensor) -> torch.Tensor:
-    """A [rows, 64] box in the 128-byte swizzle, flat: row r's 16-byte chunk
-    c (8 values) at chunk position c ^ (r % 8), as a tensor copy with
-    CU_TENSOR_MAP_SWIZZLE_128B writes it. Its own inverse."""
-    rows = box.shape[0]
-    r = torch.arange(rows, device=box.device)[:, None]
-    chunk = torch.arange(8, device=box.device)[None, :] ^ (r % 8)
-    return box.reshape(rows, 8, 8)[r, chunk].reshape(-1)
-
-
 def train_image_plain(wq: torch.Tensor, wkv: torch.Tensor, wmerge: torch.Tensor,
                       wmlp1: torch.Tensor, wmlp2: torch.Tensor) -> torch.Tensor:
     """The window stage's weight image of one layer from weights [in, out]
@@ -167,7 +158,7 @@ def train_image_plain(wq: torch.Tensor, wkv: torch.Tensor, wmerge: torch.Tensor,
     64], one a 64-row block b of its input) in the 128-byte swizzle, one
     flat tensor of 10 C² values. The kernel reads a box K-major for the
     forward's x W and MN-major for the backward's dY Wᵀ."""
-    return torch.cat([_swizzle(w[b:b + BOX].t()) for w in (wq, wkv, wmerge, wmlp1, wmlp2)
+    return torch.cat([swizzle128(w[b:b + BOX].t()) for w in (wq, wkv, wmerge, wmlp1, wmlp2)
                       for b in range(0, w.shape[0], BOX)])
 
 
@@ -177,7 +168,7 @@ def train_image_unpack(image: torch.Tensor, C: int):
     for k, n in _image_shapes(C):
         boxes = []
         for _ in range(0, k, BOX):
-            boxes.append(_swizzle(image[at:at + n * BOX].reshape(n, BOX)).reshape(n, BOX).t())
+            boxes.append(swizzle128(image[at:at + n * BOX].reshape(n, BOX)).reshape(n, BOX).t())
             at += n * BOX
         out.append(torch.cat(boxes))
     return tuple(out)

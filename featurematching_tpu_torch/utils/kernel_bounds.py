@@ -254,6 +254,26 @@ def coarse_train_apply_bwd_work(G: int, L: int, S: int, C: int, heads: int) -> W
     return nbytes, 2 * G * L * (8 * C * C + 2 * C * D)
 
 
+def coarse_train_stats_bwd_work(G: int, S: int, C: int, heads: int) -> Work:
+    """`stats_bwd`, the source side of K9's backward for one encoder call
+    over G images of S source tokens, alone. The backward is split where the
+    source side begins (`csrc/coarse_transformer_train.cu`): it reads only
+    the merged dKᵀV and dK_sum of apply_bwd's partials, and the weight
+    gradient dwkv is a product over the tokens in `wgrad`, which reads the
+    [dkf | dv] stashed for it. Under that split stats_bwd must read src (C
+    bf16 a token), the merged dKᵀV ([H, D, D] an image) and dK_sum ([C] an
+    image; bf16) and wkv once (2 C² bf16: the image the kernel reads is its
+    packing of the same values); and write dsrc (C bf16 a token) and the
+    stash's [dkf | dv] (2 C bf16 a token). Its products are dsrc = [dkf |
+    dv] wkvᵀ (2 C² multiply-adds a token) and each head's dV = K_h dKV_h
+    and dK = V_h dKV_hᵀ (2 C D); K and V recomputed from src (src wkv) are
+    the kernel's choice, not counted."""
+    D = C // heads
+    T = G * S
+    nbytes = T * 4 * C * BF16 + G * (C * D + C) * BF16 + 2 * C * C * BF16
+    return nbytes, 2 * T * (2 * C * C + 2 * C * D)
+
+
 def train_calls(layer_names, items: int) -> List[Tuple[int, bool]]:
     """(batch G, self call) of each encoder call of a differentiable stack
     over `items` images or windows in all (both sides): a self layer is one
@@ -500,6 +520,15 @@ def main() -> None:
         b, by = bound_ms(nbytes, flops)
         print(f"| K8 bwd's {name} alone (13 launches a step) | csrc/swin_block_train.cu "
               f"{name}_kernel | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    co = cfg.coarse
+    L = (480 // cfg.resolution[0]) * (640 // cfg.resolution[0])  # coarse tokens an image
+    works = [coarse_train_stats_bwd_work(G, L, co.d_model, co.nhead)
+             for G, _ in train_calls(co.layer_names, 8)]
+    nbytes, flops = total(works)
+    b, by = bound_ms(nbytes, flops)
+    print(f"| K9 bwd's stats_bwd alone ({len(works)} launches a step) | "
+          f"csrc/coarse_transformer_train.cu stats_bwd_kernel | {nbytes / 1e6:.1f} | "
+          f"{flops / 1e9:.1f} | {b:.4f} | {by} |")
     fi = cfg.fine
     works = [fine_train_window_bwd_work(G, fi.window_size**2, fi.d_model, fi.nhead, s)
              for G, s in train_calls(fi.layer_names, 8 * cfg.match_coarse.max_gt_matches)]

@@ -260,3 +260,49 @@ def test_stats_image_sees_weights_the_optimizer_wrote(rng):
     wkv = torch.cat([layer.k_proj.weight.detach().t(), layer.v_proj.weight.detach().t()], dim=1)
     assert not torch.equal(after, before)
     assert torch.equal(stats_image_unpack(after, 128), wkv)
+
+
+def _sw128(row, col):
+    """Element offset of (row, col) in [rows, 64] bf16 rows in the 128-byte
+    swizzle: 16-byte chunk col // 8 of row `row` at chunk position
+    (col // 8) ^ (row % 8)."""
+    return row * 64 + (((col // 8) ^ row) % 8) * 8 + col % 8
+
+
+@pytest.mark.parametrize("C", [128, 256])
+def test_stats_bwd_image_reads_both_ways(rng, C):
+    """stats_bwd's weight image, as the kernel's descriptors address a
+    unit's C / 64 boxes of [64, 64] (4096 values each): K-major
+    (`sw128_desc`, N the box's 64 rows, K its 64 columns) it is the B
+    operand of [K | V] = src W_u, W_u = [wk_u | wv_u] [C, 64]; MN-major
+    (`sw128_mn_desc`: K rows in 8-row atoms, the N columns in 64-wide
+    blocks a box apart) it is the B of dsrc += [dkf | dv]_u W_uᵀ, whose
+    four k-steps are the unit's 16-row slices. Over the units the second
+    reading gives [dkf | dv] wkvᵀ. The image of a packed layer is the
+    plain image of its weights, and it unpacks to wkv."""
+    unit = ctt.SB_UNIT
+    wkv = torch.tensor(rng.standard_normal((C, 2 * C)), dtype=torch.float32)
+    image = ctt.stats_bwd_image_plain(wkv)
+    assert image.shape == (2 * C * C,) and torch.equal(ctt.stats_bwd_image_unpack(image, C), wkv)
+    c = torch.arange(C)[:, None]  # the input (W_u's row)
+    j = torch.arange(2 * unit)[None, :]  # the unit's output (W_u's column)
+    kmajor = (c // 64) * 4096 + _sw128(j, c % 64)  # K = c, N = j
+    mn = (c // 64) * 4096 + (j // 8) * 512 + _sw128(j % 8, c % 64)  # K = j, N = c
+    a = torch.tensor(rng.standard_normal((5, 2 * C)), dtype=torch.float32)  # [dkf | dv] rows
+    dsrc = torch.zeros(5, C)
+    for u in range(C // unit):
+        base = u * C * 2 * unit
+        wu = torch.cat([wkv[:, unit * u:unit * (u + 1)], wkv[:, C + unit * u:C + unit * (u + 1)]],
+                       dim=1)
+        assert torch.equal(image[base + kmajor], wu)
+        bt = image[base + mn].t()  # [K = 64 outputs, N = C inputs]
+        assert torch.equal(bt, wu.t())
+        au = torch.cat([a[:, unit * u:unit * (u + 1)], a[:, C + unit * u:C + unit * (u + 1)]],
+                       dim=1)
+        for kk in range(2 * unit // 16):  # the product's k-steps
+            dsrc += au[:, 16 * kk:16 * kk + 16] @ bt[16 * kk:16 * kk + 16]
+    torch.testing.assert_close(dsrc, a @ wkv.t(), rtol=1e-5, atol=1e-4)
+    torch.manual_seed(0)
+    layer = LocalFeatureTransformer(C, 8, ("self",), use_fused_train=True).layer_0
+    lv = pack_layer(layer, torch.float32)
+    assert torch.equal(ctt.stats_bwd_image(lv), ctt.stats_bwd_image_plain(ctt.frag_unpack(lv.wkv)))

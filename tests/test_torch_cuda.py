@@ -18,7 +18,9 @@ pair slots, bit-identical twice, its one-layer plain mode (K10's forward) at
 the training step's shapes and a weight changed in place after a forward,
 K9 at a ragged token count for each width it takes
 and through a whole stack, K9's backward at query lengths on its 64-row
-tile's edges (1, 63, 65 and 4801 at 1 and 2 images, bit-identical twice),
+tile's edges (1, 63, 65 and 4801 at 1 and 2 images, bit-identical twice)
+and its stats_bwd at source lengths on its tiles' edges (1 to 129 and
+4800, 4801 over 8 images, every width, bit-identical twice),
 at the training step's cross call within chip_smoke.py's K9_TOL, with g = 0
 (every output exactly 0) and with w1 = 0 (an empty ReLU mask: the stashed
 dy1, dw1 and dw2 exactly 0), K10 at ragged window counts and tap counts and
@@ -1317,6 +1319,30 @@ def test_coarse_train_tile_edges(gen, L, G, kind):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 4800, 4801])
+def test_coarse_train_stats_bwd_tile_edges(gen, C, heads, S):
+    """stats_bwd at its tiles' edges, at every width it takes: cross calls
+    of 8 images (70 query tokens each) over S source tokens: one row, one
+    short of a 64-token tile, a tile, one past it, one short of two, two,
+    one past them, the step's 75 tiles and one past (8 x 76 tiles: more
+    than the persistent grid's warpgroup slots, so a block takes a run of
+    tiles over two images, and an odd run leaves a warpgroup without a tile
+    in its last round). The backward against the plain twin by `_k9_close`
+    (`_k9_held`: dsrc, and dwkv from the stashed [dkf | dv]), and
+    bit-identical twice."""
+    G, L = 8, 70
+    lv = _layer_values(gen, C)
+    x = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    src = _rnd(gen, G, S, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, G, L, C, dtype=torch.bfloat16)
+    _, kv, ks = ctt.coarse_layer_forward(x, src, lv, heads)
+    got = _k9_held(x, src, kv, ks, gout, lv, heads)
+    again = _k9_grads(x, src, kv, ks, gout, lv, heads, plain=False)
+    for name, a, b in zip(K9_NAMES, got, again, strict=True):
+        assert torch.equal(a, b), name
+
+
 def test_coarse_train_step_cross_call(gen):
     """The training step's cross call [4, 4800, 256] (8 heads): dx, dsrc and
     the 10 gradients against the plain twin within chip_smoke.py's K9_TOL of
@@ -1366,7 +1392,8 @@ def _k9_bwd_keeping_stash(x, src, kv, ks, g, lv, lt, heads):
             torch.empty(G * C, device=x.device, dtype=torch.bfloat16),
             torch.empty(ctt.partial_floats(ctt.wgrad_calls(G * L, G * S, C), sms), **f32)]
     _build.launch("coarse_transformer_train", "fm_coarse_train_bwd", ctt._BWD_ARGS,
-                  ctt._ptrs([x, src, kv, ks, g, *lv, *lt]), ctt._ptrs(outs), G, L, S, C, D,
+                  ctt._ptrs([x, src, kv, ks, g, *lv, *lt, ctt.stats_bwd_image(lv)]),
+                  ctt._ptrs(outs), G, L, S, C, D,
                   sms, _build.stream())
     torch.cuda.synchronize()
     T = G * L

@@ -11,11 +11,13 @@ from featurematching_tpu_torch.utils.kernel_bounds import (
     coarse_stats_work,
     coarse_train_bwd_work,
     coarse_train_fwd_work,
+    coarse_train_stats_bwd_work,
     dual_softmax_lse_work,
     fine_stage_work,
     fine_train_bwd_work,
     fine_train_fwd_work,
     fine_train_window_bwd_work,
+    main,
     sparse_focal_backward_work,
     swin_block_train_attn_bwd_work,
     swin_block_train_bwd_work,
@@ -171,6 +173,38 @@ def test_apply_bwd_counts_its_own_split():
     # a part of K9's backward: fewer products than the whole; S does not count
     assert flops < coarse_train_bwd_work(G, L, L, C, h, False)[1]
     assert (nbytes, flops) == coarse_train_apply_bwd_work(G, L, 17, C, h)
+
+
+@pytest.mark.parametrize("G,S", [(8, 4800), (4, 4800), (3, 65)])
+def test_stats_bwd_counts_its_own_split(G, S):
+    """K9's stats backward alone at the training step's self call [8, 4800,
+    256] and cross call [4, 4800, 256] (8 heads) and at a ragged call, by
+    hand: a token's src in, dsrc and the stash's [dkf | dv] out (4 C bf16);
+    each image's merged dKᵀV and dK_sum and wkv once (bf16); products 2 T (2
+    C² + 2 C D), K and V recomputed from src not counted. The step's 12
+    calls (307,200 source tokens) are bound by their bytes: 633.4 MB and
+    90.6 GFLOP, 0.1891 ms."""
+    C, h = 256, 8
+    D, T = C // h, G * S
+    nbytes, flops = coarse_train_stats_bwd_work(G, S, C, h)
+    assert nbytes == T * (C + C + 2 * C) * 2 + G * (C * D + C) * 2 + 2 * C * C * 2
+    assert flops == 2 * T * (2 * C * C + 2 * C * D)
+    # a part of K9's backward: fewer products than the whole
+    assert flops < coarse_train_bwd_work(G, S, S, C, h, False)[1]
+    step = total([coarse_train_stats_bwd_work(8, 4800, C, h)] * 4
+                 + [coarse_train_stats_bwd_work(4, 4800, C, h)] * 8)
+    assert round(step[0] / 1e6, 1) == 633.4 and round(step[1] / 1e9, 1) == 90.6
+    b, by = bound_ms(*step)
+    assert by == "bytes" and round(b, 4) == 0.1891
+
+
+def test_command_line_prints_the_stats_bwd_row(capsys):
+    """The module's table has stats_bwd's row at the step's 12 calls."""
+    main()
+    rows = [r for r in capsys.readouterr().out.splitlines() if "stats_bwd" in r]
+    assert rows == ["| K9 bwd's stats_bwd alone (12 launches a step) | "
+                    "csrc/coarse_transformer_train.cu stats_bwd_kernel | 633.4 | 90.6 | 0.1891 | "
+                    "bytes |"]
 
 
 def test_k9_counts_its_encoder_calls():

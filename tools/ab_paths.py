@@ -23,8 +23,9 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
     kernels (`sfl_bwd_kernel`, `prep_kernel`) and the weight gradients'
     (`wgrad_kernel`, `sum_parts_group_kernel`; `sum_parts_kernel`, which
     also add the backwards' other partials) and K8's backward's window
-    kernels (`mlp_bwd_kernel`, `attn_bwd_kernel`) and K10's backward's
-    (`window_bwd_kernel`) in the training step's;
+    kernels (`mlp_bwd_kernel`, `attn_bwd_kernel`), K10's backward's
+    (`window_bwd_kernel`) and K9's backward's (`apply_bwd_kernel`,
+    `stats_bwd_kernel`) in the training step's;
   - the training step's backward on the host clock (`loss.backward()` after
     a forward, the card drained before and waited for after: median, least
     and most of HOST_RUNS).
@@ -66,6 +67,7 @@ K7_KERNELS = ("sfl_bwd_kernel", "prep_kernel")
 WGRAD_KERNELS = ("wgrad_kernel", "sum_parts_group_kernel", "sum_parts_kernel")
 K8_BWD_KERNELS = ("mlp_bwd_kernel", "attn_bwd_kernel")
 K10_BWD_KERNEL = "window_bwd_kernel"
+K9_BWD_KERNELS = ("apply_bwd_kernel", "stats_bwd_kernel")
 HOST_RUNS = 7
 _profiles = []  # the rows of each chip_smoke.profile_ms call
 _profile_ms = cs.profile_ms
@@ -203,7 +205,9 @@ def main() -> None:
               f"{k} {kernel_ms(_profiles[-1], k):.4f} ms x{kernel_launches(_profiles[-1], k)}"
               for k in K8_BWD_KERNELS) + f"; K10's backward's window stage: {K10_BWD_KERNEL} "
           f"{kernel_ms(_profiles[-1], K10_BWD_KERNEL):.4f} ms "
-          f"x{kernel_launches(_profiles[-1], K10_BWD_KERNEL)}", flush=True)
+          f"x{kernel_launches(_profiles[-1], K10_BWD_KERNEL)}; K9's backward's: " + ", ".join(
+              f"{k} {kernel_ms(_profiles[-1], k):.4f} ms x{kernel_launches(_profiles[-1], k)}"
+              for k in K9_BWD_KERNELS), flush=True)
     backward_host()
     cs.eval_forward(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the evaluation step: "

@@ -9,37 +9,37 @@ archive` into a directory `.gitignore` lists); its `chip_smoke.py` supplies
 the inputs and the timers (the bounds are this script's checkout's
 `utils/kernel_bounds.py`, so an older ROOT is held to the same ones). The
 script builds ROOT's `coarse_transformer_train` library anew and prints what
-`-Xptxas -v` says of `apply_bwd_kernel` at the four (C, head dim) pairs
-(registers, spills, static shared memory), its SASS instructions
-(cuobjdump), and the dynamic shared memory and resident blocks an SM the
-runtime reports for it (where the library exports
-`fm_coarse_train_bwd_occupancy`), then, at the training step's self call
-[8, 4800, 256] and cross call [4, 4800, 256] (8 heads; the step runs 4 and
-8 of them):
+`-Xptxas -v` says of `apply_bwd_kernel` and `stats_bwd_kernel` at the four
+(C, head dim) pairs (registers, spills, static shared memory, the blocks an
+SM the registers allow), their SASS instructions (cuobjdump), and the
+dynamic shared memory and resident blocks an SM the runtime reports for
+each (where the library exports `fm_coarse_train_bwd_occupancy` and
+`fm_coarse_train_stats_bwd_occupancy`), then, at the training step's self
+call [8, 4800, 256] and cross call [4, 4800, 256] (8 heads; the step runs 4
+and 8 of them):
   - the backward's device time by kernel (the profiler over REPS calls
-    after a warm-up, per call), apply_bwd's beside its own bound
-    (`kernel_bounds.coarse_train_apply_bwd_work`);
+    after a warm-up, per call), apply_bwd's and stats_bwd's each beside its
+    own bound (`kernel_bounds.coarse_train_apply_bwd_work`,
+    `coarse_train_stats_bwd_work`);
   - the whole backward by CUDA events (ITERS calls after a warm-up);
   - each summed over the step's 12 calls.
 With --check it first holds each call against the plain twin (dx, dsrc and
 the 10 gradients within chip_smoke.K9_TOL of each tensor's norm) and exits 1
 on a disagreement. Run one tree after another in one call on one card (old,
-new, new, old).
+new, new, old). The reports come from `tools/kernel_report.py`.
 """
 
-import ctypes
 import importlib.util
-import re
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 
 import chip_smoke as cs
-from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops import coarse_transformer_train as ctt
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import kernel_report as kr  # noqa: E402
 
 _spec = importlib.util.spec_from_file_location(
     "kernel_bounds", Path(__file__).resolve().parents[1] / "featurematching_tpu_torch" / "utils"
@@ -47,83 +47,12 @@ _spec = importlib.util.spec_from_file_location(
 kb = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(kb)
 
-ITERS, REPS = 20, 10
-SM_REGS, THREADS = 65536, 256
+ITERS = 20
+LIB = "coarse_transformer_train"
+KERNELS = ("apply_bwd_kernel", "stats_bwd_kernel")
 N, C, HEADS = 4800, 256, 8
 CALLS = [(8, "self", 4), (4, "cross", 8)]  # (images, kind, calls a step)
 WIDTHS = [(128, 16), (128, 32), (256, 16), (256, 32)]
-
-
-def ptxas_report(log: str) -> None:
-    """apply_bwd's registers, spills and static shared memory from ptxas, and
-    the blocks an SM the registers allow at 256 threads."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*?apply_bwd_kernelILi(\d+)ELi(\d+)E", line)
-        if not m:
-            continue
-        info = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 1:i + 4]
-                        if "Compiling" not in x and "Function properties" not in x)
-        regs = re.search(r"Used (\d+) registers", info)
-        r = int(regs.group(1)) if regs else 0
-        by_regs = SM_REGS // (-(-r // 8) * 8 * THREADS) if r else 0
-        print(f"  apply_bwd<{m.group(1)}, {m.group(2)}>: {info} -> {by_regs} blocks an SM by "
-              "registers")
-
-
-def code_report() -> None:
-    """apply_bwd's SASS instructions at each (C, D), from cuobjdump."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    lib = _build._lib_path("coarse_transformer_train")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*?apply_bwd_kernelILi(\d+)ELi(\d+)E", line)
-        if "Function : " in line:
-            name = f"apply_bwd<{m.group(1)}, {m.group(2)}>" if m else None
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[name] = counts.get(name, 0) + 1
-    for n, k in sorted(counts.items()):
-        print(f"  {n}: {k} SASS instructions ({16 * k} bytes)")
-
-
-def occupancy_report() -> None:
-    lib = _build._load("coarse_transformer_train")
-    if not hasattr(lib, "fm_coarse_train_bwd_occupancy"):
-        print("  occupancy: not exported by this tree's library")
-        return
-    fn = lib.fm_coarse_train_bwd_occupancy
-    fn.argtypes = [_build.INT, _build.INT, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = _build.INT
-    for c, d in WIDTHS:
-        info = (ctypes.c_int * 2)()
-        err = fn(c, d, info)
-        if err:
-            raise RuntimeError(f"fm_coarse_train_bwd_occupancy({c}, {d}): CUDA error {err}")
-        print(f"  C={c}, D={d}: apply_bwd {info[0]} bytes of dynamic shared memory, {info[1]} "
-              "blocks an SM")
-
-
-def by_kernel(fn) -> dict:
-    """Device ms of each kernel of one fn() call, by kernel name, from the
-    profiler over REPS calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if not cs.is_kernel(e):
-            continue
-        bare = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-        k = re.split(r"[<(]", bare)[0].split("::")[-1]
-        split[k] = split.get(k, 0.0) + e.device_time_total / 1e3 / REPS
-    return split
 
 
 def check(x, src, kv, ks, gout, lv, lt) -> dict:
@@ -137,17 +66,12 @@ def check(x, src, kv, ks, gout, lv, lt) -> dict:
 
 def main() -> int:
     do_check = "--check" in sys.argv[1:]
-    t = time.time()
-    _build._lib_path("coarse_transformer_train").unlink(missing_ok=True)  # rebuilt: ptxas reports
-    logs = _build.build(["coarse_transformer_train"], ptxas_verbose=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"[{_build.CSRC.parent.parent}] build {time.time() - t:.1f} s; card {card}", flush=True)
-    ptxas_report(logs.get("coarse_transformer_train", ""))
-    code_report()
-    occupancy_report()
+    kr.ptxas_report(kr.rebuild(LIB), KERNELS, threads=256)
+    kr.code_report("|".join(KERNELS), LIB)
+    kr.occupancy_report(LIB, {"apply_bwd": "fm_coarse_train_bwd_occupancy",
+                              "stats_bwd": "fm_coarse_train_stats_bwd_occupancy"}, WIDTHS)
     g = torch.Generator(device="cuda").manual_seed(0)
-    totals = dict(apply=0.0, apply_bound=0.0, bwd=0.0, bwd_bound=0.0)
+    totals = dict(apply=0.0, apply_bound=0.0, stats=0.0, stats_bound=0.0, bwd=0.0, bwd_bound=0.0)
     kernels = {}
     for G, kind, count in CALLS:
         lv = cs.layer_values(g, C)
@@ -165,23 +89,26 @@ def main() -> int:
             if not all(v <= cs.K9_TOL for v in errs.values()):
                 return 1
         bwd = lambda: ctt.coarse_layer_backward(x, src, kv, ks, gout, lv, lt, HEADS)  # noqa: E731
-        split = by_kernel(bwd)
+        split = kr.by_kernel(bwd, KERNELS)
         whole = cs.cuda_ms(bwd, iters=ITERS)
         ab, aby = kb.bound_ms(*kb.coarse_train_apply_bwd_work(G, N, N, C, HEADS))
+        sb, sby = kb.bound_ms(*kb.coarse_train_stats_bwd_work(G, N, C, HEADS))
         wb, _ = kb.bound_ms(*kb.coarse_train_bwd_work(G, N, N, C, HEADS, kind == "self"))
-        apply = split.get("apply_bwd_kernel", 0.0)
-        totals["apply"] += count * apply
-        totals["apply_bound"] += count * ab
-        totals["bwd"] += count * whole
-        totals["bwd_bound"] += count * wb
+        apply, stats = split.get("apply_bwd_kernel", 0.0), split.get("stats_bwd_kernel", 0.0)
+        for key, v in (("apply", apply), ("apply_bound", ab), ("stats", stats),
+                       ("stats_bound", sb), ("bwd", whole), ("bwd_bound", wb)):
+            totals[key] += count * v
         for k, v in split.items():
             kernels[k] = kernels.get(k, 0.0) + count * v
         print(f"  {site} x{count}: backward {whole:.4f} ms (bound {wb:.4f}); apply_bwd "
               f"{apply:.4f} ms against its bound {ab:.4f} ms ({aby}, {apply / ab:.1f}x); "
-              "by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+              f"stats_bwd {stats:.4f} ms against its bound {sb:.4f} ms ({sby}, "
+              f"{stats / sb:.1f}x); by kernel: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()), flush=True)
     print(f"  12 calls: apply_bwd {totals['apply']:.4f} ms (bound {totals['apply_bound']:.4f} "
-          f"ms); K9 backward {totals['bwd']:.4f} ms (bound {totals['bwd_bound']:.4f} ms); by "
-          "kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items()), flush=True)
+          f"ms); stats_bwd {totals['stats']:.4f} ms (bound {totals['stats_bound']:.4f} ms); K9 "
+          f"backward {totals['bwd']:.4f} ms (bound {totals['bwd_bound']:.4f} ms); by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items()), flush=True)
     return 0
 
 

@@ -1,12 +1,14 @@
 """Reports shared by the kernel A/B scripts in `tools/`: what ptxas says of
-a kernel, its SASS size, its device time by the profiler, and a fresh build
-of one library.
+a kernel, its SASS size, the shared memory and resident blocks its library
+reports, its device time by the profiler, and a fresh build of one
+library.
 
 The scripts put the checkout under test (ROOT) on PYTHONPATH; this module
 takes `chip_smoke.py` and `ops/_build.py` from there, so it reports on
 ROOT's kernels with this checkout's code.
 """
 
+import ctypes
 import re
 import subprocess
 import time
@@ -31,9 +33,10 @@ def _entry(mangled: str, names: str):
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
-def ptxas_report(log: str, kernels=("apply_kernel",)) -> None:
+def ptxas_report(log: str, kernels=("apply_kernel",), threads: int = 0) -> None:
     """Each of `kernels`' registers, spills and static shared memory from
-    ptxas (at each template instantiation), and ptxas' notes on wgmma."""
+    ptxas (at each template instantiation), with `threads` a block the
+    blocks an SM its registers allow, and ptxas' notes on wgmma."""
     names = "|".join(kernels)
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -43,6 +46,10 @@ def ptxas_report(log: str, kernels=("apply_kernel",)) -> None:
             continue
         info = " ".join(x.replace("ptxas info    :", "").strip() for x in lines[i + 1:i + 4]
                         if "Compiling" not in x and "Function properties" not in x)
+        regs = re.search(r"Used (\d+) registers", info)
+        if threads and regs:
+            per_thread = -(-int(regs.group(1)) // 8) * 8  # allocated 8 at a time
+            info += f" -> {65536 // (per_thread * threads)} blocks an SM by registers"
         print(f"  {name}: {info}")
     for line in lines:
         if "gmma" in line.lower() or "warning" in line.lower():
@@ -63,6 +70,32 @@ def code_report(kernel: str = "apply_kernel", lib: str = "coarse_transformer") -
             counts[name] = counts.get(name, 0) + 1
     for n, k in sorted(counts.items()):
         print(f"  {n}: {k} SASS instructions ({16 * k} bytes)")
+
+
+def occupancy_report(lib: str, exports: dict, widths) -> dict:
+    """Each kernel's dynamic shared memory and resident blocks an SM at each
+    (C, D) of `widths`, from ROOT's library `lib`: `exports` maps a kernel's
+    label to the C entry that fills {bytes, blocks} for it (a kernel whose
+    entry the library lacks is reported so). Returns {(label, C, D): (bytes,
+    blocks)}."""
+    so = _build._load(lib)
+    out = {}
+    for label, export in exports.items():
+        if not hasattr(so, export):
+            print(f"  occupancy of {label}: not exported by this tree's library")
+            continue
+        fn = getattr(so, export)
+        fn.argtypes = [_build.INT, _build.INT, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _build.INT
+        for c, d in widths:
+            info = (ctypes.c_int * 2)()
+            err = fn(c, d, info)
+            if err:
+                raise RuntimeError(f"{export}({c}, {d}): CUDA error {err}")
+            print(f"  C={c}, D={d}: {label} {info[0]} bytes of dynamic shared memory, {info[1]} "
+                  "blocks an SM")
+            out[(label, c, d)] = (info[0], info[1])
+    return out
 
 
 def by_kernel(fn, kernels=("stats_kernel", "merge_kernel", "apply_kernel"),
