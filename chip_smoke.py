@@ -9,10 +9,11 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   2. hold each kernel against its plain PyTorch version on the card at every
      shape the serving forward gives it (bf16, tolerances below), and time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (K3's and K4's sites and F.layer_norm by the
-     profiler's device time, the kernels' CUDA-event time beside it; each
-     site line with the bound's share of the kernel's time); print K6's block (window pairs in flight, shared
-     memory, blocks an SM, grid) for its serving call and for K10's forward;
+     function, that call (K3's, K4's and K11's sites and F.layer_norm by
+     the profiler's device time, the kernels' CUDA-event time beside it;
+     each site line with the bound's share of the kernel's time); print
+     K6's block (window pairs in flight, shared memory, blocks an SM, grid)
+     for its serving call and for K10's forward;
   3. run the serving forward (`default_config()`, 640x480, batch 4, bf16,
      seeded random weights) with the launch counters set to 0 just before and
      read just after, check its outputs are finite and every kernel launched
@@ -54,7 +55,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      beside) against the twin and `torch.mm(a.t(), b)` a product;
      The window attention (K11) at every block of the backbone (the window
      count, C, heads and, on odd blocks, the shift mask of 640x480, batch
-     4), by K11_ATOL / K11_RTOL, timed against its twin and against
+     4), by K11_ATOL / K11_RTOL and bit for bit over two calls, its grid
+     (head groups x runs of windows) printed, timed (the profiler's device
+     time, CUDA events beside) against its twin and against
      `F.scaled_dot_product_attention` with the bias (plus mask) as a float
      mask (the library yardstick); then at tpu_optimized_config()'s three
      widths (head dim 64) and at head dim 32 at one site;
@@ -1126,6 +1129,7 @@ def check_window_attention(rec: Record, g) -> None:
     from featurematching_tpu_torch.config import default_config, tpu_optimized_config
     from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
     from featurematching_tpu_torch.ops.window_attention import (
+        launch_plan,
         window_attention,
         window_attention_reference,
     )
@@ -1145,11 +1149,14 @@ def check_window_attention(rec: Record, g) -> None:
         torch.cuda.synchronize()
         err, ok = close(got, window_attention_reference(qkv, bias, mask, h, scale),
                         K11_ATOL, K11_RTOL)
+        same = torch.equal(got, window_attention(qkv, bias, mask, h, scale))
+        p = launch_plan(nwin, C, h, mask is not None)
         print(f"  {nwin} windows C={C} head dim {d} mask={mask is not None}: "
-              f"max_abs_err {err:.3e}")
-        if not ok:
+              f"max_abs_err {err:.3e}, bit-identical twice {same}; grid {p.groups} head "
+              f"group(s) x {p.runs} runs of windows = {p.grid} blocks")
+        if not (ok and same):
             raise AssertionError(f"window_attention C={C} d={d} mask={mask is not None}: "
-                                 f"max err {err:.3e}")
+                                 f"max err {err:.3e}, bit-identical twice {same}")
         if not record:
             return
         q, k, v = qkv.view(nwin, 64, 3, h, d).permute(2, 0, 3, 1, 4)
@@ -1158,11 +1165,13 @@ def check_window_attention(rec: Record, g) -> None:
             wid = torch.arange(nwin, device="cuda") % mask.shape[0]
             am = (bias[None] + mask[wid][:, None]).bfloat16()
         rec.site("window_attention", count,
-                 cuda_ms(lambda: window_attention(qkv, bias, mask, h, scale)),
+                 device_ms(lambda: window_attention(qkv, bias, mask, h, scale),
+                           "window_attention_kernel"),
                  cuda_ms(lambda: window_attention_reference(qkv, bias, mask, h, scale), iters=5),
                  window_attention_work(nwin, C, h, 0 if mask is None else mask.shape[0]), err=err,
                  lib_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                                       scale=scale)))
+                                                                       scale=scale)),
+                 event_ms=cuda_ms(lambda: window_attention(qkv, bias, mask, h, scale)))
 
     for count, hw, C, h, shift in backbone_blocks(default_config().model):
         site(count, hw, C, h, shift, True)

@@ -1,5 +1,6 @@
-// The window attention unit shared by K11 (window_attention.cu) and the Swin
-// block body (swin_block.cuh: K2, K8's forward, K12): one warp computes
+// The window attention unit of the Swin block body (swin_block.cuh: K2, K8's
+// forward, K12; K11, window_attention.cu, runs a copy of its arithmetic on
+// swizzled tensor-copy boxes): one warp computes
 //   softmax(q_h k_h^T * scale + rel_bias[h] + mask) v_h
 // for 16 query rows of one head of an 8x8 window whose q|k|v rows lie in
 // shared memory ([q | k | v] blocks of C columns, heads d-contiguous within

@@ -28,7 +28,7 @@
 //     row-major [in, out] layout is read as it is, so nothing is packed and
 //     no launch is added.
 //   - Attention: one warp takes whole (head, 16 query rows) units of
-//     attention_unit.cuh (shared with K11): scores, softmax and P in
+//     attention_unit.cuh (K11 runs a copy of it): scores, softmax and P in
 //     registers, the output over the unit's own q columns. The shift mask
 //     arrives as each lane's mask registers: read from mask[win % nW] (K2,
 //     K8), built from region labels (K12), or none.

@@ -136,6 +136,11 @@ __device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes
                : "memory");
 }
 
+// arrive on the barrier (one of its `count` arrivals a phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // wait for the completion of the barrier's phase of parity `parity`; the
 // loop is in the asm, so a wgmma group in flight around it stays in flight
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -512,14 +517,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the tensor map of a bf16 tensor of `rank` dimensions (`dims` innermost
-// first, `strides` in bytes of dimensions 1 to rank - 1) in boxes `box`,
-// 128-byte swizzle, elements past the ends read as zeros
+// the tensor map of a tensor of `type` and `rank` dimensions (`dims`
+// innermost first, `strides` in bytes of dimensions 1 to rank - 1) in boxes
+// `box`, 128-byte swizzle, elements past the ends read as zeros
 // (cuTensorMapEncodeTiled, found through the runtime's entry-point query:
 // no link to libcuda)
-inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
-                                   const cuuint64_t* dims, const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -531,11 +536,17 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = encode(map, type, (cuuint32_t)rank,
                             const_cast<void*>(base), dims, strides, box, step,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 }  // namespace fm

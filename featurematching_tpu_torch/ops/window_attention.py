@@ -4,9 +4,11 @@ bias, optional shift mask, softmax and P.V for every head of every window.
 Port of `featurematching_tpu/ops/pallas_window_attention.py ·
 window_attention_pallas`, the kernel of the per-op Swin block's
 `fused_attention` branch. On a CUDA tensor it launches
-`csrc/window_attention.cu` (one thread block a window, bf16 tensor cores,
-scores and probabilities in registers; bound by device-memory bytes); on a
-CPU tensor it runs `window_attention_reference`.
+`csrc/window_attention.cu` (a persistent grid of head groups times runs of
+windows, `plan`; q, k and v by tensor copies into a ring, the bias in
+registers for a whole run; bf16 tensor cores, scores and probabilities in
+registers; bound by device-memory bytes); on a CPU tensor it runs
+`window_attention_reference`.
 
 Layouts are the JAX package's: qkv [B_, N, 3C] as the qkv Dense writes it
 ([q | k | v] blocks, heads d-contiguous within each), bias [h, N, N], mask
@@ -15,7 +17,9 @@ Layouts are the JAX package's: qkv [B_, N, 3C] as the qkv Dense writes it
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,8 +28,57 @@ from featurematching_tpu_torch.ops import _build
 WINDOW_TOKENS = 64
 HEAD_DIMS = (16, 32, 64)
 MAX_C = 256
-_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR, _build.INT, _build.INT, _build.INT,
-                                _build.FLOAT, _build.PTR]
+# a head group: 64 columns of each of q, k and v (one 128-byte row of a
+# tensor copy's box), 64 // D heads
+GROUP_COLS = 64
+_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR] + [_build.INT] * 4 + [
+    _build.FLOAT, _build.PTR]
+
+
+class Plan(NamedTuple):
+    groups: int  # head groups, ceil(C / 64)
+    runs: int  # runs of consecutive windows a group
+    grid: int  # blocks: groups x runs, one a (group, run)
+
+
+def plan(windows: int, C: int, slots: int) -> Plan:
+    """The kernel's persistent grid: every head group cut into as many runs
+    of windows as fill the `slots` blocks the card holds at once (SMs x
+    blocks an SM), no run empty."""
+    groups = -(-C // GROUP_COLS)
+    runs = max(1, min(windows, slots // groups))
+    return Plan(groups, runs, groups * runs)
+
+
+def run_windows(run: int, runs: int, windows: int) -> Tuple[int, int]:
+    """The windows [w0, w1) of run `run`, as the kernel cuts them: runs
+    differ by at most one window."""
+    return run * windows // runs, (run + 1) * windows // runs
+
+
+def group_heads(group: int, C: int, heads: int) -> range:
+    """The heads of head group `group`: the last of an odd head count may
+    have fewer."""
+    per = GROUP_COLS // (C // heads)
+    return range(group * per, min(heads, (group + 1) * per))
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(d: int, masked: bool, device: int = 0) -> Tuple[int, int, int]:
+    """(dynamic shared memory in bytes, ring slots, resident blocks an SM) of
+    the kernel at head dim d, with or without a mask, as the runtime reports them."""
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        _build.launch("window_attention", "fm_window_attention_occupancy",
+                      [_build.INT, _build.INT, ctypes.POINTER(ctypes.c_int)], d, int(masked),
+                      info)
+    return tuple(info)
+
+
+def launch_plan(windows: int, C: int, heads: int, masked: bool, device: int = 0) -> Plan:
+    """`plan` on this card: its SMs times the kernel's blocks an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan(windows, C, sms * occupancy(C // heads, masked, device)[2])
 
 
 def window_attention_supported(N: int, C: int, heads: int) -> bool:
@@ -85,10 +138,11 @@ def window_attention(
         mask = _build.f32(mask)
         _build.check_cuda(mask, "mask", torch.float32, (mask.shape[0], N, N))
     out = torch.empty(B_, N, C, dtype=qkv.dtype, device=qkv.device)
+    p = launch_plan(B_, C, num_heads, mask is not None, qkv.device.index or 0)
     _build.launch(
         "window_attention", "fm_window_attention", _ARGTYPES,
         qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-        mask.shape[0] if mask is not None else 0, out.data_ptr(), B_, C, num_heads,
+        mask.shape[0] if mask is not None else 0, out.data_ptr(), B_, C, num_heads, p.runs,
         float(scale), _build.stream(),
     )
     window_attention.launches += 1

@@ -31,7 +31,11 @@ changed in place between two calls and in a second training step after a
 fused AdamW step, the serving forward's per-op branches where the
 kernels' limits fail, and that chip_smoke.py's training semantic check
 sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
-window counts and each head dim, K12 on odd maps against its twin and K2
+window counts and each head dim, at its persistent grid's edges (one
+window, fewer windows than SMs, window counts no multiple of a run or of
+the mask's period, 1 to 4 head groups), at odd head counts (3, 5 and 7) at
+each head dim, with a fully masked row tile and bit-identical twice at the
+evaluation step's sites, K12 on odd maps against its twin and K2
 through the roll path, both wrappers' refusals, and the per-op block's
 evaluation forward through K11; K2 at one window and one past a full wave
 of the card, with a mask whose count divides none of the window counts and
@@ -1786,6 +1790,84 @@ def test_window_attention_ragged_windows(gen, d, nwin, map_hw):
     got = window_attention(qkv, bias, mask, h, d**-0.5)
     assert window_attention.launches == before + 1
     _assert_close(got, window_attention_reference(qkv, bias, mask, h, d**-0.5), *K11_TOL)
+
+
+def _k11_mask(gen, nW):
+    """An additive mask of nW windows: normal values, a third of the entries -100."""
+    m = _rnd(gen, nW, 64, 64)
+    return torch.where(torch.rand(nW, 64, 64, generator=gen, device="cuda") < 0.3, -100.0, m)
+
+
+def _k11_case(gen, nwin, C, h, mask):
+    """K11 on random q, k, v and bias against its twin; (out, the call's arguments)."""
+    from featurematching_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
+
+    args = (_rnd(gen, nwin, 64, 3 * C, dtype=torch.bfloat16), _rnd(gen, h, 64, 64, scale=0.1),
+            mask, h, (C // h) ** -0.5)
+    got = window_attention(*args)
+    _assert_close(got, window_attention_reference(*args), *K11_TOL)
+    return got, args
+
+
+@pytest.mark.parametrize("d,C", [(16, 64), (16, 256), (32, 128), (64, 64), (64, 256)])
+@pytest.mark.parametrize("nwin", [1, 7, 133, 301])
+@pytest.mark.parametrize("nW", [0, 3])
+def test_window_attention_grid_edges(gen, d, C, nwin, nW):
+    """The persistent grid's edges (ops/window_attention.plan): one window,
+    fewer windows than SMs (runs of one window), and window counts that are
+    no multiple of a run's length or of the mask's period nW = 3; 1 to 4 head
+    groups, each head dim."""
+    _k11_case(gen, nwin, C, C // d, _k11_mask(gen, nW) if nW else None)
+
+
+@pytest.mark.parametrize("d,h", [(16, 3), (16, 5), (16, 7), (32, 3), (32, 5), (32, 7), (64, 3)])
+@pytest.mark.parametrize("nW", [0, 3])
+def test_window_attention_odd_heads(gen, d, h, nW):
+    """Odd head counts: the last head group holds fewer heads than 64 / d,
+    and its boxes reach into k's and v's columns or past the row's end."""
+    _k11_case(gen, 133, h * d, h, _k11_mask(gen, nW) if nW else None)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_window_attention_fully_masked_rows(gen, d):
+    """A mask window whose second 16-row tile is -100 on every key, and one
+    row of the first tile -100 on every key but one."""
+    mask = _k11_mask(gen, 2)
+    mask[1, 16:32] = -100.0
+    mask[0, 5] = -100.0
+    mask[0, 5, 17] = 0.0
+    _k11_case(gen, 66, 4 * d if d < 64 else 128, 4 if d < 64 else 2, mask)
+
+
+@pytest.mark.parametrize("nwin,C,map_hw", [(2400, 64, (120, 160)), (160, 256, (32, 40)),
+                                           (640, 128, None)])
+def test_window_attention_bit_identical(gen, nwin, C, map_hw):
+    """Two calls at evaluation-step sites give the same bits."""
+    from featurematching_tpu_torch.ops.window_attention import window_attention
+
+    mask = (torch.as_tensor(_shift_attn_mask(*map_hw, 8, 4), device="cuda")
+            if map_hw else None)
+    got, args = _k11_case(gen, nwin, C, C // 16, mask)
+    assert torch.equal(got, window_attention(*args))
+
+
+@pytest.mark.parametrize("heads,masked", [(1, False), (1, True), (2, True)])
+def test_window_attention_repeated_launches(gen, heads, masked):
+    """300 launches at C = 64 and 2400 windows, head dims 64 and 32 (4 and 2
+    windows in flight a block, so a window lane waits for a ring slot while
+    another lane's copies into it may still be in flight): every launch ends
+    and gives the first one's bits."""
+    from featurematching_tpu_torch.ops.window_attention import window_attention
+
+    mask = (torch.as_tensor(_shift_attn_mask(120, 160, 8, 4), device="cuda")
+            if masked else None)
+    ref, args = _k11_case(gen, 2400, 64, heads, mask)
+    for _ in range(15):
+        outs = [window_attention(*args) for _ in range(20)]
+        assert all(torch.equal(o, ref) for o in outs)
 
 
 @pytest.mark.parametrize("C,H,W,shift", [(64, 13, 21, 4), (64, 13, 21, 0), (128, 17, 9, 4),

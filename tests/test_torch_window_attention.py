@@ -3,8 +3,12 @@
 With inputs made by numpy from a seed:
   * K11's plain twin against `window_attention_pallas` in interpret mode, N
     = 16 and 64, head dims 16, 32 and 64, with and without a shift mask,
-    over several images' windows: float32 within 1e-5; bfloat16 within the
-    bound `BF16_ATOL`/`BF16_RTOL` below;
+    over several images' windows, and 3 heads of head dim 16 over 2
+    windows: float32 within 1e-5; bfloat16 within the bound
+    `BF16_ATOL`/`BF16_RTOL` below;
+  * K11's grid (`plan`): every (window, head) in exactly one block at
+    every site of `default_config()` and `tpu_optimized_config()` and at
+    odd head counts, for 132, 114 and 1 block slots;
   * the per-op `WindowAttention` and `SwinBlock` (linen, use_fused_block
     False) against flax at float32 within 1e-5, shift 0 and 2 on a map that
     needs padding;
@@ -37,7 +41,13 @@ from featurematching_tpu.train.optimizer import build_optimizer as jax_build_opt
 from featurematching_tpu.train.step import _forward_with_loss as jax_forward_with_loss
 from featurematching_tpu.train.step import create_train_state as jax_create_train_state
 from featurematching_tpu.train.step import make_eval_step, make_train_step
-from featurematching_tpu_torch.config import Config, SwinConfig, config_from_dict
+from featurematching_tpu_torch.config import (
+    Config,
+    SwinConfig,
+    config_from_dict,
+    default_config,
+    tpu_optimized_config,
+)
 from featurematching_tpu_torch.models import backbone_swin
 from featurematching_tpu_torch.models.backbone_swin import (
     SwinBlockParams,
@@ -53,6 +63,7 @@ from featurematching_tpu_torch.ops.window_attention import (
     window_attention_supported,
 )
 from featurematching_tpu_torch.train.step import create_train_state, eval_step, forward_with_loss
+from featurematching_tpu_torch.utils.kernel_bounds import swin_sites
 from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
 
 GRAD_RTOL = 3e-4  # ROADMAP's per-leaf gradient tolerance at f32
@@ -91,6 +102,35 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+def _plan_sites():
+    """(windows, C, heads) of every K11 site of both configurations at
+    640x480, batch 4, and of odd head counts and small window counts."""
+    out = set()
+    for cfg in (default_config().model, tpu_optimized_config().model):
+        out.update((st.windows, st.C, st.heads) for st in swin_sites(cfg, 8, 480, 640))
+    out.update((w, d * h, h) for w in (1, 7, 133) for d, h in
+               ((16, 3), (16, 5), (16, 7), (32, 3), (32, 5), (32, 7), (64, 3), (16, 16)))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("slots", [132, 114, 1])
+@pytest.mark.parametrize("windows,C,heads", _plan_sites())
+def test_plan_covers_each_window_and_head_once(windows, C, heads, slots):
+    """The kernel's grid (`plan`, `run_windows`, `group_heads` as the kernel
+    cuts them): every (window, head) in exactly one block, no run empty, no
+    more blocks than the card holds at once where it holds a block a group."""
+    p = wa.plan(windows, C, slots)
+    assert p.grid == p.groups * p.runs and p.groups == -(-C // wa.GROUP_COLS)
+    assert p.grid <= max(slots, p.groups)
+    seen = np.zeros((windows, heads), np.int64)
+    for block in range(p.grid):
+        group, run = divmod(block, p.runs)
+        w0, w1 = wa.run_windows(run, p.runs, windows)
+        assert w1 > w0
+        seen[w0:w1, list(wa.group_heads(group, C, heads))] += 1
+    assert (seen == 1).all()
+
+
 class TestKernelTwin:
     @pytest.mark.parametrize("N", [16, 64])
     @pytest.mark.parametrize("d", [16, 32, 64])
@@ -127,6 +167,17 @@ class TestKernelTwin:
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), _np(ref), rtol=BF16_RTOL,
                                    atol=BF16_ATOL)
+
+    def test_twin_against_pallas_odd_heads(self):
+        """3 heads of head dim 16 (C = 48, one head group short of its four
+        heads on the card), 2 windows, the second masked."""
+        rng = np.random.default_rng(48)
+        h, d, B_ = 3, 16, 2
+        qkv, bias, mask = _qkv_inputs(rng, B_, 64, h * d, h, 2)
+        ref = window_attention_pallas(jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(mask), h,
+                                      d**-0.5, chunk=B_, interpret=True)
+        got = window_attention(_t(qkv), _t(bias), _t(mask), h, d**-0.5)
+        np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 
     def test_supported(self):
         assert window_attention_supported(64, 64, 4)

@@ -19,7 +19,8 @@ commit unpacked with `git archive` into a directory `.gitignore` lists, or
   - the evaluation step with the per-op block (`chip_smoke.eval_forward`:
     step time, device time, launches);
   - the device time of K6's kernel (K10's forward) in the profile of the
-    whole training step and of the whole evaluation step, and of K7's
+    whole training step and of the whole evaluation step, of K11's kernel
+    (`window_attention_kernel`) in the evaluation step's, and of K7's
     kernels (`sfl_bwd_kernel`, `prep_kernel`) and the weight gradients'
     (`wgrad_kernel`, `sum_parts_group_kernel`; `sum_parts_kernel`, which
     also add the backwards' other partials) and K8's backward's window
@@ -68,6 +69,7 @@ WGRAD_KERNELS = ("wgrad_kernel", "sum_parts_group_kernel", "sum_parts_kernel")
 K8_BWD_KERNELS = ("mlp_bwd_kernel", "attn_bwd_kernel")
 K10_BWD_KERNEL = "window_bwd_kernel"
 K9_BWD_KERNELS = ("apply_bwd_kernel", "stats_bwd_kernel")
+K11_KERNEL = "window_attention_kernel"
 HOST_RUNS = 7
 _profiles = []  # the rows of each chip_smoke.profile_ms call
 _profile_ms = cs.profile_ms
@@ -211,7 +213,9 @@ def main() -> None:
     backward_host()
     cs.eval_forward(wrappers, {})
     print(f"  K6's kernel (K10's forward) in the evaluation step: "
-          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms", flush=True)
+          f"{kernel_ms(_profiles[-1], K6_KERNEL):.4f} ms; K11's: {K11_KERNEL} "
+          f"{kernel_ms(_profiles[-1], K11_KERNEL):.4f} ms "
+          f"x{kernel_launches(_profiles[-1], K11_KERNEL)}", flush=True)
 
 
 if __name__ == "__main__":
