@@ -9,8 +9,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   2. hold each kernel against its plain PyTorch version on the card at every
      shape the serving forward gives it (bf16, tolerances below), and time the
      kernel, the plain version and, where one PyTorch call computes the same
-     function, that call (K3's, K4's and K11's sites and F.layer_norm by
-     the profiler's device time, the kernels' CUDA-event time beside it;
+     function, that call (K2's, K3's, K4's, K11's and K12's sites and
+     F.layer_norm by the profiler's device time, the kernels' CUDA-event
+     time beside it;
      each site line with the bound's share of the kernel's time); print
      K6's block (window pairs in flight, shared memory, blocks an SM, grid)
      for its serving call and for K10's forward;
@@ -23,7 +24,10 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
   4. semantic check: identical images with thr=1e-8 give matches on the
      coarse-grid diagonal; and the forward on the card agrees with the plain
      path on the CPU at 64x64 (feat_c0, and mkpts0_f over the matches both
-     find);
+     find); then the serving forward at tpu_optimized_config() (head dim 64
+     in the Swin blocks, the coarse transformer and the fine stage) as in 3
+     (the same launches a forward, no eager coarse or fine EncoderLayer,
+     pairs/s, the breakdown), and its card-against-CPU check at 64x64;
   5. hold the training kernels against their plain versions at the shapes of
      the training step: swin_block_train's forward and backward (K8) at the
      three widths of the backbone, with and without the shift mask and
@@ -67,6 +71,17 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      the same inputs (K12_K2_RTOL), timed against K2 with its pad, roll,
      partition, reverse, roll back and crop; then the 13 blocks in order
      through swin_block_image N_FORWARD times, one K12 launch a block;
+     The head-dim-64 instances tpu_optimized_config() runs, by the same
+     checks, each also bit-identical over two calls: K2 at the serving
+     forward's three widths with 1, 2 and 4 heads, with and without the
+     shift mask; K5 at (256, 64), a self call of G = 8 and a cross call of G
+     = 4 over 4800 tokens, where the cross call's kv, with one cross-warp
+     block of K^T V zeroed in each head group's first head (a planted
+     fault: a block the stats kernel left out), must break the stats bound,
+     and the run says it did; K6 in fold and plain
+     mode over 4096 pairs with one head of 64; K12 at the 13 blocks of that
+     config's backbone and through swin_block_image N_FORWARD times (their
+     own lines of the kernels JSON, named with "@hd64");
   6. run the training step (`default_config()` as users run it: every
      kernel switch 'auto', so K8, K9 and K10 on the card; 640x480, batch 4,
      bf16, sparse focal loss, AdamW) with the launch counters set to 0 just
@@ -103,7 +118,9 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      diagonal; the card's forward agrees with the CPU's at 128x128
      (feat_c0, and mkpts0_f over the matches both find); and the forward at
      tpu_optimized_config() with the per-op block runs K11 at head dim 64,
-     13 launches, with finite outputs;
+     13 launches, and K9's and K10's forwards (K5's and K6's kernels at
+     head dim 64, 12 and 2 launches) with no eager coarse or fine layer,
+     with finite outputs;
  10. two training steps with the per-op block (autograd through the plain
      ops; no K11 in training, as in flax): no K8 launch, finite loss,
      gradient norm and parameters.
@@ -125,7 +142,8 @@ block's evaluation forward adds window_attention (K11); swin_block_fused_image
 
 Per-kernel numbers in the JSON line are totals over one forward (serving
 kernels), one training step (training kernels), one evaluation step with the
-per-op block (K11) or the backbone's 13 blocks (K12): each call site's time
+per-op block (K11) or the backbone's 13 blocks (K12), the "@hd64" lines over
+the forward (K12: the 13 blocks) at tpu_optimized_config(): each call site's time
 times its launches, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
@@ -225,6 +243,15 @@ SOURCES = {
         "wgrad.cuh",
         "featurematching_tpu/ops/pallas_swin_block_grad.py:326,343,363,449; "
         "pallas_coarse_grad.py:71 (_dot_g at :158-223); pallas_fine_grad.py:142-216"),
+}
+# the head-dim-64 instances of K2, K5, K6 (tpu_optimized_config()'s serving
+# forward) and K12 (its own entry point over that config's 13 blocks): their
+# own lines in the kernels JSON, by the kernel each instantiates
+HD64 = {
+    "swin_block_fused@hd64": "swin_block_fused",
+    "coarse_transformer_fused@hd64": "coarse_transformer_fused",
+    "fine_stage_fused@hd64": "fine_stage_fused",
+    "swin_block_fused_image@hd64": "swin_block_fused_image",
 }
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
 # once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
@@ -356,7 +383,7 @@ class Record:
 
     def __init__(self):
         self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
-                  for n in SOURCES}
+                  for n in [*SOURCES, *HD64]}
 
     def site(self, name, count, ms, plain_ms, work, err, lib_ms=None, event_ms=None):
         """One call site: `count` launches per forward or training step;
@@ -417,13 +444,16 @@ def check_layer_norm(rec: Record, g) -> None:
         )
 
 
-def check_swin_block(rec: Record, g) -> None:
+def check_swin_block(rec: Record, g, heads=(4, 8, 16), name="swin_block_fused") -> None:
+    """K2 at the serving forward's three widths with `heads` heads (default
+    head dim 16; (1, 2, 4): tpu_optimized_config()'s head dim 64, where the
+    kernel must also give the same bits twice), recorded under `name`."""
     from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
     from featurematching_tpu_torch.ops.swin_block import swin_block_fused, swin_block_reference
 
     # (windows, C, heads, padded map, launches without / with the shift mask)
-    sites = [(2400, 64, 4, (120, 160), 2, 1), (640, 128, 8, (64, 80), 2, 1),
-             (160, 256, 16, (32, 40), 4, 3)]
+    sites = [(2400, 64, heads[0], (120, 160), 2, 1), (640, 128, heads[1], (64, 80), 2, 1),
+             (160, 256, heads[2], (32, 40), 4, 3)]
     atol, rtol = 5e-2, 2e-2  # bf16 intermediates rounded in another order
     print(f"  tolerance |kernel - plain| <= {atol} + {rtol} |plain|")
     for nwin, C, h, (Hp, Wp), n_plain, n_mask in sites:
@@ -446,13 +476,20 @@ def check_swin_block(rec: Record, g) -> None:
             got = swin_block_fused(x, m, p, h)
             torch.cuda.synchronize()
             err, ok = close(got, swin_block_reference(x, m, p, h), atol, rtol)
+            if C // h == 64:
+                same = torch.equal(got, swin_block_fused(x, m, p, h))
+                print(f"  {nwin} windows C={C} head dim {C // h} mask={m is not None}: "
+                      f"max_abs_err {err:.3e}, bit-identical twice {same}")
+                ok = ok and same
             if not ok:
-                raise AssertionError(f"swin_block_fused C={C} mask={m is not None}: max err {err:.3e}")
+                raise AssertionError(f"swin_block_fused C={C} heads={h} mask={m is not None}: "
+                                     f"max err {err:.3e}")
             rec.site(
-                "swin_block_fused", count,
-                cuda_ms(lambda: swin_block_fused(x, m, p, h)),
+                name, count,
+                device_ms(lambda: swin_block_fused(x, m, p, h), "swin_block_kernel"),
                 cuda_ms(lambda: swin_block_reference(x, m, p, h), iters=3),
                 swin_block_work(nwin, C, h, 0 if m is None else m.shape[0]), err=err,
+                event_ms=cuda_ms(lambda: swin_block_fused(x, m, p, h)),
             )
 
 
@@ -546,18 +583,29 @@ def layer_values(g, C):
     return pack(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C), *ln())
 
 
-def check_coarse_transformer(rec: Record, g) -> None:
+def check_coarse_transformer(rec: Record, g, h=8, name="coarse_transformer_fused") -> None:
+    """K5 at the serving forward's self and cross calls, C = 256 with `h`
+    heads (default 8, head dim 32; 4 at tpu_optimized_config(), head dim 64,
+    where each call must also give the same bits twice and the cross call's
+    stats launch plants a fault: one cross-warp block of K^T V left out in
+    each head group's first head), recorded under `name`; at the default,
+    the 8-layer stack too."""
     from featurematching_tpu_torch.ops.coarse_transformer import (
         coarse_layer_fused,
         coarse_layer_with_stats,
         coarse_transformer_fused,
         coarse_transformer_reference,
         encoder_reference,
+        STATS_GROUP,
         launch_stats,
+        pack_heads,
         stats_errors,
+        stats_plan,
+        unpack_heads,
     )
 
-    Bp, N, C, h = B, (H // 8) * (W // 8), 256, 8
+    Bp, N, C = B, (H // 8) * (W // 8), 256
+    hd64 = C // h == 64
     atol, rtol = 5e-2, 2e-2  # bf16 intermediates rounded in another order (as K2)
     stack_rel = 5e-2  # eight layers: the per-layer differences add up
     print(f"  tolerance per layer |kernel - plain| <= {atol} + {rtol} |plain|; "
@@ -581,6 +629,27 @@ def check_coarse_transformer(rec: Record, g) -> None:
             for k, (e, past, n, tol) in errs.items()), flush=True)
         if any(past for _, past, _, _ in errs.values()):
             raise AssertionError(f"coarse stats ({kind}, G={G}): kv or ks past its bound")
+        if hd64:
+            again = coarse_layer_with_stats(x, src, lv, h)
+            same = all(torch.equal(a, b) for a, b in zip((got, kv, ks), again))
+            print(f"  layer ({kind}, G={G}) head dim 64: max_abs_err {err:.3e}, out, kv and ks "
+                  f"bit-identical twice {same}", flush=True)
+            if not same:
+                raise AssertionError(f"coarse layer ({kind}, G={G}): two runs differ")
+        if hd64 and kind == "cross":
+            # a planted fault: one block of K^T V that crosses the stats
+            # kernel's warps (K features 0-15 against V features 48-63) left
+            # out in the first head of each head group
+            heads = unpack_heads(kv, h)
+            heads[:, ::STATS_GROUP // 64, :16, 48:] = 0
+            errs = stats_errors(pack_heads(heads), ks, src, lv, h)
+            past = errs["kv"][1]
+            print(f"  stats ({kind}, G={G}) with a cross-warp block of K^T V left out in each "
+                  f"head group's first head (a planted fault): kv {past} of {errs['kv'][2]} "
+                  f"entries past their bound; "
+                  f"the check {'caught' if past else 'MISSED'} it", flush=True)
+            if not past:
+                raise AssertionError("coarse stats: the bound misses a K^T V block left out")
         # a planted fault: runs of one tile that leave each image's last tile out
         tiles = -(-N // 64)
         errs = stats_errors(*launch_stats(src, lv, h, 1, tiles - 1), src, lv, h)
@@ -590,7 +659,7 @@ def check_coarse_transformer(rec: Record, g) -> None:
         if not all(past for _, past, _, _ in errs.values()):
             raise AssertionError(f"coarse stats ({kind}, G={G}): the bound misses a tile left out")
         rec.site(
-            "coarse_transformer_fused", count,
+            name, count,
             cuda_ms(lambda: coarse_layer_fused(x, src, lv, h)),
             cuda_ms(lambda: encoder_reference(x, src, lv, h), iters=3),
             total([coarse_stats_work(G, N, C, h), coarse_apply_work(G, N, C, h)]), err=err,
@@ -608,6 +677,8 @@ def check_coarse_transformer(rec: Record, g) -> None:
         print(f"  stats kernel ({kind}, G={G}): {ms_of('stats_kernel'):.4f} ms a call (profiler) "
               f"against its own bound {sb:.4f} ms ({sby}), merge {ms_of('merge_kernel'):.4f} ms, "
               f"x{count} a forward", flush=True)
+    if hd64:
+        return
     layers = [layer_values(g, C) for _ in range(8)]
     names = ("self", "cross") * 4
     f0, f1 = rnd(g, Bp, N, C, dtype=torch.bfloat16), rnd(g, Bp, N, C, dtype=torch.bfloat16)
@@ -624,7 +695,11 @@ def check_coarse_transformer(rec: Record, g) -> None:
         raise AssertionError(f"coarse transformer stack: relative error {rel:.4f}")
 
 
-def check_fine_stage(rec: Record, g) -> None:
+def check_fine_stage(rec: Record, g, h=8, name="fine_stage_fused") -> None:
+    """K6 in fold and plain mode at the serving call, 4096 window pairs of
+    [49, 64], with `h` heads (default 8, head dim 8; 1 at
+    tpu_optimized_config(), head dim 64, where both modes must also give
+    the same bits twice), recorded under `name`."""
     from featurematching_tpu_torch.matching.fine import window_heatmaps
     from featurematching_tpu_torch.ops.fine_stage import (
         fine_stage_fused,
@@ -632,7 +707,7 @@ def check_fine_stage(rec: Record, g) -> None:
         fine_stage_reference,
     )
 
-    B_, N, C, h = B * 1024, 49, 64, 8  # max_matches windows a pair, 7x7 taps
+    B_, N, C = B * 1024, 49, 64  # max_matches windows a pair, 7x7 taps
     names = ("self", "cross")
     layers = [layer_values(g, C) for _ in names]
     mixes = [(rnd(g, N, scale=0.3), rnd(g, 1)) for _ in range(2)]
@@ -650,6 +725,13 @@ def check_fine_stage(rec: Record, g) -> None:
     heat = fine_stage_fused(*args, fold_softargmax=True)
     got = fine_stage_fused(*args)
     torch.cuda.synchronize()
+    if C // h == 64:
+        same = (all(torch.equal(a, b) for a, b in zip(
+            heat, fine_stage_fused(*args, fold_softargmax=True)))
+            and all(torch.equal(a, b) for a, b in zip(got, fine_stage_fused(*args))))
+        print(f"  head dim 64: fold and plain mode bit-identical twice {same}")
+        if not same:
+            raise AssertionError("fine_stage head dim 64: two runs differ")
     ref_heat = fine_stage_reference(*args, fold_softargmax=True)
     own = (window_heatmaps(got[2], got[1]), window_heatmaps(got[3], got[0]))
     err = 0.0
@@ -672,7 +754,7 @@ def check_fine_stage(rec: Record, g) -> None:
         if a.shape != r.shape or not ok:
             raise AssertionError(f"fine_stage plain mode output {i}: max err {e:.3e}")
     rec.site(
-        "fine_stage_fused", 1,
+        name, 1,
         cuda_ms(lambda: fine_stage_fused(*args, fold_softargmax=True)),
         cuda_ms(lambda: fine_stage_reference(*args, fold_softargmax=True), iters=3),
         fine_stage_work(B_, N, C, h, len(names)), err=err,
@@ -1206,7 +1288,13 @@ def roll_path(x, Hh, Ww, shift, block):
     return oi[:, :Hh, :Ww].reshape(Bx, Hh * Ww, C)
 
 
-def check_swin_block_image(rec: Record, g, launches: dict) -> None:
+def check_swin_block_image(rec: Record, g, launches: dict, cfg=None,
+                           name="swin_block_fused_image") -> None:
+    """K12 at every block of the backbone of `cfg` (default_config() when
+    None; tpu_optimized_config(): head dim 64, where each site must also
+    give the same bits twice), recorded under `name`; then the 13 blocks
+    through swin_block_image N_FORWARD times, their launches into
+    `launches[name]`."""
     from featurematching_tpu_torch.config import default_config
     from featurematching_tpu_torch.ops.swin_block import swin_block_fused
     from featurematching_tpu_torch.ops.swin_block_image import (
@@ -1221,13 +1309,17 @@ def check_swin_block_image(rec: Record, g, launches: dict) -> None:
           f"against K2 through the roll path |K12 - K2| <= {K12_K2_RTOL} |K2| (the same "
           "block body on the same windows)")
     inputs = []
-    for count, (Hh, Ww), C, h, shift in backbone_blocks(default_config().model):
+    for count, (Hh, Ww), C, h, shift in backbone_blocks(cfg or default_config().model):
         x = rnd(g, 2 * B, Hh * Ww, C, dtype=torch.bfloat16)
         p = block_params(g, C, h)
         xp, top = pad_image(x, Hh, Ww, 8, shift)
         got = swin_block_fused_image(xp, p, h, 8, shift)
         torch.cuda.synchronize()
         err, ok = close(got, swin_block_image_reference(xp, p, h, 8, shift), atol, rtol)
+        if C // h == 64:
+            same = torch.equal(got, swin_block_fused_image(xp, p, h, 8, shift))
+            print(f"  head dim {C // h}: bit-identical twice {same}")
+            ok = ok and same
 
         def k2_path():
             return roll_path(x, Hh, Ww, shift, lambda xw, m: swin_block_fused(xw, m, p, h))
@@ -1251,11 +1343,12 @@ def check_swin_block_image(rec: Record, g, launches: dict) -> None:
         # column of windows are the kernel's own cost
         Hp, Wp = padded((Hh, Ww))
         nw = (Hp // 8) * (Wp // 8)
-        rec.site("swin_block_fused_image", count,
-                 cuda_ms(lambda: swin_block_fused_image(xp, p, h, 8, shift)),
+        rec.site(name, count,
+                 device_ms(lambda: swin_block_fused_image(xp, p, h, 8, shift),
+                           "swin_block_kernel"),
                  cuda_ms(lambda: swin_block_image_reference(xp, p, h, 8, shift), iters=3),
                  swin_block_work(2 * B * nw, C, h, nw if shift else 0, tokens=2 * B * Hh * Ww),
-                 err=err)
+                 err=err, event_ms=cuda_ms(lambda: swin_block_fused_image(xp, p, h, 8, shift)))
         inputs.append((count, x, Hh, Ww, p, h, shift))
     # K12 on its own path: the backbone's 13 blocks, each through
     # swin_block_image, N_FORWARD times as the forwards run
@@ -1265,7 +1358,7 @@ def check_swin_block_image(rec: Record, g, launches: dict) -> None:
             for _ in range(count):
                 swin_block_image(x, Hh, Ww, p, h, 8, shift)
     torch.cuda.synchronize()
-    launches["swin_block_fused_image"] = swin_block_fused_image.launches
+    launches[name] = swin_block_fused_image.launches
     print(f"  the backbone's blocks through swin_block_image, {N_FORWARD} times: "
           f"{swin_block_fused_image.launches} launches")
     if swin_block_fused_image.launches != 13 * N_FORWARD:
@@ -1324,6 +1417,8 @@ def eval_forward(wrappers, launches) -> None:
 def eval_semantic() -> None:
     from featurematching_tpu_torch.config import tpu_optimized_config
     from featurematching_tpu_torch.models.matcher import Matcher
+    from featurematching_tpu_torch.ops.coarse_transformer_train import coarse_layer_forward
+    from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward
     from featurematching_tpu_torch.ops.swin_block_train import swin_block_train_fwd
     from featurematching_tpu_torch.ops.window_attention import window_attention
 
@@ -1359,22 +1454,35 @@ def eval_semantic() -> None:
           f"{int(rc.mask.sum())} on the CPU): max err {px:.4f} px")
     if not (both.any() and px <= 0.5):  # as the serving check: a window spans +-6 px
         raise AssertionError("the card's fine keypoints disagree with the CPU's")
-    # tpu_optimized_config(): Swin head dim 64, K11's only path on the card
+    # tpu_optimized_config(): the per-op block at Swin head dim 64 runs K11
+    # there; with no gradient to take, the coarse and fine stacks run K9's and
+    # K10's forwards (K5's kernels, 12 calls; K6's, one launch a layer)
     tc = tpu_optimized_config().model
     tc = dataclasses.replace(tc, swin=dataclasses.replace(tc.swin, fused_block="off"))
     model = Matcher(tc, device="cuda", seed=0)
-    window_attention.launches = swin_block_train_fwd.launches = 0
+    eager = []
+    hooks = [layer.register_forward_hook(lambda *_: eager.append(1))
+             for tf in (model.coarse_transformer, model.fine_transformer)
+             for layer in tf.children()]
+    counters = (window_attention, swin_block_train_fwd, coarse_layer_forward, fine_layer_forward)
+    for c in counters:
+        c.launches = 0
     with torch.no_grad():
         out = model(img, torch.roll(img, shifts=16, dims=2))
     torch.cuda.synchronize()
-    n11, n8 = window_attention.launches, swin_block_train_fwd.launches
+    for hk in hooks:
+        hk.remove()
+    got = tuple(c.launches for c in counters)
     finite = all(torch.isfinite(t.float()).all() for t in (
         out.feat_c0, out.feat_c1, out.fine.mkpts0_f, out.fine.mkpts1_f))
     print(f"  tpu_optimized_config() (Swin heads {tc.swin.num_heads}, head dim "
-          f"{tc.swin.embed_dim // tc.swin.num_heads[0]}): window_attention {n11} launches, "
-          f"swin_block_train_fwd {n8}, outputs finite: {finite}")
-    if (n11, n8) != (13, 0) or not finite:
-        raise AssertionError("tpu_optimized_config()'s evaluation forward did not run K11")
+          f"{tc.swin.embed_dim // tc.swin.num_heads[0]}): window_attention {got[0]} launches, "
+          f"swin_block_train_fwd {got[1]}, coarse_layer_forward {got[2]}, fine_layer_forward "
+          f"{got[3]}, eager coarse or fine EncoderLayer calls {len(eager)}, outputs finite: "
+          f"{finite}")
+    if got != (13, 0, 12, 2) or eager or not finite:
+        raise AssertionError("tpu_optimized_config()'s evaluation forward did not run K11, "
+                             "K5 and K6 alone")
 
 
 def training_per_op(wrappers) -> None:
@@ -1747,11 +1855,97 @@ def breakdown(model, img0, img1, forward_ms: float) -> None:
         print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
 
 
+def serving_forward(cfg, wrappers, launches, check_cpu=False) -> None:
+    """The serving forward at `cfg`, 640x480, batch 4, bf16, seeded random
+    weights: N_FORWARD forwards with the launch counters set to 0 just
+    before and read just after (EXPECTED_PER_FORWARD, no eager coarse or
+    fine EncoderLayer), finite outputs, pairs/s and the breakdown; with
+    `check_cpu`, the card against the CPU at 64x64 (`card_vs_cpu`)."""
+    from featurematching_tpu_torch.models.fast_inference import FastMatcher
+
+    model = FastMatcher(cfg, device="cuda", seed=0)
+    s, c, f = cfg.swin, cfg.coarse, cfg.fine
+    print(f"  Swin heads {s.num_heads} (head dims "
+          f"{[s.embed_dim * 2**i // h for i, h in enumerate(s.num_heads)]}), coarse "
+          f"{c.d_model}/{c.nhead}, fine {f.d_model}/{f.nhead}")
+    gi = torch.Generator(device="cuda").manual_seed(1)
+    img0 = torch.rand(B, H, W, 3, generator=gi, device="cuda")
+    img1 = torch.roll(img0, shifts=16, dims=2)
+    model(img0, img1)  # warm-up
+    torch.cuda.synchronize()
+    eager = []  # calls of the plain coarse or fine EncoderLayers: none
+    hooks = [layer.register_forward_hook(lambda *_: eager.append(1))
+             for tf in (model.coarse_transformer, model.fine_transformer)
+             for layer in tf.children()]
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    for _ in range(N_FORWARD):
+        out = model(img0, img1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    for hk in hooks:
+        hk.remove()
+    print(f"  launches over {N_FORWARD} forwards: {launches}; eager coarse or fine "
+          f"EncoderLayer calls: {len(eager)}")
+    for n in wrappers:  # the training kernels: none
+        per = EXPECTED_PER_FORWARD.get(n, 0)
+        if launches[n] != per * N_FORWARD:
+            raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_FORWARD}")
+    if eager:
+        raise AssertionError(f"{len(eager)} eager coarse or fine EncoderLayer calls")
+    m = out.coarse.mask
+    if out.feat_c0.shape != (B, (H // 8) * (W // 8), 256) or out.fine.mkpts0_f.shape != (
+            B, cfg.match_coarse.max_matches, 3):
+        raise AssertionError("unexpected output shapes")
+    for t_ in (out.feat_c0, out.feat_c1, out.coarse.mconf, out.fine.mkpts0_f[m],
+               out.fine.mkpts1_f[m]):
+        if not torch.isfinite(t_.float()).all():
+            raise AssertionError("non-finite output")
+    print(f"  matches per pair (thr {cfg.match_coarse.thr}): {m.sum(1).tolist()}")
+    print(f"  forward: {dt / N_FORWARD * 1e3:.3f} ms, "
+          f"{B * N_FORWARD / dt:.3f} pairs/s (batch {B}, {W}x{H}, bf16)", flush=True)
+    breakdown(model, img0, img1, dt / N_FORWARD * 1e3)
+    if check_cpu:  # at thr=1e-8, as `semantic`: random weights match nothing at 0.2
+        mc = dataclasses.replace(cfg.match_coarse, thr=1e-8)
+        card_vs_cpu(FastMatcher(dataclasses.replace(cfg, match_coarse=mc), device="cuda",
+                                seed=0))
+
+
+def card_vs_cpu(model) -> None:
+    """The card's forward against the plain path on the CPU, 64x64, the same
+    weights: feat_c0, and mkpts0_f over the matches both find (model's
+    threshold low enough that some are found)."""
+    from featurematching_tpu_torch.models.fast_inference import FastMatcher
+
+    cpu = FastMatcher(model.cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    a = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3))
+    b = torch.roll(a, shifts=8, dims=2)
+    got, ref = model(a.cuda(), b.cuda()), cpu(a, b)
+    rel = float((got.feat_c0.float().cpu() - ref.feat_c0.float()).abs().max()
+                / ref.feat_c0.float().abs().max())
+    print(f"  64x64 card vs CPU plain (bf16 both): feat_c0 max err / max |ref| = {rel:.4f}")
+    if not rel < 0.05:
+        raise AssertionError("the card's forward disagrees with the plain path")
+    gc, rc = got.coarse, ref.coarse
+    both = (gc.mask.cpu() & rc.mask & (gc.i_ids.cpu() == rc.i_ids)
+            & (gc.j_ids.cpu() == rc.j_ids))
+    px = float((got.fine.mkpts0_f.cpu()[both][:, :2] - ref.fine.mkpts0_f[both][:, :2])
+               .abs().max()) if both.any() else float("nan")
+    print(f"  64x64 mkpts0_f over the {int(both.sum())} matches both find (of "
+          f"{int(rc.mask.sum())} on the CPU): max err {px:.4f} px")
+    # a 7x7 window at stride 2 spans +-6 px; bf16 moves a heatmap by ~1%
+    if not (both.any() and px <= 0.5):
+        raise AssertionError("the card's fine keypoints disagree with the plain path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.config import default_config, tpu_optimized_config
     from featurematching_tpu_torch.models.fast_inference import FastMatcher
     from featurematching_tpu_torch.ops import _build
     from featurematching_tpu_torch.ops.coarse_transformer import coarse_transformer_fused
@@ -1797,7 +1991,7 @@ def main() -> int:
 
     def phase(name, fn):
         t = time.time()
-        print(f"== {name}", flush=True)
+        print(f"== {name} (on {card})", flush=True)
         try:
             fn()
             print(f"== {name}: ok ({time.time() - t:.1f} s)", flush=True)
@@ -1831,46 +2025,25 @@ def main() -> int:
     image_launches = {}  # of the backbone's 13 blocks through swin_block_image
     phase("check swin_block_fused_image",
           lambda: check_swin_block_image(rec, g, image_launches))
+    # the head-dim-64 instances tpu_optimized_config() runs, by the same checks
+    tpu_cfg = tpu_optimized_config().model
+    phase("check swin_block_fused, head dim 64",
+          lambda: check_swin_block(rec, g, (1, 2, 4), "swin_block_fused@hd64"))
+    phase("check coarse_transformer_fused, head dim 64",
+          lambda: check_coarse_transformer(rec, g, 4, "coarse_transformer_fused@hd64"))
+    phase("check fine_stage_fused, head dim 64",
+          lambda: check_fine_stage(rec, g, 1, "fine_stage_fused@hd64"))
+    phase("check swin_block_fused_image, head dim 64",
+          lambda: check_swin_block_image(rec, g, image_launches, tpu_cfg,
+                                         "swin_block_fused_image@hd64"))
 
     cfg = default_config().model
     launches = {}  # of the serving forward
     train_launches = {}  # of the training step
     eval_launches = {}  # of the evaluation step with the per-op block
 
-    def forward():
-        model = FastMatcher(cfg, device="cuda", seed=0)
-        gi = torch.Generator(device="cuda").manual_seed(1)
-        img0 = torch.rand(B, H, W, 3, generator=gi, device="cuda")
-        img1 = torch.roll(img0, shifts=16, dims=2)
-        model(img0, img1)  # warm-up
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        t = time.perf_counter()
-        for _ in range(N_FORWARD):
-            out = model(img0, img1)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        launches.update({n: w.launches for n, w in wrappers.items()})
-        print(f"  launches over {N_FORWARD} forwards: {launches}")
-        for n in wrappers:  # the training kernels: none
-            per = EXPECTED_PER_FORWARD.get(n, 0)
-            if launches[n] != per * N_FORWARD:
-                raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_FORWARD}")
-        m = out.coarse.mask
-        if out.feat_c0.shape != (B, (H // 8) * (W // 8), 256) or out.fine.mkpts0_f.shape != (
-                B, cfg.match_coarse.max_matches, 3):
-            raise AssertionError("unexpected output shapes")
-        for t_ in (out.feat_c0, out.feat_c1, out.coarse.mconf, out.fine.mkpts0_f[m],
-                   out.fine.mkpts1_f[m]):
-            if not torch.isfinite(t_.float()).all():
-                raise AssertionError("non-finite output")
-        print(f"  matches per pair (thr {cfg.match_coarse.thr}): {m.sum(1).tolist()}")
-        print(f"  forward: {dt / N_FORWARD * 1e3:.3f} ms, "
-              f"{B * N_FORWARD / dt:.3f} pairs/s (batch {B}, {W}x{H}, bf16)", flush=True)
-        breakdown(model, img0, img1, dt / N_FORWARD * 1e3)
-
-    phase("serving forward 640x480 batch 4 bf16", forward)
+    phase("serving forward 640x480 batch 4 bf16",
+          lambda: serving_forward(cfg, wrappers, launches))
 
     def semantic():
         mc = dataclasses.replace(cfg.match_coarse, thr=1e-8)
@@ -1883,29 +2056,12 @@ def main() -> int:
         print(f"  identical images: {int(m.sum())} matches, {diag:.4f} on the diagonal")
         if int(m.sum()) == 0 or diag < 0.95:
             raise AssertionError("identical images do not match on the diagonal")
-        # the card's forward against the plain path on the CPU, 64x64, same weights
-        cpu = FastMatcher(model.cfg, device="cpu", seed=0)
-        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        a = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3))
-        b = torch.roll(a, shifts=8, dims=2)
-        got, ref = model(a.cuda(), b.cuda()), cpu(a, b)
-        rel = float((got.feat_c0.float().cpu() - ref.feat_c0.float()).abs().max()
-                    / ref.feat_c0.float().abs().max())
-        print(f"  64x64 card vs CPU plain (bf16 both): feat_c0 max err / max |ref| = {rel:.4f}")
-        if not rel < 0.05:
-            raise AssertionError("the card's forward disagrees with the plain path")
-        gc, rc = got.coarse, ref.coarse
-        both = (gc.mask.cpu() & rc.mask & (gc.i_ids.cpu() == rc.i_ids)
-                & (gc.j_ids.cpu() == rc.j_ids))
-        px = float((got.fine.mkpts0_f.cpu()[both][:, :2] - ref.fine.mkpts0_f[both][:, :2])
-                   .abs().max()) if both.any() else float("nan")
-        print(f"  64x64 mkpts0_f over the {int(both.sum())} matches both find (of "
-              f"{int(rc.mask.sum())} on the CPU): max err {px:.4f} px")
-        # a 7x7 window at stride 2 spans +-6 px; bf16 moves a heatmap by ~1%
-        if not (both.any() and px <= 0.5):
-            raise AssertionError("the card's fine keypoints disagree with the plain path")
+        card_vs_cpu(model)
 
     phase("semantic checks", semantic)
+    tpu_launches = {}  # of the serving forward at tpu_optimized_config()
+    phase("serving forward tpu_optimized_config() 640x480 batch 4 bf16",
+          lambda: serving_forward(tpu_cfg, wrappers, tpu_launches, check_cpu=True))
     phase(f"training step {W}x{H} batch {B} bf16",
           lambda: training_step(wrappers, train_launches))
     phase("training semantic checks", training_semantic)
@@ -1916,15 +2072,20 @@ def main() -> int:
           lambda: training_per_op(wrappers))
 
     kernels = []
-    path_launches = dict.fromkeys(EXPECTED_PER_FORWARD, launches) | {
-        "window_attention": eval_launches, "swin_block_fused_image": image_launches}
+    path_launches = (dict.fromkeys(EXPECTED_PER_FORWARD, launches)
+                     | dict.fromkeys(HD64, tpu_launches) | {
+                         "window_attention": eval_launches,
+                         "swin_block_fused_image": image_launches,
+                         "swin_block_fused_image@hd64": image_launches})
     for n, k in rec.k.items():
-        src, replaces = SOURCES[n]
+        base = HD64.get(n, n)
+        src, replaces = SOURCES[base]
         b, by = bound_ms(k["nbytes"], k["flops"])
         runs = path_launches.get(n, train_launches)
         kernels.append({
             "name": n, "route": "cuda", "source": f"featurematching_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": runs.get(n, 0), "max_abs_err": k["err"],
+            "replaces": replaces, "launches": runs.get(n, runs.get(base, 0)),
+            "max_abs_err": k["err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": k["lib"],
         })

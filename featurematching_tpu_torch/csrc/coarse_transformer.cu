@@ -16,6 +16,10 @@
 //   - Only the H diagonal [D, D] blocks of K^T V are ever read, so only they
 //     are formed (the TPU kernel forms [C, C] and masks it): 1/H of the
 //     operations. K^T 1 is K_sum repeated across columns: stored once.
+//   - Head dims 16, 32 and 64. At 64 a head's K features span two warps'
+//     strips, so each warp forms its K strips against all four V strips of
+//     its head, and the apply kernel's K^T V (32 KB at C = 256) takes two
+//     ring slots a tile.
 //   - The stats kernel's products would read all of [wk | wv] (256 KB at C
 //     = 256) from L2 for every 64-token tile, 1.26 GB a serving forward, if
 //     a block took every column. Only a head's own K and V columns meet, so
@@ -84,10 +88,13 @@ constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
 //          stmatrix);
 //       3. on mma.sync, warp w of the warpgroup takes K features [32 w, 32 w
 //          + 32) of the group: K^T (ldmatrix.trans) times V's strips of the
-//          same heads, and the same K^T fragments times ones for K_sum, in
-//          registers over the warpgroup's tiles.
+//          same heads (at D = 64 the V features [64 (w / 2), 64 (w / 2) +
+//          64) of its head, which warps w and w ^ 1 share), and the same K^T
+//          fragments times ones for K_sum, in registers over the
+//          warpgroup's tiles.
 // At the end warpgroup 1 hands its sums to warpgroup 0 through its last slot
-// and warpgroup 0 adds them, in that order, and writes the item's partial:
+// (at D = 64, 34 KB, through the ring's first slots once both are done) and
+// warpgroup 0 adds them, in that order, and writes the item's partial:
 // part_kv[g][c] = the diagonal blocks [H][D][D] of the group's heads,
 // part_ks[g][c] = K_sum of its K features [C].
 
@@ -148,7 +155,10 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
   using L = StatsLayout<C>;
   constexpr int NS = kStatsSlots;
   constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 ones
-  static_assert(D == 16 || D == 32, "head dims 16 and 32");
+  static_assert(D == 16 || D == 32 || D == 64, "head dims 16, 32 and 64");
+  // the V strips (16 features) a warp's two K strips meet: its own two at D
+  // <= 32 (at 16 each K strip only its own), the four of its head at 64
+  constexpr int VB = D == 64 ? 4 : 2;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
@@ -183,12 +193,13 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
 
   const uint32_t wsm = fm::smem_u32(smem);
   const float inv_s = 1.0f / (float)S;
-  fm::Acc16 kv[2][2];  // [K strip a][V strip b] of warp w's heads (D = 16: a == b only)
-  float ks[2][4];      // K_sum of K strip a (columns alike)
+  const int vb0 = D == 64 ? 4 * (w / 2) : 2 * w;  // the warp's first V strip in the group
+  fm::Acc16 kv[2][VB];  // [K strip a][V strip vb0 + b] of warp w's heads (D = 16: a == b only)
+  float ks[2][4];       // K_sum of K strip a (columns alike)
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
-    fm::zero(kv[a][0]);
-    fm::zero(kv[a][1]);
+#pragma unroll
+    for (int b = 0; b < VB; ++b) fm::zero(kv[a][b]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) ks[a][e] = 0.f;
   }
@@ -249,20 +260,24 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
     const bf16* kvt = reinterpret_cast<const bf16*>(slot);
 #pragma unroll
     for (int kk = 0; kk < T / 16; ++kk) {
-      uint32_t fa[2][4], fb[2][4];
+      uint32_t fa[2][4], fb[VB][4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
         const int f = 16 * (2 * w + a);
         fm::ldsm_x4_trans(fa[a],
                           kvt + fm::kmajor_index(16 * kk + rr + 8 * (m >> 1), f + 8 * (m & 1), SN));
+      }
+#pragma unroll
+      for (int b = 0; b < VB; ++b) {
+        const int f = 16 * (vb0 + b);
         fm::ldsm_x4_trans(
-            fb[a], kvt + fm::kmajor_index(16 * kk + rr + 8 * (m & 1), SG + f + 8 * (m >> 1), SN));
+            fb[b], kvt + fm::kmajor_index(16 * kk + rr + 8 * (m & 1), SG + f + 8 * (m >> 1), SN));
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
 #pragma unroll
-        for (int b = 0; b < 2; ++b)
-          if (D == 32 || a == b) fm::mma16(kv[a][b], fa[a], fb[b]);
+        for (int b = 0; b < VB; ++b)
+          if (D >= 32 || a == b) fm::mma16(kv[a][b], fa[a], fb[b]);
         fm::mma16x8(ks[a], fa[a], kOnes, kOnes);
       }
     }
@@ -272,15 +287,22 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
 
   // warpgroup 1's sums to warpgroup 0 through warpgroup 1's last slot, which
   // no tile takes after it (slot 1, never filled, where the item has one
-  // tile); thread wt of each warpgroup holds the same entries
+  // tile); thread wt of each warpgroup holds the same entries. At D = 64
+  // they outgrow a slot: through the ring's first slots once both
+  // warpgroups are done with theirs
   float* xch = reinterpret_cast<float*>(slots + (n >= 2 ? ((n - 2) | 1) % NS : 1) * kStatsSlot);
+  if (D == 64) {
+    static_assert(128 * (2 * VB * 8 + 4) * 4 <= kStatsSlots * kStatsSlot, "the exchange's room");
+    __syncthreads();
+    xch = reinterpret_cast<float*>(slots);
+  }
   if (wg == 1) {
     int q = 0;
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
 #pragma unroll
-      for (int b = 0; b < 2; ++b)
-        if (D == 32 || a == b)
+      for (int b = 0; b < VB; ++b)
+        if (D >= 32 || a == b)
 #pragma unroll
           for (int e = 0; e < 8; ++e) xch[128 * q++ + wt] = kv[a][b].c[e];
 #pragma unroll
@@ -296,12 +318,12 @@ stats_kernel(const __grid_constant__ CUtensorMap src, const bf16* __restrict__ i
   for (int a = 0; a < 2; ++a) {
     const int f = hg * SG + 16 * (2 * w + a);  // the strip's first K feature
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
-      if (D == 32 || a == b) {
+    for (int b = 0; b < VB; ++b)
+      if (D >= 32 || a == b) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) kv[a][b].c[e] += xch[128 * q++ + wt];
         const int h = f / D;
-        fm::tile_epilogue(kv[a][b], f % D, 16 * (2 * w + b) % D, lane,
+        fm::tile_epilogue(kv[a][b], f % D, 16 * (vb0 + b) % D, lane,
                           [&](int r, int c, float v) { pk[h * D * D + r * D + c] = v; });
       }
     const float s0 = ks[a][0] + xch[128 * q++ + wt];
@@ -387,8 +409,11 @@ struct ApplyLayout {
   static constexpr int CHUNKS = 2 * C / AHC;
   static constexpr int QSLICES = (C / 16) / SPS;  // wq's slices; the K^T V slots follow
   static constexpr int SLICES = 2 * QSLICES + CHUNKS * (2 * C / 16 / SPSH + AHC / 16 / SPS);
-  static_assert(SLOTS >= 2, "the ring needs two slots");
-  static_assert(C * D * 2 <= kSlice, "a head set's K^T V must fit in a slot");
+  // slots of a tile's K^T V (two at (256, 64)) and the heads a slot holds
+  static constexpr int KVS = (C * D * 2 + kSlice - 1) / kSlice, HPS = kSlice / (D * D * 2);
+  static_assert(SLOTS >= 2 * KVS, "the ring must hold both tiles' K^T V");
+  static_assert(KVS <= 2 && H <= KVS * HPS && (KVS == 1 || C * D * 2 == 2 * kSlice),
+                "a tile's K^T V in one or two whole slots of whole heads");
   static_assert(ring_off % 128 == 0, "slots must be 128-byte aligned");
   static_assert((C / 16) % SPS == 0 && (C / 16) % SPSH == 0 && (AHC / 16) % SPS == 0,
                 "a slice must hold whole k-steps of one product");
@@ -438,19 +463,21 @@ struct Ring {
 };
 
 // the apply kernel's slices: the weight image's, with the two tiles' K^T V
-// after wq's
+// after wq's, kvs slices each (the last may be short)
 struct ApplySource {
   const unsigned char* image;
-  const void* kv0;  // the K^T V of warpgroup 0's tile, then of warpgroup 1's
-  const void* kv1;
-  int qslices, total;
+  const unsigned char* kv0;  // the K^T V of warpgroup 0's tile, then of warpgroup 1's
+  const unsigned char* kv1;
+  int qslices, total, kvs;
   uint32_t kv_bytes;
   __device__ void get(int q, const void*& from, uint32_t& bytes) const {
     const int k = q - qslices;
-    const bool is_kv = (unsigned)k < 2u;
-    const unsigned char* w = image + (size_t)(q < qslices ? q : q - 2) * kSlice;
-    from = is_kv ? (k == 0 ? kv0 : kv1) : static_cast<const void*>(w);
-    bytes = is_kv ? kv_bytes : kSlice;
+    const bool is_kv = (unsigned)k < (unsigned)(2 * kvs);
+    const int part = k % kvs;  // of the tile's K^T V (meaningful where is_kv)
+    const unsigned char* w = image + (size_t)(q < qslices ? q : q - 2 * kvs) * kSlice;
+    const unsigned char* kvp = (k < kvs ? kv0 : kv1) + (size_t)part * kSlice;
+    from = is_kv ? static_cast<const void*>(kvp) : static_cast<const void*>(w);
+    bytes = is_kv ? min((uint32_t)kSlice, kv_bytes - (uint32_t)part * kSlice) : kSlice;
   }
 };
 
@@ -648,7 +675,7 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
              const float* __restrict__ n1b, const float* __restrict__ n2s,
              const float* __restrict__ n2b, bf16* __restrict__ out, int G, int L, int S) {
   using Lt = ApplyLayout<C, D>;
-  constexpr int H = Lt::H, DT = D / 16, SLOTS = Lt::SLOTS;
+  constexpr int H = Lt::H, DT = D / 16, SLOTS = Lt::SLOTS, KVS = Lt::KVS, HPS = Lt::HPS;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lt::bar_off);
   int* count = reinterpret_cast<int*>(full + SLOTS);
@@ -666,8 +693,9 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
   Ring<SLOTS, 8, Src> ring{
       smem + Lt::ring_off, full, count,
       Src{reinterpret_cast<const unsigned char*>(image),
-          kv + (size_t)(q0 / tpi) * C * D, kv + (size_t)(q1 / tpi) * C * D, Lt::QSLICES,
-          Lt::SLICES + 2, C * D * 2}};
+          reinterpret_cast<const unsigned char*>(kv + (size_t)(q0 / tpi) * C * D),
+          reinterpret_cast<const unsigned char*>(kv + (size_t)(q1 / tpi) * C * D), Lt::QSLICES,
+          Lt::SLICES + 2 * KVS, KVS, C * D * 2}};
   if (threadIdx.x == 0) {
     for (int i = 0; i < SLOTS; ++i) {
       fm::mbar_init(&full[i], 1);
@@ -699,14 +727,17 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
   }
   __syncwarp();
   // per head (a rolled loop): Z = Q_h . K_sum_h (quad sums), o_h = Q_h .
-  // KV_h * S / (Z + eps) over Q_h in place; the first of the two K^T V
-  // slots is warpgroup 0's
-  const unsigned char* kv0 = ring.acquire_ptr();
-  const unsigned char* kv1 = ring.acquire_ptr();
-  const bf16* kvs = reinterpret_cast<const bf16*>(wg == 0 ? kv0 : kv1);
+  // KV_h * S / (Z + eps) over Q_h in place; the first KVS of the K^T V
+  // slots are warpgroup 0's, heads [0, HPS) in the first of them
+  const unsigned char* kvp[2 * KVS];
+#pragma unroll
+  for (int i = 0; i < 2 * KVS; ++i) kvp[i] = ring.acquire_ptr();
+  const bf16* kvs_lo = reinterpret_cast<const bf16*>(wg == 0 ? kvp[0] : kvp[KVS]);
+  const bf16* kvs_hi = reinterpret_cast<const bf16*>(wg == 0 ? kvp[KVS - 1] : kvp[2 * KVS - 1]);
   const float s_f = (float)S;
 #pragma unroll 1
   for (int h = 0; h < H; ++h) {
+    const bf16* kvs = (h < HPS ? kvs_lo : kvs_hi) + (h % HPS) * D * D;
     uint32_t qa[DT][4];
     float z[2] = {0.f, 0.f};
 #pragma unroll
@@ -730,7 +761,7 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
       for (int kt = 0; kt < DT; ++kt) {
         uint32_t fb[4];
         const uint4 v = *reinterpret_cast<const uint4*>(
-            fm::packed_tile(kvs + h * D * D, D, kt, jn) + lane * 8);
+            fm::packed_tile(kvs, D, kt, jn) + lane * 8);
         fb[0] = v.x;
         fb[1] = v.y;
         fb[2] = v.z;
@@ -746,8 +777,8 @@ apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ kv, const bf16
     }
   }
   __syncwarp();  // the K^T V slots: this warp's reads of them are done
-  ring.handback(0, lane);
-  ring.handback(0, lane);
+#pragma unroll
+  for (int i = 0; i < 2 * KVS; ++i) ring.handback(0, lane);
   fm::fence_proxy_async();
   fm::named_barrier(1 + wg, 128);
 
@@ -951,7 +982,8 @@ extern "C" int fm_coarse_stats(const void* src, const void* image, void* part_kv
   float* ps = static_cast<float*>(part_ks);
 #define FM_STATS(c, d) \
   if (C == c && D == d) return (int)launch_stats<c, d>(src, image, pk, ps, kv, ks, G, S, per_chunk, chunks, st);
-  FM_STATS(128, 16) FM_STATS(128, 32) FM_STATS(256, 16) FM_STATS(256, 32)
+  FM_STATS(128, 16) FM_STATS(128, 32) FM_STATS(128, 64)
+  FM_STATS(256, 16) FM_STATS(256, 32) FM_STATS(256, 64)
 #undef FM_STATS
   return (int)cudaErrorInvalidValue;
 }
@@ -967,7 +999,8 @@ extern "C" int fm_coarse_apply(const void* x, const void* kv, const void* ks, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FM_APPLY(c, d) \
   if (C == c && D == d) return (int)launch_apply<c, d>(p, out, G, L, S, st);
-  FM_APPLY(128, 16) FM_APPLY(128, 32) FM_APPLY(256, 16) FM_APPLY(256, 32)
+  FM_APPLY(128, 16) FM_APPLY(128, 32) FM_APPLY(128, 64)
+  FM_APPLY(256, 16) FM_APPLY(256, 32) FM_APPLY(256, 64)
 #undef FM_APPLY
   return (int)cudaErrorInvalidValue;
 }
@@ -977,7 +1010,8 @@ extern "C" int fm_coarse_apply(const void* x, const void* kv, const void* ks, co
 extern "C" int fm_coarse_stats_occupancy(int C, int D, int* info) {
 #define FM_OCC(c, d) \
   if (C == c && D == d) return (int)stats_occupancy<c, d>(info);
-  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(128, 64)
+  FM_OCC(256, 16) FM_OCC(256, 32) FM_OCC(256, 64)
 #undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }
@@ -987,7 +1021,8 @@ extern "C" int fm_coarse_stats_occupancy(int C, int D, int* info) {
 extern "C" int fm_coarse_apply_occupancy(int C, int D, int* info) {
 #define FM_OCC(c, d) \
   if (C == c && D == d) return (int)apply_occupancy<c, d>(info);
-  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(128, 64)
+  FM_OCC(256, 16) FM_OCC(256, 32) FM_OCC(256, 64)
 #undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }

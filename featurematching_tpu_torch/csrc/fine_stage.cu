@@ -43,6 +43,12 @@
 //     column of ones give K_sum. Z = Q_h . K_sum_h and the 49 -> 1 mixes are
 //     quad and column sums over shuffles, the heatmaps 64-long dot products
 //     over a quad and a warp softmax.
+//   - Head dims 8, 16 and 64. With one head of 64, K^T V is the whole
+//     [64, 64]: warp w forms its K strip against all four V strips (16
+//     tiles), Z runs over all 64 features, and each output tile sums four
+//     products. The 8 KB of tiles would not fit beside three pairs' scratch,
+//     so they go over the K | V tile once every warp has read it (two more
+//     barriers an encoder call).
 //   - Padded taps get no key or value mass, a mixing weight of zero, and no
 //     heatmap entry.
 //
@@ -265,6 +271,9 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
     fm::wgmma_fence();
     product<2 * C, 4>(acc, src, wimg + WKV_OFF);
     finish(acc);
+    // at D = 64 the last call's K^T V lies in the K | V tile: every warp
+    // has read it first
+    if (D == 64) fm::named_barrier(1 + wg, 128);
     const uint32_t live[2] = {wr + g < N ? ~0u : 0u, wr + g + 8 < N ? ~0u : 0u};  // rows
 #pragma unroll
     for (int j = 0; j < 16; ++j)  // 8-column strips: K's 8, then V's
@@ -294,28 +303,44 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
   }
   fm::named_barrier(1 + wg, 128);
   // warp w: the diagonal 16x16 tile w of K^T V, masked to its heads' D x D
-  // blocks, into fragment order; the same K^T fragments times ones: K_sum
+  // blocks (at D = 64: row strip w, its four tiles), into fragment order;
+  // the same K^T fragments times ones: K_sum
   {
     const int j = th.warp;
     constexpr uint32_t kOnes = 0x3F803F80u;  // two bf16 ones
-    fm::Acc16 acc;
-    fm::zero(acc);
+    constexpr int NT = D == 64 ? 4 : 1;      // the warp's tiles
+    fm::Acc16 acc[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) fm::zero(acc[n]);
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < NP / 16; ++kk) {
       uint32_t fa[4], fb[4];
       fm::ldsm_x4_trans(fa, kv + th.kv_a + 2048 * kk);  // K^T: A[i][k] = K[k][i]
-      fm::ldsm_x4_trans(fb, kv + th.kv_b + 2048 * kk);
-      fm::mma16(acc, fa, fb);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        // V's strip n (D = 64), else the warp's own: V's ldmatrix rows move
+        // 16 columns (two 8-column steps of 64 elements) a strip
+        fm::ldsm_x4_trans(fb, kv + th.kv_b + 2048 * kk + (D == 64 ? 128 * (n - j) : 0));
+        fm::mma16(acc[n], fa, fb);
+      }
       fm::mma16x8(sum, fa, kOnes, kOnes);
     }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      // (row g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t + (e & 1)) of the tile;
-      // with D = 8 the two heads' blocks are (rows 0-7, columns 0-7), (8-15, 8-15)
-      const float v = (D == 16 || ((e >> 1) & 1) == (e >> 2)) ? acc.c[e] : 0.f;
-      kvd[th.kvd_st + 32 * (e & 1) + 2 * ((e >> 1) & 1) + 4 * (e >> 2)] = __float2bfloat16(v);
+    if (D == 64) {
+      kvd = kv;  // over the K | V tile, once every warp has read it
+      fm::named_barrier(1 + wg, 128);
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // (row g + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 t + (e & 1)) of the tile;
+        // with D = 8 the two heads' blocks are (rows 0-7, columns 0-7), (8-15, 8-15);
+        // at D = 64 tile n of strip j is tile 4 j + n
+        const float v = (D != 8 || ((e >> 1) & 1) == (e >> 2)) ? acc[n].c[e] : 0.f;
+        kvd[th.kvd_st + (D == 64 ? 256 * (3 * j + n) : 0) + 32 * (e & 1) + 2 * ((e >> 1) & 1) +
+            4 * (e >> 2)] = __float2bfloat16(v);
+      }
     if (t == 0) {
       ks[16 * j + g] = fm::round_bf16(sum[0]);
       ks[16 * j + g + 8] = fm::round_bf16(sum[2]);
@@ -324,8 +349,37 @@ __device__ __forceinline__ void encoder(Frag& x, const Frag& other, bool cross, 
   fm::named_barrier(1 + wg, 128);
   // Z = Q_h . K_sum_h over the quad; o = Q . KV_bd * (N / (Z + eps)), as fragments
   Frag o;
+  if (D == 64) {  // one head: Z over all 64 features, each output tile over four products
+    float z[2] = {0.f, 0.f};  // rows g and g + 8
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 k0 = *reinterpret_cast<const float2*>(ks + 16 * kk + 2 * t);
+      const float2 k1 = *reinterpret_cast<const float2*>(ks + 16 * kk + 8 + 2 * t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 qv = unpack2(q[kk][r]), kc = r < 2 ? k0 : k1;
+        z[r & 1] += qv.x * kc.x + qv.y * kc.y;
+      }
+    }
+    const float sc[2] = {__fdividef(n_f, quad_sum(z[0]) + kEps),
+                         __fdividef(n_f, quad_sum(z[1]) + kEps)};  // z > 0: Q, K > 0
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      fm::Acc16 acc;
+      fm::zero(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 bv = *reinterpret_cast<const uint4*>(kvd + (4 * kk + jn) * 256 + lane * 8);
+        const uint32_t fb[4] = {bv.x, bv.y, bv.z, bv.w};
+        fm::mma16(acc, q[kk], fb);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        o[jn][r] = fm::pack_bf16(acc.c[2 * r] * sc[r & 1], acc.c[2 * r + 1] * sc[r & 1]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4 && D != 64; ++kk) {
     const float2 k0 = *reinterpret_cast<const float2*>(ks + 16 * kk + 2 * t);
     const float2 k1 = *reinterpret_cast<const float2*>(ks + 16 * kk + 8 + 2 * t);
     float z[4];  // (row g, columns 0-7 of the tile), (row g + 8, 0-7), (g, 8-15), (g + 8, 8-15)
@@ -601,7 +655,7 @@ FM_ERROR_STRING_ENTRY
 // (ops/fine_stage.fine_image, 81920 bytes, 16-byte aligned), then n1s, n1b,
 // n2s, n2b f32 [C]. mix weights f32 [N], biases f32 [1]. fold: heat0, heat1
 // f32 [B, N]; else wout0, wout1 bf16 [B, N, C] and mout0, mout1 bf16 [B, C].
-// cross: bit l set when layer l is a cross layer. D: head dim (8 or 16).
+// cross: bit l set when layer l is a cross layer. D: head dim (8, 16 or 64).
 // sms: the card's SMs.
 extern "C" int fm_fine_stage(const void* w0, const void* w1, const void* img0, const void* l0_1,
                              const void* l0_2, const void* l0_3, const void* l0_4,
@@ -610,8 +664,8 @@ extern "C" int fm_fine_stage(const void* w0, const void* w1, const void* img0, c
                              const void* mix_b0, const void* mix_w1, const void* mix_b1,
                              void* out0, void* out1, void* mout0, void* mout1, int B, int N,
                              int D, int layers, int cross, int fold, int sms, void* stream) {
-  if (N < 1 || N > NP || (D != 8 && D != 16) || layers < 1 || layers > kMaxLayers || B < 1 ||
-      sms < 1)
+  if (N < 1 || N > NP || (D != 8 && D != 16 && D != 64) || layers < 1 || layers > kMaxLayers ||
+      B < 1 || sms < 1)
     return (int)cudaErrorInvalidValue;
   const void* lp[kMaxLayers][5] = {{img0, l0_1, l0_2, l0_3, l0_4},
                                    {img1, l1_1, l1_2, l1_3, l1_4}};
@@ -641,13 +695,16 @@ extern "C" int fm_fine_stage(const void* w0, const void* w1, const void* img0, c
   a.cross = cross;
   a.fold = fold;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(D == 8 ? launch<8>(a, sms, st) : launch<16>(a, sms, st));
+  return (int)(D == 8 ? launch<8>(a, sms, st)
+                      : (D == 16 ? launch<16>(a, sms, st) : launch<64>(a, sms, st)));
 }
 
 // info: the block's pairs in flight, its dynamic shared memory in bytes, the
 // blocks an SM can hold and the grid for B pairs, at (layers, D)
 extern "C" int fm_fine_stage_occupancy(int layers, int D, int B, int sms, int* info) {
-  if ((D != 8 && D != 16) || layers < 1 || layers > kMaxLayers || B < 1 || sms < 1)
+  if ((D != 8 && D != 16 && D != 64) || layers < 1 || layers > kMaxLayers || B < 1 || sms < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)(D == 8 ? occupancy<8>(layers, B, sms, info) : occupancy<16>(layers, B, sms, info));
+  return (int)(D == 8    ? occupancy<8>(layers, B, sms, info)
+               : D == 16 ? occupancy<16>(layers, B, sms, info)
+                         : occupancy<64>(layers, B, sms, info));
 }

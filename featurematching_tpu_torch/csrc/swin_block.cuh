@@ -29,7 +29,10 @@
 //     no launch is added.
 //   - Attention: one warp takes whole (head, 16 query rows) units of
 //     attention_unit.cuh (K11 runs a copy of it): scores, softmax and P in
-//     registers, the output over the unit's own q columns. The shift mask
+//     registers, the output over the unit's own q columns. The head dim D
+//     (16, 32 or 64) is a template parameter beside C: H = C / D heads, so
+//     4 H units a window (at C = 64 with one head of 64, 4 units for the
+//     block's 8 warps: half of them wait through the attention). The shift mask
 //     arrives as each lane's mask registers: read from mask[win % nW] (K2,
 //     K8), built from region labels (K12), or none.
 //   - MLP: the hidden width runs in four chunks of C columns (gelu(mlp1)
@@ -65,7 +68,6 @@ using fm::Acc16;
 using fm::bf16;
 
 constexpr int N = fm::kWin;  // tokens of an 8x8 window
-constexpr int D = 16;        // head dim
 constexpr int kStages = 3;   // weight slices in the ring: one in use, two in flight
 
 template <int C>
@@ -214,6 +216,12 @@ __device__ __forceinline__ float2 f32x2_at(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// the attention scale D^-0.5: 0.25, 0.1767767 and 0.125 (16 and 64 powers
+// of two, so s * scale is exact and rounds as the TPU kernel's product does)
+__host__ __device__ constexpr float attn_scale(int D) {
+  return D == 16 ? 0.25f : (D == 64 ? 0.125f : 0.17677669529663687f);
+}
+
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
 }
@@ -243,7 +251,7 @@ __device__ __forceinline__ void layer_norm_rows(const bf16* src, bf16* dst, cons
 struct TrainIO {
   const float* s1;  // [num_windows] attention-branch scale
   const float* s2;  // [num_windows] MLP-branch scale
-  bf16* probs;      // [num_windows][C/16][64][64] attention probabilities
+  bf16* probs;      // [num_windows][heads][64][64] attention probabilities
   bf16* x1;         // [num_windows][64][C] residual stream after the attention branch
 };
 
@@ -285,8 +293,8 @@ __device__ __forceinline__ void window_tokens(const ImageIO& img, int win, int C
 }
 
 // MASKED: the window has a shift mask, mask[win % nW] when nW > 0, else
-// -100 between tokens of different region labels.
-template <int C, bool MASKED>
+// -100 between tokens of different region labels. D: the head dim.
+template <int C, int D, bool MASKED>
 __global__ void __launch_bounds__(Smem<C>::THREADS, C == 256 ? 1 : 2)
 swin_block_kernel(TrainIO io, ImageIO img, const bf16* __restrict__ x,
                   const float* __restrict__ mask, int nW,
@@ -299,6 +307,7 @@ swin_block_kernel(TrainIO io, ImageIO img, const bf16* __restrict__ x,
                   const float* __restrict__ b2, bf16* __restrict__ out) {
   using S = Smem<C>;
   constexpr int H = C / D, LDX = S::LDX, LDQ = S::LDQ, THREADS = S::THREADS;
+  static_assert(D == 16 || D == 32 || D == 64, "head dims 16, 32 and 64");
   static_assert(S::WARPS % (N / 16) == 0, "a warp's attention units must share their row tile");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem + S::x_off);
@@ -356,7 +365,7 @@ swin_block_kernel(TrainIO io, ImageIO img, const bf16* __restrict__ x,
   }
   bf16* probs = io.probs ? io.probs + (size_t)win * H * N * N : nullptr;
   for (int hd = warp / (N / 16); hd < H; hd += S::WARPS / (N / 16))
-    fm::attention_unit<D, MASKED>(qkv, LDQ, C, hd, tm, 0.25f, rel_bias, mv, lane, probs);
+    fm::attention_unit<D, MASKED>(qkv, LDQ, C, hd, tm, attn_scale(D), rel_bias, mv, lane, probs);
 
   // x = x + s1 * (attn @ w_proj + b_proj); the stream's barrier orders the
   // attention's writes before the product's reads
@@ -402,29 +411,56 @@ swin_block_kernel(TrainIO io, ImageIO img, const bf16* __restrict__ x,
   }
 }
 
-template <int C, bool MASKED>
+template <int C, int D, bool MASKED>
 cudaError_t launch_as(TrainIO io, const void* x, const void* mask, int nW, const void* const* p,
                       void* out, int num_windows, cudaStream_t st, ImageIO img) {
   const size_t smem = Smem<C>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      swin_block_kernel<C, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      swin_block_kernel<C, D, MASKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   auto F = [](const void* q) { return static_cast<const float*>(q); };
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
-  swin_block_kernel<C, MASKED><<<num_windows, Smem<C>::THREADS, smem, st>>>(
+  swin_block_kernel<C, D, MASKED><<<num_windows, Smem<C>::THREADS, smem, st>>>(
       io, img, Bf(x), F(mask), nW, F(p[0]), F(p[1]), Bf(p[2]), F(p[3]), F(p[4]), Bf(p[5]),
       F(p[6]), F(p[7]), F(p[8]), Bf(p[9]), F(p[10]), Bf(p[11]), F(p[12]),
       static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, int D>
 cudaError_t launch_block(TrainIO io, const void* x, const void* mask, int nW,
                          const void* const* p, void* out, int num_windows, cudaStream_t st,
                          ImageIO img = {}) {
   if (nW > 0 || img.shift > 0)
-    return launch_as<C, true>(io, x, mask, nW, p, out, num_windows, st, img);
-  return launch_as<C, false>(io, x, mask, nW, p, out, num_windows, st, img);
+    return launch_as<C, D, true>(io, x, mask, nW, p, out, num_windows, st, img);
+  return launch_as<C, D, false>(io, x, mask, nW, p, out, num_windows, st, img);
+}
+
+// launch_block at C in (64, 128, 256) and a head dim D among Ds (instantiated
+// only where it is called: K8's forward takes 16 alone); an invalid value
+// error for any other pair
+template <int C, int... Ds>
+cudaError_t launch_block_dims(int D, TrainIO io, const void* x, const void* mask, int nW,
+                              const void* const* p, void* out, int num_windows,
+                              cudaStream_t st, ImageIO img) {
+  cudaError_t e = cudaErrorInvalidValue;
+  (void)((D == Ds && ((e = launch_block<C, Ds>(io, x, mask, nW, p, out, num_windows, st, img)),
+                      true)) || ...);
+  return e;
+}
+
+template <int... Ds>
+cudaError_t launch_block_at(int C, int D, TrainIO io, const void* x, const void* mask, int nW,
+                            const void* const* p, void* out, int num_windows, cudaStream_t st,
+                            ImageIO img = {}) {
+  switch (C) {
+    case 64: return launch_block_dims<64, Ds...>(D, io, x, mask, nW, p, out, num_windows, st, img);
+    case 128:
+      return launch_block_dims<128, Ds...>(D, io, x, mask, nW, p, out, num_windows, st, img);
+    case 256:
+      return launch_block_dims<256, Ds...>(D, io, x, mask, nW, p, out, num_windows, st, img);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace swin

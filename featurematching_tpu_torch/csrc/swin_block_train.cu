@@ -54,8 +54,8 @@ namespace {
 
 using fm::Acc16;
 using fm::bf16;
-using swin::D;
 using swin::N;
+constexpr int D = 16;  // head dim: the backward takes 16 only
 constexpr int kWarps = 8;  // the backward's blocks
 constexpr int kThreads = 32 * kWarps;
 using fm::sum_parts;
@@ -1198,7 +1198,7 @@ cudaError_t launch_fwd(const void* const* in, int num_windows, int nW, cudaStrea
   swin::TrainIO io{static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
                    static_cast<bf16*>(const_cast<void*>(in[18])),
                    static_cast<bf16*>(const_cast<void*>(in[19]))};
-  return swin::launch_block<C>(io, in[0], in[1], nW, in + 4, const_cast<void*>(in[17]),
+  return swin::launch_block<C, D>(io, in[0], in[1], nW, in + 4, const_cast<void*>(in[17]),
                                num_windows, st);
 }
 

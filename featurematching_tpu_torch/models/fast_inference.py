@@ -6,16 +6,20 @@ kernels, as the JAX package does on its accelerator: the backbone through
 swin_block_fused (13 launches), layer_norm_chain (4) and patch_expand_ln (3),
 the coarse transformer through coarse_transformer_fused (once, 8 layers),
 the coarse matching through dual_softmax_match_stats (once) and the fine
-stage through fine_stage_fused in its fold mode (once). Each fused branch
-is gated on what its kernel takes (`use_fused_coarse`, `use_fused_fine`,
-`patch_expand_supported`: pure functions of the config and the shapes,
-chosen before any launch); where a gate fails, the plain
+stage through fine_stage_fused in its fold mode (once). At
+`tpu_optimized_config()` (head dim 64 in the Swin blocks, the coarse
+transformer and the fine stage) it runs the same six kernels. Each fused
+branch is gated as the JAX package gates it (`use_fused_coarse`,
+`use_fused_fine`, `patch_expand_supported`: pure functions of the config
+and the shapes, chosen before any launch); where a gate fails, the plain
 LocalFeatureTransformer, window mix and fine_soft_argmax, or depth-to-space
 and layer_norm_chain, run instead, as the JAX package's plain branches do.
-K2 takes Swin head dim 16 only, so on `cuda` another head dim raises at
-construction: the serving forward keeps K2 in window space, as
-`make_fast_matcher_fn` does (the evaluation `Matcher` with the per-op block
-runs the other head dims).
+Where a gate holds at a width the kernel lacks (K2 takes Swin head dims
+16, 32 and 64; K5 the (C, head dim) pairs of `WIDTHS`; K6 C = 64 with a
+head dim in `HEAD_DIMS`, at most `MAX_LAYERS` layers and `MAX_TAPS` taps),
+the model raises NotImplementedError on `cuda` at construction, naming the
+kernel and the width, and runs no eager branch in its place; on the CPU
+every kernel's plain version takes any width.
 
 `FastMatcher(cfg)` runs on `cuda` and raises when no GPU is present;
 `device="cpu"` runs every kernel's plain version instead. Inputs and outputs
@@ -51,7 +55,14 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     coarse_transformer_supported,
     pack_layers,
 )
-from featurematching_tpu_torch.ops.fine_stage import fine_stage_fused, fine_stage_kernel_supported
+from featurematching_tpu_torch.ops.fine_stage import (
+    C_KERNEL,
+    HEAD_DIMS,
+    MAX_LAYERS,
+    MAX_TAPS,
+    fine_stage_fused,
+    fine_stage_supported,
+)
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain
 from featurematching_tpu_torch.ops.patch_expand import (
     depth_to_space,
@@ -59,7 +70,8 @@ from featurematching_tpu_torch.ops.patch_expand import (
     patch_expand_ln,
     patch_expand_supported,
 )
-from featurematching_tpu_torch.ops.swin_block import HEAD_DIM, swin_block_fused
+from featurematching_tpu_torch.ops.swin_block import HEAD_DIMS as SWIN_HEAD_DIMS
+from featurematching_tpu_torch.ops.swin_block import swin_block_fused
 
 __all__ = ["FastMatcher", "SwinBackbone", "resolve_device"]
 
@@ -140,25 +152,50 @@ class FastMatcher(MatcherParams):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__(cfg, SwinBackbone(cfg), device, seed)
-        s = cfg.swin
+        if self.mix_feat_0.weight.device.type == "cuda":
+            lacking = self.widths_lacking()
+            if lacking:
+                raise NotImplementedError(
+                    "the serving forward's kernels do not take this config's widths: "
+                    + "; ".join(lacking))
+
+    def widths_lacking(self):
+        """For each fused branch whose JAX gate holds at a width its kernel
+        does not take, the kernel and the width (empty: every branch the
+        gates choose has its kernel)."""
+        s, c, f = self.cfg.swin, self.cfg.coarse, self.cfg.fine
+        out = []
         dims = [s.embed_dim * 2**i // h for i, h in enumerate(s.num_heads)]
-        if self.mix_feat_0.weight.device.type == "cuda" and any(d != HEAD_DIM for d in dims):
-            raise NotImplementedError(
-                f"the Swin block kernel (K2) takes head dim {HEAD_DIM}, this config has {dims}; "
-                "the evaluation Matcher with swin.fused_block='off' runs the others")
+        if any(d not in SWIN_HEAD_DIMS for d in dims):
+            out.append(f"K2 (swin_block_fused) takes Swin head dims {SWIN_HEAD_DIMS}, this "
+                       f"config has {dims}; the evaluation Matcher with "
+                       f"swin.fused_block='off' runs the others")
+        width = (c.d_model, c.d_model // c.nhead) if c.d_model % c.nhead == 0 else None
+        if self.use_fused_coarse(1) and width not in WIDTHS:
+            out.append(f"K5 (coarse_transformer_fused) takes (C, head dim) in {WIDTHS}, this "
+                       f"config has C {c.d_model} with {c.nhead} heads")
+        if (self.use_fused_fine() and (f.d_model != C_KERNEL
+                                       or f.d_model // f.nhead not in HEAD_DIMS
+                                       or len(f.layer_names) > MAX_LAYERS
+                                       or f.window_size**2 > MAX_TAPS)):
+            out.append(f"K6 (fine_stage_fused) takes C {C_KERNEL} with a head dim in "
+                       f"{HEAD_DIMS}, at most {MAX_LAYERS} layers and {MAX_TAPS} taps, this "
+                       f"config has C {f.d_model} with {f.nhead} heads, "
+                       f"{len(f.layer_names)} layers and {f.window_size**2} taps")
+        return out
 
     def use_fused_coarse(self, n_tokens: int) -> bool:
-        """The JAX gate, limited to the (C, head dim) pairs K5's kernels take."""
+        """The JAX gate (its widths K5's kernels take: construction on the
+        card checked them)."""
         c = self.cfg.coarse
-        return (c.attention == "linear"
-                and coarse_transformer_supported(c.layer_names, c.d_model, c.nhead, n_tokens)
-                and (c.d_model, c.d_model // c.nhead) in WIDTHS)
+        return c.attention == "linear" and coarse_transformer_supported(
+            c.layer_names, c.d_model, c.nhead, n_tokens)
 
     def use_fused_fine(self) -> bool:
-        """The JAX gate, limited to what K6's kernel takes."""
+        """The JAX gate (its widths, layers and taps K6's kernel takes:
+        construction on the card checked them)."""
         f = self.cfg.fine
-        return f.attention == "linear" and fine_stage_kernel_supported(
-            f.layer_names, f.d_model, f.nhead, f.window_size**2)
+        return f.attention == "linear" and fine_stage_supported(f.layer_names, f.d_model, f.nhead)
 
     def coarse_stage(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor):
         """The coarse transformer on [B, L, C] tokens: the fused kernels when

@@ -13,8 +13,11 @@ as the differentiable kernel K9 (`ops/coarse_transformer_train`; its plain
 twin on the CPU); where the coarse gate fails and the fine gate
 (`fine_train_supported`) holds, it runs as the differentiable fine window
 transformer K10 (`ops/fine_transformer_train`; its plain twin on the CPU),
-as flax does. Otherwise, and always without the switch, the per-op stack
-runs (the serving forward's fallback where its fused kernels do not apply).
+as flax does. With no gradient to take (an evaluation forward) the gates
+take the widths of the forward's kernels, K5's and K6's, which K9's and
+K10's forwards run; with one, those of the backward's. Otherwise, and
+always without the switch, the per-op stack runs (the serving forward's
+fallback where its fused kernels do not apply).
 """
 
 from __future__ import annotations
@@ -99,7 +102,9 @@ class LocalFeatureTransformer(nn.Module):
 
     def forward(self, feat0: torch.Tensor, feat1: torch.Tensor):
         if self.use_fused_train and feat0.shape == feat1.shape:
-            args = (self.layer_names, self.d_model, self.nhead, feat0.shape[1])
+            grad = torch.is_grad_enabled() and (feat0.requires_grad or feat1.requires_grad or any(
+                p.requires_grad for p in self.parameters()))
+            args = (self.layer_names, self.d_model, self.nhead, feat0.shape[1], not grad)
             if coarse_train_supported(*args):
                 return coarse_transformer_train(feat0, feat1, self, self.layer_names, self.nhead)
             if fine_train_supported(*args):

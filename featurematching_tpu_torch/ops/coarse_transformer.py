@@ -42,7 +42,9 @@ EPS = 1e-6
 ROW_TILE = 64  # token rows of one stats tile and of one apply warpgroup's tile
 APPLY_HIDDEN_CHUNK = 128  # FFN hidden columns the apply kernel takes at a time
 STATS_GROUP = 128  # K features of a stats block's head group (and as many V features)
-WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))  # (C, head dim) the kernel takes
+# (C, head dim) the forward's kernels take (the backward's, K9's: `TRAIN_WIDTHS`)
+WIDTHS = ((128, 16), (128, 32), (128, 64), (256, 16), (256, 32), (256, 64))
+TRAIN_WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))
 _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
 _APPLY_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR]
 _RING_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR]
@@ -475,11 +477,12 @@ def check_layer_values(lv: LayerValues, C: int) -> None:
             _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
 
 
-def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int) -> None:
+def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int,
+                 widths=WIDTHS) -> None:
     G, L, C = x.shape
-    if C % nhead or (C, C // nhead) not in WIDTHS:
+    if C % nhead or (C, C // nhead) not in widths:
         raise ValueError(
-            f"coarse_transformer kernel takes (C, head dim) in {WIDTHS}; got C={C}, "
+            f"coarse_transformer kernel takes (C, head dim) in {widths}; got C={C}, "
             f"heads={nhead}"
         )
     _build.check_cuda(x, "x", torch.bfloat16)

@@ -47,6 +47,7 @@ from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.coarse_transformer import (
     EPS,
     ROW_TILE,
+    TRAIN_WIDTHS,
     WIDTHS,
     LayerValues,
     _check_layer,
@@ -150,11 +151,12 @@ def stats_bwd_occupancy(C: int, D: int) -> dict:
 
 
 def coarse_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
-                           n_tokens: int) -> bool:
+                           n_tokens: int, forward_only: bool = False) -> bool:
     """The JAX gate (`coarse_transformer_supported`), limited to the (C, head
-    dim) pairs the CUDA kernels take."""
+    dim) pairs the CUDA kernels take: the backward's (TRAIN_WIDTHS), or with
+    `forward_only` (no gradient to take) the forward's, K5's (WIDTHS)."""
     return (coarse_transformer_supported(layer_names, d_model, nhead, n_tokens)
-            and (d_model, d_model // nhead) in WIDTHS)
+            and (d_model, d_model // nhead) in (WIDTHS if forward_only else TRAIN_WIDTHS))
 
 
 def coarse_layer_forward(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int):
@@ -299,11 +301,11 @@ def wgrad_calls(TL: int, TS: int, C: int) -> List[Tuple[int, int, int]]:
 def coarse_layer_backward(x, src, kv, ks, g, lv: LayerValues, lt: TrainValues, nhead: int):
     """One call's backward, as `coarse_layer_backward_reference` returns it.
     On a CUDA tensor the kernels of `csrc/coarse_transformer_train.cu`
-    (raises for what they do not take: bf16, (C, head dim) in WIDTHS); on a
+    (raises for what they do not take: bf16, (C, head dim) in TRAIN_WIDTHS); on a
     CPU tensor the plain twin."""
     if x.device.type == "cpu":
         return coarse_layer_backward_reference(x, src, kv, ks, g, lv, nhead)
-    _check_layer(x, src, lv, nhead)
+    _check_layer(x, src, lv, nhead, TRAIN_WIDTHS)
     G, L, C = x.shape
     S = src.shape[1]
     D = C // nhead

@@ -46,7 +46,10 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
 
 MAX_TAPS = 64  # taps are padded to one 64-row wgmma tile
 C_KERNEL = 64
-HEAD_DIMS = (8, 16)  # head dims the kernel takes (heads tile 16-column blocks)
+# head dims the kernel takes (heads tile 16-column blocks, or one head is all
+# 64); K10's backward takes TRAIN_HEAD_DIMS
+HEAD_DIMS = (8, 16, 64)
+TRAIN_HEAD_DIMS = (8, 16)
 MAX_LAYERS = 2
 # windows, 5 operands per layer (the image and the LN parameters), the mixes, the
 # outputs; then the ints and the stream
@@ -65,26 +68,17 @@ def fine_stage_supported(layer_names: Sequence[str], d_model: int, nhead: int) -
     )
 
 
-def _kernel_takes(d_model: int, nhead: int, taps: int) -> bool:
-    return (d_model == C_KERNEL and nhead >= 1 and d_model % nhead == 0
-            and d_model // nhead in HEAD_DIMS and 1 <= taps <= MAX_TAPS)
-
-
-def fine_stage_kernel_supported(layer_names: Sequence[str], d_model: int, nhead: int,
-                                taps: int) -> bool:
-    """The JAX gate limited to what K6's kernel takes: C = 64, a head dim in
-    HEAD_DIMS, 1 to MAX_LAYERS layers and at most MAX_TAPS taps."""
-    return (fine_stage_supported(layer_names, d_model, nhead)
-            and 1 <= len(layer_names) <= MAX_LAYERS and _kernel_takes(d_model, nhead, taps))
-
-
 def fine_train_supported(layer_names: Sequence[str], d_model: int, nhead: int,
-                         n_tokens: int) -> bool:
+                         n_tokens: int, forward_only: bool = False) -> bool:
     """The gate of the differentiable fine transformer (K10): what its
-    kernels take (C = 64, a head dim in HEAD_DIMS, at most MAX_TAPS tokens,
-    self/cross layers). Any number of layers: K10 launches one a layer."""
+    kernels take (C = 64, a head dim in TRAIN_HEAD_DIMS, or with
+    `forward_only` (no gradient to take) in K6's HEAD_DIMS, at most MAX_TAPS
+    tokens, self/cross layers). Any number of layers: K10 and its forward,
+    K6's kernel, launch one a layer."""
+    dims = HEAD_DIMS if forward_only else TRAIN_HEAD_DIMS
     return (len(layer_names) >= 1 and all(n in ("self", "cross") for n in layer_names)
-            and _kernel_takes(d_model, nhead, n_tokens))
+            and d_model == C_KERNEL and nhead >= 1 and d_model % nhead == 0
+            and d_model // nhead in dims and 1 <= n_tokens <= MAX_TAPS)
 
 
 def window_mix(w: torch.Tensor, mix: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:

@@ -63,8 +63,8 @@ from featurematching_tpu_torch.ops.coarse_transformer_train import (
 )
 from featurematching_tpu_torch.ops.fine_stage import (
     C_KERNEL,
-    HEAD_DIMS,
     MAX_TAPS,
+    TRAIN_HEAD_DIMS,
     _image_shapes,
     fine_layer_forward,
     layer_image,
@@ -183,10 +183,11 @@ def train_image(lv: LayerValues) -> torch.Tensor:
 
 def _check(x, src, g, lv: LayerValues, nhead: int) -> None:
     G, N, C = x.shape
-    if C != C_KERNEL or C % nhead or C // nhead not in HEAD_DIMS or not 1 <= N <= MAX_TAPS:
+    if (C != C_KERNEL or C % nhead or C // nhead not in TRAIN_HEAD_DIMS
+            or not 1 <= N <= MAX_TAPS):
         raise ValueError(
-            f"fine_transformer_train kernel takes C={C_KERNEL}, head dim in {HEAD_DIMS} and "
-            f"at most {MAX_TAPS} taps; got C={C}, heads={nhead}, N={N}")
+            f"fine_transformer_train kernel takes C={C_KERNEL}, head dim in {TRAIN_HEAD_DIMS} "
+            f"and at most {MAX_TAPS} taps; got C={C}, heads={nhead}, N={N}")
     _build.check_cuda(x, "x", torch.bfloat16)
     _build.check_cuda(src, "src", torch.bfloat16, x.shape)
     _build.check_cuda(g, "g", torch.float32, x.shape)
@@ -203,7 +204,7 @@ def wgrad_calls(T: int, C: int) -> List[Tuple[int, int, int]]:
 def bwd_launch(x, src, g, lv: LayerValues, nhead: int, run: Optional[int] = None):
     """One launch of `csrc/fine_transformer_train.cu` on CUDA tensors (checked:
     raises for what the kernels do not take, bf16 x and src, f32 g, C = 64,
-    a head dim in HEAD_DIMS, at most MAX_TAPS taps), returned as
+    a head dim in TRAIN_HEAD_DIMS, at most MAX_TAPS taps), returned as
     `fine_layer_backward` returns it. run < G makes the window stage leave
     the last windows out (their dx, dsrc and stash rows zero): a fault for
     checking that a check sees it."""

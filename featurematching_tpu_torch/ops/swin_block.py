@@ -5,7 +5,8 @@ residual.
 Port of `featurematching_tpu/ops/pallas_swin_block.py · swin_block_fused`.
 On a CUDA tensor it launches `csrc/swin_block.cu` (one thread block per 8x8
 window, everything on chip, bf16 tensor cores; bound by tensor-core
-operations); on a CPU tensor it runs `swin_block_reference`.
+operations) at a head dim in HEAD_DIMS; on a CPU tensor it runs
+`swin_block_reference`.
 
 `params` has the JAX package's keys and layouts: ln1_scale, ln1_bias, w_qkv
 [C, 3C], b_qkv, rel_bias [h, N, N], w_proj [C, C], b_proj, ln2_scale,
@@ -23,9 +24,9 @@ from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
 
 WINDOW_TOKENS = 64
-HEAD_DIM = 16
+HEAD_DIMS = (16, 32, 64)  # head dims the block body takes (csrc/swin_block.cuh)
 _ARGTYPES = (
-    [_build.PTR, _build.PTR, _build.INT] + [_build.PTR] * 14 + [_build.INT, _build.INT, _build.PTR]
+    [_build.PTR, _build.PTR, _build.INT] + [_build.PTR] * 14 + [_build.INT] * 3 + [_build.PTR]
 )
 
 
@@ -77,10 +78,11 @@ def swin_block_fused(
     if x.device.type == "cpu":
         return swin_block_reference(x, mask, params, num_heads)
     B_, N, C = x.shape
-    if N != WINDOW_TOKENS or C not in (64, 128, 256) or C != num_heads * HEAD_DIM:
+    if (N != WINDOW_TOKENS or C not in (64, 128, 256) or C % num_heads
+            or C // num_heads not in HEAD_DIMS):
         raise ValueError(
-            f"swin_block_fused kernel takes 8x8 windows, C in (64, 128, 256) and head "
-            f"dim {HEAD_DIM}; got N={N}, C={C}, heads={num_heads}"
+            f"swin_block_fused kernel takes 8x8 windows, C in (64, 128, 256) and a head "
+            f"dim in {HEAD_DIMS}; got N={N}, C={C}, heads={num_heads}"
         )
     _build.check_cuda(x, "x", torch.bfloat16)
     hid = params["w_mlp1"].shape[1]
@@ -106,7 +108,7 @@ def swin_block_fused(
         "swin_block", "fm_swin_block", _ARGTYPES,
         x.data_ptr(), mask.data_ptr() if mask is not None else None,
         mask.shape[0] if mask is not None else 0,
-        *[t.data_ptr() for t in p], out.data_ptr(), B_, C, _build.stream(),
+        *[t.data_ptr() for t in p], out.data_ptr(), B_, C, C // num_heads, _build.stream(),
     )
     swin_block_fused.launches += 1
     return out

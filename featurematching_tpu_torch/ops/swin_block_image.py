@@ -7,7 +7,7 @@ swin_block_fused_image` (and its `pad_region_masks`). On a CUDA tensor
 body, `csrc/swin_block.cuh`, reading and writing each 8x8 window in place
 in the padded map; bound by tensor-core operations); on a CPU tensor it runs
 `swin_block_image_reference`. Its limits are K2's: window 8, C in (64, 128,
-256), head dim 16, MLP width 4C.
+256), a head dim in HEAD_DIMS (16, 32, 64), MLP width 4C.
 
 The pad formulation: with a shift, the map is padded by (w - shift) rows and
 columns before the content, the content to a multiple of w, and shift after
@@ -27,10 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from featurematching_tpu_torch.ops import _build
-from featurematching_tpu_torch.ops.swin_block import HEAD_DIM, swin_block_reference
+from featurematching_tpu_torch.ops.swin_block import HEAD_DIMS, swin_block_reference
 
 WINDOW = 8
-_ARGTYPES = [_build.PTR] + [_build.INT] * 4 + [_build.PTR] * 14 + [_build.INT, _build.PTR]
+_ARGTYPES = [_build.PTR] + [_build.INT] * 4 + [_build.PTR] * 14 + [_build.INT] * 2 + [_build.PTR]
 
 
 def _bands(P2: int, w: int, shift: int) -> np.ndarray:
@@ -91,11 +91,12 @@ def swin_block_fused_image(xp: torch.Tensor, params: Dict[str, torch.Tensor], nu
         return swin_block_image_reference(xp, params, num_heads, window, shift)
     B, Hp2, Wp2, C = xp.shape
     hid = params["w_mlp1"].shape[1]
-    if (window != WINDOW or C not in (64, 128, 256) or C != num_heads * HEAD_DIM
+    if (window != WINDOW or C not in (64, 128, 256) or C % num_heads
+            or C // num_heads not in HEAD_DIMS
             or hid != 4 * C or Hp2 % WINDOW or Wp2 % WINDOW or not 0 <= shift < WINDOW):
         raise ValueError(
-            f"swin_block_fused_image kernel takes window {WINDOW}, C in (64, 128, 256), head dim "
-            f"{HEAD_DIM}, an MLP width of 4*C and a map padded to the window; got window="
+            f"swin_block_fused_image kernel takes window {WINDOW}, C in (64, 128, 256), a head "
+            f"dim in {HEAD_DIMS}, an MLP width of 4*C and a map padded to the window; got window="
             f"{window}, C={C}, heads={num_heads}, MLP {hid}, map {Hp2}x{Wp2}, shift={shift}")
     _build.check_cuda(xp, "xp", torch.bfloat16)
     f32, bf = _build.f32, _build.bf16
@@ -115,7 +116,7 @@ def swin_block_fused_image(xp: torch.Tensor, params: Dict[str, torch.Tensor], nu
     _build.launch(
         "swin_block_image", "fm_swin_block_image", _ARGTYPES,
         xp.data_ptr(), B, Hp2, Wp2, shift, *[t.data_ptr() for t in p], out.data_ptr(), C,
-        _build.stream(),
+        C // num_heads, _build.stream(),
     )
     swin_block_fused_image.launches += 1
     return out

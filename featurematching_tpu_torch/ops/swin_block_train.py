@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from featurematching_tpu_torch.ops import _build
 from featurematching_tpu_torch.ops.layer_norm import layer_norm_chain_plain
-from featurematching_tpu_torch.ops.swin_block import HEAD_DIM, WINDOW_TOKENS, _dense
+from featurematching_tpu_torch.ops.swin_block import WINDOW_TOKENS, _dense
 from featurematching_tpu_torch.ops.wgrad import partial_floats, sm_count, wgrad
 
 PARAM_KEYS = (
@@ -48,6 +48,7 @@ ATTN_PART, MLP_PART = 6, 19
 _FWD_ARGS = [_build.PTR, _build.INT, _build.INT, _build.INT, _build.PTR]
 _BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
 _OCC_ARGS = [_build.INT, ctypes.POINTER(ctypes.c_int)]
+HEAD_DIM = 16  # the one head dim the kernels take (the backward's scale is fixed)
 _occupancy: Dict[Tuple[int, int], Tuple[int, int, int, int]] = {}
 
 

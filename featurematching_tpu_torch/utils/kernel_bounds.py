@@ -7,7 +7,8 @@ Both rates are NVIDIA's published H100 SXM figures, which assume the card's
 full 700 W power limit. The `*_work` functions count (bytes, operations) for
 one call at given shapes; `chip_smoke.py` applies them to the inputs it runs,
 and this module's command line applies them to every kernel of the JAX
-package, ported or not, at `default_config()`, 640x480, batch 4:
+package at `default_config()` and at `tpu_optimized_config()` (head dim 64
+throughout), 640x480, batch 4:
 
     python -m featurematching_tpu_torch.utils.kernel_bounds
 
@@ -105,7 +106,8 @@ def encoder_work(tokens: int, C: int, heads: int, layers: int) -> Work:
 def coarse_stats_work(G: int, N: int, C: int, heads: int) -> Work:
     """K5's stats launch over G images of N source tokens: bf16 tokens and
     [wk | wv] in, each head's f32 KᵀV [D, D] and K_sum out; the K, V
-    projection and the heads' diagonal KᵀV blocks."""
+    projection and the heads' diagonal KᵀV blocks (C D multiply-adds a
+    token: four times head dim 16's at head dim 64)."""
     D = C // heads
     nbytes = G * N * C * BF16 + 2 * C * C * BF16 + G * (C * D + C) * F32
     return nbytes, G * N * (2 * 2 * C * C + 2 * C * D)
@@ -508,10 +510,10 @@ def main() -> None:
         for rid, (nbytes, flops) in rows:
             b, by = bound_ms(nbytes, flops)
             print(f"| {rid} | {name} | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
-    nbytes, flops = total(window_attention_sites(tpu_optimized_config().model))
-    b, by = bound_ms(nbytes, flops)
-    print(f"| K11 (tpu_optimized_config, head dim 64) | pallas_window_attention."
-          f"window_attention_pallas | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
+    for kid, name, (nbytes, flops) in all_kernels(tpu_optimized_config().model):
+        b, by = bound_ms(nbytes, flops)
+        print(f"| {kid} (tpu_optimized_config, head dim 64) | {name} | {nbytes / 1e6:.1f} | "
+              f"{flops / 1e9:.1f} | {b:.4f} | {by} |")
     sites = swin_sites(cfg, 8, 480, 640)  # the step's 13 blocks over both images of 4 pairs
     for name, fn in (("attn_bwd", swin_block_train_attn_bwd_work),
                      ("mlp_bwd", swin_block_train_mlp_bwd_work)):

@@ -73,6 +73,9 @@ def _make(rng, B, N, C, nhead, layer_names):
         (1, 96, 128, 4, ("cross", "self"), 32),
         # N > 256 routes flax to its plain (unpacked) linear attention
         (1, 320, 128, 8, ("self", "cross"), 64),
+        # head dim 64 (tpu_optimized_config()'s coarse 256/4)
+        (1, 128, 128, 2, ("self", "cross"), 64),
+        (1, 128, 256, 4, ("self", "cross"), 64),
     ],
 )
 def test_reference_matches_pallas_and_flax_f32(rng, B, N, C, nhead, layer_names, chunk):

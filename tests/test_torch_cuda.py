@@ -12,7 +12,7 @@ with the attention branch dropped on every window (dx equal to the f32 dx1
 rounded to bf16, the branch's gradients exactly 0) and with rows that keep
 one key (a one-hot P, rel_bias's gradient on that row below 1e-30), the
 wrappers' refusal of tensors
-the kernels do not take, K6 at 1 to 64 taps, head dims 8 and 16, each layer
+the kernels do not take, K6 at 1 to 64 taps, head dims 8, 16 and 64, each layer
 order, one window pair and one past a full wave of its persistent grid's
 pair slots, bit-identical twice, its one-layer plain mode (K10's forward) at
 the training step's shapes and a weight changed in place after a forward,
@@ -28,8 +28,9 @@ through a whole stack, K10's window stage at one window and one past a
 full round of its window slots at 1, 48, 49 and 64 taps and both head dims
 (bit for bit twice), with g = 0 (every output exactly 0), with weights
 changed in place between two calls and in a second training step after a
-fused AdamW step, the serving forward's per-op branches where the
-kernels' limits fail, and that chip_smoke.py's training semantic check
+fused AdamW step, the serving forward at tpu_optimized_config() (head dim
+64: K2 13, K5 and K6 one launch each, no eager layer) and its refusal of
+widths no kernel takes, and that chip_smoke.py's training semantic check
 sees faults injected into K8's, K9's, K10's and K7's outputs; K11 at ragged
 window counts and each head dim, at its persistent grid's edges (one
 window, fewer windows than SMs, window counts no multiple of a run or of
@@ -39,7 +40,9 @@ evaluation step's sites, K12 on odd maps against its twin and K2
 through the roll path, both wrappers' refusals, and the per-op block's
 evaluation forward through K11; K2 at one window and one past a full wave
 of the card, with a mask whose count divides none of the window counts and
-with masks whose -100 entries cover whole rows, and K8's forward bit-equal
+with masks whose -100 entries cover whole rows, K2 at head dim 64 at those
+window counts and K12 at head dims 32 and 64 on an odd map (bit for bit
+twice), and K8's forward bit-equal
 to K2 with its saved probabilities against the twin's softmax; K1 and its
 pass 1 on argmax ties inside one tile and at shapes that cross its row
 tiles, chunks of column tiles and batch; K7 one past a tile and one past
@@ -51,11 +54,13 @@ block past a full wave of the card, over an odd number of tiles and
 bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
 (`ring_product`); K5's stats kernel alone (kv and ks within
 `stats_reference_bounds`) at source counts around its 64-row tile at each
-width, with more blocks than the card holds at once, bit-identical twice
-at the serving shapes, and a planted fault there (a tile left out) past
-that bound; K3 and K4 at row and token counts that leave each level of
-their blocking partly filled (a single row, a single input token, W odd,
-more tiles than the grid), at the serving sites, with a planted fault (the
+width (head dim 64 among them), with more blocks than the card holds at
+once, bit-identical twice at the serving shapes (head dims 32 and 64), and
+planted faults there (a tile left out; at head dim 64 a K^T V block that
+crosses its warps left out) past that bound; K3 and K4 at row and token
+counts that leave each level of their blocking partly filled (a single
+row, a single input token, W odd, more tiles than the grid), at the
+serving sites, with a planted fault (the
 last unit or tile left out) past the tolerance, and their launch counters
 (4 and 3 a forward); the weight gradients (`wgrad`) at every (M, N) of the
 training step at its T and at ragged T, each backward's products in one
@@ -90,9 +95,11 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     encoder_reference_with_stats,
     layer_values,
     launch_stats,
+    pack_heads,
     ring_product,
     stats_errors,
     stats_plan,
+    unpack_heads,
 )
 from featurematching_tpu_torch.ops.dual_softmax import (
     _lse_reference,
@@ -208,9 +215,10 @@ def test_layer_norm_chain_tolerance_sees_a_unit_left_out(gen):
     assert layer_norm_chain.launches == before  # the counter counts the wrapper's launches
 
 
-def _swin_block_params(g, C):
-    """K2's operands: LN scales near 1, biases near 0, bf16 weights at lecun scale."""
-    h, hid = C // 16, 4 * C
+def _swin_block_params(g, C, h=None):
+    """K2's operands: LN scales near 1, biases near 0, bf16 weights at lecun
+    scale; the relative-position bias of h heads (C // 16 when None)."""
+    h, hid = h or C // 16, 4 * C
     return {
         "ln1_scale": _rnd(g, C, scale=0.1, shift=1.0), "ln1_bias": _rnd(g, C, scale=0.1),
         "w_qkv": _rnd(g, C, 3 * C, scale=C**-0.5, dtype=torch.bfloat16),
@@ -238,20 +246,44 @@ def test_swin_block_small_batches(gen, C, masked):
     _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
 
 
+@pytest.mark.parametrize("D", [16, 32, 64])
 @pytest.mark.parametrize("C", [64, 128, 256])
 @pytest.mark.parametrize("nwin", [1, 133, 161, 265])
 @pytest.mark.parametrize("masked", [False, True])
-def test_swin_block_window_counts(gen, C, nwin, masked):
+def test_swin_block_window_counts(gen, D, C, nwin, masked):
     """One window; one past a full wave of one block an SM on 132 SMs (133,
     C = 256) and of two (265, C <= 128); one past the serving forward's 160
     windows at C = 256. The mask has nW = 6 (a 16x24 map), which divides
-    none of these counts: window w takes mask[w % 6]."""
-    h = C // 16
+    none of these counts: window w takes mask[w % 6]. Head dims 16
+    (default_config()), 32 and 64 (tpu_optimized_config(): 1, 2 and 4 heads,
+    at C = 64 half the block's warps have no attention unit), against the
+    twin with chip_smoke.py's tolerance; twice, bit for bit."""
+    h = C // D
     x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
-    p = _swin_block_params(gen, C)
+    p = _swin_block_params(gen, C, h)
     mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda") if masked else None
     got = swin_block_fused(x, mask, p, h)
     _assert_close(got, swin_block_reference(x, mask, p, h), 5e-2, 2e-2)
+    assert torch.equal(got, swin_block_fused(x, mask, p, h))
+
+
+@pytest.mark.parametrize("C,h", [(64, 1), (128, 2), (128, 4), (256, 4)])
+def test_swin_block_image_other_head_dims(gen, C, h):
+    """K12 at head dims 64 and 32 on a ragged map (13x21, padded as the pad
+    formulation pads for a shift of 4) against its twin, with K2's
+    tolerance; twice, bit for bit."""
+    from featurematching_tpu_torch.ops.swin_block_image import (
+        pad_image,
+        swin_block_fused_image,
+        swin_block_image_reference,
+    )
+
+    x = _rnd(gen, 3, 13 * 21, C, dtype=torch.bfloat16)
+    p = _swin_block_params(gen, C, h)
+    xp, _ = pad_image(x, 13, 21, 8, 4)
+    got = swin_block_fused_image(xp, p, h, 8, 4)
+    _assert_close(got, swin_block_image_reference(xp, p, h, 8, 4), 5e-2, 2e-2)
+    assert torch.equal(got, swin_block_fused_image(xp, p, h, 8, 4))
 
 
 @pytest.mark.parametrize("C", [64, 128, 256])
@@ -504,7 +536,7 @@ def _layer_values(g, C):
     return layer_values(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C), *ln())
 
 
-@pytest.mark.parametrize("C,heads", [(128, 4), (128, 8), (256, 8), (256, 16)])
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
 @pytest.mark.parametrize("N", [100, 1200])
 @pytest.mark.parametrize("kind", ["self", "cross"])
 def test_coarse_layer_ragged_tokens(gen, C, heads, N, kind):
@@ -530,7 +562,7 @@ def test_ring_product(gen, K):
     _assert_close(ring_product(a, b), a.float() @ b.float(), 1e-3, 1e-5)
 
 
-@pytest.mark.parametrize("C,heads", [(128, 4), (128, 8), (256, 8), (256, 16)])
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
 @pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129])
 def test_coarse_apply_tile_edges(gen, C, heads, L):
     """Row counts around the apply kernel's 64-row tiles and 128-row blocks
@@ -604,15 +636,16 @@ def test_coarse_stats_more_blocks_than_the_card_holds(gen, G, S, C, heads):
 
 
 @pytest.mark.parametrize("G", [8, 4])
-def test_coarse_stats_bit_identical(gen, G):
-    """The serving forward's self (G = 8) and cross (G = 4) shapes: kv, ks
-    and the layer's output agree bit for bit across two runs (the stats
-    sum in a fixed order, without atomics)."""
+@pytest.mark.parametrize("heads", [8, 4])
+def test_coarse_stats_bit_identical(gen, G, heads):
+    """The serving forward's self (G = 8) and cross (G = 4) shapes, at head
+    dims 32 and 64: kv, ks and the layer's output agree bit for bit across
+    two runs (the stats sum in a fixed order, without atomics)."""
     lv = _layer_values(gen, 256)
     x = _rnd(gen, G, 4800, 256, dtype=torch.bfloat16)
     src = _rnd(gen, G, 4800, 256, dtype=torch.bfloat16)
-    first = _stats_held(x, src, lv, 8)
-    again = coarse_layer_with_stats(x, src, lv, 8)
+    first = _stats_held(x, src, lv, heads)
+    again = coarse_layer_with_stats(x, src, lv, heads)
     for a, b in zip(first, again, strict=True):
         assert torch.equal(a, b)
 
@@ -630,6 +663,26 @@ def test_coarse_stats_bound_sees_a_tile_left_out(gen, G):
     assert errs["kv"][1] > errs["kv"][2] // 4 and errs["ks"][1] > errs["ks"][2] // 2, errs
 
 
+@pytest.mark.parametrize("C,G", [(256, 4), (128, 3)])
+def test_coarse_stats_bound_sees_a_block_left_out(gen, C, G):
+    """A planted fault at head dim 64: one block of K^T V that crosses the
+    stats kernel's warps (its K features 0-15 against its V features 48-63)
+    left out of the launch's kv in the first head of each head group; at
+    most those entries come out past `stats_reference_bounds`, and ks stays
+    within it."""
+    lv = _layer_values(gen, C)
+    src = _rnd(gen, G, 4800, C, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    heads = C // 64
+    kv, ks = launch_stats(src, lv, heads, *stats_plan(G, 4800, C, sms))
+    torch.cuda.synchronize()
+    assert not any(past for _, past, _, _ in stats_errors(kv, ks, src, lv, heads).values())
+    blocks = unpack_heads(kv, heads)
+    blocks[:, ::STATS_GROUP // 64, :16, 48:] = 0
+    errs = stats_errors(pack_heads(blocks), ks, src, lv, heads)
+    assert errs["ks"][1] == 0 and 0 < errs["kv"][1] <= 256 * G * (C // STATS_GROUP), errs
+
+
 def _fine_wave(names, heads):
     """One window pair past a full wave of K6's persistent grid: a pair in
     every pair slot of every block, and one more."""
@@ -639,12 +692,12 @@ def _fine_wave(names, heads):
 
 @pytest.mark.parametrize("pairs", [1, 300, "wave+1"])
 @pytest.mark.parametrize("N", [1, 25, 49, 64])
-@pytest.mark.parametrize("heads", [8, 4])
+@pytest.mark.parametrize("heads", [8, 4, 1])
 @pytest.mark.parametrize("names", [("self", "cross"), ("cross",), ("cross", "self")])
 def test_fine_stage_ragged_windows(gen, pairs, N, heads, names):
     """One window pair, 300 (fewer than a wave of the persistent grid's pair
     slots, not a multiple of its blocks) and one past a full wave; 1 to 64
-    taps; head dims 8 and 16; each layer order; fold and plain mode."""
+    taps; head dims 8, 16 and 64; each layer order; fold and plain mode."""
     B_, C = (_fine_wave(names, heads) if pairs == "wave+1" else pairs), 64
     layers = [_layer_values(gen, C) for _ in names]
     mixes = [(_rnd(gen, N, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
@@ -665,13 +718,15 @@ def test_fine_stage_ragged_windows(gen, pairs, N, heads, names):
 
 
 @pytest.mark.parametrize("names", [("self", "cross"), ("cross",)])
-def test_fine_stage_bit_identical(gen, names):
+@pytest.mark.parametrize("heads", [8, 1])
+def test_fine_stage_bit_identical(gen, names, heads):
     """K6 sums in a fixed order without atomics: two runs agree bit for bit,
-    in fold and plain mode, at the serving call's 4096 window pairs."""
+    in fold and plain mode, at the serving call's 4096 window pairs, at head
+    dims 8 and 64."""
     layers = [_layer_values(gen, 64) for _ in names]
     mixes = [(_rnd(gen, 49, scale=0.3), _rnd(gen, 1)) for _ in range(2)]
     w0, w1 = (_rnd(gen, 4096, 49, 64, dtype=torch.bfloat16) for _ in range(2))
-    args = (w0, w1, layers, *mixes, names, 8)
+    args = (w0, w1, layers, *mixes, names, heads)
     for fold in (True, False):
         first = fine_stage_fused(*args, fold_softargmax=fold)
         again = fine_stage_fused(*args, fold_softargmax=fold)
@@ -1243,7 +1298,7 @@ def _k9_call(x, src, lv, heads, gout, plain):
     return [out, kv, ks, dx, dsrc, *wg]
 
 
-@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in ctt.TRAIN_WIDTHS])
 @pytest.mark.parametrize("kind", ["self", "cross"])
 def test_coarse_train_call_ragged_tokens(gen, C, heads, kind):
     """200 query tokens (no multiple of the 64-row tile), and 237 source
@@ -1323,7 +1378,7 @@ def test_coarse_train_tile_edges(gen, L, G, kind):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in WIDTHS])
+@pytest.mark.parametrize("C,heads", [(c, c // d) for c, d in ctt.TRAIN_WIDTHS])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 4800, 4801])
 def test_coarse_train_stats_bwd_tile_edges(gen, C, heads, S):
     """stats_bwd at its tiles' edges, at every width it takes: cross calls
@@ -1672,29 +1727,100 @@ def test_fine_train_wrapper_raises_rather_than_fall_back(gen):
 
 
 def test_serving_forward_takes_the_per_op_branches(gen):
-    """Coarse nhead 4 (head dim 64, not K5's) and fine nhead 1 (head dim 64,
-    not K6's), Swin heads unchanged: the plain coarse and fine branches run
-    end to end on the card and launch neither K5 nor K6. A Swin head dim of
-    64 raises at construction (K2 takes 16; the serving forward keeps K2,
-    as make_fast_matcher_fn does)."""
+    """tpu_optimized_config()'s widths: Swin head dim 64, coarse 256 with 4
+    heads of 64 and fine 64 with one head of 64 all have their kernels, so
+    the serving forward launches K2 (built at head dim 64) 13 times and K5
+    and K6 once each, runs no eager coarse or fine layer, and its outputs
+    are finite. A width the JAX gates take and no kernel does raises at
+    construction, naming the kernel: coarse 256 with 2 heads of 128 (K5),
+    fine 128 or three fine layers (K6), and a Swin head dim of 8 (K2)."""
     import dataclasses
 
-    cfg = ModelConfig()
-    cfg = dataclasses.replace(cfg, coarse=dataclasses.replace(cfg.coarse, nhead=4),
-                              fine=dataclasses.replace(cfg.fine, nhead=1))
+    from featurematching_tpu_torch.config import tpu_optimized_config
+
+    cfg = tpu_optimized_config().model
     model = FastMatcher(cfg, device="cuda", seed=0)
-    assert not model.use_fused_coarse(64) and not model.use_fused_fine()
+    assert model.use_fused_coarse(64) and model.use_fused_fine()
+    eager = []
+    for tf in (model.coarse_transformer, model.fine_transformer):
+        for layer in tf.children():
+            layer.register_forward_hook(lambda *_: eager.append(1))
     a = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
-    before = (coarse_transformer_fused.launches, fine_stage_fused.launches)
+    before = (swin_block_fused.launches, coarse_transformer_fused.launches,
+              fine_stage_fused.launches)
     out = model(a, torch.roll(a, shifts=8, dims=2))
     torch.cuda.synchronize()
-    assert (coarse_transformer_fused.launches, fine_stage_fused.launches) == before
+    after = (swin_block_fused.launches, coarse_transformer_fused.launches,
+             fine_stage_fused.launches)
+    assert tuple(n - b for n, b in zip(after, before)) == (13, 1, 1) and not eager
     assert torch.isfinite(out.feat_c0.float()).all()
     m = out.coarse.mask
     assert torch.isfinite(out.fine.mkpts0_f[m]).all()
-    swin64 = dataclasses.replace(ModelConfig().swin, num_heads=(1, 2, 4))
-    with pytest.raises(NotImplementedError, match="K2"):
-        FastMatcher(dataclasses.replace(ModelConfig(), swin=swin64), device="cuda")
+    for bad, kernel in (
+            (dataclasses.replace(cfg, coarse=dataclasses.replace(cfg.coarse, nhead=2)), "K5"),
+            (dataclasses.replace(cfg, fine=dataclasses.replace(cfg.fine, d_model=128)), "K6"),
+            (dataclasses.replace(cfg, fine=dataclasses.replace(
+                cfg.fine, layer_names=("self", "cross", "self"))), "K6"),
+            (dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, num_heads=(8, 16, 32))),
+             "K2")):
+        with pytest.raises(NotImplementedError, match=kernel):
+            FastMatcher(bad, device="cuda")
+
+
+def test_training_at_head_dim_64_stops_at_k8(gen):
+    """The training step at tpu_optimized_config() (swin.fused_block
+    'auto') raises at K8's head-dim check on the card, as before K2 took
+    head dim 64: its backward takes head dim 16 only; and the training
+    gates leave K9 and K10 out at that config's coarse and fine widths."""
+    import numpy as np
+
+    from featurematching_tpu_torch.config import tpu_optimized_config
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.ops.fine_stage import fine_train_supported
+    from featurematching_tpu_torch.train.step import create_train_state, train_step
+
+    cfg = tpu_optimized_config()
+    c, f = cfg.model.coarse, cfg.model.fine
+    assert not ctt.coarse_train_supported(c.layer_names, c.d_model, c.nhead, 64)
+    assert not fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
+    state = create_train_state(cfg, device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=1, image_size=(64, 64),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    before = swin_block_train_fwd.launches
+    with pytest.raises(ValueError, match="swin_block_train kernels take"):
+        train_step(state, batch)
+    assert swin_block_train_fwd.launches == before
+
+
+def test_evaluation_forward_at_head_dim_64_takes_k5_and_k6(gen):
+    """The evaluation Matcher at tpu_optimized_config() (per-op Swin block):
+    with no gradient to take, its coarse stack runs through K9's forward
+    (K5's kernels, 12 calls for 8 layers) and its fine stack through K10's
+    (K6's kernel, one launch a layer), with no eager coarse or fine layer.
+    (In training the gates leave them out: test_training_at_head_dim_64_stops_at_k8.)"""
+    import dataclasses
+
+    from featurematching_tpu_torch.config import tpu_optimized_config
+    from featurematching_tpu_torch.models.matcher import Matcher
+    from featurematching_tpu_torch.ops.fine_stage import fine_layer_forward
+
+    cfg = tpu_optimized_config().model
+    cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, fused_block="off"))
+    model = Matcher(cfg, device="cuda", seed=0)
+    eager = []
+    for tf in (model.coarse_transformer, model.fine_transformer):
+        for layer in tf.children():
+            layer.register_forward_hook(lambda *_: eager.append(1))
+    a = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    before = (ctt.coarse_layer_forward.launches, fine_layer_forward.launches)
+    with torch.no_grad():
+        out = model(a, torch.roll(a, shifts=8, dims=2))
+    torch.cuda.synchronize()
+    after = (ctt.coarse_layer_forward.launches, fine_layer_forward.launches)
+    assert tuple(x - y for x, y in zip(after, before)) == (12, 2) and not eager
+    assert torch.isfinite(out.feat_c0.float()).all()
+    assert torch.isfinite(out.fine.mkpts0_f[out.coarse.mask]).all()
 
 
 def _chip_smoke():
@@ -1926,7 +2052,7 @@ def test_window_attention_and_image_block_raise(gen):
     p64 = _block_params(gen, 64, 4)
     x = _rnd(gen, 1, 16 * 16, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        swin_block_image(x, 16, 16, _block_params(gen, 64, 2), 2, 8, 4)  # head dim 32
+        swin_block_image(x, 16, 16, _block_params(gen, 64, 8), 8, 8, 4)  # head dim 8
     with pytest.raises(ValueError, match="window 8"):
         swin_block_image(x, 16, 16, p64, 4, 4, 2)
     with pytest.raises(ValueError, match="padded"):

@@ -4,7 +4,10 @@ The slice: `featurematching_tpu.models.fast_inference.make_fast_matcher_fn`
 (interpret mode, so its plain coarse-transformer and fine-stage branches)
 against the port's `FastMatcher` on the CPU, on the same `Matcher.init`
 weights carried across by `load_jax_params`, at 64x64, float32, with a
-shallow Swin (depths 2/2/2) and a two-layer coarse transformer.
+shallow Swin (depths 2/2/2) and a two-layer coarse transformer; at
+`default_config()` and at `tpu_optimized_config()` (head dim 64 throughout,
+with every fused gate holding, so JAX's Pallas kernels in interpret mode
+against the port's twins).
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from featurematching_tpu.config import default_config as jax_default_config
+from featurematching_tpu.config import tpu_optimized_config as jax_tpu_optimized_config
 from featurematching_tpu.matching.coarse import (
     extract_matches_from_stats as jax_extract_matches_from_stats,
 )
@@ -40,7 +44,7 @@ from featurematching_tpu_torch.models.fast_inference import FastMatcher
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
 from featurematching_tpu_torch.ops.attention import linear_attention
 from featurematching_tpu_torch.ops.dual_softmax import MatchStats
-from featurematching_tpu_torch.utils.weights import load_jax_params
+from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
 
 
 def _t(a):
@@ -56,20 +60,33 @@ def _match_set(i_ids, j_ids, mask, b):
     return set(zip(np.asarray(i_ids[b])[m].tolist(), np.asarray(j_ids[b])[m].tolist()))
 
 
-@pytest.fixture(scope="module")
-def slice_setup():
-    cfg = jax_default_config().model
-    mcfg = dataclasses.replace(
+def _shallow(cfg):
+    """The slice's shallow shape: Swin depths 2/2/2, two coarse layers, at
+    float32 with a low threshold and 32 matches a pair."""
+    return dataclasses.replace(
         cfg, compute_dtype="float32",
         match_coarse=dataclasses.replace(cfg.match_coarse, thr=1e-6, max_matches=32),
         swin=dataclasses.replace(cfg.swin, depths=(2, 2, 2), fused_attention="off"),
         coarse=dataclasses.replace(cfg.coarse, layer_names=("self", "cross")),
     )
+
+
+def _setup(mcfg):
     img = jnp.zeros((1, 64, 64, 3), jnp.float32)
     variables = jax.jit(Matcher(mcfg).init)(jax.random.PRNGKey(0), img, img)
     port = FastMatcher(config_from_dict(ModelConfig, dataclasses.asdict(mcfg)), device="cpu")
     load_jax_params(port, variables["params"])
     return mcfg, variables, make_fast_matcher_fn(mcfg, interpret=True), port
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    return _setup(_shallow(jax_default_config().model))
+
+
+@pytest.fixture(scope="module")
+def tpu_slice():
+    return _setup(_shallow(jax_tpu_optimized_config().model))
 
 
 def _pair(seed, B):
@@ -133,6 +150,49 @@ class TestSlice:
         assert (out.coarse.i_ids == out.coarse.j_ids)[m].all()
 
 
+class TestTpuOptimizedSlice:
+    """tpu_optimized_config(): Swin heads (1, 2, 4), coarse 256/4, fine 64/1."""
+
+    def test_weights_cross(self, tpu_slice):
+        """load_jax_params takes the config's tree as it is: every port leaf
+        equals its flax leaf, and the tree is the default's but for the
+        relative-position bias tables, whose last axis is each stage's heads."""
+        _, variables, _, port = tpu_slice
+        flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]  # noqa: E731
+        got = {jax.tree_util.keystr(k): v for k, v in flat(to_jax_tree(port))}
+        ref = {jax.tree_util.keystr(k): np.asarray(v) for k, v in flat(variables["params"])}
+        assert got.keys() == ref.keys()
+        for k, v in ref.items():
+            np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=k)
+        dcfg = _shallow(jax_default_config().model)
+        img = jnp.zeros((1, 64, 64, 3), jnp.float32)
+        default = jax.eval_shape(Matcher(dcfg).init, jax.random.PRNGKey(0), img, img)["params"]
+        shapes = {jax.tree_util.keystr(k): v.shape for k, v in flat(default)}
+        assert shapes.keys() == ref.keys()
+        differ = {k for k in ref if ref[k].shape != shapes[k]}
+        assert differ and all(k.endswith("['rel_pos_bias']") for k in differ), differ
+
+    def test_forward_matches_jax(self, tpu_slice):
+        """Every fused gate holding (on the CPU the kernels' twins), against
+        the JAX forward: match sets equal per pair, feat_c0 within 5e-3,
+        mkpts0_f within 5e-2 where the masks agree (TestSlice's limits)."""
+        _, variables, jax_fwd, port = tpu_slice
+        B, seed = 2, 7
+        assert port.use_fused_coarse(16) and port.use_fused_fine() and not port.widths_lacking()
+        a, b = _pair(seed, B)
+        ref = jax_fwd(variables, jnp.asarray(a), jnp.asarray(b))
+        got = port(_t(a), _t(b))
+        np.testing.assert_allclose(_np(got.feat_c0), np.asarray(ref.feat_c0),
+                                   atol=5e-3, rtol=5e-3)
+        rm, gm = np.asarray(ref.coarse.mask), got.coarse.mask.numpy()
+        assert rm.any(), "no matches to compare"
+        for i in range(B):
+            assert (_match_set(ref.coarse.i_ids, ref.coarse.j_ids, rm, i)
+                    == _match_set(got.coarse.i_ids, got.coarse.j_ids, gm, i)), i
+        np.testing.assert_allclose(_np(got.fine.mkpts0_f)[gm],
+                                   np.asarray(ref.fine.mkpts0_f)[rm], atol=5e-2, rtol=1e-2)
+
+
 class TestEntryPoint:
     def test_default_device_is_cuda_and_raises_without_it(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -145,15 +205,43 @@ class TestEntryPoint:
 
     def test_gates_follow_the_kernels_limits(self):
         """tpu_optimized_config()'s coarse (C 256, head dim 64) and fine (C 64,
-        head dim 64) shapes pass the JAX gates but not K5's and K6's kernels:
-        the plain branches run, and on the CPU the forward runs end to end."""
+        head dim 64) widths pass the JAX gates, and K5's and K6's forward
+        kernels take them: the fused branches run (on the CPU their plain
+        versions), end to end. The training gates do not take them (K9's and
+        K10's backwards lack head dim 64) unless there is no gradient to take. A width the JAX gate takes and no
+        kernel does (coarse C 256 with 2 heads of 128; a fine stage of 3
+        layers or of 81 taps) is what `widths_lacking` names and construction
+        on the card raises on."""
         from featurematching_tpu.config import tpu_optimized_config
+
+        from featurematching_tpu_torch.ops.coarse_transformer_train import coarse_train_supported
+        from featurematching_tpu_torch.ops.fine_stage import fine_train_supported
 
         cfg = config_from_dict(ModelConfig, dataclasses.asdict(tpu_optimized_config().model))
         port = FastMatcher(cfg, device="cpu")
-        assert not port.use_fused_coarse(64) and not port.use_fused_fine()
+        assert port.use_fused_coarse(64) and port.use_fused_fine()
+        assert port.widths_lacking() == []
+        c, f = cfg.coarse, cfg.fine
+        assert not coarse_train_supported(c.layer_names, c.d_model, c.nhead, 4800)
+        assert not fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
+        # with no gradient to take, the forward kernels' widths: K5's, K6's
+        assert coarse_train_supported(c.layer_names, c.d_model, c.nhead, 4800, True)
+        assert fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2, True)
         default = FastMatcher(ModelConfig(), device="cpu")
         assert default.use_fused_coarse(4800) and default.use_fused_fine()
+        assert default.widths_lacking() == []
+        wide = dataclasses.replace(cfg, coarse=dataclasses.replace(c, nhead=2))
+        lacking = FastMatcher(wide, device="cpu").widths_lacking()
+        assert len(lacking) == 1 and lacking[0].startswith("K5") and "2 heads" in lacking[0]
+        # K6 takes at most 2 layers and 64 taps; the JAX gate takes more, so the
+        # fused branch is chosen and the card refuses it
+        for fine, what in ((dict(layer_names=("self", "cross", "self")), "3 layers"),
+                           (dict(window_size=9), "81 taps")):
+            deep = dataclasses.replace(cfg, fine=dataclasses.replace(f, **fine))
+            model = FastMatcher(deep, device="cpu")
+            lacking = model.widths_lacking()
+            assert model.use_fused_fine()
+            assert len(lacking) == 1 and lacking[0].startswith("K6") and what in lacking[0]
         a, b = _pair(5, 1)
         out = port(_t(a), _t(b))
         assert out.feat_c0.shape == (1, 64, 256) and torch.isfinite(out.feat_c0).all()
@@ -232,6 +320,32 @@ class TestTransformer:
         g0, g1 = port(_t(f0), _t(f1))
         np.testing.assert_allclose(_np(g0), np.asarray(r0), atol=1e-4, rtol=1e-4)
         np.testing.assert_allclose(_np(g1), np.asarray(r1), atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("d,h,L,route", [(256, 4, 60, "coarse_transformer_train"),
+                                             (64, 1, 49, "fine_transformer_train")])
+    def test_fused_switch_at_head_dim_64(self, rng, monkeypatch, d, h, L, route):
+        """tpu_optimized_config()'s coarse (256/4) and fine (64/1) stacks with
+        `use_fused_train`: without a gradient to take, the forward kernels'
+        widths hold and the stack runs through K9's or K10's forward (K5's or
+        K6's kernel; the twin here), equal to the per-op stack within 1e-4;
+        with one, the backward's widths do not, and the per-op stack runs."""
+        import featurematching_tpu_torch.models.transformer as tr
+
+        port = LocalFeatureTransformer(d, h, ("self", "cross"))
+        f0, f1 = (_t(rng.standard_normal((2, L, d)).astype(np.float32)) for _ in range(2))
+        with torch.no_grad():
+            ref = port(f0, f1)
+        port.use_fused_train = True
+        calls = []
+        real = getattr(tr, route)
+        monkeypatch.setattr(tr, route, lambda *a: calls.append(1) or real(*a))
+        with torch.no_grad():
+            got = port(f0, f1)
+        assert calls == [1]
+        for g_, r in zip(got, ref, strict=True):
+            np.testing.assert_allclose(_np(g_), _np(r), atol=1e-4, rtol=1e-4)
+        port(f0, f1)[0].sum().backward()
+        assert calls == [1] and port.layer_0.q_proj.weight.grad is not None
 
 
 class TestMatching:

@@ -58,6 +58,7 @@ CASES = [
     (6, 25, 64, 4, ("self", "cross")),
     (4, 49, 128, 8, ("self", "cross", "self", "cross")),
     (4, 49, 64, 1, ("cross",)),
+    (4, 49, 64, 1, ("self", "cross")),  # tpu_optimized_config()'s fine 64/1
 ]
 
 

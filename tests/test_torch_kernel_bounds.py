@@ -261,3 +261,36 @@ def test_window_attention_sites_at_head_dim_64():
     tpu, default = (total(window_attention_sites(c)) for c in (cfg, ModelConfig()))
     assert tpu[1] == default[1] and tpu[0] < default[0]
     assert window_attention_sites(cfg)[1] == window_attention_work(2400, 64, 1, 300)
+
+
+def test_head_dim_64_work():
+    """tpu_optimized_config()'s head dim 64: K2 does the same operations with
+    fewer relative-position bias bytes (one head where head dim 16 has four);
+    K5's stats and K6's encoder layers form each head's whole [D, D] KᵀV, so
+    their operations grow with D (C D multiply-adds a token and layer for
+    KᵀV, as many for Q KᵀV); K5's apply likewise."""
+    assert swin_block_work(2400, 64, 1, 300)[1] == swin_block_work(2400, 64, 4, 300)[1]
+    assert (swin_block_work(2400, 64, 4, 0)[0] - swin_block_work(2400, 64, 1, 0)[0]
+            == 3 * 64 * 64 * 4)
+    for fn in (coarse_stats_work, coarse_apply_work):
+        assert fn(8, 4800, 256, 4)[1] - fn(8, 4800, 256, 8)[1] == 8 * 4800 * 2 * 256 * 32
+    assert (fine_stage_work(4096, 49, 64, 1, 2)[1] - fine_stage_work(4096, 49, 64, 8, 2)[1]
+            == 2 * (2 * 4096 * 49) * 4 * 64 * (64 - 8))
+
+
+def test_all_kernels_at_tpu_optimized_config(capsys):
+    """The twelve kernels at tpu_optimized_config(): K2's and K12's operations
+    as the default's, K5's and K6's larger; the command line prints each
+    row after the default's table."""
+    from featurematching_tpu_torch.config import tpu_optimized_config
+
+    tpu = {r[0]: r[2] for r in all_kernels(tpu_optimized_config().model)}
+    default = {r[0]: r[2] for r in all_kernels(ModelConfig())}
+    assert list(tpu) == list(default)
+    for kid in ("K2", "K12", "K11"):
+        assert tpu[kid][1] == default[kid][1] and tpu[kid][0] < default[kid][0]
+    for kid in ("K5", "K6"):
+        assert tpu[kid][1] > default[kid][1]
+    main()
+    rows = [r for r in capsys.readouterr().out.splitlines() if "(tpu_optimized_config" in r]
+    assert [r.split(" (")[0] for r in rows] == [f"| K{i}" for i in range(1, 13)]

@@ -74,7 +74,8 @@ class TestLayerNormChain:
 
 
 class TestSwinBlock:
-    """K2: ops/pallas_swin_block.swin_block_fused, C = 64, 4 heads."""
+    """K2: ops/pallas_swin_block.swin_block_fused, C = 64, 4 heads (and head
+    dim 64)."""
 
     @staticmethod
     def _params(rng, C, h, hid):
@@ -103,6 +104,20 @@ class TestSwinBlock:
                                {k: _t(v) for k, v in p.items()}, h)
         # f32: the TPU kernel's erf approximation (|err| <= 1.5e-7) and sum order
         np.testing.assert_allclose(_np(got), np.asarray(fused), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("C,h", [(64, 1), (128, 2)])
+    def test_head_dim_64_matches_pallas(self, rng, C, h, masked):
+        """tpu_optimized_config()'s head dim 64 on the 4 windows of a 16x16
+        map, within the same 1e-4."""
+        x = rng.standard_normal((4, 64, C)).astype(np.float32)
+        p = self._params(rng, C, h, 4 * C)
+        mask = jax_shift_mask(16, 16, 8, 4) if masked else None
+        ref = jax_swin_block_fused(jnp.asarray(x), jnp.asarray(mask) if masked else None,
+                                   {k: jnp.asarray(v) for k, v in p.items()}, h, interpret=True)
+        got = swin_block_fused(_t(x), _t(mask) if masked else None,
+                               {k: _t(v) for k, v in p.items()}, h)
         np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-4, rtol=1e-4)
 
     def test_mask_is_looked_up_per_window(self, rng):
