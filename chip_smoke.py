@@ -80,8 +80,15 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      fault: a block the stats kernel left out), must break the stats bound,
      and the run says it did; K6 in fold and plain
      mode over 4096 pairs with one head of 64; K12 at the 13 blocks of that
-     config's backbone and through swin_block_image N_FORWARD times (their
-     own lines of the kernels JSON, named with "@hd64");
+     config's backbone and through swin_block_image N_FORWARD times; and
+     the backwards its training step runs, as above: K8 at the three widths
+     with 1, 2 and 4 heads (its backward twice bit for bit, and at C = 256
+     with the mask mlp_bwd's planted fault as above), K9 at (256, 64)
+     (twice bit for bit), K10 with one head of 64 (its own planted fault,
+     the window stage's last window left out) (their own lines of the
+     kernels JSON, named with "@hd64"; the faults planted in attn_bwd,
+     apply_bwd and stats_bwd at head dim 64 are in copies of their sources,
+     tools/train_bwd_faults.py);
   6. run the training step (`default_config()` as users run it: every
      kernel switch 'auto', so K8, K9 and K10 on the card; 640x480, batch 4,
      bf16, sparse focal loss, AdamW) with the launch counters set to 0 just
@@ -107,7 +114,10 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      from its inputs and upstream gradient, and the step's K7 call, against
      their plain versions on the card), ten steps on
      one batch at lr 1e-4 lower the loss, and the evaluation step takes its
-     matches from K1's statistics (one launch) with finite outputs;
+     matches from K1's statistics (one launch) with finite outputs; then
+     the training step at tpu_optimized_config() (head dim 64 throughout)
+     as in 6, with the same launches a step, and its `training_agreement`
+     under the same LIMITS;
   8. the evaluation step with `swin.fused_block='off'` (the per-op block,
      fused_attention 'auto'; default_config(), 640x480, batch 4, bf16) with
      the launch counters set to 0 just before and read just after: K11 13
@@ -143,8 +153,8 @@ block's evaluation forward adds window_attention (K11); swin_block_fused_image
 Per-kernel numbers in the JSON line are totals over one forward (serving
 kernels), one training step (training kernels), one evaluation step with the
 per-op block (K11) or the backbone's 13 blocks (K12), the "@hd64" lines over
-the forward (K12: the 13 blocks) at tpu_optimized_config(): each call site's time
-times its launches, summed. `bound_ms` is the larger
+the forward (K12: the 13 blocks) or the training step at
+tpu_optimized_config(): each call site's time times its launches, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
 989 TFLOP/s (the published H100 SXM figures), counted from this run's
@@ -245,13 +255,20 @@ SOURCES = {
         "pallas_coarse_grad.py:71 (_dot_g at :158-223); pallas_fine_grad.py:142-216"),
 }
 # the head-dim-64 instances of K2, K5, K6 (tpu_optimized_config()'s serving
-# forward) and K12 (its own entry point over that config's 13 blocks): their
-# own lines in the kernels JSON, by the kernel each instantiates
+# forward), K12 (its own entry point over that config's 13 blocks) and K8,
+# K9 and K10 (its training step): their own lines in the kernels JSON, by
+# the kernel each instantiates
 HD64 = {
     "swin_block_fused@hd64": "swin_block_fused",
     "coarse_transformer_fused@hd64": "coarse_transformer_fused",
     "fine_stage_fused@hd64": "fine_stage_fused",
     "swin_block_fused_image@hd64": "swin_block_fused_image",
+    "swin_block_train_fwd@hd64": "swin_block_train_fwd",
+    "swin_block_train_bwd@hd64": "swin_block_train_bwd",
+    "coarse_layer_forward@hd64": "coarse_layer_forward",
+    "coarse_layer_backward@hd64": "coarse_layer_backward",
+    "fine_layer_forward@hd64": "fine_layer_forward",
+    "fine_layer_backward@hd64": "fine_layer_backward",
 }
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
 # once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
@@ -802,7 +819,10 @@ def norm_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
-def check_swin_block_train(rec: Record, g) -> None:
+def check_swin_block_train(rec: Record, g, heads=(4, 8, 16), suffix="") -> None:
+    """K8 at the training step's three widths with `heads` heads (default
+    head dim 16; (1, 2, 4): tpu_optimized_config()'s 64), recorded under
+    the kernels' names + `suffix`."""
     from featurematching_tpu_torch.models.backbone_swin import _shift_attn_mask
     from featurematching_tpu_torch.ops.swin_block_train import (
         PARAM_KEYS,
@@ -812,11 +832,14 @@ def check_swin_block_train(rec: Record, g) -> None:
         swin_block_train_fwd,
         swin_block_train_reference,
     )
+    from featurematching_tpu_torch.ops.swin_block_train import (
+        bwd_occupancy as swin_block_train_bwd_occupancy,
+    )
 
     # the training step's blocks: (windows, C, heads, padded map, launches a
     # step without / with the shift mask), as the serving forward's
-    sites = [(2400, 64, 4, (120, 160), 2, 1), (640, 128, 8, (64, 80), 2, 1),
-             (160, 256, 16, (32, 40), 4, 3)]
+    sites = [(2400, 64, heads[0], (120, 160), 2, 1), (640, 128, heads[1], (64, 80), 2, 1),
+             (160, 256, heads[2], (32, 40), 4, 3)]
     print(f"  tolerance per tensor (out, dx, 13 gradients): max |kernel - plain| <= {K8_TOL} "
           f"max |plain|")
     for nwin, C, h, (Hp, Wp), n_plain, n_mask in sites:
@@ -833,7 +856,9 @@ def check_swin_block_train(rec: Record, g) -> None:
         for m, a, b, count in ((None, None, None, n_plain), (mask, s1, s2, n_mask)):
             out, probs, x1 = swin_block_train_fwd(x, m, a, b, kp, h)
             dx, grads = swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h)
+            dx2, grads2 = swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h)
             torch.cuda.synchronize()
+            same = torch.equal(dx, dx2) and all(map(torch.equal, grads, grads2))
             xr = x.detach().requires_grad_(True)
             pr = {k: v.detach().requires_grad_(True) for k, v in p.items()}
             ref = swin_block_train_reference(xr, m, a, b, pr, h)
@@ -841,11 +866,13 @@ def check_swin_block_train(rec: Record, g) -> None:
             errs = {"out": rel_err(out, ref), "dx": rel_err(dx, xr.grad)}
             errs |= {k: rel_err(gr, pr[k].grad) for k, gr in zip(PARAM_KEYS, grads)}
             worst = max(errs, key=errs.get)
-            print(f"  C={C} mask={m is not None}: relative errors out {errs['out']:.2e}, dx "
-                  f"{errs['dx']:.2e}, worst {worst} {errs[worst]:.2e}")
+            print(f"  C={C} heads={h} mask={m is not None}: relative errors out "
+                  f"{errs['out']:.2e}, dx {errs['dx']:.2e}, worst {worst} {errs[worst]:.2e}; "
+                  f"backward bit-identical twice {same}")
             bad = {k: v for k, v in errs.items() if not v <= K8_TOL}
-            if bad:
-                raise AssertionError(f"swin_block_train C={C} mask={m is not None}: {bad}")
+            if bad or not same:
+                raise AssertionError(f"swin_block_train C={C} heads={h} mask={m is not None}: "
+                                     f"{bad}, bit-identical twice {same}")
 
             def plain_fb():
                 xx = x.detach().requires_grad_(True)
@@ -859,6 +886,8 @@ def check_swin_block_train(rec: Record, g) -> None:
                 k = re.split(r"[<(]", bare)[0].split("::")[-1]
                 split[k] = split.get(k, 0.0) + ms
             nw = 0 if m is None else m.shape[0]
+            print(f"    attn_bwd at head dim {C // h}: "
+                  f"{swin_block_train_bwd_occupancy(C, 0, C // h)[1]} block(s) an SM")
             ab, aby = bound_ms(*swin_block_train_attn_bwd_work(nwin, C, h, nw))
             mb, mby = bound_ms(*swin_block_train_mlp_bwd_work(nwin, C, h, nw))
             print("    backward by kernel: "
@@ -879,11 +908,11 @@ def check_swin_block_train(rec: Record, g) -> None:
                                          "left out")
             pf = cuda_ms(lambda: swin_block_train_reference(x, m, a, b, p, h), iters=3)
             pfb = cuda_ms(plain_fb, iters=3)
-            rec.site("swin_block_train_fwd", count,
+            rec.site("swin_block_train_fwd" + suffix, count,
                      cuda_ms(lambda: swin_block_train_fwd(x, m, a, b, kp, h)), pf,
                      swin_block_train_fwd_work(nwin, C, h, nw),
                      err=float((out.float() - ref.detach().float()).abs().max()))
-            rec.site("swin_block_train_bwd", count,
+            rec.site("swin_block_train_bwd" + suffix, count,
                      cuda_ms(lambda: swin_block_train_bwd(x, a, b, probs, x1, gout, kp, h),
                              iters=10),
                      pfb - pf, swin_block_train_bwd_work(nwin, C, h, nw),
@@ -992,7 +1021,10 @@ def k9_tensors(out, grads) -> dict:
     return named if out is None else {"out": out} | named
 
 
-def check_coarse_train(rec: Record, g) -> None:
+def check_coarse_train(rec: Record, g, h=8, suffix="") -> None:
+    """K9 at the training step's calls with h heads of C = 256 (default
+    head dim 32; 4: tpu_optimized_config()'s 64), recorded under the
+    kernels' names + `suffix`."""
     from featurematching_tpu_torch.ops.coarse_transformer import encoder_reference_with_stats
     from featurematching_tpu_torch.ops.coarse_transformer_train import (
         coarse_layer_backward,
@@ -1001,7 +1033,7 @@ def check_coarse_train(rec: Record, g) -> None:
         train_values,
     )
 
-    N, C, h = (H // 8) * (W // 8), 256, 8
+    N, C = (H // 8) * (W // 8), 256
     print(f"  tolerance per tensor (out, kv, ks, dx, dsrc, 10 gradients): |kernel - plain| <= "
           f"{K9_TOL} |plain| (norms); max |kernel - plain| / max |plain| printed")
     # the step's calls: 4 self calls on both images (G = 2B), 8 cross calls (G = B)
@@ -1013,7 +1045,9 @@ def check_coarse_train(rec: Record, g) -> None:
         gout = rnd(g, G, N, C, dtype=torch.bfloat16)
         out, kv, ks = coarse_layer_forward(x, src, lv, h)
         got = k9_tensors(out, coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h))
+        again = k9_tensors(out, coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h))
         torch.cuda.synchronize()
+        same = all(torch.equal(got[n], again[n]) for n in got)
         ref_out, ref_kv, ref_ks = encoder_reference_with_stats(x, src, lv, h)
         ref = k9_tensors(ref_out, coarse_layer_backward_reference(x, src, kv, ks, gout, lv, h))
         pairs = dict(got, kv=kv, ks=ks)
@@ -1022,12 +1056,14 @@ def check_coarse_train(rec: Record, g) -> None:
         worst = max(errs, key=errs.get)
         peak = {n: rel_err(pairs[n], refs[n]) for n in pairs}
         wpeak = max(peak, key=peak.get)
-        print(f"  {kind} call, G={G}: norm errors out {errs['out']:.2e}, dx {errs['dx']:.2e}, "
-              f"dsrc {errs['dsrc']:.2e}, worst {worst} {errs[worst]:.2e}; largest entry error / "
-              f"max |plain|: {wpeak} {peak[wpeak]:.2e}")
+        print(f"  {kind} call, G={G}, {h} heads: norm errors out {errs['out']:.2e}, dx "
+              f"{errs['dx']:.2e}, dsrc {errs['dsrc']:.2e}, worst {worst} {errs[worst]:.2e}; "
+              f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}; backward "
+              f"bit-identical twice {same}")
         bad = {k: v for k, v in errs.items() if not v <= K9_TOL}
-        if bad:
-            raise AssertionError(f"coarse_transformer_train ({kind}, G={G}): {bad}")
+        if bad or not same:
+            raise AssertionError(f"coarse_transformer_train ({kind}, G={G}, {h} heads): {bad}, "
+                                 f"bit-identical twice {same}")
         bwd = lambda: coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h)  # noqa: E731
         profile_ms(bwd)  # a first session here has dropped the first kernel's record
         _, rows = profile_ms(bwd)
@@ -1041,12 +1077,12 @@ def check_coarse_train(rec: Record, g) -> None:
         print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
               + f"; apply_bwd bound {ab:.4f} ms ({aby}); stats_bwd "
               f"{split.get('stats_bwd_kernel', 0.0):.4f} ms against its bound {sb:.4f} ms ({sby})")
-        rec.site("coarse_layer_forward", count,
+        rec.site("coarse_layer_forward" + suffix, count,
                  cuda_ms(lambda: coarse_layer_forward(x, src, lv, h)),
                  cuda_ms(lambda: encoder_reference_with_stats(x, src, lv, h), iters=3),
                  coarse_train_fwd_work(G, N, N, C, h),
                  err=float((out.float() - ref_out.float()).abs().max()))
-        rec.site("coarse_layer_backward", count,
+        rec.site("coarse_layer_backward" + suffix, count,
                  cuda_ms(lambda: coarse_layer_backward(x, src, kv, ks, gout, lv, lt, h), iters=10),
                  cuda_ms(lambda: coarse_layer_backward_reference(x, src, kv, ks, gout, lv, h),
                          iters=3),
@@ -1063,7 +1099,10 @@ def print_window_bwd_block(occ: dict, windows: int) -> None:
           f"window slots (fill {windows / (-(-windows // slots) * slots):.0%})", flush=True)
 
 
-def check_fine_train(rec: Record, g) -> None:
+def check_fine_train(rec: Record, g, h=8, suffix="") -> None:
+    """K10 at the training step's calls with h heads of C = 64 (default head
+    dim 8; 1: tpu_optimized_config()'s 64), recorded under the kernels'
+    names + `suffix`."""
     from featurematching_tpu_torch.ops.fine_stage import (
         fine_layer_forward,
         fine_layer_reference,
@@ -1076,7 +1115,7 @@ def check_fine_train(rec: Record, g) -> None:
         window_bwd_occupancy,
     )
 
-    nwin, N, C, h = B * 1024, 49, 64, 8  # max_gt_matches windows a pair, 7x7 taps
+    nwin, N, C = B * 1024, 49, 64  # max_gt_matches windows a pair, 7x7 taps
     print_fine_block(fine_stage_occupancy(1, h, nwin), nwin)  # K10's forward: one layer
     print(f"  tolerance per tensor (the layer's two outputs, dx, dsrc, 10 gradients): "
           f"|kernel - plain| <= {K10_TOL} |plain| (norms); max |kernel - plain| / max |plain| "
@@ -1104,7 +1143,8 @@ def check_fine_train(rec: Record, g) -> None:
         peak = {n: rel_err(got[n], ref[n]) for n in got}
         wpeak = max(peak, key=peak.get)
         dsrc = f"dsrc {errs['dsrc']:.2e}" if "dsrc" in errs else "dsrc added into dx"
-        print(f"  {kind} layer, backward call G={G}: norm errors out0 {errs['out0']:.2e}, dx "
+        print(f"  {kind} layer, {h} heads, backward call G={G}: norm errors out0 "
+              f"{errs['out0']:.2e}, dx "
               f"{errs['dx']:.2e}, {dsrc}, worst {worst} {errs[worst]:.2e}; "
               f"largest entry error / max |plain|: {wpeak} {peak[wpeak]:.2e}; bit-identical "
               f"twice {same}")
@@ -1136,13 +1176,13 @@ def check_fine_train(rec: Record, g) -> None:
         print("    backward by kernel: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
               + f"; window_bwd bound {wb:.4f} ms ({wby})")
         calls = 1 if kind == "self" else 2
-        rec.site("fine_layer_forward", 1,
+        rec.site("fine_layer_forward" + suffix, 1,
                  cuda_ms(lambda: fine_layer_forward(w0, w1, lv, kind, h)),
                  cuda_ms(lambda: fine_layer_reference(w0, w1, lv, kind, h), iters=3),
                  total([fine_train_fwd_work(G, N, C, h)] * calls),
                  err=max(float((a.float() - r.float()).abs().max())
                          for a, r in zip(out, ref_out)))
-        rec.site("fine_layer_backward", count, cuda_ms(bwd, iters=10),
+        rec.site("fine_layer_backward" + suffix, count, cuda_ms(bwd, iters=10),
                  cuda_ms(lambda: fine_layer_backward_reference(x, src, gout, lv, h), iters=3),
                  fine_train_bwd_work(G, N, C, h, kind == "self"),
                  err=float((got["dx"] - ref["dx"]).abs().max()))
@@ -1518,13 +1558,15 @@ def training_per_op(wrappers) -> None:
             raise AssertionError(f"non-finite parameter {name}")
 
 
-def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fine_fused=None):
-    """default_config() as users run it, optionally with another drop-path
-    rate, block switch, coarse.fused_train or fine.fused_train (K9 and K10:
+def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fine_fused=None,
+                    tpu=False):
+    """default_config() (or, with `tpu`, tpu_optimized_config(): head dim 64
+    throughout) as users run it, optionally with another drop-path rate,
+    block switch, coarse.fused_train or fine.fused_train (K9 and K10:
     'auto' by default, the kernels on the card)."""
-    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.config import default_config, tpu_optimized_config
 
-    cfg = default_config()
+    cfg = tpu_optimized_config() if tpu else default_config()
     m = cfg.model
     swin, coarse, fine = m.swin, m.coarse, m.fine
     if drop_path_rate is not None:
@@ -1553,7 +1595,9 @@ def profile_ms(fn):
     return sum(r[0] for r in rows), rows
 
 
-def training_step(wrappers, launches) -> None:
+def training_step(wrappers, launches, tpu=False) -> None:
+    """The training step at default_config() (or, with `tpu`,
+    tpu_optimized_config()), 640x480, batch 4, bf16, every switch 'auto'."""
     import numpy as np
 
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
@@ -1563,7 +1607,7 @@ def training_step(wrappers, launches) -> None:
         train_step,
     )
 
-    cfg = training_config()
+    cfg = training_config(tpu=tpu)
     state = create_train_state(cfg, device="cuda", seed=0)
     t = time.time()
     batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
@@ -1668,15 +1712,17 @@ class _Recorder:
                         lambda self, v: setattr(self.fn, "launches", v))
 
 
-def semantic_setup():
+def semantic_setup(tpu=False):
     """(cfg, card state, CPU state with the card's weights, batch) of the
-    training semantic check."""
+    training semantic check, at default_config() or, with `tpu`,
+    tpu_optimized_config()."""
     import numpy as np
 
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
     from featurematching_tpu_torch.train.step import create_train_state
 
-    cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on", fine_fused="on")
+    cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on", fine_fused="on",
+                          tpu=tpu)
     card = create_train_state(cfg, device="cuda", seed=0, global_batch_size=2)
     cpu = create_train_state(cfg, device="cpu", seed=0, global_batch_size=2)
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
@@ -1780,13 +1826,9 @@ def agreement_failures(r: dict) -> list:
     return bad + ([] if r["min_cos"] >= LIMITS["min_cos"] else ["min_cos"])
 
 
-def training_semantic() -> None:
-    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
-    from featurematching_tpu_torch.train.optimizer import build_optimizer
-    from featurematching_tpu_torch.train.step import eval_step, train_step
-
-    cfg, card, cpu, batch = semantic_setup()
-    r = training_agreement(cfg, card, cpu, batch)
+def print_agreement(r: dict) -> None:
+    """The readings of `training_agreement`; raises where one is outside
+    LIMITS."""
     print(f"  limits: {LIMITS}")
     print(f"  128x128 card vs CPU plain (bf16 both): loss {r['card_loss']:.6f} vs "
           f"{r['cpu_loss']:.6f} (rel {r['loss']:.3e}); gradient cosine min {r['min_cos']:.5f} "
@@ -1802,6 +1844,20 @@ def training_semantic() -> None:
     bad = agreement_failures(r)
     if bad:
         raise AssertionError(f"the card's training step disagrees with the plain path: {bad}")
+
+
+def training_semantic(tpu=False) -> None:
+    """`training_agreement` at default_config() (then ten steps lower the
+    loss, and the evaluation step's matches) or, with `tpu`, at
+    tpu_optimized_config() alone."""
+    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
+    from featurematching_tpu_torch.train.optimizer import build_optimizer
+    from featurematching_tpu_torch.train.step import eval_step, train_step
+
+    cfg, card, cpu, batch = semantic_setup(tpu)
+    print_agreement(training_agreement(cfg, card, cpu, batch))
+    if tpu:
+        return
     # ten steps on one batch, warmup off, lr 1e-4 (canonical_lr 0.0032 at batch 2)
     ocfg = dataclasses.replace(cfg.trainer.optimizer, warmup_steps=0, canonical_lr=0.0032)
     card.optimizer = build_optimizer(card.model.parameters(), ocfg, 2, cfg.trainer.steps_per_epoch)
@@ -2003,9 +2059,15 @@ def main() -> int:
 
     def build():
         for name, log in _build.build(ptxas_verbose=True).items():
+            entry = ""  # the kernel the next lines describe, from its mangled name
             for line in log.splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
-                    print(f"  {name}: {line.strip()}")
+                m = re.search(r"Compiling entry function '([^']+)'", line)
+                if m:
+                    k = re.search(r"([A-Za-z_]+_kernel)((?:I(?:L[ib]\d+E)+)?)", m.group(1))
+                    args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+                    entry = (k.group(1) + (f"<{', '.join(args)}>" if args else "")) if k else ""
+                elif "registers" in line or "spill" in line or "error" in line:
+                    print(f"  {name}: {entry + ': ' if entry else ''}{line.strip()}")
 
     rec = Record()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -2036,6 +2098,12 @@ def main() -> int:
     phase("check swin_block_fused_image, head dim 64",
           lambda: check_swin_block_image(rec, g, image_launches, tpu_cfg,
                                          "swin_block_fused_image@hd64"))
+    phase("check swin_block_train, head dim 64",
+          lambda: check_swin_block_train(rec, g, (1, 2, 4), "@hd64"))
+    phase("check coarse_transformer_train, head dim 64",
+          lambda: check_coarse_train(rec, g, 4, "@hd64"))
+    phase("check fine_transformer_train, head dim 64",
+          lambda: check_fine_train(rec, g, 1, "@hd64"))
 
     cfg = default_config().model
     launches = {}  # of the serving forward
@@ -2065,6 +2133,11 @@ def main() -> int:
     phase(f"training step {W}x{H} batch {B} bf16",
           lambda: training_step(wrappers, train_launches))
     phase("training semantic checks", training_semantic)
+    tpu_train_launches = {}  # of the training step at tpu_optimized_config()
+    phase(f"training step tpu_optimized_config() {W}x{H} batch {B} bf16",
+          lambda: training_step(wrappers, tpu_train_launches, tpu=True))
+    phase("training semantic checks, tpu_optimized_config()",
+          lambda: training_semantic(tpu=True))
     phase(f"evaluation step, per-op block, {W}x{H} batch {B} bf16",
           lambda: eval_forward(wrappers, eval_launches))
     phase("evaluation semantic checks, per-op block", eval_semantic)
@@ -2073,7 +2146,8 @@ def main() -> int:
 
     kernels = []
     path_launches = (dict.fromkeys(EXPECTED_PER_FORWARD, launches)
-                     | dict.fromkeys(HD64, tpu_launches) | {
+                     | {n: tpu_train_launches if EXPECTED_PER_STEP.get(k) else tpu_launches
+                        for n, k in HD64.items()} | {
                          "window_attention": eval_launches,
                          "swin_block_fused_image": image_launches,
                          "swin_block_fused_image@hd64": image_launches})

@@ -48,7 +48,9 @@
 //      - Shared memory: six [64, C] bf16 buffers, five reused phase by phase
 //        (x, then y2, then dy1 over the first two; o, then msg; Q, then x,
 //        then dqf; m1, then dm1, then dopre; the plain K^T V, the hidden
-//        chunk, dy2, dmsg's row halves, the plain K^T V again) and g; K_sum,
+//        chunk, dy2, dmsg's row halves, the plain K^T V again; at head dim
+//        64 its 16-byte chunks permuted by row in place of [C][D + 8]'s
+//        padding, KvSmem, which would outgrow the buffer) and g; K_sum,
 //        the LN parameters and statistics and the dK_sum partial: 209,408
 //        bytes at C = 256, one block an SM.
 //      It writes the bf16 operands of the weight products (o, msg, h, dy2,
@@ -253,13 +255,41 @@ __device__ __forceinline__ void head_z(float (&z)[4][C / 4 / D], const bf16* qs,
     }
 }
 
+// apply_bwd's plain K^T V in shared memory, [C][D] (row h D + k, column n):
+// rows of D + 8 values (the padding keeps ldmatrix's rows in distinct
+// banks), or at D = 64, where [C][72] outgrows the fifth buffer, rows of 64
+// with each row's 16-byte chunks permuted by (chunk ^ row % 8), which does
+// the same in 32 KB
+template <int D>
+struct KvSmem {
+  static constexpr bool SWIZZLED = D == 64;
+  static constexpr int LD = SWIZZLED ? D : D + 8;
+  __device__ __forceinline__ static int at(int row, int col) {
+    if constexpr (SWIZZLED) return row * D + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+    else return row * LD + col;
+  }
+};
+
+// B fragment of the 16x16 tile of K^T V at (row0, col0) (fm::load_b's
+// lanes; TRANS: load_b_t's, the tile's transpose)
+template <int D, bool TRANS>
+__device__ __forceinline__ void load_kv_b(uint32_t* r, const bf16* kvp, int row0, int col0,
+                                          int lane) {
+  const int m = lane >> 3;
+  if (TRANS)
+    fm::ldsm_x4(r, kvp + KvSmem<D>::at(row0 + (lane & 7) + (m >> 1) * 8, col0 + (m & 1) * 8));
+  else
+    fm::ldsm_x4_trans(r, kvp + KvSmem<D>::at(row0 + (lane & 7) + (m & 1) * 8,
+                                              col0 + (m >> 1) * 8));
+}
+
 // acc[i] += A_h . KV_h (TRANS: A_h . KV_hᵀ) for column tile j of the
 // warp's tile of a [64, C] output (its two row tiles i), the 16 columns'
-// head h: A bf16 [64][C + 8], the plain K^T V [C][D + 8] (row h D + k)
+// head h: A bf16 [64][C + 8], the plain K^T V (KvSmem, row h D + k)
 template <int C, int D, bool TRANS>
 __device__ __forceinline__ void head_tile(Acc16 (&acc)[2], const bf16* a, const bf16* kvp, int j,
                                           int warp, int lane) {
-  constexpr int LD1 = C + 8, LDKV = D + 8;
+  constexpr int LD1 = C + 8;
   const int m0 = warp / 4 * 32, col = warp % 4 * (C / 4) + 16 * j, h = col / D, e0 = col % D;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -268,16 +298,16 @@ __device__ __forceinline__ void head_tile(Acc16 (&acc)[2], const bf16* a, const 
     for (int i = 0; i < 2; ++i)
       fm::load_a(fa[i], a + (m0 + 16 * i) * LD1 + h * D + 16 * kk, LD1, lane);
     if (TRANS)
-      load_b_t(fb, kvp + (h * D + e0) * LDKV + 16 * kk, LDKV, lane);
+      load_kv_b<D, true>(fb, kvp, h * D + e0, 16 * kk, lane);
     else
-      fm::load_b(fb, kvp + (h * D + 16 * kk) * LDKV + e0, LDKV, lane);
+      load_kv_b<D, false>(fb, kvp, h * D + 16 * kk, e0, lane);
 #pragma unroll
     for (int i = 0; i < 2; ++i) fm::mma16(acc[i], fa[i], fb);
   }
 }
 
 // K^T V of one image from the merge's fragment order into plain rows
-// [C][D + 8] of shared memory (row h D + k, column n): this thread's
+// of shared memory (KvSmem: row h D + k, column n): this thread's
 // 16-byte pieces are read first (load) and written out later (store), so
 // that the read's latency hides behind other work
 template <int C, int D>
@@ -292,7 +322,7 @@ struct KvPlain {
   }
 
   __device__ __forceinline__ void store(bf16* kvp) const {
-    constexpr int DT = D / 16, LDKV = D + 8;
+    constexpr int DT = D / 16;
 #pragma unroll
     for (int p = 0; p < PIECES; ++p) {
       const int e8 = threadIdx.x + p * kThreads, ln = e8 & 31, tl = e8 >> 5;
@@ -303,7 +333,8 @@ struct KvPlain {
         const int k = kt * 16 + 2 * (ln & 3) + (q & 1) + 8 * ((q >> 1) & 1);
         const int n = nt * 16 + (ln >> 2) + 8 * (q >> 2);
         const uint32_t bits = q & 1 ? w[q >> 1] >> 16 : w[q >> 1] & 0xffffu;
-        kvp[(h * D + k) * LDKV + n] = __ushort_as_bfloat16(static_cast<unsigned short>(bits));
+        kvp[KvSmem<D>::at(h * D + k, n)] =
+            __ushort_as_bfloat16(static_cast<unsigned short>(bits));
       }
     }
   }
@@ -356,7 +387,6 @@ struct BwdSmem {
   static constexpr int LD1 = C + 8;      // [64, C] bf16 rows
   static constexpr int LD2 = 2 * C + 8;  // dy1 [64, 2C] over the first two buffers
   static constexpr int LDH = HC + 8;     // a hidden chunk
-  static constexpr int LDKV = D + 8;     // each head's K^T V rows
   static constexpr size_t R = (size_t)T * LD1 * 2;  // bytes of a [64, C] buffer
   static constexpr size_t x_off = 0;                // x, y2; then dy1 over x | o
   static constexpr size_t o_off = R;                // o, msg, LN2's column sums
@@ -372,7 +402,7 @@ struct BwdSmem {
   // f32 [64][H] each: Z + eps, S / (Z + eps) and the head sums of dZ
   static constexpr size_t bytes = z_off + 3 * T * (C / D) * 4;
   static_assert(T * LD2 * 2 <= 2 * R, "dy1 must fit the first two buffers");
-  static_assert(T * LDH * 2 <= R && C * LDKV * 2 <= R && T / 2 * (C + 4) * 4 <= R &&
+  static_assert(T * LDH * 2 <= R && C * KvSmem<D>::LD * 2 <= R && T / 2 * (C + 4) * 4 <= R &&
                     kWarps * 2 * C * 4 <= R,
                 "the tenants of the second and fifth buffers must fit");
   static_assert(bytes <= kMaxSmem, "apply_bwd shared memory");
@@ -812,6 +842,15 @@ __global__ void bwd_merge_kernel(const float* __restrict__ part_kv,
 //     stored from the same registers in 8-byte pieces after one exchange
 //     between lane pairs. Units of 32 keep a thread's registers below 255:
 //     the dsrc accumulator, the unit's [K | V] (32) and its fragments.
+//   - At head dim 64 a head spans two units, whose dV and dK each need the
+//     other's K and V. So the loop takes the units in groups of UG, the
+//     units a head spans (one below head dim 64, a group's head k-steps
+//     read from the unit and k-step that hold them): the pair's [K | V]
+//     products come first (both units'
+//     fragments and elu' kept: 64 registers), then each unit's [dkf | dv]
+//     over the head and its dsrc product, the two slots handed back
+//     together. Two slots, not three: the warpgroups' [256][72] dKᵀV
+//     (73,728 bytes) leave no room for a third (207,912 bytes of 232,448).
 //   - No atomics and no cross-block sums: each output is written once, so
 //     two runs agree bit for bit.
 // Rounding as `stats_backward_reference`: K and V rounded to bf16 before the
@@ -834,19 +873,24 @@ constexpr int kSbSlots = 3;      // weight units in flight a block
 template <int C, int D>
 struct SbLayout {
   static constexpr int UNITS = C / SU;
+  static constexpr int UG = D > SU ? D / SU : 1;  // units a group: those a head spans
+  // weight units in flight: at D = 64 two (two units make a head, and the
+  // two warpgroups' [C][72] dKᵀV leave no room for a third slot)
+  static constexpr int NS = D == 64 ? 2 : kSbSlots;
   static constexpr uint32_t UNIT = (uint32_t)C * 128;  // a unit's image: C / 64 boxes [64][64]
   static constexpr uint32_t SRC = (uint32_t)T * C * 2;  // a source tile: C / 64 boxes [64][64]
   static constexpr int LDKV = D + 8;                    // dKᵀV rows, plain [C][D + 8]
   static constexpr uint32_t DKV = (uint32_t)C * LDKV * 2;
-  static constexpr uint32_t w_off = 0;                          // the ring's slots
-  static constexpr uint32_t src_off = w_off + kSbSlots * UNIT;  // a source tile a warpgroup
-  static constexpr uint32_t dkv_off = src_off + 2 * SRC;        // dKᵀV a warpgroup
-  static constexpr uint32_t dks_off = dkv_off + 2 * DKV;        // f32 dK_sum [C] a warpgroup
-  static constexpr uint32_t bar_off = dks_off + 2 * C * 4;      // mbarriers, slot counters
+  static constexpr uint32_t w_off = 0;                     // the ring's slots
+  static constexpr uint32_t src_off = w_off + NS * UNIT;   // a source tile a warpgroup
+  static constexpr uint32_t dkv_off = src_off + 2 * SRC;   // dKᵀV a warpgroup
+  static constexpr uint32_t dks_off = dkv_off + 2 * DKV;   // f32 dK_sum [C] a warpgroup
+  static constexpr uint32_t bar_off = dks_off + 2 * C * 4; // mbarriers, slot counters
   // + 1024: the slots' swizzle atoms need 1024-byte aligned addresses
-  static constexpr size_t bytes = bar_off + 8 * (kSbSlots + 2) + 4 * kSbSlots + 1024;
+  static constexpr size_t bytes = bar_off + 8 * (NS + 2) + 4 * NS + 1024;
   static_assert(bytes <= kMaxSmem, "stats_bwd shared memory");
-  static_assert(C % 64 == 0 && SU % D == 0, "whole boxes, whole heads a unit");
+  static_assert(C % 64 == 0 && (SU % D == 0 || D == UG * SU) && NS >= UG,
+                "whole boxes, whole heads a group of units, a group's slots in the ring");
 };
 
 struct SbIO {
@@ -898,7 +942,7 @@ template <int C, int D>
 __global__ void __launch_bounds__(kSbThreads, 1)
 stats_bwd_kernel(const __grid_constant__ CUtensorMap src, const __grid_constant__ SbIO io) {
   using L = SbLayout<C, D>;
-  constexpr int UNITS = L::UNITS, NS = kSbSlots, LDKV = L::LDKV;
+  constexpr int UNITS = L::UNITS, NS = L::NS, LDKV = L::LDKV, UG = L::UG;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (fm::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_off);
@@ -960,98 +1004,116 @@ stats_bwd_kernel(const __grid_constant__ CUtensorMap src, const __grid_constant_
     float ds[C / 2];  // dsrc [64, C] over the units
     fm::zero_regs(ds);
     fm::mbar_wait(&sfull[wg], k & 1);
+    // the units a group at a time: a group is one unit, or at D = 64 the two
+    // units a head spans (its K and V features 0..31 in the first, 32..63 in
+    // the second), whose dV and dK each need the other's K and V. The
+    // group's [K | V] products come first, then each unit's [dkf | dv] over
+    // its heads and its dsrc product; the group's slots go back together
 #pragma unroll 1
-    for (int q = 0; q < UNITS; ++q) {
-      const int i = k * UNITS + q, s = i % NS;
-      const uint32_t slot = sm + L::w_off + s * L::UNIT;
-      fm::mbar_wait(&full[s], (i / NS) & 1);
-      float acc[32];  // [kf | v] of the unit's 32 features, 16 columns an 8-entry group
-      fm::zero_regs(acc);
-      fm::wgmma_fence();
+    for (int q = 0; q < UNITS; q += UG) {
+      // K and V (bf16) as the A fragments of each unit's two k-steps, and
+      // elu's derivative exp(min(kf, 0)) (elu(kf) + 1 is max(kf, 0) +
+      // exp(min(kf, 0)), by ex2.approx, as K5's stats kernel forms K)
+      uint32_t kfr[UG][2][4], vfr[UG][2][4];
+      float der[UG][16];
 #pragma unroll
-      for (int st = 0; st < C / 16; ++st) {  // k-step st: box st / 4, 32 bytes a k-step in
-        const uint32_t at = (st / 4) * (T * 128) + (st % 4) * 32;
-        fm::wgmma_ss_n64(acc, kdesc(ssrc + at), kdesc(slot + at), 1);
-      }
-      fm::wgmma_commit();
-      fm::wgmma_wait<0>();
-      fm::fence_regs(acc);
-      if (q == UNITS - 1) {
-        fm::named_barrier(1 + wg, 128);  // every warp's products have read the source tile
-        if (wt == 0 && k + 1 < mine) fill_src<C>(srcs, &src, tile_row(tile + 2), &sfull[wg]);
-      }
-      // K and V (bf16) as the A fragments of the unit's two k-steps; kf
-      // gives way to elu's derivative exp(min(kf, 0)) (elu(kf) + 1 is
-      // max(kf, 0) + exp(min(kf, 0)), by ex2.approx, as K5's stats kernel
-      // forms K)
-      uint32_t kfr[2][4], vfr[2][4];
+      for (int u = 0; u < UG; ++u) {
+        const int i = k * UNITS + q + u, s = i % NS;
+        const uint32_t slot = sm + L::w_off + s * L::UNIT;
+        fm::mbar_wait(&full[s], (i / NS) & 1);
+        float acc[32];  // [kf | v] of the unit's 32 features, 16 columns an 8-entry group
+        fm::zero_regs(acc);
+        fm::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int a = 8 * kk + 2 * r;
-          const float e0 = __expf(fminf(acc[a], 0.f)), e1 = __expf(fminf(acc[a + 1], 0.f));
-          kfr[kk][r] = fm::pack_bf16(fmaxf(acc[a], 0.f) + e0, fmaxf(acc[a + 1], 0.f) + e1);
-          acc[a] = e0;
-          acc[a + 1] = e1;
-          vfr[kk][r] = fm::pack_bf16(acc[16 + a] * inv_s, acc[16 + a + 1] * inv_s);
+        for (int st = 0; st < C / 16; ++st) {  // k-step st: box st / 4, 32 bytes a k-step in
+          const uint32_t at = (st / 4) * (T * 128) + (st % 4) * 32;
+          fm::wgmma_ss_n64(acc, kdesc(ssrc + at), kdesc(slot + at), 1);
         }
-      // per 16 features: dV = K_h dKV_h, dK = V_h dKV_hᵀ (mma.sync, the warp's
-      // 16 rows); [dkf | dv] as the A fragments of dsrc's k-steps (dkf 0, 1; dv 2, 3)
-      uint32_t af[4][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int f0 = SU * q + 16 * n, h = f0 / D, e0 = f0 % D;
-        const int kk0 = (h * D - SU * q) / 16;  // the unit's first k-step of head h
-        fm::Acc16 dv, dk;
-        fm::zero(dv);
-        fm::zero(dk);
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          uint32_t fb[4], ft[4];
-          fm::load_b(fb, dkvp + (h * D + 16 * dd) * LDKV + e0, LDKV, lane);
-          fm::mma16(dv, kfr[kk0 + dd], fb);
-          load_b_t(ft, dkvp + (h * D + e0) * LDKV + 16 * dd, LDKV, lane);
-          fm::mma16(dk, vfr[kk0 + dd], ft);
+        fm::wgmma_commit();
+        fm::wgmma_wait<0>();
+        fm::fence_regs(acc);
+        if (q + u == UNITS - 1) {
+          fm::named_barrier(1 + wg, 128);  // every warp's products have read the source tile
+          if (wt == 0 && k + 1 < mine) fill_src<C>(srcs, &src, tile_row(tile + 2), &sfull[wg]);
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int c = f0 + 8 * (r >> 1) + 2 * t;  // the pair's first feature
-          const float2 dks = *reinterpret_cast<const float2*>(dkss + c);
-          af[n][r] = fm::pack_bf16((dk.c[2 * r] + dks.x) * acc[8 * n + 2 * r],
-                                   (dk.c[2 * r + 1] + dks.y) * acc[8 * n + 2 * r + 1]);
-          af[2 + n][r] = fm::pack_bf16(dv.c[2 * r] * inv_s, dv.c[2 * r + 1] * inv_s);
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int a = 8 * kk + 2 * r;
+            const float e0 = __expf(fminf(acc[a], 0.f)), e1 = __expf(fminf(acc[a + 1], 0.f));
+            kfr[u][kk][r] = fm::pack_bf16(fmaxf(acc[a], 0.f) + e0, fmaxf(acc[a + 1], 0.f) + e1);
+            der[u][a] = e0;
+            der[u][a + 1] = e1;
+            vfr[u][kk][r] = fm::pack_bf16(acc[16 + a] * inv_s, acc[16 + a + 1] * inv_s);
+          }
+      }
+      uint32_t af[UG][4][4];  // each unit's [dkf | dv] A fragments (dkf 0, 1; dv 2, 3)
+#pragma unroll
+      for (int u = 0; u < UG; ++u) {
+        // per 16 features: dV = K_h dKV_h, dK = V_h dKV_hᵀ (mma.sync, the
+        // warp's 16 rows), the head's k-step dd read from the group's unit
+        // and k-step that hold its features h D + 16 dd ..
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int f0 = SU * (q + u) + 16 * n, h = f0 / D, e0 = f0 % D;
+          fm::Acc16 dv, dk;
+          fm::zero(dv);
+          fm::zero(dk);
+#pragma unroll
+          for (int dd = 0; dd < D / 16; ++dd) {
+            const int fd = h * D + 16 * dd, gu = fd / SU - q, gk = fd % SU / 16;
+            uint32_t fb[4], ft[4];
+            fm::load_b(fb, dkvp + fd * LDKV + e0, LDKV, lane);
+            fm::mma16(dv, kfr[gu][gk], fb);
+            load_b_t(ft, dkvp + (h * D + e0) * LDKV + 16 * dd, LDKV, lane);
+            fm::mma16(dk, vfr[gu][gk], ft);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int c = f0 + 8 * (r >> 1) + 2 * t;  // the pair's first feature
+            const float2 dks = *reinterpret_cast<const float2*>(dkss + c);
+            af[u][n][r] = fm::pack_bf16((dk.c[2 * r] + dks.x) * der[u][8 * n + 2 * r],
+                                        (dk.c[2 * r + 1] + dks.y) * der[u][8 * n + 2 * r + 1]);
+            af[u][2 + n][r] = fm::pack_bf16(dv.c[2 * r] * inv_s, dv.c[2 * r + 1] * inv_s);
+          }
         }
-      }
-      // dsrc += [dkf | dv] W_uᵀ: B the unit's boxes read MN-major, k-step kk
-      // its output rows 16 kk .. (two atoms), the C inputs in 64-wide blocks
-      fm::wgmma_fence();
+        // dsrc += [dkf | dv] W_uᵀ: B the unit's boxes read MN-major, k-step kk
+        // its output rows 16 kk .. (two atoms), the C inputs in 64-wide blocks
+        const uint32_t slot = sm + L::w_off + ((k * UNITS + q + u) % NS) * L::UNIT;
+        fm::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (C == 256)
-          fm::wgmma_rs_n256<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);
-        else
-          fm::wgmma_rs_n128<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);
-      }
-      fm::wgmma_commit();
-      // the stash's [dkf | dv] while the product runs
-      bf16* st = io.dkv3 + row0 * 2 * C + SU * q;
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (C == 256)
+            fm::wgmma_rs_n256<1>(ds, af[u][kk], mdesc(slot + kk * 2048), 1);
+          else
+            fm::wgmma_rs_n128<1>(ds, af[u][kk], mdesc(slot + kk * 2048), 1);
+        }
+        fm::wgmma_commit();
+        // the stash's [dkf | dv] while the product runs
+        bf16* st = io.dkv3 + row0 * 2 * C + SU * (q + u);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        store16(st + 16 * n, 2 * C, af[n], r0, valid, t);
-        store16(st + C + 16 * n, 2 * C, af[2 + n], r0, valid, t);
+        for (int n = 0; n < 2; ++n) {
+          store16(st + 16 * n, 2 * C, af[u][n], r0, valid, t);
+          store16(st + C + 16 * n, 2 * C, af[u][2 + n], r0, valid, t);
+        }
       }
       fm::wgmma_wait<0>();
       fm::fence_regs(ds);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int u = 0; u < UG; ++u)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(af[kk][r])::"memory");
-      // the slot back; the round's last warp to hand it back refills it
-      const int next = i + NS;
-      fm::ring_handback(lane == 0, fm::smem_u32(counts + s), last, next < items,
-                        fm::smem_u32(&full[s]), slot,
-                        io.image + (size_t)(next % UNITS) * L::UNIT, L::UNIT);
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(af[u][kk][r])::"memory");
+      // the group's slots back; the round's last warp to hand one back refills it
+#pragma unroll
+      for (int u = 0; u < UG; ++u) {
+        const int i = k * UNITS + q + u, s = i % NS, next = i + NS;
+        fm::ring_handback(lane == 0, fm::smem_u32(counts + s), last, next < items,
+                          fm::smem_u32(&full[s]), sm + L::w_off + s * L::UNIT,
+                          io.image + (size_t)(next % UNITS) * L::UNIT, L::UNIT);
+      }
     }
     bf16* dst = io.dsrc + row0 * C;
 #pragma unroll
@@ -1216,7 +1278,7 @@ extern "C" int fm_coarse_train_bwd(const void* const* in, void* const* out, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FM_BWD(c, d) \
   if (C == c && D == d) return (int)launch_bwd<c, d>(in, out, G, L, S, sms, st);
-  FM_BWD(128, 16) FM_BWD(128, 32) FM_BWD(256, 16) FM_BWD(256, 32)
+  FM_BWD(128, 16) FM_BWD(128, 32) FM_BWD(256, 16) FM_BWD(256, 32) FM_BWD(256, 64)
 #undef FM_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1226,7 +1288,7 @@ extern "C" int fm_coarse_train_bwd(const void* const* in, void* const* out, int 
 extern "C" int fm_coarse_train_bwd_occupancy(int C, int D, int* info) {
 #define FM_OCC(c, d) \
   if (C == c && D == d) return (int)bwd_occupancy<c, d>(info);
-  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32) FM_OCC(256, 64)
 #undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }
@@ -1236,7 +1298,7 @@ extern "C" int fm_coarse_train_bwd_occupancy(int C, int D, int* info) {
 extern "C" int fm_coarse_train_stats_bwd_occupancy(int C, int D, int* info) {
 #define FM_OCC(c, d) \
   if (C == c && D == d) return (int)stats_bwd_occupancy<c, d>(info);
-  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32)
+  FM_OCC(128, 16) FM_OCC(128, 32) FM_OCC(256, 16) FM_OCC(256, 32) FM_OCC(256, 64)
 #undef FM_OCC
   return (int)cudaErrorInvalidValue;
 }

@@ -60,6 +60,8 @@
 //   - Row work in registers over the quad: the LN statistics and backwards,
 //     elu and its derivative (by __expf), Z = Q_h . K_sum_h, N / (Z + eps),
 //     the head sums of dZ, and the ReLU mask as two words of bits a thread.
+//     At head dim 64 (one head) nothing is masked, and Z and dZ's head sum
+//     span a row's four k-steps (head_sums).
 //     Column sums (K_sum, dK_sum and the four LN gradients) are
 //     reduce-scatters over a column's 8 lanes, then over the 4 warps (or a
 //     block's warps and warpgroups) in a fixed order.
@@ -336,12 +338,11 @@ __device__ __forceinline__ void ln_backward(float (&dh)[32], const float (&xh)[3
   }
 }
 
-// Z = Q_h . K_sum_h for the thread's rows over k-step kk of Q's fragments
-// (qk = q[kk]): z[r] for row r0 + 8 (r & 1) and the head of columns 16 kk +
-// 8 (r >> 1) ..
-template <int D>
-__device__ __forceinline__ void z_of(const uint32_t (&qk)[4], const float* ks, int kk,
-                                     float (&z)[4], int t) {
+// the lane's terms of Q . K_sum over k-step kk of Q's fragments (qk =
+// q[kk]): z[r] over its two columns of row r0 + 8 (r & 1) in the strip of
+// columns 16 kk + 8 (r >> 1) ..
+__device__ __forceinline__ void z_terms(const uint32_t (&qk)[4], const float* ks, int kk,
+                                        float (&z)[4], int t) {
   const float2 k0 = *reinterpret_cast<const float2*>(ks + 16 * kk + 2 * t);
   const float2 k1 = *reinterpret_cast<const float2*>(ks + 16 * kk + 8 + 2 * t);
 #pragma unroll
@@ -349,13 +350,50 @@ __device__ __forceinline__ void z_of(const uint32_t (&qk)[4], const float* ks, i
     const float2 qv = unpack2(qk[r]), kc = r < 2 ? k0 : k1;
     z[r] = qv.x * kc.x + qv.y * kc.y;
   }
-  if (D == 16) {  // one head a tile
-    z[0] = z[2] = quad_sum(z[0] + z[2]);
-    z[1] = z[3] = quad_sum(z[1] + z[3]);
-  } else {  // two heads a tile
+}
+
+// each head's sum of the lane's terms v[kk][r] (row r0 + 8 (r & 1), its two
+// columns in the strip 16 kk + 8 (r >> 1) ..), in place: at D = 8 over a
+// strip's quad, at D = 16 over a k-step's two strips and the quad, at D =
+// 64 (one head) over a row's four k-steps, the lane's terms first, then
+// the quad
+template <int D>
+__device__ __forceinline__ void head_sums(float (&v)[4][4]) {
+  static_assert(D == 8 || D == 16 || D == 64, "heads within a k-step, or one head");
+  if constexpr (D == 64) {
+    float s[2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) z[r] = quad_sum(z[r]);
+    for (int i = 0; i < 2; ++i) {
+      s[i] = v[0][i] + v[0][i + 2];
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk) s[i] += v[kk][i] + v[kk][i + 2];
+      s[i] = quad_sum(s[i]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[kk][r] = s[r & 1];
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 16) {  // one head a k-step
+        v[kk][0] = v[kk][2] = quad_sum(v[kk][0] + v[kk][2]);
+        v[kk][1] = v[kk][3] = quad_sum(v[kk][1] + v[kk][3]);
+      } else {  // two heads a k-step
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[kk][r] = quad_sum(v[kk][r]);
+      }
+    }
   }
+}
+
+// Z = Q_h . K_sum_h for the thread's rows over Q's fragments q: z[kk][r]
+// for row r0 + 8 (r & 1) and the head of columns 16 kk + 8 (r >> 1) ..
+template <int D>
+__device__ __forceinline__ void z_all(const Frag& q, const float* ks, float (&z)[4][4], int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) z_terms(q[kk], ks, kk, z[kk], t);
+  head_sums<D>(z);
 }
 
 // a [64, 64] accumulator's head-diagonal D x D blocks (rows r0, r0 + 8,
@@ -501,8 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_kernel(Io io) {
     Frag o;  // o = bf16(Q . KV_bd * (N / (Z + eps)))
     {
       float z[4][4], a[32];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) z_of<D>(q[kk], ks, kk, z[kk], t);
+      z_all<D>(q, ks, z, t);
       fm::zero_regs(a);
       fm::wgmma_fence();
 #pragma unroll
@@ -707,7 +744,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_kernel(Io io) {
     }
     // ---- dA, dZ ----
     Frag da;          // dA = bf16(do (N / (Z + eps)))
-    float dzh[4][4];  // the head sums of dZ = bf16(-(do o32) / (Z + eps)), as z_of
+    float dzh[4][4];  // the head sums of dZ = bf16(-(do o32) / (Z + eps)), as z_all
     {
       to_frags(q, qf, [](float v) { return elu1(v); });
       // elu'(x . wq) waits for dqf in shared memory (the thread's own pairs)
@@ -725,19 +762,20 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_kernel(Io io) {
         for (int r = 0; r < 4; ++r) st_tile(ws + QT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t, q[kk][r]);
       finish(a);
       keep(q);
-      // a k-step at a time, Q back from its tile (the thread's own entries):
-      // Z, dA, dZ's head sums and dK_sum's parts Q[r, c] dZ_h(c)[r]
-      float cs[16];
+      // Q back from its tile (the thread's own entries), then Z, dA, dZ's
+      // head sums and dK_sum's parts Q[r, c] dZ_h(c)[r]
+      Frag qt;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t qk[4];
-        float z[4], zs[4];  // zs: this lane's two columns' sum of dZ
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) qk[r] = ld_tile(ws + QT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t);
-        z_of<D>(qk, ks, kk, z, t);
+        for (int r = 0; r < 4; ++r) qt[kk][r] = ld_tile(ws + QT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t);
+      float z[4][4];
+      z_all<D>(qt, ks, z, t);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float zi = __frcp_rn(z[r] + kEps), nf = n_f * zi;
+          const float zi = __frcp_rn(z[kk][r] + kEps), nf = n_f * zi;
           float dzv[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -747,22 +785,18 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_kernel(Io io) {
           }
           da[kk][r] = fm::pack_bf16(dov[8 * kk + 2 * r], dov[8 * kk + 2 * r + 1]);
           st_tile(ws + AT, r0 + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t, da[kk][r]);
-          zs[r] = dzv[0] + dzv[1];
+          dzh[kk][r] = dzv[0] + dzv[1];  // this lane's two columns
         }
-        if (D == 16) {
-          dzh[kk][0] = dzh[kk][2] = quad_sum(zs[0] + zs[2]);
-          dzh[kk][1] = dzh[kk][3] = quad_sum(zs[1] + zs[3]);
-        } else {
+      head_sums<D>(dzh);
+      float cs[16];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) dzh[kk][r] = quad_sum(zs[r]);
-        }
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // strip j = 2 kk + h: rows r = 2 h, 2 h + 1
-          const float2 qa = unpack2(qk[2 * h]), qb = unpack2(qk[2 * h + 1]);
+          const float2 qa = unpack2(qt[kk][2 * h]), qb = unpack2(qt[kk][2 * h + 1]);
           cs[4 * kk + 2 * h] = qa.x * dzh[kk][2 * h] + qb.x * dzh[kk][2 * h + 1];
           cs[4 * kk + 2 * h + 1] = qa.y * dzh[kk][2 * h] + qb.y * dzh[kk][2 * h + 1];
         }
-      }
       *reinterpret_cast<float2*>(colp + w * C + 8 * g + 2 * t) = column_sums(cs, g);
     }
     fm::fence_proxy_async();
@@ -933,7 +967,8 @@ cudaError_t occupancy(int* blocks_per_sm) {
 
 FM_ERROR_STRING_ENTRY
 
-// One encoder call's backward over G windows of N taps (C = 64, head dim D).
+// One encoder call's backward over G windows of N taps (C = 64, head dim D:
+// 8, 16 or 64).
 // in = {x [G, N, C], src [G, N, C] (bf16; the same pointer for a self call),
 // g [G, N, C] (f32); the layer's weight image (ops/fine_transformer_train.
 // train_image, 81920 bytes, 16-byte aligned); n1s, n1b, n2s (f32 [C])}.
@@ -946,7 +981,8 @@ FM_ERROR_STRING_ENTRY
 // check that leaves the last windows out); sms: the card's SMs.
 extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G, int N, int D,
                                  int run, int sms, void* stream) {
-  if (G <= 0 || N < 1 || N > 64 || (D != 8 && D != 16) || run <= 0 || run > G || sms <= 0)
+  if (G <= 0 || N < 1 || N > 64 || (D != 8 && D != 16 && D != 64) || run <= 0 || run > G ||
+      sms <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto Bf = [](const void* q) { return static_cast<const bf16*>(q); };
@@ -976,7 +1012,8 @@ extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G,
   io.run = run;
   io.self_call = in[0] == in[1];
   const int grid = grid_for(run, sms);
-  FM_CHECK(D == 8 ? launch_bwd<8>(io, grid, st) : launch_bwd<16>(io, grid, st));
+  FM_CHECK(D == 8 ? launch_bwd<8>(io, grid, st)
+                  : D == 16 ? launch_bwd<16>(io, grid, st) : launch_bwd<64>(io, grid, st));
 
   // out: dwq [C, C], dwkv [C, 2C], dwmerge [C, C], dln [4C], dw1 [2C, 2C], dw2 [2C, C]
   const int TLi = (int)TL;
@@ -997,9 +1034,10 @@ extern "C" int fm_fine_train_bwd(const void* const* in, void* const* out, int G,
 // memory in bytes, the blocks an SM can hold and the grid for G windows, at
 // head dim D
 extern "C" int fm_fine_train_bwd_occupancy(int D, int G, int sms, int* info) {
-  if ((D != 8 && D != 16) || G < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  if ((D != 8 && D != 16 && D != 64) || G < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   info[0] = kWarpgroups;
   info[1] = (int)kSmemBytes;
   info[3] = grid_for(G, sms);
-  return (int)(D == 8 ? occupancy<8>(&info[2]) : occupancy<16>(&info[2]));
+  return (int)(D == 8 ? occupancy<8>(&info[2])
+                      : D == 16 ? occupancy<16>(&info[2]) : occupancy<64>(&info[2]));
 }

@@ -24,8 +24,9 @@
 //      backward gives dx1 = g + ... (f32, to device memory) (section 1 says
 //      how);
 //   2. attn_bwd: per window LN1 and qkv are recomputed, o = P v from the
-//      saved P, do = dx1 s1, da = do Wprojᵀ, then two heads at a time dP,
-//      dS = P (dP - rowsum(dP P)), dq, dk, dv on register-resident units,
+//      saved P, do = dx1 s1, da = do Wprojᵀ, then two heads at a time (head
+//      dim 16; one at head dim 64) dP, dS = P (dP - rowsum(dP P)), dq, dk,
+//      dv on register-resident units,
 //      then dh1 = dqkv Wqkvᵀ and the LN1 backward give dx (section 2 says
 //      how: mma.sync tiles with register epilogues, the weights through a
 //      cp.async ring, as the forward's body);
@@ -55,7 +56,6 @@ namespace {
 using fm::Acc16;
 using fm::bf16;
 using swin::N;
-constexpr int D = 16;  // head dim: the backward takes 16 only
 constexpr int kWarps = 8;  // the backward's blocks
 constexpr int kThreads = 32 * kWarps;
 using fm::sum_parts;
@@ -63,7 +63,6 @@ using fm::sum_parts;
 constexpr int LDP = N + 8;     // bf16 [64][64] tile row stride
 constexpr float kSqrtHalf = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
-constexpr float kScale = 0.25f;  // head_dim ** -0.5
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 
@@ -610,9 +609,11 @@ mlp_bwd_kernel(const __grid_constant__ CUtensorMap map_w1,
 //     (AttnStream), each window the same stream: Wqkv's q, k and v column
 //     blocks as [KS][C] row slices, then Wproj and Wqkv as [C][KS] column
 //     slices, which ldmatrix without .trans (load_bt) reads as Wᵀ;
-//   - the heads two at a time (a pair), on register-resident units, with two
-//     barriers a pair. Phase A: warp w takes (head 2 pair + w / 4, query rows
-//     16 (w % 4) ..): its strip of the saved P as A fragments, o = P v,
+//   - the heads two at a time (a group; at head dim 64 one, Units below),
+//     on register-resident units, with two barriers a group. Phase A: warp w
+//     takes (head 2 group + w / 4, query rows 16 (w % 4) ..; at head dim 64
+//     head `group`, the same rows, columns 32 (w / 4) ..): its strip of the
+//     saved P as A fragments, o = P v,
 //     dP = da_h v_hᵀ in 32 f32 registers, the row sums across the four lanes
 //     of a row, dS = P (dP - rowsum(dP P)) in registers (f32 into the block's
 //     rel_bias partial; bf16 as the A fragments of dq = dS k_h, which the
@@ -818,56 +819,88 @@ __device__ __forceinline__ void load_p_strip(const bf16* pw, int hd, int tile, i
   }
 }
 
-// Phase A of the unit (head hd, query rows 16 tile ..): see the section's
-// comment. pv: the unit's strip of P (load_p_strip); ps / ss: the head's P
-// and dS strips [64][LDP]; o_out: the window's rows of the o stash; colq:
-// this row tile's dbqkv accumulator.
+// The attention units at head dim D: a group of GH heads at a time, each
+// head's 4 row tiles split into NC column parts of DW = D / NC columns, one
+// (head, row tile, column part) a warp. D = 16: two heads a group, a unit
+// the head's whole 16 columns. D = 64: one head a group, a unit 32 of its
+// columns; the two warps of a row tile both form the tile's whole dP and dS
+// (16 x 64, a contraction over the head's 64 columns), and each writes the
+// key tiles it owns (KT of the 4) of the P and dS strips and of the rel_bias
+// partial.
+template <int D>
+struct Units {
+  static constexpr int GH = D == 16 ? 2 : 1;  // heads a group
+  static constexpr int NC = 2 / GH;           // column parts of a head
+  static constexpr int DW = D / NC;           // a unit's columns
+  static constexpr int NT = DW / 16;          // its 16-column tiles
+  static constexpr int KT = N / 16 / NC;      // key tiles a unit writes
+  static_assert(GH * 4 * NC == kWarps && DW % 16 == 0, "a group's units: one a warp");
+};
+
+// The two warps of row tile `tile` (column parts 0 and 1, NC = 2) meet:
+// named barrier 1 + tile over 64 threads
+__device__ __forceinline__ void tile_pair_sync(int tile) { fm::named_barrier(1 + tile, 64); }
+
+// Phase A of the unit (head hd, query rows 16 tile .., column part cp): see
+// the section's comment. pv: the unit's strip of P (load_p_strip); ps / ss:
+// the head's P and dS strips [64][LDP]; o_out: the window's rows of the o
+// stash; colq: this row tile's dbqkv accumulator.
 // The unit's f32 dS goes to the block's rel_bias partial: REG, into dbr
 // (the unit's 32 values a lane, kept in registers over the block's
 // windows); otherwise into dbias in device memory, which the block's first
 // window writes and the others add to. Leaves dq (x head_dim^-0.5) in dq.
-template <int C, bool REG>
+template <int C, int D, bool REG>
 __device__ __forceinline__ void grad_unit_rows(const bf16* qkv, const bf16* das,
                                                const uint4 (&pv)[4], bf16* ps, bf16* ss,
                                                bf16* o_out, float* dbias,
                                                float (&dbr)[32], float* colq, bool first, int hd,
-                                               int tile, int lane, float (&dq)[8]) {
-  constexpr int LDQ = 3 * C + 8, LDX = C + 8;
-  const int g = lane >> 2, t = lane & 3;
-  // the unit's strip of P into its rows of ps, then A fragments
+                                               int tile, int cp, int lane,
+                                               float (&dq)[Units<D>::NT][8]) {
+  using U = Units<D>;
+  constexpr int LDQ = 3 * C + 8, LDX = C + 8, NT = U::NT, KT = U::KT;
+  constexpr float kScale = swin::attn_scale(D);
+  const int g = lane >> 2, t = lane & 3, c0 = hd * D + cp * U::DW, kt0 = cp * KT;
+  // the unit's strip of P (its key tiles) into its rows of ps, then A fragments
   bf16* pr = ps + tile * 16 * LDP;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int e = lane + 32 * i;
-    *reinterpret_cast<uint4*>(pr + (e >> 3) * LDP + (e & 7) * 8) = pv[i];
+    if (U::NC == 1 || (e & 7) / (2 * KT) == cp)
+      *reinterpret_cast<uint4*>(pr + (e >> 3) * LDP + (e & 7) * 8) = pv[i];
   }
-  __syncwarp();
+  if constexpr (U::NC == 1)
+    __syncwarp();
+  else
+    tile_pair_sync(tile);
   uint32_t pa[N / 16][4];
 #pragma unroll
   for (int kt = 0; kt < N / 16; ++kt) fm::load_a(pa[kt], pr + kt * 16, LDP, lane);
   // o = P v_h, rounded to bf16, to the stash
   const bf16* vh = qkv + 2 * C + hd * D;
-  {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
     Acc16 o;
     fm::zero(o);
 #pragma unroll
     for (int kt = 0; kt < N / 16; ++kt) {
       uint32_t vb[4];
-      fm::load_b(vb, vh + kt * 16 * LDQ, LDQ, lane);
+      fm::load_b(vb, qkv + kt * 16 * LDQ + 2 * C + c0 + 16 * j, LDQ, lane);
       fm::mma16(o, pa[kt], vb);
     }
-    store_tile_bf16(o.c, o_out + (size_t)tile * 16 * C + hd * D, C, lane);
+    store_tile_bf16(o.c, o_out + (size_t)tile * 16 * C + c0 + 16 * j, C, lane);
   }
-  // dP = da_h v_hᵀ: 16 rows x 64 keys
+  // dP = da_h v_hᵀ: 16 rows x 64 keys, over the head's D columns
   Acc16 dp[N / 16];
-  {
+#pragma unroll
+  for (int kt = 0; kt < N / 16; ++kt) fm::zero(dp[kt]);
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
     uint32_t aa[4];
-    fm::load_a(aa, das + tile * 16 * LDX + hd * D, LDX, lane);
+    fm::load_a(aa, das + tile * 16 * LDX + hd * D + 16 * kd, LDX, lane);
 #pragma unroll
     for (int kt = 0; kt < N / 16; ++kt) {
       uint32_t vb[4];
-      fm::load_bt(vb, vh + kt * 16 * LDQ, LDQ, lane);
-      fm::zero(dp[kt]);
+      fm::load_bt(vb, vh + kt * 16 * LDQ + 16 * kd, LDQ, lane);
       fm::mma16(dp[kt], aa, vb);
     }
   }
@@ -885,12 +918,14 @@ __device__ __forceinline__ void grad_unit_rows(const bf16* qkv, const bf16* das,
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
   }
-  // dS = P (dP - rowsum): f32 into the rel_bias partial, bf16 to ss and as A fragments
+  // dS = P (dP - rowsum): f32 into the rel_bias partial, bf16 to ss (the
+  // unit's key tiles) and as A fragments
   uint32_t sa[N / 16][4];
   float* db = dbias + ((size_t)hd * N + tile * 16) * N;
   bf16* sr = ss + tile * 16 * LDP;
 #pragma unroll
-  for (int kt = 0; kt < N / 16; ++kt)
+  for (int kt = 0; kt < N / 16; ++kt) {
+    const bool mine = kt >= kt0 && kt < kt0 + KT;
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       const float2 p = unpack_bf16(pa[kt][jp]);
@@ -898,6 +933,8 @@ __device__ __forceinline__ void grad_unit_rows(const bf16* qkv, const bf16* das,
       const float s0 = p.x * (dp[kt].c[2 * jp] - r), s1 = p.y * (dp[kt].c[2 * jp + 1] - r);
       const int row = g + 8 * (jp & 1), col = 16 * kt + 8 * (jp >> 1) + 2 * t;
       float2* d2 = reinterpret_cast<float2*>(db + row * N + col);
+      sa[kt][jp] = fm::pack_bf16(s0, s1);
+      if (!mine) continue;
       if (REG) {
         dbr[kt * 8 + 2 * jp] += s0;
         dbr[kt * 8 + 2 * jp + 1] += s1;
@@ -907,51 +944,60 @@ __device__ __forceinline__ void grad_unit_rows(const bf16* qkv, const bf16* das,
         const float2 acc = *d2;
         *d2 = make_float2(acc.x + s0, acc.y + s1);
       }
-      sa[kt][jp] = fm::pack_bf16(s0, s1);
       *reinterpret_cast<uint32_t*>(sr + row * LDP + col) = sa[kt][jp];
     }
-  // dq = dS k_h x head_dim^-0.5
-  Acc16 a;
-  fm::zero(a);
-#pragma unroll
-  for (int kt = 0; kt < N / 16; ++kt) {
-    uint32_t kb[4];
-    fm::load_b(kb, qkv + kt * 16 * LDQ + C + hd * D, LDQ, lane);
-    fm::mma16(a, sa[kt], kb);
   }
+  // dq = dS k_h x head_dim^-0.5
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dq[j] = a.c[j] * kScale;
-  add_col_sums(dq, colq + hd * D, lane);
+  for (int j = 0; j < NT; ++j) {
+    Acc16 a;
+    fm::zero(a);
+#pragma unroll
+    for (int kt = 0; kt < N / 16; ++kt) {
+      uint32_t kb[4];
+      fm::load_b(kb, qkv + kt * 16 * LDQ + C + c0 + 16 * j, LDQ, lane);
+      fm::mma16(a, sa[kt], kb);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dq[j][i] = a.c[i] * kScale;
+    add_col_sums(dq[j], colq + c0 + 16 * j, lane);
+  }
 }
 
-// Phase B of the unit (head hd, key rows 16 tile ..): dk = dSᵀ q_h x
-// head_dim^-0.5 and dv = Pᵀ da_h, their column sums into colq, bf16 over
-// the unit's rows of k_h and v_h.
-template <int C>
+// Phase B of the unit (head hd, key rows 16 tile .., column part cp): dk =
+// dSᵀ q_h x head_dim^-0.5 and dv = Pᵀ da_h over the unit's columns, their
+// column sums into colq, bf16 over the unit's rows of k_h and v_h.
+template <int C, int D>
 __device__ __forceinline__ void grad_unit_keys(bf16* qkv, const bf16* das, const bf16* ps,
                                                const bf16* ss, float* colq, int hd, int tile,
-                                               int lane) {
+                                               int cp, int lane) {
+  using U = Units<D>;
   constexpr int LDQ = 3 * C + 8, LDX = C + 8;
-  Acc16 dk, dv;
-  fm::zero(dk);
-  fm::zero(dv);
+  constexpr float kScale = swin::attn_scale(D);
+  const int c0 = hd * D + cp * U::DW;
 #pragma unroll
-  for (int kq = 0; kq < N / 16; ++kq) {
-    uint32_t fa[4], fb[4];
-    fm::load_a_trans(fa, ss + kq * 16 * LDP + tile * 16, LDP, lane);
-    fm::load_b(fb, qkv + kq * 16 * LDQ + hd * D, LDQ, lane);
-    fm::mma16(dk, fa, fb);
-    fm::load_a_trans(fa, ps + kq * 16 * LDP + tile * 16, LDP, lane);
-    fm::load_b(fb, das + kq * 16 * LDX + hd * D, LDX, lane);
-    fm::mma16(dv, fa, fb);
+  for (int j = 0; j < U::NT; ++j) {
+    Acc16 dk, dv;
+    fm::zero(dk);
+    fm::zero(dv);
+#pragma unroll
+    for (int kq = 0; kq < N / 16; ++kq) {
+      uint32_t fa[4], fb[4];
+      fm::load_a_trans(fa, ss + kq * 16 * LDP + tile * 16, LDP, lane);
+      fm::load_b(fb, qkv + kq * 16 * LDQ + c0 + 16 * j, LDQ, lane);
+      fm::mma16(dk, fa, fb);
+      fm::load_a_trans(fa, ps + kq * 16 * LDP + tile * 16, LDP, lane);
+      fm::load_b(fb, das + kq * 16 * LDX + c0 + 16 * j, LDX, lane);
+      fm::mma16(dv, fa, fb);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dk.c[i] *= kScale;
+    add_col_sums(dk.c, colq + C + c0 + 16 * j, lane);
+    add_col_sums(dv.c, colq + 2 * C + c0 + 16 * j, lane);
+    bf16* rows = qkv + tile * 16 * LDQ + c0 + 16 * j;
+    store_tile_bf16(dk.c, rows + C, LDQ, lane);
+    store_tile_bf16(dv.c, rows + 2 * C, LDQ, lane);
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) dk.c[j] *= kScale;
-  add_col_sums(dk.c, colq + C + hd * D, lane);
-  add_col_sums(dv.c, colq + 2 * C + hd * D, lane);
-  bf16* rows = qkv + tile * 16 * LDQ + hd * D;
-  store_tile_bf16(dk.c, rows + C, LDQ, lane);
-  store_tile_bf16(dv.c, rows + 2 * C, LDQ, lane);
 }
 
 // h1 = LN1(x) for the window's 64 rows (x in device memory, row stride C),
@@ -1036,7 +1082,7 @@ __device__ __forceinline__ void ln1_backward_rows(const float* dh, int ldh, cons
 
 // One block an SM at every width: at C = 64 the rel_bias partial in
 // registers (REG below) takes the registers a second block would need.
-template <int C>
+template <int C, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restrict__ probs,
                 const float* __restrict__ dx1, const float* __restrict__ ln1s,
@@ -1046,9 +1092,10 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
                 float* __restrict__ dbias_part) {
   using S = AttnSmem<C>;
   using P = Part<C>;
-  constexpr int H = C / D, LDX = S::LDX, LDQ = S::LDQ, LDD = S::LDD;
+  using U = Units<D>;
+  constexpr int H = C / D, GH = U::GH, LDX = S::LDX, LDQ = S::LDQ, LDD = S::LDD;
   constexpr int R = kThreads / C;  // a thread's column sums take every R-th row
-  static_assert(kWarps == 8 && H % 2 == 0, "a pair's units: 2 heads x 4 row tiles, one a warp");
+  static_assert(H % GH == 0, "whole groups of heads");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qkv = reinterpret_cast<bf16*>(smem + S::q_off);
   bf16* hs = reinterpret_cast<bf16*>(smem + S::h_off);  // h1, then do
@@ -1066,18 +1113,20 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
   // this thread's column and first row of the column sums: dbproj, LN1's scale and bias
   const int cc = threadIdx.x % C, rg = threadIdx.x / C;
   float sum_proj = 0.f, sum_l1s = 0.f, sum_l1b = 0.f;
-  // the attention units: warp w takes head 2 pair + w / 4, row tile w % 4
-  const int slot = warp / 4, tile = warp % 4;
+  // the attention units: warp w takes head GH group + slot, row tile w % 4,
+  // column part cp
+  const int slot = GH == 2 ? warp / 4 : 0, cp = GH == 2 ? 0 : warp / 4, tile = warp % 4;
   bf16* ps = hs + slot * N * LDP;
   bf16* ss = hs + (2 + slot) * N * LDP;
   float* colq = colacc + tile * 3 * C;
   // REG: the warp's rel_bias partial stays in registers over the block's
-  // windows, which pays at C = 64 (two units a warp, 64 registers a lane,
-  // some nine windows a block); at C = 128 it would take 128 registers, and
-  // at C = 256 a block takes one window
+  // windows, which pays at C = 64 (two units a warp at head dim 16, one at
+  // 64: 64 or 32 registers a lane, some nine windows a block); at C = 128 it
+  // would take 128 registers at head dim 16, and at C = 256 a block takes
+  // one window
   constexpr bool REG = C == 64;
-  constexpr int NREG = REG ? H / 2 : 1;
-  float dbr[NREG][32];  // REG: the rel_bias partial of the warp's unit in each pair
+  constexpr int NREG = REG ? H / GH : 1;
+  float dbr[NREG][32];  // REG: the rel_bias partial of the warp's unit in each group
 #pragma unroll
   for (int i = 0; i < NREG; ++i)
 #pragma unroll
@@ -1123,22 +1172,27 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
     });
     fm::copy_rows_from_smem(st.dout + row0 * C, C, hs, LDX, N, C);
 
-    // the heads, a pair at a time
-    float dq[8];
+    // the heads, a group at a time; dq goes over q_h once no unit reads q_h
+    float dq[U::NT][8];
+    auto store_dq = [&](int hd) {
+#pragma unroll
+      for (int j = 0; j < U::NT; ++j)
+        store_tile_bf16(dq[j], qkv + tile * 16 * LDQ + hd * D + cp * U::DW + 16 * j, LDQ, lane);
+    };
 #pragma unroll NREG
-    for (int pair = 0; pair < H / 2; ++pair) {
-      const int hd = 2 * pair + slot;
-      __syncthreads();  // da written; the previous pair's phase B is done
-      if (pair > 0) store_tile_bf16(dq, qkv + tile * 16 * LDQ + (hd - 2) * D, LDQ, lane);
-      grad_unit_rows<C, REG>(qkv, das, pv, ps, ss, st.o + row0 * C, dbias,
-                             dbr[REG ? pair : 0], colq, win == (int)blockIdx.x, hd, tile,
-                             lane, dq);
-      if (pair + 1 < H / 2) load_p_strip(pw, hd + 2, tile, lane, pv);  // the next pair's
-      __syncthreads();  // both heads' P and dS strips are in shared memory
-      grad_unit_keys<C>(qkv, das, ps, ss, colq, hd, tile, lane);
+    for (int grp = 0; grp < H / GH; ++grp) {
+      const int hd = GH * grp + slot;
+      __syncthreads();  // da written; the previous group's phase B is done
+      if (grp > 0) store_dq(hd - GH);
+      grad_unit_rows<C, D, REG>(qkv, das, pv, ps, ss, st.o + row0 * C, dbias,
+                                dbr[REG ? grp : 0], colq, win == (int)blockIdx.x, hd, tile,
+                                cp, lane, dq);
+      if (grp + 1 < H / GH) load_p_strip(pw, hd + GH, tile, lane, pv);  // the next group's
+      __syncthreads();  // the group's P and dS strips are in shared memory
+      grad_unit_keys<C, D>(qkv, das, ps, ss, colq, hd, tile, cp, lane);
     }
     __syncthreads();
-    store_tile_bf16(dq, qkv + tile * 16 * LDQ + (H - 2 + slot) * D, LDQ, lane);
+    store_dq(H - GH + slot);
     __syncthreads();
     fm::copy_rows_from_smem(st.dqkv + row0 * 3 * C, 3 * C, qkv, LDQ, N, 3 * C);
     // dh1 = dqkv Wqkvᵀ (f32, over h and da)
@@ -1164,15 +1218,16 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
   // fixed order
   if (REG) {
 #pragma unroll
-    for (int pair = 0; pair < NREG; ++pair) {
-      float* db = dbias + ((size_t)(2 * pair + slot) * N + tile * 16) * N;
+    for (int grp = 0; grp < NREG; ++grp) {
+      float* db = dbias + ((size_t)(GH * grp + slot) * N + tile * 16) * N;
 #pragma unroll
-      for (int kt = 0; kt < N / 16; ++kt)
+      for (int kt = 0; kt < N / 16; ++kt)  // the key tiles the warp's units own
 #pragma unroll
         for (int jp = 0; jp < 4; ++jp)
-          *reinterpret_cast<float2*>(db + fm::pair_row(jp, lane) * N +
-                                     fm::pair_col(kt, jp, lane)) =
-              make_float2(dbr[pair][kt * 8 + 2 * jp], dbr[pair][kt * 8 + 2 * jp + 1]);
+          if (kt / U::KT == cp)
+            *reinterpret_cast<float2*>(db + fm::pair_row(jp, lane) * N +
+                                       fm::pair_col(kt, jp, lane)) =
+                make_float2(dbr[grp][kt * 8 + 2 * jp], dbr[grp][kt * 8 + 2 * jp + 1]);
     }
   }
   __syncthreads();
@@ -1192,7 +1247,7 @@ attn_bwd_kernel(const bf16* __restrict__ x, const float* s1, const bf16* __restr
   }
 }
 
-template <int C>
+template <int C, int D>
 cudaError_t launch_fwd(const void* const* in, int num_windows, int nW, cudaStream_t st) {
   // in: x, mask, s1, s2, 13 params, out, probs, x1
   swin::TrainIO io{static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
@@ -1212,7 +1267,7 @@ cudaError_t mlp_maps(const bf16* w1, const bf16* w2, CUtensorMap* m1, CUtensorMa
   return e != cudaSuccess ? e : fm::bf16_tensor_map(m2, w2, 2, d2, s2, b2);
 }
 
-template <int C>
+template <int C, int D>
 cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows, int nb,
                        int nbm, int mlp_windows, int sms, cudaStream_t st) {
   // in: x, s1, s2, probs, x1, g, then the 13 params (PARAM_KEYS order)
@@ -1237,7 +1292,7 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows,
   e = cudaFuncSetAttribute(mlp_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)MlpLayout<C>::bytes);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attn_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(attn_bwd_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)AttnSmem<C>::bytes);
   if (e != cudaSuccess) return e;
   mlp_bwd_kernel<C><<<nbm, kThreads, MlpLayout<C>::bytes, st>>>(
@@ -1245,7 +1300,7 @@ cudaError_t launch_bwd(const void* const* in, void* const* out, int num_windows,
       mlp_windows, stash, dx1, mpart);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_kernel<C><<<nb, kThreads, AttnSmem<C>::bytes, st>>>(
+  attn_bwd_kernel<C, D><<<nb, kThreads, AttnSmem<C>::bytes, st>>>(
       Bf(in[0]), F(in[1]), Bf(in[3]), dx1, F(p[0]), F(p[1]), Bf(p[2]), F(p[3]), Bf(p[5]),
       num_windows, stash, static_cast<bf16*>(out[0]), small, dbias);
   e = cudaGetLastError();
@@ -1286,9 +1341,9 @@ cudaError_t occupancy(Kernel kernel, int bytes, int* info) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[1], kernel, kThreads, bytes);
 }
 
-template <int C>
+template <int C, int D>
 cudaError_t bwd_occupancy(int* info) {
-  cudaError_t e = occupancy(attn_bwd_kernel<C>, (int)AttnSmem<C>::bytes, info);
+  cudaError_t e = occupancy(attn_bwd_kernel<C, D>, (int)AttnSmem<C>::bytes, info);
   if (e != cudaSuccess) return e;
   return occupancy(mlp_bwd_kernel<C>, (int)MlpLayout<C>::bytes, info + 2);
 }
@@ -1297,62 +1352,75 @@ cudaError_t bwd_occupancy(int* info) {
 
 FM_ERROR_STRING_ENTRY
 
+namespace {
+
+// f(integral_constant C, integral_constant D) at a width and head dim the
+// kernels take: C in (64, 128, 256), D in HEAD_DIMS (16, 64); an invalid
+// value error for any other pair
+template <typename F>
+cudaError_t at_width(int C, int D, F f) {
+  using std::integral_constant;
+  if (D != 16 && D != 64) return cudaErrorInvalidValue;
+  switch (C) {
+    case 64:
+      return D == 16 ? f(integral_constant<int, 64>{}, integral_constant<int, 16>{})
+                     : f(integral_constant<int, 64>{}, integral_constant<int, 64>{});
+    case 128:
+      return D == 16 ? f(integral_constant<int, 128>{}, integral_constant<int, 16>{})
+                     : f(integral_constant<int, 128>{}, integral_constant<int, 64>{});
+    case 256:
+      return D == 16 ? f(integral_constant<int, 256>{}, integral_constant<int, 16>{})
+                     : f(integral_constant<int, 256>{}, integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 // Forward: in = {x, mask, s1, s2, ln1s, ln1b, wqkv, bqkv, rel_bias, wproj,
 // bproj, ln2s, ln2b, w1, b1, w2, b2, out, probs, x1} (mask, s1, s2 may be
 // null; nW = mask windows, 0 for none). Layouts as fm_swin_block; probs
-// [num_windows][C/16][64][64] bf16, x1 [num_windows][64][C] bf16.
-extern "C" int fm_swin_block_train_fwd(const void* const* in, int num_windows, int C, int nW,
-                                       void* stream) {
+// [num_windows][C/D][64][64] bf16, x1 [num_windows][64][C] bf16; D: the
+// head dim, 16 or 64.
+extern "C" int fm_swin_block_train_fwd(const void* const* in, int num_windows, int C, int D,
+                                       int nW, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (C) {
-    case 64: e = launch_fwd<64>(in, num_windows, nW, st); break;
-    case 128: e = launch_fwd<128>(in, num_windows, nW, st); break;
-    case 256: e = launch_fwd<256>(in, num_windows, nW, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(at_width(C, D, [&](auto c, auto d) {
+    return launch_fwd<decltype(c)::value, decltype(d)::value>(in, num_windows, nW, st);
+  }));
 }
 
 // Backward: in = {x, s1, s2, probs, x1, g, the 13 params}; out = {dx,
 // the 13 gradients (f32, the params' layouts), bf16 stash [16 C T], f32
 // dx1 [T C], f32 attn_bwd block partials [nb][6 C], f32 mlp_bwd block
-// partials [nbm][19 C], f32 rel_bias partials [nb][C/16][64][64], f32
+// partials [nbm][19 C], f32 rel_bias partials [nb][C/D][64][64], f32
 // weight-gradient partials (ops/wgrad.partial_floats of the four
 // products)}, T = 64 num_windows (the gradients of b_mlp2, ln2_scale,
-// ln2_bias and b_mlp1 contiguous in that order); nb: attn_bwd's blocks; nbm: mlp_bwd's
+// ln2_bias and b_mlp1 contiguous in that order); D: the head dim, 16 or 64;
+// nb: attn_bwd's blocks; nbm: mlp_bwd's
 // (ops/swin_block_train.mlp_grid); mlp_windows: the windows mlp_bwd takes
 // (num_windows; fewer only to check that a check sees windows left out);
 // sms: the card's SMs. (The backward reads the saved probabilities, so no
 // mask.)
 extern "C" int fm_swin_block_train_bwd(const void* const* in, void* const* out, int num_windows,
-                                       int C, int nb, int nbm, int mlp_windows, int sms,
-                                       void* stream) {
+                                       int C, int D, int nb, int nbm, int mlp_windows,
+                                       int sms, void* stream) {
   const float* b2 = static_cast<const float*>(out[13]);  // b_mlp2's gradient, then ln2_scale's, ..
   if (nb <= 0 || nbm <= 0 || sms <= 0 || mlp_windows > num_windows || out[8] != b2 + C ||
       out[9] != b2 + 2 * C || out[11] != b2 + 3 * C)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (C) {
-    case 64: e = launch_bwd<64>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
-    case 128: e = launch_bwd<128>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
-    case 256: e = launch_bwd<256>(in, out, num_windows, nb, nbm, mlp_windows, sms, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(at_width(C, D, [&](auto c, auto d) {
+    return launch_bwd<decltype(c)::value, decltype(d)::value>(in, out, num_windows, nb, nbm,
+                                                               mlp_windows, sms, st);
+  }));
 }
 
-// The backward's window kernels at width C: info = {attn_bwd's dynamic
-// shared memory (bytes), its resident blocks an SM, mlp_bwd's bytes, its
-// blocks an SM}.
-extern "C" int fm_swin_block_train_bwd_occupancy(int C, int* info) {
-  cudaError_t e;
-  switch (C) {
-    case 64: e = bwd_occupancy<64>(info); break;
-    case 128: e = bwd_occupancy<128>(info); break;
-    case 256: e = bwd_occupancy<256>(info); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(e);
+// The backward's window kernels at width C and head dim D: info =
+// {attn_bwd's dynamic shared memory (bytes), its resident blocks an SM,
+// mlp_bwd's bytes, its blocks an SM}.
+extern "C" int fm_swin_block_train_bwd_occupancy(int C, int D, int* info) {
+  return static_cast<int>(at_width(C, D, [&](auto c, auto d) {
+    return bwd_occupancy<decltype(c)::value, decltype(d)::value>(info);
+  }));
 }

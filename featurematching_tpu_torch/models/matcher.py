@@ -40,7 +40,19 @@ from featurematching_tpu_torch.matching.coarse import CoarseMatches, ids_to_keyp
 from featurematching_tpu_torch.models.backbone_swin import SwinUNet
 from featurematching_tpu_torch.models.matcher_params import MatcherParams
 from featurematching_tpu_torch.models.output import MatcherOutput
+from featurematching_tpu_torch.ops.coarse_transformer import (
+    TRAIN_WIDTHS,
+    coarse_transformer_supported,
+)
 from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_confidence
+from featurematching_tpu_torch.ops.fine_stage import (
+    C_KERNEL,
+    MAX_TAPS,
+    TRAIN_HEAD_DIMS,
+    fine_stage_supported,
+    fine_train_supported,
+)
+from featurematching_tpu_torch.ops.swin_block_train import HEAD_DIMS as TRAIN_SWIN_HEAD_DIMS
 
 __all__ = ["Matcher", "MatcherOutput"]
 
@@ -67,6 +79,12 @@ class Matcher(MatcherParams):
         self.coarse_transformer.use_fused_train = kernel_selected(cfg.coarse.fused_train, dev)
         self.fine_transformer.use_fused_train = kernel_selected(cfg.fine.fused_train, dev)
         self.check_switches()
+        if dev.type == "cuda":
+            lacking = self.widths_lacking()
+            if lacking:
+                raise NotImplementedError(
+                    "the training step's kernels do not take this config's widths: "
+                    + "; ".join(lacking))
 
     def swin_switches(self, train: bool) -> Tuple[bool, bool]:
         """(fused block, fused attention) as flax's Matcher selects them:
@@ -79,6 +97,30 @@ class Matcher(MatcherParams):
         fused_attn = kernel_selected(s.fused_attention, dev) and (
             s.fused_attention == "on" or not train)
         return fused_blk, fused_attn and not fused_blk
+
+    def widths_lacking(self):
+        """For each kernel its switch selects where the JAX gate holds at a
+        width the kernel does not take, the kernel and the width (empty:
+        every branch the switches and gates choose has its kernel)."""
+        s, c, f = self.cfg.swin, self.cfg.coarse, self.cfg.fine
+        out = []
+        dims = [s.embed_dim * 2**i // h for i, h in enumerate(s.num_heads)]
+        if self.swin_switches(True)[0] and any(d not in TRAIN_SWIN_HEAD_DIMS for d in dims):
+            out.append(f"K8 (swin_block_train) takes Swin head dims {TRAIN_SWIN_HEAD_DIMS}, "
+                       f"this config has {dims}")
+        if (self.coarse_transformer.use_fused_train and c.attention == "linear"
+                and coarse_transformer_supported(c.layer_names, c.d_model, c.nhead, 1)
+                and (c.d_model, c.d_model // c.nhead) not in TRAIN_WIDTHS):
+            out.append(f"K9 (coarse_transformer_train) takes (C, head dim) in {TRAIN_WIDTHS}, "
+                       f"this config has C {c.d_model} with {c.nhead} heads")
+        taps = f.window_size**2
+        if (self.fine_transformer.use_fused_train and f.attention == "linear"
+                and fine_stage_supported(f.layer_names, f.d_model, f.nhead) and taps <= 128
+                and not fine_train_supported(f.layer_names, f.d_model, f.nhead, taps)):
+            out.append(f"K10 (fine_transformer_train) takes C {C_KERNEL} with a head dim in "
+                       f"{TRAIN_HEAD_DIMS} and at most {MAX_TAPS} taps, this config has C "
+                       f"{f.d_model} with {f.nhead} heads and {taps} taps")
+        return out
 
     def check_switches(self) -> None:
         cfg = self.cfg

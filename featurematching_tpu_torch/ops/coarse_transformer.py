@@ -44,7 +44,7 @@ APPLY_HIDDEN_CHUNK = 128  # FFN hidden columns the apply kernel takes at a time
 STATS_GROUP = 128  # K features of a stats block's head group (and as many V features)
 # (C, head dim) the forward's kernels take (the backward's, K9's: `TRAIN_WIDTHS`)
 WIDTHS = ((128, 16), (128, 32), (128, 64), (256, 16), (256, 32), (256, 64))
-TRAIN_WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32))
+TRAIN_WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32), (256, 64))
 _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
 _APPLY_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR]
 _RING_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR]

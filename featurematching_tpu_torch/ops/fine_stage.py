@@ -47,9 +47,9 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
 MAX_TAPS = 64  # taps are padded to one 64-row wgmma tile
 C_KERNEL = 64
 # head dims the kernel takes (heads tile 16-column blocks, or one head is all
-# 64); K10's backward takes TRAIN_HEAD_DIMS
+# 64); K10's backward takes the same (TRAIN_HEAD_DIMS)
 HEAD_DIMS = (8, 16, 64)
-TRAIN_HEAD_DIMS = (8, 16)
+TRAIN_HEAD_DIMS = (8, 16, 64)
 MAX_LAYERS = 2
 # windows, 5 operands per layer (the image and the LN parameters), the mixes, the
 # outputs; then the ints and the stream

@@ -45,11 +45,13 @@ MAX_BLOCKS = 264
 # floats of a block's partial row: attn_bwd's (dbqkv, dbproj, LN1's two) and
 # mlp_bwd's (db2, LN2's two, then db1 for each warp of a warpgroup)
 ATTN_PART, MLP_PART = 6, 19
-_FWD_ARGS = [_build.PTR, _build.INT, _build.INT, _build.INT, _build.PTR]
-_BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 6 + [_build.PTR]
-_OCC_ARGS = [_build.INT, ctypes.POINTER(ctypes.c_int)]
-HEAD_DIM = 16  # the one head dim the kernels take (the backward's scale is fixed)
-_occupancy: Dict[Tuple[int, int], Tuple[int, int, int, int]] = {}
+_FWD_ARGS = [_build.PTR] + [_build.INT] * 4 + [_build.PTR]
+_BWD_ARGS = [_build.PTR, _build.PTR] + [_build.INT] * 7 + [_build.PTR]
+_OCC_ARGS = [_build.INT, _build.INT, ctypes.POINTER(ctypes.c_int)]
+# the head dims the kernels take: default_config()'s 16 and
+# tpu_optimized_config()'s 64 (Swin heads 1/2/4 at C = 64/128/256)
+HEAD_DIMS = (16, 64)
+_occupancy: Dict[Tuple[int, int, int], Tuple[int, int, int, int]] = {}
 
 
 def swin_block_train_reference(
@@ -116,10 +118,11 @@ def _kernel_params(params: Dict[str, torch.Tensor], C: int, h: int) -> List[torc
 
 def _check(x: torch.Tensor, mask, s1, s2, num_heads: int):
     B_, N, C = x.shape
-    if N != WINDOW_TOKENS or C not in (64, 128, 256) or C != num_heads * HEAD_DIM:
+    if (N != WINDOW_TOKENS or C not in (64, 128, 256) or C % num_heads
+            or C // num_heads not in HEAD_DIMS):
         raise ValueError(
-            f"swin_block_train kernels take 8x8 windows, C in (64, 128, 256) and head dim "
-            f"{HEAD_DIM}; got N={N}, C={C}, heads={num_heads}")
+            f"swin_block_train kernels take 8x8 windows, C in (64, 128, 256) and a head dim "
+            f"in {HEAD_DIMS}; got N={N}, C={C}, heads={num_heads}")
     _build.check_cuda(x, "x", torch.bfloat16)
     if (s1 is None) != (s2 is None):
         raise ValueError("swin_block_train takes both drop-path scales or neither")
@@ -144,7 +147,8 @@ def swin_block_train_fwd(x, mask, s1, s2, kparams: List[torch.Tensor], num_heads
     nW = mask.shape[0] if mask is not None else 0
     _build.launch(
         "swin_block_train", "fm_swin_block_train_fwd", _FWD_ARGS,
-        _ptrs([x, mask, s1, s2, *kparams, out, probs, x1]), B_, C, nW, _build.stream(),
+        _ptrs([x, mask, s1, s2, *kparams, out, probs, x1]), B_, C, C // num_heads, nW,
+        _build.stream(),
     )
     swin_block_train_fwd.launches += 1
     return out, probs, x1
@@ -162,16 +166,16 @@ def mlp_grid(windows: int, blocks_per_sm: int, sms: int) -> int:
     return max(1, min(windows, blocks_per_sm * sms))
 
 
-def bwd_occupancy(C: int, device: int = 0) -> Tuple[int, int, int, int]:
+def bwd_occupancy(C: int, device: int = 0, head_dim: int = 16) -> Tuple[int, int, int, int]:
     """(attn_bwd's dynamic shared memory in bytes, its resident blocks an SM,
-    mlp_bwd's bytes, its blocks an SM) at width C on the card, as the runtime
-    reports them."""
-    key = (C, device)
+    mlp_bwd's bytes, its blocks an SM) at width C and head dim `head_dim` on
+    the card, as the runtime reports them."""
+    key = (C, head_dim, device)
     if key not in _occupancy:
         info = (ctypes.c_int * 4)()
         with torch.cuda.device(device):
             _build.launch("swin_block_train", "fm_swin_block_train_bwd_occupancy", _OCC_ARGS,
-                          C, info)
+                          C, head_dim, info)
         _occupancy[key] = tuple(info)
     return _occupancy[key]
 
@@ -190,7 +194,7 @@ def bwd_launch(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor], num_heads: 
     mlp_windows = B_ if mlp_windows is None else mlp_windows
     nb = min(B_, MAX_BLOCKS)
     sms = sm_count(dev.index or 0)
-    nbm = mlp_grid(B_, bwd_occupancy(C, dev.index or 0)[3], sms)
+    nbm = mlp_grid(B_, bwd_occupancy(C, dev.index or 0, C // num_heads)[3], sms)
     f32 = dict(device=dev, dtype=torch.float32)
     alloc = torch.empty if mlp_windows == B_ else torch.zeros
     grads = [torch.empty(p.shape, **f32) for p in kparams]
@@ -212,8 +216,8 @@ def bwd_launch(x, s1, s2, probs, x1, g, kparams: List[torch.Tensor], num_heads: 
     _build.launch(
         "swin_block_train", "fm_swin_block_train_bwd", _BWD_ARGS,
         _ptrs([x, s1, s2, probs, x1, g, *kparams]),
-        _ptrs([dx, *grads, stash, dx1, small, mpart, dbias, gemm]), B_, C, nb, nbm,
-        mlp_windows, sms, _build.stream(),
+        _ptrs([dx, *grads, stash, dx1, small, mpart, dbias, gemm]), B_, C, C // num_heads, nb,
+        nbm, mlp_windows, sms, _build.stream(),
     )
     return dx, grads, dx1.view(B_, N, C)
 

@@ -10,7 +10,8 @@ inputs made by numpy from a seed and flax weights carried across by
   max as that test holds the TPU kernel;
 - one call's backward (`apply_backward_reference`, then
   `stats_backward_reference`) against `pallas_coarse_grad._apply_bwd` and
-  `_stats_bwd` in interpret mode, fed the same stats, in f32 and in bf16;
+  `_stats_bwd` in interpret mode, fed the same stats, in f32 and in bf16,
+  at head dims 16 and 64;
 - the gate and the `use_fused_train` dispatch (fine windows take K10).
 """
 
@@ -122,7 +123,18 @@ def _close(got, ref, rel, name):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["self", "cross"])
 def test_call_backward_matches_pallas_kernels(rng, kind, dtype):
-    G, N, C, nhead = 2, 64, 128, 8
+    _call_backward_against_pallas(rng, kind, dtype, 128, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_call_backward_matches_pallas_kernels_at_head_dim_64(rng, dtype):
+    """tpu_optimized_config()'s head dim 64 (here C = 128 with 2 heads, the
+    smallest width the TPU kernels take with it), a cross call."""
+    _call_backward_against_pallas(rng, "cross", dtype, 128, 2)
+
+
+def _call_backward_against_pallas(rng, kind, dtype, C, nhead):
+    G, N = 2, 64
     D = C // nhead
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     _, params, port, _, _ = _make(rng, 1, N, C, nhead, ("self",))
@@ -169,7 +181,10 @@ def test_gate():
     assert ctt.coarse_train_supported(("self", "cross") * 4, 256, 8, 4800)
     assert ctt.coarse_train_supported(("cross",), 128, 4, 7)  # ragged tiles are masked
     assert not ctt.coarse_train_supported(("self",), 64, 8, 4800)  # C % 128
-    assert not ctt.coarse_train_supported(("self",), 256, 4, 4800)  # head dim 64
+    assert ctt.coarse_train_supported(("self", "cross") * 4, 256, 4, 4800)  # head dim 64
+    assert not ctt.coarse_train_supported(("self",), 128, 2, 4800)  # head dim 64 at C = 128
+    # the backward takes exactly these (C, head dim) pairs
+    assert ctt.TRAIN_WIDTHS == ((128, 16), (128, 32), (256, 16), (256, 32), (256, 64))
     assert not ctt.coarse_train_supported(("swap",), 256, 8, 4800)
 
 

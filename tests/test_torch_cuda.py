@@ -903,6 +903,32 @@ def test_swin_block_train_gradients_are_bit_identical(gen, C, nwin):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nwin", [1, 301, 533])
+def test_swin_block_train_at_head_dim_64(gen, C, nwin):
+    """tpu_optimized_config()'s head dim 64 (1, 2 and 4 heads): one window,
+    301 (more than the backward's 264 blocks, a ragged last weight-gradient
+    split) and 533 (blocks walking their window loop three times), under the
+    shift mask of a 16x24 map and drop-path scales of 0 and 1/keep: the
+    output, dx and all 13 gradients within chip_smoke.py's K8 tolerance, and
+    the backward twice bit for bit."""
+    h = C // 64
+    x = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    gout = _rnd(gen, nwin, 64, C, dtype=torch.bfloat16)
+    p = _block_params(gen, C, h)
+    mask = torch.as_tensor(_shift_attn_mask(16, 24, 8, 4), device="cuda")
+    # window 0 keeps both branches, so one window has every gradient
+    s1 = torch.where(torch.arange(nwin, device="cuda") % 3 == 1, 0.0, 1 / 0.8)
+    s2 = torch.where(torch.arange(nwin, device="cuda") % 5 == 1, 0.0, 1 / 0.8)
+    got = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+    ref = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=True)
+    again = _block_train_grads(x, mask, s1, s2, p, h, gout, plain=False)
+    for name, a, r, b in zip(["out", "dx", *PARAM_KEYS], got, ref, again, strict=True):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert _rel(a, r) <= 5e-2, name
+        assert torch.equal(a, b), name
+
+
 def _bwd_keeping_dx1(x, s1, s2, probs, x1, g, kp, h, mlp_windows=None):
     """swin_block_train_bwd's launch (`bwd_launch`), returning the f32
     gradient of the residual stream after the attention branch (dx1, which
@@ -1207,14 +1233,16 @@ def test_backwards_count_their_wgrad_launches(gen):
 
 
 def test_training_wrappers_raise_rather_than_fall_back(gen):
-    """Head dim 8, C = 96, float32 activations, one drop-path scale alone:
-    the training wrappers raise and launch nothing."""
+    """Head dims 8 and 32, C = 96, float32 activations, one drop-path scale
+    alone: the training wrappers raise and launch nothing."""
     before = (swin_block_train_fwd.launches, swin_block_train_bwd.launches,
               dual_softmax_lse.launches, sparse_focal_backward.launches)
     p = _block_params(gen, 64, 4)
     xb = _rnd(gen, 4, 64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         swin_block_train(xb, None, None, None, p, 8)
+    with pytest.raises(ValueError, match="head dim"):  # 32: K8 takes 16 and 64
+        swin_block_train(xb, None, None, None, _block_params(gen, 64, 2), 2)
     with pytest.raises(ValueError, match="bfloat16"):
         swin_block_train(xb.float(), None, None, None, p, 4)
     with pytest.raises(ValueError, match="both drop-path scales"):
@@ -1515,8 +1543,8 @@ def test_coarse_train_stack_against_the_twin(gen, monkeypatch):
 
 
 def test_coarse_train_wrapper_raises_rather_than_fall_back(gen):
-    """float32 activations, head dim 64, a float32 upstream gradient: the K9
-    wrapper raises and launches nothing."""
+    """float32 activations, head dim 128, head dim 64 at C = 128, a float32
+    upstream gradient: the K9 wrapper raises and launches nothing."""
     lv = _layer_values(gen, 256)
     x = _rnd(gen, 1, 64, 256, dtype=torch.bfloat16)
     out, kv, ks = ctt.coarse_layer_forward(x, x, lv, 8)
@@ -1525,7 +1553,12 @@ def test_coarse_train_wrapper_raises_rather_than_fall_back(gen):
     with pytest.raises(ValueError, match="bfloat16"):
         ctt.coarse_layer_backward(x.float(), x.float(), kv, ks, x, lv, lt, 8)
     with pytest.raises(ValueError, match="head dim"):
-        ctt.coarse_layer_backward(x, x, kv, ks, x, lv, lt, 4)
+        ctt.coarse_layer_backward(x, x, kv, ks, x, lv, lt, 2)
+    lv128 = _layer_values(gen, 128)
+    x128 = _rnd(gen, 1, 64, 128, dtype=torch.bfloat16)
+    _, kv128, ks128 = ctt.coarse_layer_forward(x128, x128, lv128, 2)  # K5 takes (128, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        ctt.coarse_layer_backward(x128, x128, kv128, ks128, x128, lv128, ctt.train_values(lv128), 2)
     with pytest.raises(ValueError, match="bfloat16"):
         ctt.coarse_layer_backward(x, x, kv, ks, x.float(), lv, lt, 8)
     assert ctt.coarse_layer_backward.launches == before
@@ -1548,11 +1581,12 @@ def _flat(r):
 
 @pytest.mark.parametrize("G", [1, 301])
 @pytest.mark.parametrize("N", [25, 49])
-@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("cross", 4)])
+@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("cross", 4), ("self", 1),
+                                        ("cross", 1)])
 def test_fine_train_call_ragged_windows(gen, G, N, kind, heads):
     """One window (fewer than the grid's blocks) and 301 (more than two an
-    SM, a ragged weight-gradient split), 25 and 49 taps, head dims 8 and
-    16: dx, dsrc and the 9 gradients against the plain twin on the same
+    SM, a ragged weight-gradient split), 25 and 49 taps, head dims 8, 16
+    and 64: dx, dsrc and the 9 gradients against the plain twin on the same
     inputs (a self call: dx + dsrc as dx), by `_k9_close` against the twin
     in bf16 and in float32 arithmetic; twice, bit for bit."""
     C = 64
@@ -1584,12 +1618,13 @@ def _window_slots():
 
 @pytest.mark.parametrize("windows", ["one", "ragged_round"])
 @pytest.mark.parametrize("N", [1, 48, 49, 64])
-@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("self", 4), ("cross", 4)])
+@pytest.mark.parametrize("kind,heads", [("self", 8), ("cross", 8), ("self", 4), ("cross", 4),
+                                        ("self", 1), ("cross", 1)])
 def test_window_bwd_edges(gen, windows, N, kind, heads):
     """The window stage at its grid's edges: one window, and one past a full
     round of its window slots (the last round holds one window of a
     warpgroup); 1, 48, 49 and 64 taps (the 64-row tile with 63, 16, 15 and
-    no padded rows); head dims 8 and 16; self and cross calls: every output
+    no padded rows); head dims 8, 16 and 64; self and cross calls: every output
     against the plain twin as test_fine_train_call_ragged_windows holds
     them, and twice bit for bit."""
     C = 64
@@ -1706,8 +1741,8 @@ def test_fine_train_stack_against_the_twin(gen, monkeypatch):
 
 
 def test_fine_train_wrapper_raises_rather_than_fall_back(gen):
-    """C = 128, head dim 4, 65 taps, a bf16 upstream gradient: the K10
-    wrapper raises and launches nothing."""
+    """C = 128, head dims 4 and 32, 65 taps, a bf16 upstream gradient: the
+    K10 wrapper raises and launches nothing."""
     lv = _layer_values(gen, 64)
     x = _rnd(gen, 2, 49, 64, dtype=torch.bfloat16)
     g = _rnd(gen, 2, 49, 64)
@@ -1718,6 +1753,8 @@ def test_fine_train_wrapper_raises_rather_than_fall_back(gen):
         ftt.fine_layer_backward(x128, x128, _rnd(gen, 2, 49, 128), lv128, 8)
     with pytest.raises(ValueError, match="head dim"):
         ftt.fine_layer_backward(x, x, g, lv, 16)  # head dim 4
+    with pytest.raises(ValueError, match="head dim"):
+        ftt.fine_layer_backward(x, x, g, lv, 2)  # head dim 32
     x65 = _rnd(gen, 2, 65, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="taps"):
         ftt.fine_layer_backward(x65, x65, _rnd(gen, 2, 65, 64), lv, 8)
@@ -1768,10 +1805,12 @@ def test_serving_forward_takes_the_per_op_branches(gen):
 
 
 def test_training_at_head_dim_64_stops_at_k8(gen):
-    """The training step at tpu_optimized_config() (swin.fused_block
-    'auto') raises at K8's head-dim check on the card, as before K2 took
-    head dim 64: its backward takes head dim 16 only; and the training
-    gates leave K9 and K10 out at that config's coarse and fine widths."""
+    """The training step at tpu_optimized_config() (every switch 'auto')
+    no longer stops at K8's head-dim check: K8's backward takes head dim 64,
+    and the training gates take that config's coarse (256, 64) and fine
+    (64, 1) widths, so at 64x64, batch 1, a step launches K8 13 + 13 times,
+    K9 and K10 once an encoder call, runs no eager coarse or fine layer, and
+    its loss is finite."""
     import numpy as np
 
     from featurematching_tpu_torch.config import tpu_optimized_config
@@ -1781,16 +1820,45 @@ def test_training_at_head_dim_64_stops_at_k8(gen):
 
     cfg = tpu_optimized_config()
     c, f = cfg.model.coarse, cfg.model.fine
-    assert not ctt.coarse_train_supported(c.layer_names, c.d_model, c.nhead, 64)
-    assert not fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
+    assert ctt.coarse_train_supported(c.layer_names, c.d_model, c.nhead, 64)
+    assert fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
     state = create_train_state(cfg, device="cuda", seed=0)
     batch = synthetic_batch(np.random.default_rng(0), batch_size=1, image_size=(64, 64),
                             num_gt=cfg.model.match_coarse.max_gt_matches)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-    before = swin_block_train_fwd.launches
-    with pytest.raises(ValueError, match="swin_block_train kernels take"):
-        train_step(state, batch)
-    assert swin_block_train_fwd.launches == before
+    eager = []
+    for tf in (state.model.coarse_transformer, state.model.fine_transformer):
+        for layer in tf.children():
+            layer.register_forward_hook(lambda *_: eager.append(1))
+    counted = (swin_block_train_fwd, swin_block_train_bwd, ctt.coarse_layer_backward,
+               ftt.fine_layer_backward)
+    before = [w.launches for w in counted]
+    state, met = train_step(state, batch)
+    torch.cuda.synchronize()
+    made = [w.launches - b for w, b in zip(counted, before)]
+    assert made == [13, 13, 12, 3] and not eager
+    assert np.isfinite(float(met["loss"]))
+
+
+def test_training_matcher_refuses_widths_its_kernels_lack(gen):
+    """The training Matcher at tpu_optimized_config() with one width that
+    the JAX gate takes and no training kernel does (coarse C 256 with 2
+    heads of 128, fine C 64 with 2 heads of 32, Swin head dims 32): its
+    construction on the card raises, naming the kernel, where the
+    transformer would otherwise run eager layers."""
+    import dataclasses
+
+    from featurematching_tpu_torch.config import tpu_optimized_config
+    from featurematching_tpu_torch.models.matcher import Matcher
+
+    cfg = tpu_optimized_config().model
+    for bad, kernel in (
+            (dataclasses.replace(cfg, coarse=dataclasses.replace(cfg.coarse, nhead=2)), "K9"),
+            (dataclasses.replace(cfg, fine=dataclasses.replace(cfg.fine, nhead=2)), "K10"),
+            (dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, num_heads=(2, 4, 8))),
+             "K8")):
+        with pytest.raises(NotImplementedError, match=kernel):
+            Matcher(bad, device="cuda")
 
 
 def test_evaluation_forward_at_head_dim_64_takes_k5_and_k6(gen):
@@ -1798,7 +1866,8 @@ def test_evaluation_forward_at_head_dim_64_takes_k5_and_k6(gen):
     with no gradient to take, its coarse stack runs through K9's forward
     (K5's kernels, 12 calls for 8 layers) and its fine stack through K10's
     (K6's kernel, one launch a layer), with no eager coarse or fine layer.
-    (In training the gates leave them out: test_training_at_head_dim_64_stops_at_k8.)"""
+    (In training K9's and K10's backwards take them too:
+    test_training_at_head_dim_64_stops_at_k8.)"""
     import dataclasses
 
     from featurematching_tpu_torch.config import tpu_optimized_config

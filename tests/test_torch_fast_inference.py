@@ -207,13 +207,16 @@ class TestEntryPoint:
         """tpu_optimized_config()'s coarse (C 256, head dim 64) and fine (C 64,
         head dim 64) widths pass the JAX gates, and K5's and K6's forward
         kernels take them: the fused branches run (on the CPU their plain
-        versions), end to end. The training gates do not take them (K9's and
-        K10's backwards lack head dim 64) unless there is no gradient to take. A width the JAX gate takes and no
-        kernel does (coarse C 256 with 2 heads of 128; a fine stage of 3
-        layers or of 81 taps) is what `widths_lacking` names and construction
-        on the card raises on."""
+        versions), end to end. The training gates take them too (K9's and
+        K10's backwards at head dim 64); coarse C 128 with head dim 64 only
+        where there is no gradient to take, so the training Matcher's
+        `widths_lacking` names it where K9 is selected. A width the JAX gate
+        takes and no kernel does (coarse C 256 with 2 heads of 128; a fine
+        stage of 3 layers or of 81 taps) is what `widths_lacking` names and
+        construction on the card raises on."""
         from featurematching_tpu.config import tpu_optimized_config
 
+        from featurematching_tpu_torch.models.matcher import Matcher as PortMatcher
         from featurematching_tpu_torch.ops.coarse_transformer_train import coarse_train_supported
         from featurematching_tpu_torch.ops.fine_stage import fine_train_supported
 
@@ -222,11 +225,20 @@ class TestEntryPoint:
         assert port.use_fused_coarse(64) and port.use_fused_fine()
         assert port.widths_lacking() == []
         c, f = cfg.coarse, cfg.fine
-        assert not coarse_train_supported(c.layer_names, c.d_model, c.nhead, 4800)
-        assert not fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
+        assert coarse_train_supported(c.layer_names, c.d_model, c.nhead, 4800)
+        assert fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2)
         # with no gradient to take, the forward kernels' widths: K5's, K6's
         assert coarse_train_supported(c.layer_names, c.d_model, c.nhead, 4800, True)
         assert fine_train_supported(f.layer_names, f.d_model, f.nhead, f.window_size**2, True)
+        assert not coarse_train_supported(c.layer_names, 128, 2, 4800)
+        assert coarse_train_supported(c.layer_names, 128, 2, 4800, True)
+        # so the training Matcher with K9 selected names that width: on the
+        # card its construction refuses it
+        narrow = dataclasses.replace(cfg, coarse=dataclasses.replace(
+            c, d_model=128, nhead=2, fused_train="on"))
+        lacking = PortMatcher(narrow, device="cpu").widths_lacking()
+        assert len(lacking) == 1 and lacking[0].startswith("K9") and "C 128" in lacking[0]
+        assert PortMatcher(cfg, device="cpu").widths_lacking() == []
         default = FastMatcher(ModelConfig(), device="cpu")
         assert default.use_fused_coarse(4800) and default.use_fused_fine()
         assert default.widths_lacking() == []
@@ -328,7 +340,8 @@ class TestTransformer:
         `use_fused_train`: without a gradient to take, the forward kernels'
         widths hold and the stack runs through K9's or K10's forward (K5's or
         K6's kernel; the twin here), equal to the per-op stack within 1e-4;
-        with one, the backward's widths do not, and the per-op stack runs."""
+        with one, the backward's widths hold too (K9's and K10's backwards
+        take head dim 64), and the stack runs through K9 or K10 again."""
         import featurematching_tpu_torch.models.transformer as tr
 
         port = LocalFeatureTransformer(d, h, ("self", "cross"))
@@ -345,7 +358,7 @@ class TestTransformer:
         for g_, r in zip(got, ref, strict=True):
             np.testing.assert_allclose(_np(g_), _np(r), atol=1e-4, rtol=1e-4)
         port(f0, f1)[0].sum().backward()
-        assert calls == [1] and port.layer_0.q_proj.weight.grad is not None
+        assert calls == [1, 1] and port.layer_0.q_proj.weight.grad is not None
 
 
 class TestMatching:

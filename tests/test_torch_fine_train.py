@@ -9,7 +9,8 @@ made by numpy from a seed and flax weights carried across by
   the fine cases of tests/test_pallas_fine_grad.py, within 2e-4 of each
   leaf's max;
 - one layer's backward (`layer_backward` over the plain twin) against
-  `pallas_fine_grad._layer_bwd_call` in interpret mode, in f32 and in bf16,
+  `pallas_fine_grad._layer_bwd_call` in interpret mode, in f32 and in bf16
+  (head dims 8 and 64),
   the cross layer with and without the saved o0;
 - the gate, the `use_fused_train` dispatch, no saving under no_grad, and
   weights written by a fused optimizer step seen by the next forward;
@@ -136,7 +137,18 @@ def _close(got, ref, rel, name):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind,with_o0", [("self", False), ("cross", False), ("cross", True)])
 def test_layer_backward_matches_pallas_kernel(rng, kind, with_o0, dtype):
-    G, N, C, nhead = 4, 49, 64, 8
+    _layer_backward_against_pallas(rng, kind, with_o0, dtype, 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_backward_matches_pallas_kernel_at_head_dim_64(rng, dtype):
+    """tpu_optimized_config()'s fine stage: one head of 64, a cross layer
+    with the forward's first output saved."""
+    _layer_backward_against_pallas(rng, "cross", True, dtype, 1)
+
+
+def _layer_backward_against_pallas(rng, kind, with_o0, dtype, nhead):
+    G, N, C = 4, 49, 64
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     _, params, port, _, _ = _make(rng, 1, N, C, nhead, ("self",))
     x0, x1, d0, d1 = (rng.standard_normal((G, N, C)).astype(np.float32) for _ in range(4))
@@ -162,13 +174,14 @@ def test_layer_backward_matches_pallas_kernel(rng, kind, with_o0, dtype):
 
 
 def test_gate():
-    """What the kernels take: C = 64, head dim 8 or 16, at most 64 taps, any
-    number of self/cross layers (one launch a layer)."""
+    """What the kernels take: C = 64, head dim 8, 16 or 64, at most 64 taps,
+    any number of self/cross layers (one launch a layer)."""
     assert fine_train_supported(("self", "cross"), 64, 8, 49)
     assert fine_train_supported(("self", "cross") * 3, 64, 4, 64)
     assert not fine_train_supported(("self", "cross", "self", "cross"), 128, 8, 49)  # C = 128
     assert not fine_train_supported(("self",), 64, 16, 49)  # head dim 4
-    assert not fine_train_supported(("self",), 64, 1, 49)  # head dim 64
+    assert fine_train_supported(("self", "cross"), 64, 1, 49)  # head dim 64
+    assert not fine_train_supported(("self",), 64, 2, 49)  # head dim 32
     assert not fine_train_supported(("self",), 64, 8, 65)  # taps
     assert not fine_train_supported(("swap",), 64, 8, 49)
 

@@ -278,6 +278,34 @@ def test_head_dim_64_work():
             == 2 * (2 * 4096 * 49) * 4 * 64 * (64 - 8))
 
 
+@pytest.mark.parametrize("kernel", ["attn_bwd", "apply_bwd", "stats_bwd", "window_bwd"])
+def test_training_backwards_at_head_dim_64(kernel):
+    """tpu_optimized_config()'s training backwards by hand against the
+    default's at the step's shapes. K8's attn_bwd: dP, dq, dk and dv take 64
+    C multiply-adds a token at any head dim, so the operations stay and the
+    saved probabilities shrink with the heads (1 of 4 at C = 64). K9's
+    apply_bwd and stats_bwd: each head's dKᵀV products grow with D (2 C D
+    multiply-adds a token each), as do the merged stats read and apply_bwd's
+    per-tile dKᵀV partials (C D an image or tile). K10's window_bwd: its
+    attention gradients (4 C D a token) grow with D."""
+    G, L, C, T = 4, 4800, 256, 4 * 4800
+    if kernel == "attn_bwd":
+        n16, f16 = swin_block_train_attn_bwd_work(2400, 64, 4, 300)
+        n64, f64 = swin_block_train_attn_bwd_work(2400, 64, 1, 300)
+        assert f64 == f16 and n16 - n64 == 2400 * 3 * 64 * 64 * 2
+    elif kernel == "apply_bwd":
+        (n32, f32), (n64, f64) = (coarse_train_apply_bwd_work(G, L, L, C, h) for h in (8, 4))
+        assert f64 - f32 == 2 * T * 2 * C * 32
+        assert n64 - n32 == G * C * 32 * 2 + G * 75 * C * 32 * 4
+    elif kernel == "stats_bwd":
+        (n32, f32), (n64, f64) = (coarse_train_stats_bwd_work(G, L, C, h) for h in (8, 4))
+        assert f64 - f32 == 2 * T * 2 * C * 32 and n64 - n32 == G * C * 32 * 2
+    else:
+        (n8, f8), (n64, f64) = (fine_train_window_bwd_work(4096, 49, 64, h, False)
+                                for h in (8, 1))
+        assert n64 == n8 and f64 - f8 == 2 * 4096 * 49 * 4 * 64 * 56
+
+
 def test_all_kernels_at_tpu_optimized_config(capsys):
     """The twelve kernels at tpu_optimized_config(): K2's and K12's operations
     as the default's, K5's and K6's larger; the command line prints each

@@ -4,7 +4,8 @@ JAX package's `swin_block_train` (Pallas, interpret mode, as
 
 At float32, with inputs made by numpy from a seed: the output, dx and every
 parameter gradient under autograd, with the shift mask and the drop-path
-scales, at the JAX test's tolerance (5e-4; 2e-4 for the output). rel_bias
+scales, at head dims 16 and 64, at the JAX test's tolerance (5e-4; 2e-4 for
+the output). rel_bias
 is also carried back to its (2w-1)^2 table through the port's
 `_rel_pos_bias_from_table` index.
 """
@@ -104,6 +105,28 @@ def test_plain_twin_against_jax(masked, scaled):
         x, params, g)
     _close(got, kernel, 5e-4)
     _close(got, ref, 5e-4)
+
+
+def test_plain_twin_against_jax_at_head_dim_64():
+    """tpu_optimized_config()'s head dim 64: 6 windows of C = 64, one head,
+    under the two-region mask and drop-path scales, as above."""
+    rng = np.random.default_rng(4)
+    B_, C, h, nW = 6, 64, 1, 3
+    params = _params(rng, C, h)
+    x = rng.standard_normal((B_, N, C)).astype(np.float32)
+    g = rng.standard_normal((B_, N, C)).astype(np.float32)
+    mask = np.zeros((nW, N, N), np.float32)
+    mask[1:, : N // 2, N // 2:] = -100.0
+    mask[1:, N // 2:, : N // 2] = -100.0
+    s1 = (np.arange(B_) % 2).astype(np.float32) / 0.5
+    s2 = np.ones(B_, np.float32) / 0.8
+    mask_pw = jnp.asarray(mask)[jnp.arange(B_) % nW]
+    js1, js2 = jnp.asarray(s1), jnp.asarray(s2)
+    tm, ts1, ts2 = (torch.tensor(a) for a in (mask, s1, s2))
+    got = _torch_grads(lambda x_, p_: swin_block_train(x_, tm, ts1, ts2, p_, h), x, params, g)
+    kernel = _jax_grads(lambda x_, p_: jax_swin_block_train(x_, mask_pw, js1, js2, p_, h, 3, True),
+                        x, params, g)
+    _close(got, kernel, 5e-4)
 
 
 def test_rel_bias_gradient_reaches_the_table():

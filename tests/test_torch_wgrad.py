@@ -149,6 +149,20 @@ def test_partial_scratch_of_a_launch():
     assert partial_floats([(64, 64, 64)], 132) == 1  # one stage: one split, no partials
 
 
+def test_step_census_at_tpu_optimized_config():
+    """tpu_optimized_config()'s training step (head dim 64 throughout) makes
+    the default's weight-gradient products: their shapes depend on C and
+    the token counts, not on the heads. So the same 142 products in 28
+    launches, each launch planned as the default's."""
+    from featurematching_tpu_torch.config import tpu_optimized_config
+
+    tpu, default = tpu_optimized_config().model, ModelConfig()
+    assert (tpu.coarse.nhead, tpu.fine.nhead, tpu.swin.num_heads) == (4, 1, (1, 2, 4))
+    groups = wgrad_groups(tpu)
+    assert groups == wgrad_groups(default) and len(groups) == 28
+    assert len(wgrad_calls(tpu)) == 142
+
+
 def test_step_census_is_the_backwards_calls():
     """The bound's census of one training step at default_config(), 640x480,
     batch 4: 142 products in 28 launches, K8's four a block, K9's and K10's

@@ -52,24 +52,24 @@ namespace {{
 VARIANTS = {
     "as_is": [],
     "no_stash": [
-        ("        store16(st + 16 * n, 2 * C, af[n], r0, valid, t);\n"
-         "        store16(st + C + 16 * n, 2 * C, af[2 + n], r0, valid, t);\n", ""),
+        ("          store16(st + 16 * n, 2 * C, af[u][n], r0, valid, t);\n"
+         "          store16(st + C + 16 * n, 2 * C, af[u][2 + n], r0, valid, t);\n", ""),
     ],
     "no_heads": [
-        ("          fm::mma16(dv, kfr[kk0 + dd], fb);\n", ""),
-        ("          fm::mma16(dk, vfr[kk0 + dd], ft);\n", ""),
-        ("          fm::load_b(fb, dkvp + (h * D + 16 * dd) * LDKV + e0, LDKV, lane);\n", ""),
-        ("          load_b_t(ft, dkvp + (h * D + e0) * LDKV + 16 * dd, LDKV, lane);\n", ""),
+        ("            fm::mma16(dv, kfr[gu][gk], fb);\n", ""),
+        ("            fm::mma16(dk, vfr[gu][gk], ft);\n", ""),
+        ("            fm::load_b(fb, dkvp + fd * LDKV + e0, LDKV, lane);\n", ""),
+        ("            load_b_t(ft, dkvp + (h * D + e0) * LDKV + 16 * dd, LDKV, lane);\n", ""),
     ],
     "no_dsrc": [
-        ("          fm::wgmma_rs_n256<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);\n",
-         "          fm::fence_regs(ds);\n"),
-        ("          fm::wgmma_rs_n128<1>(ds, af[kk], mdesc(slot + kk * 2048), 1);\n",
-         "          fm::fence_regs(ds);\n"),
+        ("            fm::wgmma_rs_n256<1>(ds, af[u][kk], mdesc(slot + kk * 2048), 1);\n",
+         "            fm::fence_regs(ds);\n"),
+        ("            fm::wgmma_rs_n128<1>(ds, af[u][kk], mdesc(slot + kk * 2048), 1);\n",
+         "            fm::fence_regs(ds);\n"),
     ],
     "no_kv": [
-        ("        fm::wgmma_ss_n64(acc, kdesc(ssrc + at), kdesc(slot + at), 1);\n",
-         "        fm::fence_regs(acc);\n"),
+        ("          fm::wgmma_ss_n64(acc, kdesc(ssrc + at), kdesc(slot + at), 1);\n",
+         "          fm::fence_regs(acc);\n"),
     ],
     "stamps": [
         ("  const int items = rounds * UNITS;  // the units the ring brings in\n",

@@ -97,12 +97,14 @@ def occupancy_report() -> None:
         print("  occupancy: not exported by this tree's library")
         return
     fn = lib.fm_swin_block_train_bwd_occupancy
-    fn.argtypes = [_build.INT, ctypes.POINTER(ctypes.c_int)]
+    # a tree whose kernels take more than head dim 16 takes it as an argument
+    with_dim = hasattr(sbt, "HEAD_DIMS")
+    fn.argtypes = [_build.INT] * (1 + with_dim) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = _build.INT
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for nwin, C, *_ in SITES:
         info = (ctypes.c_int * 4)()
-        err = fn(C, info)
+        err = fn(C, 16, info) if with_dim else fn(C, info)
         if err:
             raise RuntimeError(f"fm_swin_block_train_bwd_occupancy({C}): CUDA error {err}")
         grid = mlp_blocks(nwin, info[3], sms)
