@@ -133,7 +133,22 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      with finite outputs;
  10. two training steps with the per-op block (autograd through the plain
      ops; no K11 in training, as in flax): no K8 launch, finite loss,
-     gradient norm and parameters.
+     gradient norm and parameters;
+ 11. the training step under dense supervision (`loss.sparse_spvs` off:
+     the focal loss on the conf matrix, which the Matcher forms at the JAX
+     rounding points and takes its matches from) as in 6, with the sparse
+     step's launches but K1's pass 1 and K7 (EXPECTED_PER_DENSE_STEP: no
+     K1 at all), its device time and busy share printed beside the sparse
+     step's; its `training_agreement` at 128x128 under LIMITS (no K7
+     readings); one step at coarse_type='cross_entropy' with a finite loss
+     and gradients and no K1 or K7 launch;
+ 12. the evaluation Matcher with the conf matrix wanted: K8's, K9's and
+     K10's forwards and no K1 (EXPECTED_PER_DENSE_EVAL); identical images
+     at thr=1e-8 match on the diagonal; `extract_matches` of the matrix
+     equals, bit for bit, `extract_matches_from_stats` of its plain max and
+     argmax on the card; the dense evaluation step launches no K1 or K7;
+ 13. the coarse-only Matcher (`coarse_only`): no K6 or K10 launch, K1 once
+     (none with the conf matrix), the "fine" keypoints the coarse centres.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
@@ -168,6 +183,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -280,6 +296,18 @@ EXPECTED_PER_STEP = dict.fromkeys(EXPECTED_PER_FORWARD, 0) | {
     "sparse_focal_backward": 1, "coarse_layer_forward": 12, "coarse_layer_backward": 12,
     "fine_layer_forward": 2, "fine_layer_backward": 3, "window_attention": 0,
     "swin_block_fused_image": 0, "wgrad": 28,
+}
+# the dense supervision: the focal loss on the conf matrix (loss.sparse_spvs
+# off), as users train without the sparse loss
+DENSE = {"sparse_spvs": False}
+# launches of a training step under dense supervision: the sparse step's but
+# K1's pass 1 and K7 (the loss reads the conf matrix) and, as there, no K1
+# statistics (the matches come from the matrix)
+EXPECTED_PER_DENSE_STEP = EXPECTED_PER_STEP | {"dual_softmax_lse": 0, "sparse_focal_backward": 0}
+# launches of the evaluation Matcher's forward at default_config() with the
+# conf matrix wanted: K8's forward, K9's and K10's forwards, no K1
+EXPECTED_PER_DENSE_EVAL = dict.fromkeys(SOURCES, 0) | {
+    "swin_block_train_fwd": 13, "coarse_layer_forward": 12, "fine_layer_forward": 2,
 }
 # launches of an evaluation step with swin.fused_block='off' (the per-op
 # block, fused_attention 'auto'): K11 once a block; the coarse and fine stacks
@@ -1559,11 +1587,12 @@ def training_per_op(wrappers) -> None:
 
 
 def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fine_fused=None,
-                    tpu=False):
+                    tpu=False, loss=None):
     """default_config() (or, with `tpu`, tpu_optimized_config(): head dim 64
     throughout) as users run it, optionally with another drop-path rate,
     block switch, coarse.fused_train or fine.fused_train (K9 and K10:
-    'auto' by default, the kernels on the card)."""
+    'auto' by default, the kernels on the card), or other loss fields
+    (`loss`, a dict: DENSE for the dense supervision)."""
     from featurematching_tpu_torch.config import default_config, tpu_optimized_config
 
     cfg = tpu_optimized_config() if tpu else default_config()
@@ -1577,7 +1606,8 @@ def training_config(drop_path_rate=None, fused_block=None, coarse_fused=None, fi
         coarse = dataclasses.replace(coarse, fused_train=coarse_fused)
     if fine_fused is not None:
         fine = dataclasses.replace(fine, fused_train=fine_fused)
-    model = dataclasses.replace(m, swin=swin, coarse=coarse, fine=fine)
+    model = dataclasses.replace(m, swin=swin, coarse=coarse, fine=fine,
+                                loss=dataclasses.replace(m.loss, **(loss or {})))
     return dataclasses.replace(cfg, model=model)
 
 
@@ -1595,9 +1625,11 @@ def profile_ms(fn):
     return sum(r[0] for r in rows), rows
 
 
-def training_step(wrappers, launches, tpu=False) -> None:
+def training_step(wrappers, launches, tpu=False, loss=None, expected=EXPECTED_PER_STEP) -> dict:
     """The training step at default_config() (or, with `tpu`,
-    tpu_optimized_config()), 640x480, batch 4, bf16, every switch 'auto'."""
+    tpu_optimized_config(); with `loss`, those loss fields), 640x480, batch
+    4, bf16, every switch 'auto', with the launches `expected` a step.
+    Returns its profiler readings."""
     import numpy as np
 
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
@@ -1607,7 +1639,7 @@ def training_step(wrappers, launches, tpu=False) -> None:
         train_step,
     )
 
-    cfg = training_config(tpu=tpu)
+    cfg = training_config(tpu=tpu, loss=loss)
     state = create_train_state(cfg, device="cuda", seed=0)
     t = time.time()
     batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
@@ -1634,7 +1666,7 @@ def training_step(wrappers, launches, tpu=False) -> None:
         hk.remove()
     print(f"  launches over {N_STEPS} steps: {launches}; eager coarse or fine EncoderLayer "
           f"calls: {len(eager)}")
-    for n, per in EXPECTED_PER_STEP.items():
+    for n, per in expected.items():
         if launches[n] != per * N_STEPS:
             raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_STEPS}")
     if eager:
@@ -1662,6 +1694,9 @@ def training_step(wrappers, launches, tpu=False) -> None:
     print(f"  profiler: {len(rows)} kernel names, {sum(r[1] for r in rows)} launches a step")
     for ms, count, name in rows[:15]:
         print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+    return {"device_ms": busy, "busy": busy / step_ms, "step_ms": step_ms, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms, "launches": sum(r[1] for r in rows),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 # The card's training step against the plain path on the CPU (both bf16,
@@ -1712,17 +1747,17 @@ class _Recorder:
                         lambda self, v: setattr(self.fn, "launches", v))
 
 
-def semantic_setup(tpu=False):
+def semantic_setup(tpu=False, loss=None):
     """(cfg, card state, CPU state with the card's weights, batch) of the
     training semantic check, at default_config() or, with `tpu`,
-    tpu_optimized_config()."""
+    tpu_optimized_config(); with `loss`, those loss fields."""
     import numpy as np
 
     from featurematching_tpu_torch.data.synthetic import synthetic_batch
     from featurematching_tpu_torch.train.step import create_train_state
 
     cfg = training_config(drop_path_rate=0.0, fused_block="on", coarse_fused="on", fine_fused="on",
-                          tpu=tpu)
+                          tpu=tpu, loss=loss)
     card = create_train_state(cfg, device="cuda", seed=0, global_batch_size=2)
     cpu = create_train_state(cfg, device="cpu", seed=0, global_batch_size=2)
     cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
@@ -1751,7 +1786,8 @@ def _block_grads(fn, x, mask, s1, s2, params, h, g) -> dict:
 def training_agreement(cfg, card, cpu, batch) -> dict:
     """One forward and backward on the card and on the CPU, recording the
     card's K8, K9, K10 and K7 calls: the readings that LIMITS bound, with
-    where the worst of each is."""
+    where the worst of each is. Under dense supervision the step calls no
+    K7 (`dense`: its readings are absent, and a K7 call raises)."""
     import featurematching_tpu_torch.models.backbone_swin as bs
     import featurematching_tpu_torch.ops.coarse_transformer_train as ctt
     import featurematching_tpu_torch.ops.fine_transformer_train as ftt
@@ -1789,8 +1825,12 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
     r["min_cos"] = min(cos.values())
     r["min_cos_at"] = min(cos, key=cos.get)
     r["leaves"] = len(cos)
+    lc = cfg.model.loss
+    r["dense"] = not (lc.sparse_spvs and lc.coarse_type == "focal")
+    if r["dense"] and k7.calls:
+        raise AssertionError("the dense step called K7")
     pairs = {"feat": [(n, a, b) for n, a, b in zip(("feat_c0", "feat_c1"), g_f, r_f)], "k8": [],
-             "k9": [], "k10": [], "k7": []}
+             "k9": [], "k10": []} | ({} if r["dense"] else {"k7": []})
     for i, ((x, mask, s1, s2, p, h), y) in enumerate(k8.calls):
         args = (x.detach(), mask, s1, s2, {k: v.detach() for k, v in p.items()}, h, y.grad)
         kern = _block_grads(swin_block_train, *args)
@@ -1821,8 +1861,10 @@ def training_agreement(cfg, card, cpu, batch) -> dict:
 
 
 def agreement_failures(r: dict) -> list:
-    """The readings of `training_agreement` outside LIMITS."""
-    bad = [k for k in LIMITS if k != "min_cos" and not r[k] <= LIMITS[k]]
+    """The readings of `training_agreement` outside LIMITS (K7's only where
+    the step is sparse)."""
+    keys = [k for k in LIMITS if not (r["dense"] and k.startswith("k7_"))]
+    bad = [k for k in keys if k != "min_cos" and not r[k] <= LIMITS[k]]
     return bad + ([] if r["min_cos"] >= LIMITS["min_cos"] else ["min_cos"])
 
 
@@ -1839,6 +1881,8 @@ def print_agreement(r: dict) -> None:
                       ("k10", f"the step's {r['k10_calls']} K10 calls vs the plain twin on the "
                        "card"),
                       ("k7", f"the step's {r['k7_calls']} K7 calls vs the plain version")):
+        if key + "_sin" not in r:  # K7 in a dense step
+            continue
         print(f"  {what}: 1 - cosine max {r[key + '_sin']:.3e} (at {r[key + '_sin_at']}), "
               f"|norm ratio - 1| max {r[key + '_norm']:.3e} (at {r[key + '_norm_at']})")
     bad = agreement_failures(r)
@@ -1878,6 +1922,163 @@ def training_semantic(tpu=False) -> None:
     if n_stats != 1 or not all(torch.isfinite(t).all() for t in (
             ev.loss, out.feat_c0.float(), out.fine.mkpts0_f, out.fine.mkpts1_f)):
         raise AssertionError("the evaluation step failed")
+
+
+def finite_step(cfg, batch) -> dict:
+    """One forward and backward of `cfg`'s training step on a fresh seeded
+    model: the loss and the gradient norm; raises where either, or any
+    gradient, is not finite."""
+    from featurematching_tpu_torch.train.step import create_train_state, forward_with_loss
+
+    state = create_train_state(cfg, device="cuda", seed=0)
+    losses, _ = forward_with_loss(state.model, cfg, batch, train=True)
+    losses.loss.backward()
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    norm = float(torch.stack([g.float().norm() for g in grads]).norm())
+    vals = {"loss": float(losses.loss.detach()), "loss_c": float(losses.loss_c.detach()),
+            "grad_norm": norm}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"non-finite loss or gradient: {vals}")
+    for g in grads:
+        if not torch.isfinite(g).all():
+            raise AssertionError("non-finite gradient")
+    return vals
+
+
+def training_dense(wrappers, launches, sparse: dict) -> None:
+    """The training step under dense supervision (DENSE) as `training_step`
+    runs the sparse one (EXPECTED_PER_DENSE_STEP), its device time and busy
+    share beside the sparse step's (`sparse`: that phase's readings); its
+    `training_agreement` card against CPU within LIMITS; and one step at
+    coarse_type='cross_entropy' with a finite loss and finite gradients and
+    no K1 or K7 launch."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+
+    dense = training_step(wrappers, launches, loss=DENSE, expected=EXPECTED_PER_DENSE_STEP)
+    keys = ("device_ms", "busy", "step_ms", "forward_ms", "backward_ms", "launches", "peak_gib")
+    print("  dense against sparse (the sparse step's phase): " + ", ".join(
+        f"{k} {dense[k]:.3f} vs {sparse[k]:.3f}" if k in sparse else f"{k} {dense[k]:.3f}"
+        for k in keys))
+    print_agreement(training_agreement(*semantic_setup(loss=DENSE)))
+    cfg = training_config(loss={"coarse_type": "cross_entropy"})
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
+                            num_gt=cfg.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    vals = finite_step(cfg, batch)
+    torch.cuda.synchronize()
+    got = {n: wrappers[n].launches for n in ("dual_softmax_match_stats", "dual_softmax_lse",
+                                             "sparse_focal_backward")}
+    print(f"  cross_entropy: {vals}; {got}")
+    if any(got.values()):
+        raise AssertionError("the cross-entropy step launched K1 or K7")
+
+
+def eval_dense(wrappers) -> None:
+    """The evaluation Matcher at default_config() with the conf matrix
+    wanted (train=False): EXPECTED_PER_DENSE_EVAL, no K1; identical images
+    at thr=1e-8 match on the diagonal; `extract_matches` of the conf matrix
+    equals, bit for bit, `extract_matches_from_stats` of its plain max and
+    argmax on the card (and the forward's own matches); the dense
+    evaluation step launches no K1 statistics."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.matching.coarse import (
+        extract_matches,
+        extract_matches_from_stats,
+    )
+    from featurematching_tpu_torch.models.matcher import Matcher
+    from featurematching_tpu_torch.ops.dual_softmax import MatchStats
+    from featurematching_tpu_torch.train.step import create_train_state, eval_step
+
+    cfg = training_config().model
+    mc = dataclasses.replace(cfg.match_coarse, thr=1e-8)
+    model = Matcher(dataclasses.replace(cfg, match_coarse=mc), device="cuda", seed=0)
+    gi = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.rand(B, H, W, 3, generator=gi, device="cuda")
+    with torch.no_grad():
+        model(img, img, want_conf_matrix=True)  # warm-up
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    with torch.no_grad():
+        out = model(img, img, want_conf_matrix=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = {n: w.launches for n, w in wrappers.items()}
+    print(f"  launches of one forward: {got}; {dt * 1e3:.3f} ms on the host clock")
+    for n, per in EXPECTED_PER_DENSE_EVAL.items():
+        if got[n] != per:
+            raise AssertionError(f"{n}: {got[n]} launches, expected {per}")
+    m = out.coarse.mask
+    diag = float((out.coarse.i_ids == out.coarse.j_ids)[m].float().mean())
+    print(f"  identical images: {int(m.sum())} matches, {diag:.4f} on the diagonal")
+    if int(m.sum()) == 0 or diag < 0.95:
+        raise AssertionError("identical images do not match on the diagonal")
+    conf, grid = out.conf_matrix, (H // 8, W // 8)
+    stats = MatchStats(conf.amax(2), conf.argmax(2).int(), conf.amax(1), conf.argmax(1).int())
+    a = extract_matches(conf, grid, grid, mc.thr, mc.border_rm, mc.max_matches)
+    b = extract_matches_from_stats(stats, grid, grid, mc.thr, mc.border_rm, mc.max_matches)
+    fwd = (out.coarse.i_ids, out.coarse.j_ids, out.coarse.mask, out.coarse.mconf)
+    same = [torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, fwd)]
+    print(f"  extract_matches(conf) vs extract_matches_from_stats(plain stats) vs the forward's, "
+          f"bit for bit (ids, ids, mask, mconf): {same}")
+    if not all(same):
+        raise AssertionError("extract_matches disagrees with the statistics' selection")
+    tc = training_config(loss=DENSE)
+    state = create_train_state(tc, device="cuda", seed=0)
+    batch = synthetic_batch(np.random.default_rng(0), batch_size=B, image_size=(H, W),
+                            num_gt=tc.model.match_coarse.max_gt_matches)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    out, ev = eval_step(state, batch)
+    torch.cuda.synchronize()
+    got = {n: wrappers[n].launches for n in ("dual_softmax_match_stats", "dual_softmax_lse",
+                                             "sparse_focal_backward")}
+    print(f"  dense evaluation step: loss {float(ev.loss):.4f}, {int(out.coarse.mask.sum())} "
+          f"matches at thr {tc.model.match_coarse.thr}; {got}")
+    if any(got.values()) or out.conf_matrix is None or not all(
+            torch.isfinite(t_.float()).all() for t_ in (ev.loss, out.conf_matrix,
+                                                         out.fine.mkpts0_f, out.fine.mkpts1_f)):
+        raise AssertionError("the dense evaluation step failed")
+
+
+def coarse_only_forward(wrappers) -> None:
+    """The Matcher at coarse_only (default_config() otherwise; evaluation,
+    a shifted pair): no K6 or K10 launch, K1 once (with the conf matrix
+    none), and the "fine" keypoints the coarse centres."""
+    from featurematching_tpu_torch.models.matcher import Matcher
+
+    cfg = dataclasses.replace(training_config().model, coarse_only=True)
+    model = Matcher(cfg, device="cuda", seed=0)
+    gi = torch.Generator(device="cuda").manual_seed(1)
+    img0 = torch.rand(B, H, W, 3, generator=gi, device="cuda")
+    img1 = torch.roll(img0, shifts=16, dims=2)
+    for want, k1 in ((False, 1), (True, 0)):
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.no_grad():
+            out = model(img0, img1, want_conf_matrix=want)
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in wrappers.items()}
+        fine = out.fine
+        centres = (torch.equal(fine.mkpts0_f[..., :2], out.coarse.mkpts0_c)
+                   and torch.equal(fine.mkpts1_f[..., :2], out.coarse.mkpts1_c)
+                   and not fine.mkpts0_f[..., 2].any() and not fine.mkpts1_f[..., 2].any())
+        print(f"  conf matrix {want}: launches {got}; {int(out.coarse.mask.sum())} matches; "
+              f"fine keypoints the coarse centres: {centres}")
+        fine_k = {n: got[n] for n in ("fine_stage_fused", "fine_layer_forward",
+                                      "fine_layer_backward")}
+        if any(fine_k.values()):
+            raise AssertionError(f"the coarse-only forward launched the fine stage: {fine_k}")
+        if got["dual_softmax_match_stats"] != k1 or not centres:
+            raise AssertionError("the coarse-only forward's matches or keypoints are wrong")
 
 
 @torch.no_grad()
@@ -2130,8 +2331,9 @@ def main() -> int:
     tpu_launches = {}  # of the serving forward at tpu_optimized_config()
     phase("serving forward tpu_optimized_config() 640x480 batch 4 bf16",
           lambda: serving_forward(tpu_cfg, wrappers, tpu_launches, check_cpu=True))
+    sparse_step = {}  # the training step's profiler readings
     phase(f"training step {W}x{H} batch {B} bf16",
-          lambda: training_step(wrappers, train_launches))
+          lambda: sparse_step.update(training_step(wrappers, train_launches)))
     phase("training semantic checks", training_semantic)
     tpu_train_launches = {}  # of the training step at tpu_optimized_config()
     phase(f"training step tpu_optimized_config() {W}x{H} batch {B} bf16",
@@ -2143,6 +2345,10 @@ def main() -> int:
     phase("evaluation semantic checks, per-op block", eval_semantic)
     phase(f"two training steps, per-op block, {W}x{H} batch {B} bf16",
           lambda: training_per_op(wrappers))
+    phase(f"training step, dense loss, {W}x{H} batch {B} bf16",
+          lambda: training_dense(wrappers, {}, sparse_step))
+    phase(f"evaluation, dense, {W}x{H} batch {B} bf16", lambda: eval_dense(wrappers))
+    phase(f"coarse-only forward, {W}x{H} batch {B} bf16", lambda: coarse_only_forward(wrappers))
 
     kernels = []
     path_launches = (dict.fromkeys(EXPECTED_PER_FORWARD, launches)

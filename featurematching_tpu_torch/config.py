@@ -8,7 +8,7 @@ configuration of the JAX package converts with
 `config_from_dict(Config, dataclasses.asdict(cfg))`. A field this copy does
 not hold converts only at its JAX default, or where it never changes the
 math (`IGNORED_JAX_FIELDS`): the model always has a qkv bias, a patch-embed
-LayerNorm, the fine stage and its coarse-feature concat, and no positional
+LayerNorm, a coarse-feature concat in its fine stage, and no positional
 encoding, and a configuration asking otherwise raises.
 
 The kernel switches mean what they mean in the JAX package: 'on' runs the
@@ -113,6 +113,8 @@ class ModelConfig:
     pose: PoseHeadConfig = field(default_factory=PoseHeadConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     compute_dtype: str = "bfloat16"
+    # the coarse-only Matcher (no fine stage; the LoFTR-tiny teacher's mode)
+    coarse_only: bool = False
 
 
 @dataclass(frozen=True)
@@ -167,7 +169,6 @@ def tpu_optimized_config() -> Config:
 # with the JAX defaults (by dotted path from the `Config` root). A value other
 # than the default would build another model, so `config_from_dict` refuses it.
 JAX_ONLY_DEFAULTS = {
-    "model.coarse_only": False,  # True skips the fine stage
     "model.positional_encoding": None,  # True adds the sine encoding
     "model.swin.qkv_bias": True,
     "model.swin.patch_norm": True,

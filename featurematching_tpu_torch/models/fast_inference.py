@@ -151,8 +151,11 @@ class FastMatcher(MatcherParams):
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
+        if cfg.coarse_only:  # make_fast_matcher_fn reads the fine stage's weights too
+            raise ValueError("the serving forward has no coarse-only mode; use "
+                             "matcher.Matcher for coarse_only")
         super().__init__(cfg, SwinBackbone(cfg), device, seed)
-        if self.mix_feat_0.weight.device.type == "cuda":
+        if self.device.type == "cuda":
             lacking = self.widths_lacking()
             if lacking:
                 raise NotImplementedError(
@@ -234,7 +237,7 @@ class FastMatcher(MatcherParams):
     def forward(self, image0: torch.Tensor, image1: torch.Tensor) -> MatcherOutput:
         """image*: [B, H, W, C_in] NHWC, H and W divisible by the coarse stride."""
         cfg = self.cfg
-        dev = self.mix_feat_0.weight.device
+        dev = self.device
         B, H, W, _ = image0.shape
         if image1.shape != image0.shape:
             raise ValueError(f"image shapes differ: {tuple(image0.shape)} vs {tuple(image1.shape)}")

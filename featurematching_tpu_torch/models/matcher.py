@@ -17,9 +17,14 @@ pipeline:
   3. in a sparse-supervised training step (gt_ids given, no conf matrix
      wanted) an empty fixed-shape match list, as the JAX package emits: the
      coarse loss comes from `ops/sparse_focal_loss` and the fine stage reads
-     the GT ids. Otherwise the dual-softmax statistics (K1) and the top-K
-     mutual nearest neighbours, and the dense conf matrix when it is wanted;
-  4. the fine windows at the GT ids (training) or the matches, merged with
+     the GT ids. Otherwise the top-K mutual nearest neighbours
+     (`matching/coarse.coarse_match`): where the conf matrix is wanted (the
+     dense loss's) it is formed at the JAX rounding points
+     (`matching/coarse.dual_softmax_confidence`) and the matches come from
+     it, else from the dual-softmax statistics (K1);
+  4. at `coarse_only` (the LoFTR-tiny teacher's mode) the forward ends here:
+     the "fine" keypoints are the coarse centres;
+  5. the fine windows at the GT ids (training) or the matches, merged with
      the down-projected coarse features, the fine transformer (K10,
      `ops/fine_transformer_train`, where `fine.fused_train` selects it, else
      the per-op stack), the learned 49 -> 1 mixes and the soft-argmax.
@@ -36,7 +41,12 @@ from typing import Optional, Tuple
 import torch
 
 from featurematching_tpu_torch.config import ModelConfig
-from featurematching_tpu_torch.matching.coarse import CoarseMatches, ids_to_keypoints
+from featurematching_tpu_torch.matching.coarse import (
+    CoarseMatches,
+    dual_softmax_confidence,
+    ids_to_keypoints,
+)
+from featurematching_tpu_torch.matching.fine import FineMatches
 from featurematching_tpu_torch.models.backbone_swin import SwinUNet
 from featurematching_tpu_torch.models.matcher_params import MatcherParams
 from featurematching_tpu_torch.models.output import MatcherOutput
@@ -44,7 +54,6 @@ from featurematching_tpu_torch.ops.coarse_transformer import (
     TRAIN_WIDTHS,
     coarse_transformer_supported,
 )
-from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_confidence
 from featurematching_tpu_torch.ops.fine_stage import (
     C_KERNEL,
     MAX_TAPS,
@@ -73,11 +82,12 @@ class Matcher(MatcherParams):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__(cfg, SwinUNet(cfg), device, seed)
-        dev = self.mix_feat_0.weight.device
+        dev = self.device
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         # as flax's Matcher builds its transformers (use_fused_train)
         self.coarse_transformer.use_fused_train = kernel_selected(cfg.coarse.fused_train, dev)
-        self.fine_transformer.use_fused_train = kernel_selected(cfg.fine.fused_train, dev)
+        if not cfg.coarse_only:
+            self.fine_transformer.use_fused_train = kernel_selected(cfg.fine.fused_train, dev)
         self.check_switches()
         if dev.type == "cuda":
             lacking = self.widths_lacking()
@@ -92,7 +102,7 @@ class Matcher(MatcherParams):
         evaluation on the card; the attention kernel only where the fused
         block is off (the backbone also holds K11 to its limits)."""
         s = self.cfg.swin
-        dev = self.mix_feat_0.weight.device
+        dev = self.device
         fused_blk = kernel_selected(s.fused_block, dev)
         fused_attn = kernel_selected(s.fused_attention, dev) and (
             s.fused_attention == "on" or not train)
@@ -114,7 +124,8 @@ class Matcher(MatcherParams):
             out.append(f"K9 (coarse_transformer_train) takes (C, head dim) in {TRAIN_WIDTHS}, "
                        f"this config has C {c.d_model} with {c.nhead} heads")
         taps = f.window_size**2
-        if (self.fine_transformer.use_fused_train and f.attention == "linear"
+        if (not self.cfg.coarse_only and self.fine_transformer.use_fused_train
+                and f.attention == "linear"
                 and fine_stage_supported(f.layer_names, f.d_model, f.nhead) and taps <= 128
                 and not fine_train_supported(f.layer_names, f.d_model, f.nhead, taps)):
             out.append(f"K10 (fine_transformer_train) takes C {C_KERNEL} with a head dim in "
@@ -142,7 +153,7 @@ class Matcher(MatcherParams):
         fine stage's ids in training."""
         cfg = self.cfg
         self.check_switches()
-        dev = self.mix_feat_0.weight.device
+        dev = self.device
         B, H, W, _ = image0.shape
         if image1.shape != image0.shape:
             raise ValueError(f"image shapes differ: {tuple(image0.shape)} vs {tuple(image1.shape)}")
@@ -173,8 +184,20 @@ class Matcher(MatcherParams):
                                     mkpts0_c=zk, mkpts1_c=zk)
         else:
             if want_conf_matrix:
-                conf = dual_softmax_confidence(feat_c0, feat_c1, 1.0 / (Cc * mc.dsmax_temperature))
-            matches = self.coarse_matching(feat_c0, feat_c1, (hc, wc))
+                conf = dual_softmax_confidence(feat_c0, feat_c1, mc.dsmax_temperature)
+            matches = self.coarse_matching(feat_c0, feat_c1, (hc, wc), conf)
+
+        if cfg.coarse_only:
+            zeros = torch.zeros_like(matches.mkpts0_c[..., :1])
+            fine = FineMatches(
+                mkpts0_f=torch.cat([matches.mkpts0_c, zeros], -1),
+                mkpts1_f=torch.cat([matches.mkpts1_c, zeros], -1),
+                coords0=torch.zeros_like(matches.mkpts0_c),
+                coords1=torch.zeros_like(matches.mkpts1_c),
+                std0=zeros[..., 0], std1=zeros[..., 0])
+            return MatcherOutput(coarse=matches, fine=fine, conf_matrix=conf,
+                                 feat_c0=feat_c0, feat_c1=feat_c1,
+                                 fine_ids=(matches.i_ids, matches.j_ids, matches.mask))
 
         if train and gt_ids is not None:
             fid_i, fid_j, fid_mask = gt_ids

@@ -3,11 +3,13 @@
 `MatcherParams` holds the parameter tree of the JAX package's `Matcher`
 (swin_v1) under the same names: the backbone given to it, the coarse and
 fine LoFTR transformers, fine_down_proj, fine_merge and the two 49 -> 1
-mixes. One flax `variables["params"]` tree therefore loads into either
+mixes (at `coarse_only` none of the fine modules, as the JAX Matcher creates
+none). One flax `variables["params"]` tree therefore loads into either
 forward that extends it: the serving `fast_inference.FastMatcher` and the
 training `matcher.Matcher`. The methods here are the steps they share: the
-coarse matching through the dual-softmax statistics (K1), the fine windows
-and the per-op fine refinement.
+coarse matching (`matching/coarse.coarse_match`: from a conf matrix where
+one is given, else from K1's statistics), the fine windows and the per-op
+fine refinement.
 """
 
 from __future__ import annotations
@@ -18,11 +20,7 @@ import torch
 from torch import nn
 
 from featurematching_tpu_torch.config import ModelConfig
-from featurematching_tpu_torch.matching.coarse import (
-    CoarseMatches,
-    extract_matches_from_stats,
-    ids_to_keypoints,
-)
+from featurematching_tpu_torch.matching.coarse import CoarseMatches, coarse_match
 from featurematching_tpu_torch.matching.fine import (
     FineMatches,
     fine_soft_argmax,
@@ -30,7 +28,6 @@ from featurematching_tpu_torch.matching.fine import (
 )
 from featurematching_tpu_torch.models.backbone_swin import dense
 from featurematching_tpu_torch.models.transformer import LocalFeatureTransformer
-from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_match_stats
 from featurematching_tpu_torch.ops.fine_stage import window_mix
 from featurematching_tpu_torch.utils.weights import init_weights
 
@@ -62,29 +59,31 @@ class MatcherParams(nn.Module):
         c, f = cfg.coarse, cfg.fine
         self.coarse_transformer = LocalFeatureTransformer(
             c.d_model, c.nhead, c.layer_names, c.attention)
-        self.fine_down_proj = nn.Linear(c.d_model, f.d_model)
-        self.fine_merge = nn.Linear(2 * f.d_model, f.d_model)
-        self.fine_transformer = LocalFeatureTransformer(
-            f.d_model, f.nhead, f.layer_names, f.attention)
-        ww = f.window_size**2
-        self.mix_feat_0 = nn.Linear(ww, 1)
-        self.mix_feat_1 = nn.Linear(ww, 1)
+        if not cfg.coarse_only:
+            self.fine_down_proj = nn.Linear(c.d_model, f.d_model)
+            self.fine_merge = nn.Linear(2 * f.d_model, f.d_model)
+            self.fine_transformer = LocalFeatureTransformer(
+                f.d_model, f.nhead, f.layer_names, f.attention)
+            ww = f.window_size**2
+            self.mix_feat_0 = nn.Linear(ww, 1)
+            self.mix_feat_1 = nn.Linear(ww, 1)
         init_weights(self, seed)
         self.to(dev)
         self.eval()
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
     def coarse_matching(self, feat_c0: torch.Tensor, feat_c1: torch.Tensor,
-                        grid_c: Tuple[int, int]) -> CoarseMatches:
-        """Dual-softmax mutual nearest neighbours, a fixed top-K with a mask."""
+                        grid_c: Tuple[int, int], conf=None) -> CoarseMatches:
+        """Dual-softmax mutual nearest neighbours, a fixed top-K with a mask:
+        from `conf` [B, L, S] where it is given, else from K1's statistics."""
         mc = self.cfg.match_coarse
-        sc = float(self.cfg.resolution[0])
-        stats = dual_softmax_match_stats(feat_c0, feat_c1, temperature=mc.dsmax_temperature)
-        i_ids, j_ids, mask, mconf = extract_matches_from_stats(
-            stats, grid_c, grid_c, mc.thr, mc.border_rm, mc.max_matches
-        )
-        return CoarseMatches(i_ids=i_ids, j_ids=j_ids, mask=mask, mconf=mconf,
-                             mkpts0_c=ids_to_keypoints(i_ids, grid_c[1], sc),
-                             mkpts1_c=ids_to_keypoints(j_ids, grid_c[1], sc))
+        matches, _ = coarse_match(feat_c0, feat_c1, grid_c, grid_c, float(self.cfg.resolution[0]),
+                                  mc.thr, mc.border_rm, mc.dsmax_temperature, mc.max_matches,
+                                  conf)
+        return matches
 
     def fine_windows(self, feat_f0: torch.Tensor, feat_f1: torch.Tensor,
                      feat_c0: torch.Tensor, feat_c1: torch.Tensor,

@@ -81,7 +81,11 @@ class MatchStats(NamedTuple):
 
 def dual_softmax_confidence(feat0: torch.Tensor, feat1: torch.Tensor,
                             inv_temp: float) -> torch.Tensor:
-    """conf [B, L, S] f32 = softmax_rows(sim) * softmax_cols(sim)."""
+    """conf [B, L, S] f32 = softmax_rows(sim) * softmax_cols(sim) at K1's
+    rounding point: f0 * inv_temp rounded to f0's dtype before the product.
+    K1's plain twin (`_stats_reference`) takes it. The Matcher's conf matrix
+    is `matching/coarse.dual_softmax_confidence`, which divides the
+    f32-accumulated product by C * T after it, as the JAX package does."""
     f0 = (feat0.float() * inv_temp).to(feat0.dtype)
     sim = f0.float() @ feat1.float().transpose(1, 2)
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)

@@ -70,7 +70,7 @@ def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 def forward_with_loss(model: Matcher, cfg: Config, batch: Dict, train: bool,
                       generator: Optional[torch.Generator] = None):
     """(LossOutput, MatcherOutput) of one batch."""
-    dev = model.mix_feat_0.weight.device
+    dev = model.device
     b = _to_device(batch, dev)
     mcfg = cfg.model
     H, W = b["image0"].shape[1:3]

@@ -48,7 +48,9 @@ pass 1 on argmax ties inside one tile and at shapes that cross its row
 tiles, chunks of column tiles and batch; K7 one past a tile and one past
 a unit of its plan at B = 1 and 4, with a = 0 (exact zeros), with
 log-sum-exps far above every sim, and bit-identical twice at the training
-step's shapes; K5's apply kernel at row counts
+step's shapes; `extract_matches` on a conf matrix with exact ties at a
+ragged grid and the serving grid, bit-equal to the CPU's, and the dense
+evaluation Matcher taking no K1; K5's apply kernel at row counts
 around its 64-row tiles and 128-row blocks at each width it takes, one
 block past a full wave of the card, over an odd number of tiles and
 bit-identical twice, and its wgmma, bulk-copy and mbarrier path alone
@@ -524,6 +526,52 @@ def test_dual_softmax_across_the_decomposition(gen, B, L, S):
     rr, rc = _lse_reference(f0, f1, inv_temp)
     _assert_close(lr, rr, 1e-3, 0.0)
     _assert_close(lc, rc, 1e-3, 0.0)
+
+
+@pytest.mark.parametrize("grids", [((7, 9), (9, 7)), ((60, 80), (60, 80))], ids=["ragged", "serving"])
+def test_extract_matches_on_the_card(gen, grids):
+    """`extract_matches` of a conf matrix on the card equals the CPU's bit
+    for bit (ids, mask, mconf), at a ragged grid and at the serving grid,
+    with exact ties: a column of f1 and a row of f0 duplicated, so every row
+    ties between two columns and every column between two rows."""
+    from featurematching_tpu_torch.matching.coarse import (
+        dual_softmax_confidence as matcher_confidence,
+    )
+    from featurematching_tpu_torch.matching.coarse import extract_matches
+
+    (h0, w0), (h1, w1) = grids
+    L, S, C = h0 * w0, h1 * w1, 64
+    f1 = _rnd(gen, 2, S, C)
+    f1[:, 7] = f1[:, 3]
+    f0 = 0.5 * _rnd(gen, 2, L, C)
+    f0[:, :min(L, S)] += f1[:, :min(L, S)]
+    f0[:, 9] = f0[:, 2]
+    conf = matcher_confidence(f0.bfloat16(), f1.bfloat16(), 0.1)
+    assert torch.equal(conf[:, :, 3], conf[:, :, 7]) and torch.equal(conf[:, 2], conf[:, 9])
+    for thr, border in ((1e-8, 0), (0.2, 2)):
+        got = extract_matches(conf, grids[0], grids[1], thr, border, 1024)
+        ref = extract_matches(conf.cpu(), grids[0], grids[1], thr, border, 1024)
+        for x, y in zip(got, ref):
+            assert torch.equal(x.cpu(), y)
+        assert int(got[2].sum()) > 0
+
+
+def test_dense_evaluation_launches_no_k1(gen):
+    """The evaluation Matcher with the conf matrix wanted takes its matches
+    from the matrix: no K1 launch; without it, K1 once."""
+    from featurematching_tpu_torch.models.matcher import Matcher
+
+    model = Matcher(ModelConfig(), device="cuda", seed=0)
+    a = torch.rand(2, 64, 64, 3, generator=gen, device="cuda")
+    before = dual_softmax_match_stats.launches
+    with torch.no_grad():
+        out = model(a, torch.roll(a, shifts=8, dims=2), want_conf_matrix=True)
+    torch.cuda.synchronize()
+    assert dual_softmax_match_stats.launches == before
+    assert out.conf_matrix.dtype == torch.float32 and out.conf_matrix.shape == (2, 64, 64)
+    with torch.no_grad():
+        model(a, torch.roll(a, shifts=8, dims=2))
+    assert dual_softmax_match_stats.launches == before + 1
 
 
 def _layer_values(g, C):

@@ -12,7 +12,7 @@ its plain twin on the port's — both `fused_train` switches 'off', drop-path
 and the port's gradients with `coarse.fused_train='on'` (K9's plain twin),
 and with both switches 'on' (K9's and K10's twins), against the same JAX
 gradients; and `config_from_dict`'s refusal of JAX fields that would build
-another model.
+another model (and its conversion of `coarse_only`, which the port holds).
 """
 
 import dataclasses
@@ -61,6 +61,8 @@ from featurematching_tpu_torch.train.step import (
 from featurematching_tpu_torch.utils.weights import load_jax_params, to_jax_tree
 
 GRAD_RTOL = 3e-4  # ROADMAP's per-leaf gradient tolerance at f32
+# the JAX model fields of the config tests' cases that the port holds
+HELD = {"coarse_only"}
 
 
 def _t(a):
@@ -87,6 +89,25 @@ def _small_jax_config():
 def _leaves(tree):
     return {"/".join(k.key for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_step_matches(state, setup):
+    """One `train_step` of the port's `state` on `setup["batch"]` against
+    the JAX step's metrics and updated parameters (`setup["metrics"]`,
+    `["grads"]`, `["new_params"]`), by the tolerance
+    `test_metrics_and_updated_parameters` states."""
+    lr = build_lr_schedule(state.cfg.trainer.optimizer, 2, 1000)(0)
+    state, metrics = train_step(state, setup["batch"])
+    for k in ("loss", "loss_c", "loss_f", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), float(setup["metrics"][k]),
+                                   rtol=GRAD_RTOL, err_msg=k)
+    got = _leaves(to_jax_tree(state.model))
+    grads = _leaves(setup["grads"])
+    for k, r in _leaves(setup["new_params"]).items():
+        g, eps = np.abs(grads[k]).astype(np.float64), 1e-8
+        carried = np.minimum(lr * eps * GRAD_RTOL * g.max() / (g + eps) ** 2, 2 * lr)
+        tol = GRAD_RTOL * np.abs(r).max() + carried
+        assert (np.abs(got[k] - r) <= tol * 1.001).all(), k
 
 
 @pytest.fixture(scope="module")
@@ -196,19 +217,7 @@ class TestTrainStep:
         (Where |g| is near eps this is the whole step: the key part of every
         qkv bias has an exact gradient of 0, softmax rows being
         shift-invariant, and holds rounding noise on both sides.)"""
-        state = _port_state(step_setup)
-        lr = build_lr_schedule(state.cfg.trainer.optimizer, 2, 1000)(0)
-        state, metrics = train_step(state, step_setup["batch"])
-        for k in ("loss", "loss_c", "loss_f", "grad_norm"):
-            np.testing.assert_allclose(float(metrics[k]), float(step_setup["metrics"][k]),
-                                       rtol=GRAD_RTOL, err_msg=k)
-        got = _leaves(to_jax_tree(state.model))
-        grads = _leaves(step_setup["grads"])
-        for k, r in _leaves(step_setup["new_params"]).items():
-            g, eps = np.abs(grads[k]).astype(np.float64), 1e-8
-            carried = np.minimum(lr * eps * GRAD_RTOL * g.max() / (g + eps) ** 2, 2 * lr)
-            tol = GRAD_RTOL * np.abs(r).max() + carried
-            assert (np.abs(got[k] - r) <= tol * 1.001).all(), k
+        assert_step_matches(_port_state(step_setup), step_setup)
 
     def test_eval_step(self, step_setup):
         state = _port_state(step_setup)
@@ -280,17 +289,22 @@ class TestEntryPoints:
     @pytest.mark.parametrize("part,field,value", [
         (None, "coarse_only", True), (None, "positional_encoding", True),
         ("swin", "qkv_bias", False), ("fine", "concat_coarse_feat", False),
+        (None, "no_such_field", 1),
     ])
     def test_config_refuses_fields_it_does_not_hold(self, part, field, value):
         """A JAX field the port does not hold converts only at its JAX
-        default: another value would build another model."""
-        m = jax_default_config().model
-        m = (dataclasses.replace(m, **{field: value}) if part is None else dataclasses.replace(
-            m, **{part: dataclasses.replace(getattr(m, part), **{field: value})}))
+        default: another value would build another model. A field it neither
+        holds nor ignores (`IGNORED_JAX_FIELDS`) raises at any value; one it
+        holds (`HELD`) converts to the port's own field."""
+        d = dataclasses.asdict(jax_default_config())
+        (d["model"] if part is None else d["model"][part])[field] = value
+        if field in HELD:
+            got = config_from_dict(Config, d).model
+            assert getattr(got if part is None else getattr(got, part), field) == value
+            return
         path = "model." + (f"{part}." if part else "") + field
         with pytest.raises(ValueError, match=path.replace(".", r"\.")):
-            config_from_dict(Config, dataclasses.asdict(dataclasses.replace(
-                jax_default_config(), model=m)))
+            config_from_dict(Config, d)
 
     @pytest.mark.parametrize("part,field,value", [
         (None, "coarse_only", True), ("swin", "qkv_bias", False),
@@ -298,15 +312,20 @@ class TestEntryPoints:
     ])
     def test_sub_config_refuses_at_its_place_in_config(self, part, field, value):
         """A sub-config converted alone finds its dotted path in Config from
-        the type hints: the error names the field as a whole Config would."""
+        the type hints: the error names the field as a whole Config would; a
+        field the port holds (`HELD`) converts to its own."""
         from featurematching_tpu_torch.config import FineMatchConfig, ModelConfig, SwinConfig
 
         m = jax_default_config().model
         jax_part = m if part is None else getattr(m, part)
         cls = {None: ModelConfig, "swin": SwinConfig, "fine": FineMatchConfig}[part]
-        path = "model." + (f"{part}." if part else "") + field
-        with pytest.raises(ValueError, match=path.replace(".", r"\.")):
-            config_from_dict(cls, dataclasses.asdict(dataclasses.replace(jax_part, **{field: value})))
+        d = dataclasses.asdict(dataclasses.replace(jax_part, **{field: value}))
+        if field in HELD:
+            assert getattr(config_from_dict(cls, d), field) == value
+        else:
+            path = "model." + (f"{part}." if part else "") + field
+            with pytest.raises(ValueError, match=path.replace(".", r"\.")):
+                config_from_dict(cls, d)
         assert config_from_dict(cls, dataclasses.asdict(jax_part)) == cls()
 
     def test_config_allows_fields_that_do_not_change_the_math(self):
