@@ -148,7 +148,23 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      equals, bit for bit, `extract_matches_from_stats` of its plain max and
      argmax on the card; the dense evaluation step launches no K1 or K7;
  13. the coarse-only Matcher (`coarse_only`): no K6 or K10 launch, K1 once
-     (none with the conf matrix), the "fine" keypoints the coarse centres.
+     (none with the conf matrix), the "fine" keypoints the coarse centres;
+ 14. the float32 forms of K1 and K5 (phase 2, after the head-dim-64 checks):
+     K1 at the teacher's [4, 4800, 256] (K1_F32_RTOL, a planted tie, bit
+     for bit twice) and K5's stats, merge and apply through K9's forward at
+     (256, 32) over 4800 tokens, a self call of G = 8 and a cross call of G
+     = 4 (K5_F32_ATOL / K5_F32_RTOL on out, kv and ks, bit for bit twice),
+     timed by the profiler against their float32 bounds (K1's: one L x S
+     product); then the LoFTR-tiny
+     teacher's forward (`loftr_tiny_config()`: coarse-only ResNet-FPN, the
+     sine encoding, float32, seeded weights and BatchNorm statistics, 640x480
+     grayscale, batch 4): EXPECTED_PER_TEACHER (K9's forward 12, K1 once,
+     every other wrapper 0, no eager coarse layer), its device time, busy
+     share, stages, launches and peak memory, the card against the CPU on
+     one pair (`teacher_agreement`), the same with the backbone's
+     convolutions in TF32 (a planted fault it must catch) and identical
+     images on the diagonal; and `make_teacher_fn(device="cuda")` on a
+     480x640 uint8 pair.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
@@ -169,10 +185,12 @@ Per-kernel numbers in the JSON line are totals over one forward (serving
 kernels), one training step (training kernels), one evaluation step with the
 per-op block (K11) or the backbone's 13 blocks (K12), the "@hd64" lines over
 the forward (K12: the 13 blocks) or the training step at
-tpu_optimized_config(): each call site's time times its launches, summed. `bound_ms` is the larger
+tpu_optimized_config(), the "@f32" lines over the teacher's forward (their
+launches over its N_TEACHER forwards): each call site's time times its launches, summed. `bound_ms` is the larger
 of the bytes the call must move (inputs read once, outputs written once) at
 3.35 TB/s and its matrix-product operations at the bf16 tensor-core peak of
-989 TFLOP/s (the published H100 SXM figures), counted from this run's
+989 TFLOP/s, or for the "@f32" lines at the float32 peak outside the tensor
+cores of 67 TFLOP/s (the published H100 SXM figures), counted from this run's
 inputs by `featurematching_tpu_torch/utils/kernel_bounds.py`. Stdout ends
 with the card line, the kernels JSON line, and {"ok": true, "device": {...}}.
 Without a GPU it exits non-zero and prints no result. It takes no arguments:
@@ -189,17 +207,22 @@ import subprocess
 import sys
 import time
 import traceback
+from unittest import mock
 
 import torch
 
 from featurematching_tpu_torch.utils.kernel_bounds import (
+    BF16_TENSOR_FLOPS,
+    FP32_FLOPS,
     bound_ms,
     coarse_apply_work,
+    coarse_layer_f32_work,
     coarse_stats_work,
     coarse_train_apply_bwd_work,
     coarse_train_bwd_work,
     coarse_train_fwd_work,
     coarse_train_stats_bwd_work,
+    dual_softmax_f32_work,
     dual_softmax_lse_work,
     dual_softmax_work,
     fine_stage_work,
@@ -286,6 +309,40 @@ HD64 = {
     "fine_layer_forward@hd64": "fine_layer_forward",
     "fine_layer_backward@hd64": "fine_layer_backward",
 }
+# the float32 forms of K1 and K5 (the LoFTR-tiny teacher's dtype): their own
+# lines in the kernels JSON, each by the wrapper whose counter it shares,
+# its source and the TPU kernel it replaces; their bounds at the float32
+# peak outside the tensor cores (FP32_FLOPS)
+F32 = {
+    "dual_softmax_match_stats@f32": (
+        "dual_softmax_match_stats", "dual_softmax_f32.cu",
+        "featurematching_tpu/ops/pallas_dual_softmax.py:216,259"),
+    "coarse_layer_forward@f32": (
+        "coarse_layer_forward", "coarse_transformer_f32.cu",
+        "featurematching_tpu/ops/pallas_coarse_grad.py:333 (pallas_coarse_transformer.py:168,194)"),
+}
+N_TEACHER = 5  # teacher forwards timed
+# K1 at float32 against its plain twin (both float32, FFMA against cuBLAS
+# without TF32): sims differ by f32 sums in another order, about 1e-6 of
+# their size; conf = exp(2 sim - lse_r - lse_c) moves by a few times that
+K1_F32_RTOL = 1e-4
+# K5 at float32 against its plain twin, per entry of out, kv and ks: atol +
+# rtol |plain| (f32 sums over 256 to 4800 terms in another order, through
+# two LayerNorms)
+K5_F32_ATOL, K5_F32_RTOL = 2e-4, 2e-4
+# the teacher's forward on the card against the same module on the CPU
+# (float32 both): feat_c0 and feat_c1 within TEACHER_FEAT_RTOL of their
+# largest magnitude (cuDNN and the f32 kernels against the CPU's
+# convolutions and plain twins: sums in another order through 12 encoder
+# calls, read at 1.4e-6 on an H100; TF32 convolutions, which round
+# operands to 10 mantissa bits, must break it: a planted fault); a match
+# one side finds and the other does not must be a near-tie on the CPU's
+# conf matrix (within TEACHER_TIE of its row's and column's maxima, of the
+# threshold and of the top-K cutoff); the matches both find have mconf
+# within TEACHER_MCONF_RTOL
+TEACHER_FEAT_RTOL = 1e-5
+TEACHER_TIE = 1e-3
+TEACHER_MCONF_RTOL = 1e-3
 # launches a training step (K2-K6 and the K1 match statistics: none; K9
 # once an encoder call: 4 self calls and 2 x 4 cross calls; K10's forward
 # once a layer, its backward once an encoder call: a self call and 2 cross;
@@ -304,6 +361,12 @@ DENSE = {"sparse_spvs": False}
 # K1's pass 1 and K7 (the loss reads the conf matrix) and, as there, no K1
 # statistics (the matches come from the matrix)
 EXPECTED_PER_DENSE_STEP = EXPECTED_PER_STEP | {"dual_softmax_lse": 0, "sparse_focal_backward": 0}
+# launches of the teacher's forward (loftr_tiny_config(), coarse-only,
+# float32): K9's forward once an encoder call (K5's float32 kernels: 4 self
+# calls and 2 x 4 cross calls) and K1's float32 statistics once; no other
+EXPECTED_PER_TEACHER = dict.fromkeys(SOURCES, 0) | {
+    "coarse_layer_forward": 12, "dual_softmax_match_stats": 1,
+}
 # launches of the evaluation Matcher's forward at default_config() with the
 # conf matrix wanted: K8's forward, K9's and K10's forwards, no K1
 EXPECTED_PER_DENSE_EVAL = dict.fromkeys(SOURCES, 0) | {
@@ -428,7 +491,7 @@ class Record:
 
     def __init__(self):
         self.k = {n: dict(ms=0.0, plain_ms=0.0, lib=None, err=0.0, nbytes=0.0, flops=0.0)
-                  for n in [*SOURCES, *HD64]}
+                  for n in [*SOURCES, *HD64, *F32]}
 
     def site(self, name, count, ms, plain_ms, work, err, lib_ms=None, event_ms=None):
         """One call site: `count` launches per forward or training step;
@@ -443,11 +506,17 @@ class Record:
         k["err"] = max(k["err"], err)
         if lib_ms is not None:  # a kernel has a library call at all its sites or none
             k["lib"] = (k["lib"] or 0.0) + count * lib_ms
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(nbytes, flops, peak(name))
         events = f" (profiler; events {event_ms:.4f} ms)" if event_ms is not None else ""
         print(f"  site {name}: x{count} kernel {ms:.4f} ms{events}, plain {plain_ms:.4f} ms, "
               f"library {'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, "
               f"bound {b:.4f} ms ({by}), {b / ms:.3f} of it, max_abs_err {err:.3e}", flush=True)
+
+
+def peak(name: str) -> float:
+    """The operations' peak of a kernel's bound: float32 outside the tensor
+    cores for the float32 forms (F32), bf16 tensor cores for the rest."""
+    return FP32_FLOPS if name in F32 else BF16_TENSOR_FLOPS
 
 
 def rnd(g, *shape, scale=1.0, shift=0.0, dtype=torch.float32):
@@ -2081,6 +2150,353 @@ def coarse_only_forward(wrappers) -> None:
             raise AssertionError("the coarse-only forward's matches or keypoints are wrong")
 
 
+def check_dual_softmax_f32(rec: Record, g) -> None:
+    """K1's float32 kernel at the teacher's [4, 4800, 256] against its plain
+    twin (K1_F32_RTOL), with a planted exact tie across column tiles (f1's
+    column 4000 a copy of column 7: no row may pick 4000), twice bit for
+    bit; timed by the profiler (its four kernels) beside CUDA events."""
+    from featurematching_tpu_torch.ops.dual_softmax import (
+        _stats_reference,
+        dual_softmax_confidence,
+        dual_softmax_match_stats,
+    )
+
+    Bp, L, C, T = B, (H // 8) * (W // 8), 256, 0.1
+    f0 = rnd(g, Bp, L, C)
+    perm = torch.randperm(L, generator=g, device="cuda")
+    f1 = (0.8 * f0[:, perm] + 0.6 * rnd(g, Bp, L, C)).contiguous()
+    f1[:, 4000] = f1[:, 7]
+    fn = lambda: dual_softmax_match_stats(f0, f1, T)  # noqa: E731
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    inv_temp = 1.0 / (C * T)
+    ref = _stats_reference(f0, f1, inv_temp)
+    conf = dual_softmax_confidence(f0, f1, inv_temp)
+    print(f"  tolerance: max values within {K1_F32_RTOL} relative; each argmax picks a plain "
+          f"conf >= (1 - {K1_F32_RTOL}) x the plain max; ties to the lower index")
+    err = 0.0
+    for gm, rm in ((got.row_max, ref.row_max), (got.col_max, ref.col_max)):
+        e, ok = close(gm, rm, 0.0, K1_F32_RTOL)
+        err = max(err, e)
+        if not ok:
+            raise AssertionError(f"dual_softmax float32 max values: max err {e:.3e}")
+    row_pick = torch.gather(conf, 2, got.row_argmax.long()[..., None])[..., 0]
+    col_pick = torch.gather(conf, 1, got.col_argmax.long()[:, None])[:, 0]
+    if not ((row_pick >= ref.row_max * (1 - K1_F32_RTOL)).all()
+            and (col_pick >= ref.col_max * (1 - K1_F32_RTOL)).all()):
+        raise AssertionError("dual_softmax float32 argmax picks a non-maximal entry")
+    tied = int((ref.row_argmax == 7).sum())
+    same = float((got.row_argmax == ref.row_argmax).float().mean())
+    same_c = float((got.col_argmax == ref.col_argmax).float().mean())
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  argmax equal to plain: rows {same:.6f}, cols {same_c:.6f}; rows on the planted "
+          f"tie {tied}, picking column 4000: {int((got.row_argmax == 4000).sum())}; "
+          f"bit-identical twice {bits}")
+    if (got.row_argmax == 4000).any() or not bits:
+        raise AssertionError("dual_softmax float32: a tie went to the higher index, or two "
+                             "runs differ")
+    del conf
+    rec.site("dual_softmax_match_stats@f32", 1, device_ms(fn),
+             cuda_ms(lambda: _stats_reference(f0, f1, inv_temp), iters=3),
+             dual_softmax_f32_work(Bp, L, L, C), err=err, event_ms=cuda_ms(fn, iters=5))
+
+
+def check_coarse_f32(rec: Record, g) -> None:
+    """K5's float32 kernels through K9's forward (`coarse_layer_forward`) at
+    the teacher's calls, (256, 32) over 4800 tokens: a self call of G = 8
+    (4 a forward) and a cross call of G = 4 (8 a forward), against the plain
+    twin (out, kv and ks within K5_F32_ATOL + K5_F32_RTOL |plain|; kv each
+    head's K^T V row-major, the twin's unpacked), twice bit for bit; each
+    kernel's time by the profiler and the call's bound."""
+    from featurematching_tpu_torch.ops.coarse_transformer import (
+        encoder_reference_with_stats,
+        layer_values,
+        unpack_heads,
+    )
+    from featurematching_tpu_torch.ops.coarse_transformer_train import coarse_layer_forward
+
+    N, C, h = (H // 8) * (W // 8), 256, 8
+
+    def w(i, o):
+        return rnd(g, i, o, scale=i**-0.5)
+
+    def ln():
+        return rnd(g, C, scale=0.1, shift=1.0), rnd(g, C, scale=0.1)
+
+    print(f"  tolerance per entry of out, kv, ks: {K5_F32_ATOL} + {K5_F32_RTOL} |plain|")
+    for G, kind, count in ((2 * B, "self", 4), (B, "cross", 8)):
+        lv = layer_values(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C),
+                          *ln())
+        x = rnd(g, G, N, C)
+        src = x if kind == "self" else rnd(g, G, N, C)
+        fn = lambda: coarse_layer_forward(x, src, lv, h)  # noqa: E731
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        out, kv, ks = encoder_reference_with_stats(x, src, lv, h)
+        ref = out, unpack_heads(kv, h).reshape(G, -1), ks
+        err = 0.0
+        for name, a, r in zip(("out", "kv", "ks"), got, ref):
+            e, ok = close(a, r, K5_F32_ATOL, K5_F32_RTOL)
+            if name == "out":
+                err = e
+            print(f"  {kind} call (G={G}) {name}: max err {e:.3e} (max |plain| "
+                  f"{float(r.abs().max()):.3e})")
+            if not ok:
+                raise AssertionError(f"coarse layer float32 ({kind}) {name}: max err {e:.3e}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"coarse layer float32 ({kind}): two runs differ")
+        times = kernel_times(fn, dict.fromkeys(("stats_kernel", "merge_kernel",
+                                                "apply_kernel"), 1))
+        ms = sum(t[0] for t in times)
+        parts = ", ".join(f"{k} {sum(t[0] for t in times if k in t[2]):.4f}"
+                          for k in ("stats_kernel", "merge_kernel", "apply_kernel"))
+        work = coarse_layer_f32_work(G, N, N, C, h, kind == "self")
+        b, by = bound_ms(*work, FP32_FLOPS)
+        print(f"  {kind} call (G={G}): {ms:.4f} ms by the profiler ({parts}) against its bound "
+              f"{b:.4f} ms ({by}), x{count} a forward", flush=True)
+        rec.site("coarse_layer_forward@f32", count, ms,
+                 cuda_ms(lambda: encoder_reference_with_stats(x, src, lv, h), iters=3), work,
+                 err=err, event_ms=cuda_ms(fn, iters=5))
+
+
+def seed_batch_norm(model, seed: int) -> None:
+    """Seeded random BatchNorm statistics (mean ~ N(0, 0.1), var in [0.5,
+    2]) in every BatchNorm of `model`, on its device."""
+    gb = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gb, device=model.device))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=gb, device=model.device))
+
+
+def gray_pair(seed: int, n: int):
+    """n grayscale [H, W, 1] images of smooth noise on the card, and the same
+    shifted 16 px."""
+    gi = torch.Generator(device="cuda").manual_seed(seed)
+    coarse = torch.rand(n, 1, H // 4, W // 4, generator=gi, device="cuda")
+    img0 = torch.nn.functional.interpolate(coarse, size=(H, W), mode="bilinear",
+                                           align_corners=False).permute(0, 2, 3, 1).contiguous()
+    return img0, torch.roll(img0, shifts=16, dims=2)
+
+
+def teacher_agreement(card, cpu, mc, grid) -> None:
+    """One pair's coarse-only outputs, card against CPU (float32 both), at
+    the match config `mc` on the coarse grid `grid`: TEACHER_FEAT_RTOL,
+    TEACHER_TIE and TEACHER_MCONF_RTOL."""
+    from featurematching_tpu_torch.matching.coarse import border_mask_flat
+    from featurematching_tpu_torch.ops.dual_softmax import dual_softmax_confidence
+
+    rel = max(float((a[:1].float().cpu() - r.float()).abs().max() / r.float().abs().max())
+              for a, r in ((card.feat_c0, cpu.feat_c0), (card.feat_c1, cpu.feat_c1)))
+    gc, rc = card.coarse, cpu.coarse
+
+    def pairs(c, b):
+        m = c.mask[b].cpu()
+        return dict(zip(zip(c.i_ids[b].cpu()[m].tolist(), c.j_ids[b].cpu()[m].tolist()),
+                        c.mconf[b].cpu()[m].tolist()))
+
+    got, ref = pairs(gc, 0), pairs(rc, 0)
+    C, K, thr = cpu.feat_c0.shape[-1], mc.max_matches, mc.thr
+    conf = dual_softmax_confidence(cpu.feat_c0, cpu.feat_c1, 1.0 / (C * mc.dsmax_temperature))[0]
+    rmax, cmax = conf.amax(1), conf.amax(0)
+    # the CPU's candidates: mutual maxima above thr off the border, as `_select` takes them
+    jstar = conf.argmax(1)
+    ok = border_mask_flat(*grid, mc.border_rm)
+    valid = ((conf.argmax(0)[jstar] == torch.arange(len(jstar))) & (rmax > thr) & ok
+             & ok[jstar])
+    candidates = rmax[valid]
+    cpu_only = len(set(ref) - set(got))
+    lo = 1 - TEACHER_TIE
+
+    def cutoff(side):  # the top-K's last confidence where the list is full
+        return min(side.values()) if len(side) == K else 0.0
+
+    def runner_up(v):
+        return float(v.topk(2).values[1])
+
+    def near_tie(i, j, cpu_found):
+        """Whether (i, j), found on one side only, is within TEACHER_TIE of
+        going the other way on the CPU's conf. Where the CPU found it: a
+        runner-up in its row or column, the threshold, or the card's top-K
+        cutoff. Where the card did: a near mutual maximum above the
+        threshold, and fewer of the CPU's candidates clearly above it than
+        the top-K holds plus the matches the card lacks (each a near-tie that
+        frees a slot)."""
+        c = float(conf[i, j])
+        if cpu_found:
+            return (runner_up(conf[i]) >= lo * float(rmax[i])
+                    or runner_up(conf[:, j]) >= lo * float(cmax[j])
+                    or lo * c <= max(thr, cutoff(got)))
+        return (c >= lo * max(float(rmax[i]), float(cmax[j]), thr)
+                and int((candidates > c / lo).sum()) < K + cpu_only)
+
+    diff = set(got) ^ set(ref)
+    far = [m for m in diff if not near_tie(*m, m in ref)]
+    both = set(got) & set(ref)
+    mrel = max((abs(got[m] - ref[m]) / ref[m] for m in both), default=0.0)
+    print(f"  pair 0 card vs CPU (float32 both): feat max err / max |ref| {rel:.3e}; matches "
+          f"card {len(got)}, CPU {len(ref)}, both {len(both)}, on one side only {len(diff)} "
+          f"(near-ties within {TEACHER_TIE}: {len(diff) - len(far)}); mconf max rel err "
+          f"{mrel:.3e}")
+    for i, j in far[:5]:
+        print(f"    not a near-tie: ({i}, {j}) found by the {'CPU' if (i, j) in ref else 'card'} "
+              f"only: CPU conf {float(conf[i, j]):.6e}, its row max {float(rmax[i]):.6e} "
+              f"(runner-up {runner_up(conf[i]):.6e}), column max {float(cmax[j]):.6e} "
+              f"(runner-up {runner_up(conf[:, j]):.6e}); top-K cutoff card "
+              f"{cutoff(got):.6e}, CPU {cutoff(ref):.6e}; CPU candidates above it "
+              f"{int((candidates > float(conf[i, j]) / lo).sum())} of {len(candidates)}; "
+              f"mconf card {got.get((i, j))}, CPU {ref.get((i, j))}")
+    if rel > TEACHER_FEAT_RTOL or far or mrel > TEACHER_MCONF_RTOL or not both:
+        raise AssertionError(f"the teacher's card forward disagrees with the CPU's: "
+                             f"{far[:5]} not near-ties")
+
+
+def teacher_forward(wrappers, launches) -> None:
+    """The LoFTR-tiny teacher (`loftr_tiny_config()`: coarse-only ResNet-FPN,
+    the sine encoding, 8 coarse layers at (256, 8), float32) on seeded
+    weights with seeded random BN statistics, 640x480 grayscale, batch 4:
+    N_TEACHER forwards with the counters set to 0 just before and read just
+    after (EXPECTED_PER_TEACHER, every other wrapper 0, no eager coarse
+    layer); device time, busy share, launches, peak memory and the stages;
+    then at thr 1e-8 the card against the CPU on one shifted pair
+    (`teacher_agreement`), the same with the backbone's convolutions in
+    TF32 (a planted fault the check must catch), and identical images on
+    the diagonal."""
+    from featurematching_tpu_torch.config import loftr_tiny_config
+    from featurematching_tpu_torch.models.matcher import Matcher
+
+    cfg = loftr_tiny_config().model
+    model = Matcher(cfg, device="cuda", seed=0)
+    seed_batch_norm(model, 5)
+    img0, img1 = gray_pair(4, B)
+    with torch.no_grad():
+        model(img0, img1)  # warm-up
+    torch.cuda.synchronize()
+    eager = []
+    hooks = [layer.register_forward_hook(lambda *_: eager.append(1))
+             for layer in model.coarse_transformer.children()]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(N_TEACHER):
+            out = model(img0, img1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches.update({n: w.launches for n, w in wrappers.items()})
+    for hk in hooks:
+        hk.remove()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches over {N_TEACHER} forwards: {launches}; eager coarse EncoderLayer calls: "
+          f"{len(eager)}")
+    for n, per in EXPECTED_PER_TEACHER.items():
+        if launches[n] != per * N_TEACHER:
+            raise AssertionError(f"{n}: {launches[n]} launches, expected {per * N_TEACHER}")
+    if eager:
+        raise AssertionError(f"{len(eager)} eager coarse EncoderLayer calls")
+    if out.feat_c0.shape != (B, (H // 8) * (W // 8), 256) or out.feat_c0.dtype != torch.float32:
+        raise AssertionError("unexpected output shapes or dtype")
+    for t_ in (out.feat_c0, out.feat_c1, out.coarse.mconf):
+        if not torch.isfinite(t_).all():
+            raise AssertionError("non-finite output")
+    fwd_ms = dt / N_TEACHER * 1e3
+    print(f"  forward: {fwd_ms:.3f} ms on the host clock, {B / dt * N_TEACHER:.3f} pairs/s "
+          f"(batch {B}, {W}x{H} grayscale, float32, {int(out.coarse.mask.sum())} matches at "
+          f"thr {cfg.match_coarse.thr}); peak memory {peak_gib:.3f} GiB", flush=True)
+    imgs = torch.cat([img0, img1])
+    hc, wc = H // 8, W // 8
+    with torch.no_grad():
+        fc, _ = model.backbone(imgs, fine=False)
+        fc = fc + model.positional_encoding(hc, wc, 256)
+        f0, f1 = fc[:B].reshape(B, hc * wc, -1), fc[B:].reshape(B, hc * wc, -1)
+        c0, c1 = model.coarse_transformer(f0, f1)
+        # the stages by CUDA events: a profile that opens on K1's kernels
+        # drops them (the profiler loses its first events)
+        stages = {
+            "backbone (cuDNN)": lambda: model.backbone(imgs, fine=False),
+            "coarse transformer (K9's forward)": lambda: model.coarse_transformer(f0, f1),
+            "coarse matching (K1)": lambda: model.coarse_matching(c0, c1, (hc, wc)),
+        }
+        layers = {k: cuda_ms(fn, iters=5) for k, fn in stages.items()}
+        rows = kernel_times(lambda: model(img0, img1))
+    busy = sum(r[0] for r in rows)
+    print(f"  device: {busy:.3f} ms busy = {busy / fwd_ms:.3f} of the {fwd_ms:.3f} ms forward; "
+          f"{len(rows)} kernel names, {sum(r[1] for r in rows)} launches; stages (CUDA events, "
+          f"ms): " + ", ".join(f"{k} {v:.3f}" for k, v in layers.items()))
+    for ms, count, name in rows[:12]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+    # the card against the CPU, and identical images, at thr 1e-8 (random
+    # weights match nothing at 0.2)
+    thr = 1e-8
+    lo = dataclasses.replace(cfg, match_coarse=dataclasses.replace(cfg.match_coarse, thr=thr))
+    card = Matcher(lo, device="cuda", seed=0)
+    card.load_state_dict(model.state_dict())
+    cpu = Matcher(lo, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = card(img0, img1)
+        ref = cpu(img0[:1].cpu(), img1[:1].cpu())
+        same = card(img0, img0)
+    teacher_agreement(got, ref, lo.match_coarse, (H // 8, W // 8))
+    # a planted fault: cuDNN's convolutions in TF32 inside the backbone
+    flags = torch.backends.cudnn.flags
+    with mock.patch.object(torch.backends.cudnn, "flags",
+                           lambda **kw: flags(**kw | {"allow_tf32": True})), torch.no_grad():
+        tf32 = card(img0, img1)
+    print("  with the backbone's convolutions in TF32 (a planted fault):")
+    try:
+        teacher_agreement(tf32, ref, lo.match_coarse, (H // 8, W // 8))
+    except AssertionError:
+        print("  planted fault caught")
+    else:
+        raise AssertionError("TF32 convolutions in the backbone passed the card-vs-CPU check")
+    m = same.coarse.mask
+    diag = float((same.coarse.i_ids == same.coarse.j_ids)[m].float().mean())
+    print(f"  identical images: {int(m.sum())} matches, {diag:.4f} on the diagonal")
+    if int(m.sum()) == 0 or diag < 0.95:
+        raise AssertionError("identical images do not match on the diagonal")
+
+
+def teacher_fn_call(wrappers) -> None:
+    """One `make_teacher_fn(device="cuda")` call on a 480x640 uint8 pair
+    (thr 1e-8): K9's forward 12 times and K1 once, keypoints finite, on the
+    coarse grid and inside the image."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.teacher import make_teacher_fn
+
+    img0, img1 = gray_pair(6, 1)
+    a0 = (img0[0, ..., 0].cpu().numpy() * 255).astype(np.uint8)
+    a1 = (img1[0, ..., 0].cpu().numpy() * 255).astype(np.uint8)
+    fn = make_teacher_fn(thr=1e-8, device="cuda")
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    k0, k1 = fn(a0, a1)
+    dt = time.perf_counter() - t
+    got = {n: w.launches for n, w in wrappers.items() if w.launches}
+    print(f"  {len(k0)} matches in {dt * 1e3:.1f} ms (host clock, first call); launches {got}")
+    t = time.perf_counter()
+    for _ in range(N_TEACHER):
+        fn(a0, a1)
+    dt = (time.perf_counter() - t) / N_TEACHER
+    rows = kernel_times(lambda: fn(a0, a1))
+    print(f"  a call after the first: {dt * 1e3:.3f} ms on the host clock (images in, "
+          f"keypoints out), {sum(r[0] for r in rows):.3f} ms of device time; largest:")
+    for ms, count, name in rows[:5]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+    if got != {"coarse_layer_forward": 12, "dual_softmax_match_stats": 1}:
+        raise AssertionError(f"make_teacher_fn launched {got}")
+    ok = (len(k0) > 0 and k0.shape == k1.shape and np.isfinite(k0).all()
+          and not (k0 % 8).any() and (k0[:, 0] < W).all() and (k0[:, 1] < H).all())
+    if not ok:
+        raise AssertionError("make_teacher_fn's keypoints are wrong")
+
+
 @torch.no_grad()
 def breakdown(model, img0, img1, forward_ms: float) -> None:
     """Where one forward's time goes: the device time of each stage's kernels
@@ -2305,6 +2721,9 @@ def main() -> int:
           lambda: check_coarse_train(rec, g, 4, "@hd64"))
     phase("check fine_transformer_train, head dim 64",
           lambda: check_fine_train(rec, g, 1, "@hd64"))
+    # the float32 forms the teacher runs, at its shapes
+    phase("check dual_softmax_match_stats float32", lambda: check_dual_softmax_f32(rec, g))
+    phase("check coarse_layer_forward float32", lambda: check_coarse_f32(rec, g))
 
     cfg = default_config().model
     launches = {}  # of the serving forward
@@ -2349,6 +2768,11 @@ def main() -> int:
           lambda: training_dense(wrappers, {}, sparse_step))
     phase(f"evaluation, dense, {W}x{H} batch {B} bf16", lambda: eval_dense(wrappers))
     phase(f"coarse-only forward, {W}x{H} batch {B} bf16", lambda: coarse_only_forward(wrappers))
+    teacher_launches = {}  # of the teacher's forwards
+    phase(f"teacher forward loftr_tiny_config() {W}x{H} batch {B} float32",
+          lambda: teacher_forward(wrappers, teacher_launches))
+    phase(f"make_teacher_fn on the card, a {H}x{W} uint8 pair",
+          lambda: teacher_fn_call(wrappers))
 
     kernels = []
     path_launches = (dict.fromkeys(EXPECTED_PER_FORWARD, launches)
@@ -2358,10 +2782,14 @@ def main() -> int:
                          "swin_block_fused_image": image_launches,
                          "swin_block_fused_image@hd64": image_launches})
     for n, k in rec.k.items():
-        base = HD64.get(n, n)
-        src, replaces = SOURCES[base]
-        b, by = bound_ms(k["nbytes"], k["flops"])
-        runs = path_launches.get(n, train_launches)
+        if n in F32:
+            base, src, replaces = F32[n]
+            runs = teacher_launches
+        else:
+            base = HD64.get(n, n)
+            src, replaces = SOURCES[base]
+            runs = path_launches.get(n, train_launches)
+        b, by = bound_ms(k["nbytes"], k["flops"], peak(n))
         kernels.append({
             "name": n, "route": "cuda", "source": f"featurematching_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": runs.get(n, runs.get(base, 0)),

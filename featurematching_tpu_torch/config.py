@@ -8,8 +8,8 @@ configuration of the JAX package converts with
 `config_from_dict(Config, dataclasses.asdict(cfg))`. A field this copy does
 not hold converts only at its JAX default, or where it never changes the
 math (`IGNORED_JAX_FIELDS`): the model always has a qkv bias, a patch-embed
-LayerNorm, a coarse-feature concat in its fine stage, and no positional
-encoding, and a configuration asking otherwise raises.
+LayerNorm and a coarse-feature concat in its fine stage, and a
+configuration asking otherwise raises.
 
 The kernel switches mean what they mean in the JAX package: 'on' runs the
 kernel, 'off' the per-op form, 'auto' the kernel on an accelerator (`cuda`
@@ -22,7 +22,15 @@ from __future__ import annotations
 import dataclasses
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ResNetFPNConfig:
+    """ResNet-FPN backbone (1/8 coarse + 1/2 fine) dims."""
+
+    initial_dim: int = 128
+    block_dims: Tuple[int, ...] = (128, 196, 256)
 
 
 @dataclass(frozen=True)
@@ -103,9 +111,10 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    backbone_type: str = "swin_v1"
+    backbone_type: str = "swin_v1"  # 'resnet_fpn' | 'swin_v1'
     input_channels: int = 3
     resolution: Tuple[int, int] = (8, 2)  # (coarse, fine) strides
+    resnet_fpn: ResNetFPNConfig = field(default_factory=ResNetFPNConfig)
     swin: SwinConfig = field(default_factory=SwinConfig)
     coarse: TransformerConfig = field(default_factory=TransformerConfig)
     match_coarse: CoarseMatchConfig = field(default_factory=CoarseMatchConfig)
@@ -115,6 +124,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     # the coarse-only Matcher (no fine stage; the LoFTR-tiny teacher's mode)
     coarse_only: bool = False
+    # the sine positional encoding added before the coarse transformer: None
+    # means on for resnet_fpn (no positional signal of its own), off for swin_v1
+    positional_encoding: Optional[bool] = None
 
 
 @dataclass(frozen=True)
@@ -165,11 +177,40 @@ def tpu_optimized_config() -> Config:
     ))
 
 
+def loftr_tiny_config() -> Config:
+    """The frozen LoFTR-tiny teacher's profile: a coarse-only matcher,
+    ResNet-FPN 128 / (128, 196, 256) on grayscale input, the 8-layer
+    linear-attention coarse transformer (256, 8 heads), the sine positional
+    encoding (auto), dual-softmax thr 0.2 / border 2 / T 0.1, float32."""
+    return Config(model=ModelConfig(
+        backbone_type="resnet_fpn",
+        input_channels=1,
+        resnet_fpn=ResNetFPNConfig(initial_dim=128, block_dims=(128, 196, 256)),
+        coarse=TransformerConfig(d_model=256, nhead=8, layer_names=("self", "cross") * 4,
+                                 attention="linear"),
+        fine=FineMatchConfig(d_model=128),
+        compute_dtype="float32",
+        coarse_only=True,
+    ))
+
+
+def tiny_test_config() -> Config:
+    """A miniature config for fast CPU tests: small images, tiny towers."""
+    return Config(model=ModelConfig(
+        backbone_type="resnet_fpn",
+        input_channels=1,
+        resnet_fpn=ResNetFPNConfig(initial_dim=8, block_dims=(8, 12, 16)),
+        coarse=TransformerConfig(d_model=16, nhead=2, layer_names=("self", "cross")),
+        match_coarse=CoarseMatchConfig(max_matches=32, max_gt_matches=32),
+        fine=FineMatchConfig(d_model=8, nhead=2, layer_names=("self", "cross"), window_size=5),
+        compute_dtype="float32",
+    ))
+
+
 # Fields of the JAX package's configuration that this copy does not hold,
 # with the JAX defaults (by dotted path from the `Config` root). A value other
 # than the default would build another model, so `config_from_dict` refuses it.
 JAX_ONLY_DEFAULTS = {
-    "model.positional_encoding": None,  # True adds the sine encoding
     "model.swin.qkv_bias": True,
     "model.swin.patch_norm": True,
     "model.fine.concat_coarse_feat": True,
@@ -177,7 +218,6 @@ JAX_ONLY_DEFAULTS = {
 # Fields this copy does not hold that never change the port's math, each
 # with its reason; any value passes.
 IGNORED_JAX_FIELDS = {
-    "model.resnet_fpn": "read only by the ResNet-FPN backbone, which the port refuses",
     "model.pose": "read only by the pose heads; pose.flag other than 'none' raises",
     "model.loss.fine_correct_thr": "read by no code of the JAX package",
     "model.loss.r_weight": "a pose-head loss weight; the pose heads are not ported",

@@ -14,12 +14,15 @@ branch is gated as the JAX package gates it (`use_fused_coarse`,
 and the shapes, chosen before any launch); where a gate fails, the plain
 LocalFeatureTransformer, window mix and fine_soft_argmax, or depth-to-space
 and layer_norm_chain, run instead, as the JAX package's plain branches do.
-Where a gate holds at a width the kernel lacks (K2 takes Swin head dims
-16, 32 and 64; K5 the (C, head dim) pairs of `WIDTHS`; K6 C = 64 with a
-head dim in `HEAD_DIMS`, at most `MAX_LAYERS` layers and `MAX_TAPS` taps),
-the model raises NotImplementedError on `cuda` at construction, naming the
-kernel and the width, and runs no eager branch in its place; on the CPU
-every kernel's plain version takes any width.
+Where a gate holds at a width or a compute dtype the kernel lacks (K2 takes
+Swin head dims 16, 32 and 64; K5 the (C, head dim) pairs of
+`forward_widths`; K6 C = 64 with a head dim in `HEAD_DIMS`, at most
+`MAX_LAYERS` layers and `MAX_TAPS` taps; K1 and K5 alone take float32), the
+model raises NotImplementedError on `cuda` at construction, naming the
+kernel and what it lacks, and runs no eager branch in its place; on the CPU
+every kernel's plain version takes any width and dtype. The ResNet-FPN
+backbone has no serving forward (the JAX package asserts swin_v1 there):
+`matcher.Matcher` runs it.
 
 `FastMatcher(cfg)` runs on `cuda` and raises when no GPU is present;
 `device="cpu"` runs every kernel's plain version instead. Inputs and outputs
@@ -50,11 +53,12 @@ from featurematching_tpu_torch.models.backbone_swin import (
 from featurematching_tpu_torch.models.matcher_params import MatcherParams, resolve_device
 from featurematching_tpu_torch.models.output import MatcherOutput
 from featurematching_tpu_torch.ops.coarse_transformer import (
-    WIDTHS,
     coarse_transformer_fused,
     coarse_transformer_supported,
+    forward_widths,
     pack_layers,
 )
+from featurematching_tpu_torch.ops.dual_softmax import MATCH_STATS_TAKES, match_stats_takes
 from featurematching_tpu_torch.ops.fine_stage import (
     C_KERNEL,
     HEAD_DIMS,
@@ -154,29 +158,43 @@ class FastMatcher(MatcherParams):
         if cfg.coarse_only:  # make_fast_matcher_fn reads the fine stage's weights too
             raise ValueError("the serving forward has no coarse-only mode; use "
                              "matcher.Matcher for coarse_only")
+        if cfg.backbone_type != "swin_v1":  # as make_fast_matcher_fn asserts
+            raise ValueError(f"the serving forward runs the swin_v1 backbone, not "
+                             f"{cfg.backbone_type!r}; use matcher.Matcher for it")
         super().__init__(cfg, SwinBackbone(cfg), device, seed)
         if self.device.type == "cuda":
             lacking = self.widths_lacking()
             if lacking:
                 raise NotImplementedError(
-                    "the serving forward's kernels do not take this config's widths: "
-                    + "; ".join(lacking))
+                    "the serving forward's kernels do not take this config's widths or "
+                    "dtype: " + "; ".join(lacking))
 
     def widths_lacking(self):
-        """For each fused branch whose JAX gate holds at a width its kernel
-        does not take, the kernel and the width (empty: every branch the
-        gates choose has its kernel)."""
+        """For each fused branch whose JAX gate holds at a width or a compute
+        dtype its kernel does not take, the kernel and what it lacks (empty:
+        every branch the gates choose has its kernel). Of the serving
+        kernels only K1 and K5 take float32; K2, K3, K4 and K6 take bfloat16."""
         s, c, f = self.cfg.swin, self.cfg.coarse, self.cfg.fine
+        dt, name = self.dtype, self.cfg.compute_dtype
         out = []
         dims = [s.embed_dim * 2**i // h for i, h in enumerate(s.num_heads)]
         if any(d not in SWIN_HEAD_DIMS for d in dims):
             out.append(f"K2 (swin_block_fused) takes Swin head dims {SWIN_HEAD_DIMS}, this "
                        f"config has {dims}; the evaluation Matcher with "
                        f"swin.fused_block='off' runs the others")
+        if dt != torch.bfloat16:
+            out.append(f"K2 (swin_block_fused), K3 (layer_norm_chain) and K4 "
+                       f"(patch_expand_ln) take bfloat16, this config computes in {name}")
         width = (c.d_model, c.d_model // c.nhead) if c.d_model % c.nhead == 0 else None
-        if self.use_fused_coarse(1) and width not in WIDTHS:
-            out.append(f"K5 (coarse_transformer_fused) takes (C, head dim) in {WIDTHS}, this "
-                       f"config has C {c.d_model} with {c.nhead} heads")
+        if self.use_fused_coarse(1) and width not in forward_widths(dt):
+            out.append(f"K5 (coarse_transformer_fused) takes (C, head dim) in "
+                       f"{forward_widths(dt)} at {name}, this config has C {c.d_model} with "
+                       f"{c.nhead} heads")
+        if not match_stats_takes(c.d_model, dt):
+            out.append(f"K1 (dual_softmax_match_stats) {MATCH_STATS_TAKES}, this config has "
+                       f"C {c.d_model} in {name}")
+        if self.use_fused_fine() and dt != torch.bfloat16:
+            out.append(f"K6 (fine_stage_fused) takes bfloat16, this config computes in {name}")
         if (self.use_fused_fine() and (f.d_model != C_KERNEL
                                        or f.d_model // f.nhead not in HEAD_DIMS
                                        or len(f.layer_names) > MAX_LAYERS

@@ -1,7 +1,7 @@
 """The Matcher's weights and the steps both of its forwards take.
 
 `MatcherParams` holds the parameter tree of the JAX package's `Matcher`
-(swin_v1) under the same names: the backbone given to it, the coarse and
+under the same names: the backbone given to it (swin_v1 or resnet_fpn), the coarse and
 fine LoFTR transformers, fine_down_proj, fine_merge and the two 49 -> 1
 mixes (at `coarse_only` none of the fine modules, as the JAX Matcher creates
 none). One flax `variables["params"]` tree therefore loads into either
@@ -45,14 +45,12 @@ def resolve_device(device) -> torch.device:
 
 
 class MatcherParams(nn.Module):
-    """The Matcher's weights around `backbone` (a `SwinUNetParams`), seeded
-    from `seed` and moved to `device`, in eval mode."""
+    """The Matcher's weights around `backbone` (a `SwinUNetParams` or a
+    `ResNetFPN`), seeded from `seed` and moved to `device`, in eval mode."""
 
     def __init__(self, cfg: ModelConfig, backbone: nn.Module, device, seed: int):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.backbone_type != "swin_v1":
-            raise ValueError("the port implements the swin_v1 backbone")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.backbone = backbone

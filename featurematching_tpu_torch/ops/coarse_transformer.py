@@ -25,6 +25,13 @@ product, and o·(S / (Z + eps)) is formed in f32 and rounded once.
 
 Self layers run both images as one batch of 2B; cross layers run in turn,
 so feat1 attends the UPDATED feat0, as the reference does.
+
+At float32 (the LoFTR-tiny teacher's dtype) a layer launches
+`csrc/coarse_transformer_f32.cu` instead: the same stats, merge and apply in
+true float32 (FFMA on the CUDA cores over 32-token tiles, reading the same
+`LayerValues` operands in float32; bound by those operations), at the
+(C, head dim) of `F32_WIDTHS`. Any other dtype raises; nothing is
+converted.
 """
 
 from __future__ import annotations
@@ -44,10 +51,20 @@ APPLY_HIDDEN_CHUNK = 128  # FFN hidden columns the apply kernel takes at a time
 STATS_GROUP = 128  # K features of a stats block's head group (and as many V features)
 # (C, head dim) the forward's kernels take (the backward's, K9's: `TRAIN_WIDTHS`)
 WIDTHS = ((128, 16), (128, 32), (128, 64), (256, 16), (256, 32), (256, 64))
+# (C, head dim) the float32 forward takes (csrc/coarse_transformer_f32.cu)
+F32_WIDTHS = ((256, 32),)
+F32_TILE = 32  # tokens of a float32 stats or apply tile
 TRAIN_WIDTHS = ((128, 16), (128, 32), (256, 16), (256, 32), (256, 64))
 _STATS_ARGTYPES = [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR]
 _APPLY_ARGTYPES = [_build.PTR] * 9 + [_build.INT] * 5 + [_build.PTR]
 _RING_ARGTYPES = [_build.PTR] * 3 + [_build.INT, _build.PTR]
+_F32_ARGTYPES = [_build.PTR] * 16 + [_build.INT] * 7 + [_build.PTR]
+
+
+def forward_widths(dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The (C, head dim) pairs the forward's kernels take at `dtype` (none
+    at a dtype they lack)."""
+    return {torch.bfloat16: WIDTHS, torch.float32: F32_WIDTHS}.get(dtype, ())
 
 
 @functools.lru_cache(maxsize=None)
@@ -248,6 +265,15 @@ def stats_image(lv: LayerValues) -> torch.Tensor:
     image = lv.wkv.reshape(-1)[_stats_index(C, lv.wkv.device)]
     lv.wkv._stats_image = (lv.wkv._version, image)
     return image
+
+
+def f32_stats_plan(G: int, S: int, sms: int) -> Tuple[int, int]:
+    """(per_chunk, chunks) of the float32 stats kernel: each image's
+    ceil(S / 32) tiles in `chunks` runs of `per_chunk`, a block a run (one
+    block an SM: its shared memory), about one block an SM in all."""
+    tiles = -(-S // F32_TILE)
+    per = min(tiles, -(-tiles * G // sms))
+    return per, -(-tiles // per)
 
 
 def stats_plan(G: int, S: int, C: int, sms: int) -> Tuple[int, int]:
@@ -467,27 +493,28 @@ def coarse_transformer_reference(feat0, feat1, layers: Sequence[LayerValues],
                       lambda x, s, lv: encoder_reference(x, s, lv, nhead))
 
 
-def check_layer_values(lv: LayerValues, C: int) -> None:
-    """Raise unless lv holds a layer of width C as the kernels take it."""
+def check_layer_values(lv: LayerValues, C: int, dtype: torch.dtype = torch.bfloat16) -> None:
+    """Raise unless lv holds a layer of width C as the kernels of `dtype`
+    take it (weights packed in that dtype, LN parameters float32)."""
     for t, name, (k, n) in zip(lv, LayerValues._fields, [
             (C, C), (C, 2 * C), (C, C), (1, C), (1, C), (2 * C, 2 * C), (2 * C, C), (1, C), (1, C)]):
         if name[0] == "n":
             _build.check_cuda(t, name, torch.float32, (n,))
         else:
-            _build.check_cuda(t, name, torch.bfloat16, (n // 16, k // 16, 32, 8))
+            _build.check_cuda(t, name, dtype, (n // 16, k // 16, 32, 8))
 
 
 def _check_layer(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int,
-                 widths=WIDTHS) -> None:
+                 widths=WIDTHS, dtype: torch.dtype = torch.bfloat16) -> None:
     G, L, C = x.shape
     if C % nhead or (C, C // nhead) not in widths:
         raise ValueError(
-            f"coarse_transformer kernel takes (C, head dim) in {widths}; got C={C}, "
+            f"coarse_transformer kernel takes (C, head dim) in {widths} at {dtype}; got C={C}, "
             f"heads={nhead}"
         )
-    _build.check_cuda(x, "x", torch.bfloat16)
-    _build.check_cuda(src, "src", torch.bfloat16, (G, src.shape[1], C))
-    check_layer_values(lv, C)
+    _build.check_cuda(x, "x", dtype)
+    _build.check_cuda(src, "src", dtype, (G, src.shape[1], C))
+    check_layer_values(lv, C, dtype)
 
 
 def launch_stats(src: torch.Tensor, lv: LayerValues, nhead: int, per_chunk: int,
@@ -517,7 +544,12 @@ def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
     """One encoder layer on the card: the stats kernel over src (with its
     merge), then the apply kernel over x. x: [G, L, C], src: [G, S, C] bf16.
     Returns (out, kv, ks): kv [G, C * D] (each head's K^T V in fragment
-    order, `pack_heads`) and ks [G, C], bf16, as the apply kernel read them."""
+    order, `pack_heads`) and ks [G, C], bf16, as the apply kernel read them.
+    At float32 the float32 kernels (`_layer_f32`): kv and ks float32, kv
+    each head's K^T V row-major ([G, H, D, D] flat; `pack_heads` order is
+    for K9's backward, which does not take float32)."""
+    if x.dtype == torch.float32:
+        return _layer_f32(x, src, lv, nhead)
     _check_layer(x, src, lv, nhead)
     G, L, C = x.shape
     S = src.shape[1]
@@ -531,6 +563,30 @@ def coarse_layer_with_stats(x: torch.Tensor, src: torch.Tensor, lv: LayerValues,
         x.data_ptr(), kv.data_ptr(), ks.data_ptr(), image.data_ptr(), lv.n1s.data_ptr(),
         lv.n1b.data_ptr(), lv.n2s.data_ptr(), lv.n2b.data_ptr(), out.data_ptr(), G, L, S, C, D,
         _build.stream(),
+    )
+    return out, kv, ks
+
+
+def _layer_f32(x: torch.Tensor, src: torch.Tensor, lv: LayerValues, nhead: int):
+    """One encoder layer on the card in float32 (`csrc/coarse_transformer_f32.cu`:
+    stats, merge, apply), returned as `coarse_layer_with_stats` returns it;
+    raises for what the kernels do not take (F32_WIDTHS, float32 weights)."""
+    _check_layer(x, src, lv, nhead, F32_WIDTHS, torch.float32)
+    G, L, C = x.shape
+    S = src.shape[1]
+    D = C // nhead
+    per, chunks = f32_stats_plan(
+        G, S, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    part_kv, part_ks = torch.empty(G, chunks, C * D, **f32), torch.empty(G, chunks, C, **f32)
+    kv, ks = torch.empty(G, C * D, **f32), torch.empty(G, C, **f32)
+    out = torch.empty_like(x)
+    _build.launch(
+        "coarse_transformer_f32", "fm_coarse_layer_f32", _F32_ARGTYPES,
+        x.data_ptr(), src.data_ptr(),
+        *(t.data_ptr() for t in (lv.wq, lv.wkv, lv.wmerge, lv.wmlp1, lv.wmlp2, lv.n1s, lv.n1b,
+                                 lv.n2s, lv.n2b, part_kv, part_ks, kv, ks, out)),
+        G, L, S, C, D, per, chunks, _build.stream(),
     )
     return out, kv, ks
 

@@ -1,11 +1,14 @@
 """Dual-softmax mutual-NN matching statistics without the [L, S] matrix.
 
 Port of `featurematching_tpu/ops/pallas_dual_softmax.py ·
-dual_softmax_match_stats`. On a CUDA tensor it launches `csrc/dual_softmax.cu`
-(two passes of 128-row blocks over chunks of f1's 64-column tiles on bf16
-mma.sync tiles, the sim tile and its statistics in registers, each pass
-followed by a small combine kernel; bound by tensor-core operations); on a
-CPU tensor it runs `_stats_reference`.
+dual_softmax_match_stats`. On a bfloat16 CUDA tensor it launches
+`csrc/dual_softmax.cu` (two passes of 128-row blocks over chunks of f1's
+64-column tiles on bf16 mma.sync tiles, the sim tile and its statistics in
+registers, each pass followed by a small combine kernel; bound by
+tensor-core operations); on a float32 one `csrc/dual_softmax_f32.cu` (the
+same two passes in true float32, FFMA on the CUDA cores over [128, 128] sim
+tiles; bound by those operations); on a CPU tensor it runs
+`_stats_reference`. Any other dtype raises; nothing is converted.
 
 Both forms fold inv_temp = 1 / (C * T) into f0 in f0's dtype before the
 product, as the TPU kernel does (the JAX package's `_stats_reference` scales
@@ -20,14 +23,37 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from featurematching_tpu_torch.ops import _build
 
 ROW_TILE = 128  # rows of f0 a block
+F32_TILE = 128  # rows of f0 a block and columns of f1 a tile of the float32 kernel
+BF16_WIDTHS = (64, 128, 256)  # C of the bf16 kernel; the f32 kernel takes C % 16 == 0
+MATCH_STATS_TAKES = (f"takes C in {BF16_WIDTHS} at bfloat16 and C a multiple of 16 at "
+                     f"float32")
 _ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 6 + [_build.PTR] * 11
+
+
+def match_stats_takes(C: int, dtype: torch.dtype) -> bool:
+    """Whether `dual_softmax_match_stats`' kernel takes features of width C
+    in `dtype` (MATCH_STATS_TAKES)."""
+    if dtype == torch.bfloat16:
+        return C in BF16_WIDTHS
+    return dtype == torch.float32 and C > 0 and C % 16 == 0
+
+
+def f32_plan(B: int, L: int, S: int, sms: int) -> Tuple[int, int]:
+    """(n_split, chunk) of the float32 kernel: f1's ceil(S / 128) column
+    tiles in n_split runs of `chunk`, as many runs as bring the blocks (B x
+    ceil(L / 128) row tiles x n_split) to two a streaming multiprocessor."""
+    n_ct = -(-S // F32_TILE)
+    rows = B * -(-L // F32_TILE)
+    want = max(1, min(n_ct, -(-2 * sms // rows)))
+    chunk = -(-n_ct // want)
+    return -(-n_ct // chunk), chunk
 _LSE_ARGTYPES = [_build.PTR, _build.PTR, _build.FLOAT] + [_build.INT] * 6 + [_build.PTR] * 7
 
 
@@ -104,14 +130,18 @@ def _stats_reference(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float) 
 def dual_softmax_match_stats(
     feat0: torch.Tensor, feat1: torch.Tensor, temperature: float = 0.1
 ) -> MatchStats:
-    """Row/col max+argmax of the dual-softmax confidence. feat*: [B, L/S, C]."""
+    """Row/col max+argmax of the dual-softmax confidence. feat*: [B, L/S, C],
+    bfloat16 or float32 on the card (the kernel of that dtype)."""
     B, L, C = feat0.shape
     S = feat1.shape[1]
     inv_temp = 1.0 / (C * temperature)
     if feat0.device.type == "cpu":
         return _stats_reference(feat0, feat1, inv_temp)
-    if C not in (64, 128, 256):
-        raise ValueError(f"dual_softmax_match_stats kernel takes C in (64, 128, 256), got {C}")
+    if feat0.dtype == torch.float32:
+        return _match_stats_f32(feat0, feat1, inv_temp)
+    if C not in BF16_WIDTHS:
+        raise ValueError(f"dual_softmax_match_stats kernel takes C in {BF16_WIDTHS} at "
+                         f"bfloat16, got {C}")
     _build.check_cuda(feat0, "feat0", torch.bfloat16)
     _build.check_cuda(feat1, "feat1", torch.bfloat16, (B, S, C))
     p, scratch = _scratch(feat0, feat1)
@@ -125,6 +155,37 @@ def dual_softmax_match_stats(
     _build.launch(
         "dual_softmax", "fm_dual_softmax_stats", _ARGTYPES,
         feat0.data_ptr(), feat1.data_ptr(), inv_temp, B, L, S, C, p.n_split, p.chunk,
+        *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in out], _build.stream(),
+    )
+    dual_softmax_match_stats.launches += 1
+    return out
+
+
+def _match_stats_f32(feat0: torch.Tensor, feat1: torch.Tensor, inv_temp: float) -> MatchStats:
+    """The float32 kernel (`csrc/dual_softmax_f32.cu`) on CUDA tensors;
+    raises for what it does not take (C not a multiple of 16)."""
+    B, L, C = feat0.shape
+    S = feat1.shape[1]
+    if not match_stats_takes(C, torch.float32):
+        raise ValueError(f"dual_softmax_match_stats float32 kernel takes C a multiple of 16, "
+                         f"got {C}")
+    _build.check_cuda(feat0, "feat0", torch.float32)
+    _build.check_cuda(feat1, "feat1", torch.float32, (B, S, C))
+    dev = feat0.device
+    n_split, chunk = f32_plan(B, L, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    nT = -(-L // F32_TILE)
+    f32 = dict(device=dev, dtype=torch.float32)
+    i32 = dict(device=dev, dtype=torch.int32)
+    scratch = [torch.empty(B, n_split, L, **f32), torch.empty(B, n_split, L, **f32),
+               torch.empty(B, nT, S, **f32), torch.empty(B, nT, S, **f32),
+               torch.empty(B, L, **f32), torch.empty(B, S, **f32)]
+    out = MatchStats(
+        torch.empty(B, L, **f32), torch.empty(B, L, **i32),
+        torch.empty(B, S, **f32), torch.empty(B, S, **i32),
+    )
+    _build.launch(
+        "dual_softmax_f32", "fm_dual_softmax_stats_f32", _ARGTYPES,
+        feat0.data_ptr(), feat1.data_ptr(), inv_temp, B, L, S, C, n_split, chunk,
         *[t.data_ptr() for t in scratch], *[t.data_ptr() for t in out], _build.stream(),
     )
     dual_softmax_match_stats.launches += 1

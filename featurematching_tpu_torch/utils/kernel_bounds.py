@@ -2,9 +2,12 @@
 
 A kernel's bound is the larger of two times: the bytes its function must
 move (each input read once, each output written once) over the card's memory
-rate, and its matrix-product operations over the bf16 tensor-core peak.
-Both rates are NVIDIA's published H100 SXM figures, which assume the card's
-full 700 W power limit. The `*_work` functions count (bytes, operations) for
+rate, and its matrix-product operations over the bf16 tensor-core peak;
+for the float32 forms of K1 and K5 (the LoFTR-tiny teacher's dtype,
+`*_f32_work`), their 4-byte operands and their operations over the float32
+peak outside the tensor cores (`bound_ms(..., peak=FP32_FLOPS)`: they run
+in true float32, FFMA). All rates are NVIDIA's published H100 SXM figures,
+which assume the card's full 700 W power limit. The `*_work` functions count (bytes, operations) for
 one call at given shapes; `chip_smoke.py` applies them to the inputs it runs,
 and this module's command line applies them to every kernel of the JAX
 package at `default_config()` and at `tpu_optimized_config()` (head dim 64
@@ -39,6 +42,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12  # float32 on the CUDA cores (no tensor cores, no TF32)
 WINDOW = 64  # tokens of an 8x8 Swin window
 SMS = 132  # streaming multiprocessors of the H100 SXM
 BF16, F32 = 2, 4
@@ -46,9 +50,10 @@ BF16, F32 = 2, 4
 Work = Tuple[float, float]  # (bytes, operations)
 
 
-def bound_ms(nbytes: float, flops: float) -> Tuple[float, str]:
-    """(least time in ms, "bytes" or "operations", whichever bounds it)."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_TENSOR_FLOPS) -> Tuple[float, str]:
+    """(least time in ms, "bytes" or "operations", whichever bounds it), the
+    operations at `peak` FLOP/s (the bf16 tensor cores unless given)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -94,6 +99,46 @@ def dual_softmax_work(B: int, L: int, S: int, C: int) -> Work:
     int32 argmax per row and per column out. Two passes over the L x S
     products: the [L, S] matrix is never stored, so the second recomputes it."""
     return B * (L + S) * C * BF16 + B * (L + S) * 2 * F32, 2 * 2 * B * L * S * C
+
+
+def dual_softmax_f32_work(B: int, L: int, S: int, C: int) -> Work:
+    """K1 at float32: f32 features in, an f32 max and an int32 argmax per
+    row and per column out; one L x S product (FP32_FLOPS). The kernel
+    forms the product twice (its second pass recomputes sim), but the
+    function needs it once: storing sim and reading it back (8 B L S
+    bytes, 0.22 ms at the teacher's [4, 4800, 4800]) costs less than a
+    float32 product (0.70 ms), so the least time counts one. (At bf16 a
+    product on the tensor cores costs less than that round trip, and
+    `dual_softmax_work` counts two.)"""
+    return B * (L + S) * C * F32 + B * (L + S) * 2 * F32, 2 * B * L * S * C
+
+
+def coarse_layer_f32_work(G: int, L: int, S: int, C: int, heads: int,
+                          self_call: bool) -> Work:
+    """One float32 encoder call (K5's stats and apply at float32, K9's
+    forward): f32 queries x [G, L, C] and sources [G, S, C] (one tensor on
+    a self call, read once), the layer's 10 C^2 weights and LN parameters
+    in; the output [G, L, C] and the stats kv [G, C D] and ks [G, C] out.
+    Operations: the K, V projection and K^T V per source token, the q,
+    merge, 2C->2C and 2C->C products and Q K^T V per query token
+    (FP32_FLOPS)."""
+    D = C // heads
+    tokens = G * L + (0 if self_call else G * S)
+    nbytes = (tokens + G * L) * C * F32 + 10 * C * C * F32 + 4 * C * F32 \
+        + G * (C * D + C) * F32
+    return nbytes, G * S * (2 * 2 * C * C + 2 * C * D) + G * L * (2 * 8 * C * C + 2 * C * D)
+
+
+def teacher_work(cfg, batch: int = 4, H: int = 480, W: int = 640) -> Dict[str, List[Work]]:
+    """The float32 kernels of the coarse-only teacher's forward
+    (`loftr_tiny_config()`): K1 once, and K9's forward (K5's float32
+    kernels) once an encoder call: a self layer one call on both images (G
+    = 2 batch), a cross layer two (G = batch)."""
+    co = cfg.coarse
+    L = (H // cfg.resolution[0]) * (W // cfg.resolution[0])
+    calls = [coarse_layer_f32_work(G, L, L, co.d_model, co.nhead, self_call)
+             for G, self_call in train_calls(co.layer_names, 2 * batch)]
+    return {"K1": [dual_softmax_f32_work(batch, L, L, co.d_model)], "K9 fwd": calls}
 
 
 def encoder_work(tokens: int, C: int, heads: int, layers: int) -> Work:
@@ -496,7 +541,11 @@ def window_attention_sites(cfg, images: int = 8, H: int = 480, W: int = 640) -> 
 
 
 def main() -> None:
-    from featurematching_tpu_torch.config import default_config, tpu_optimized_config
+    from featurematching_tpu_torch.config import (
+        default_config,
+        loftr_tiny_config,
+        tpu_optimized_config,
+    )
 
     print(f"H100 SXM peaks: {HBM_BYTES_PER_S / 1e12} TB/s, {BF16_TENSOR_FLOPS / 1e12} "
           "TFLOP/s bf16 (700 W); default_config(), 640x480, batch 4")
@@ -551,6 +600,13 @@ def main() -> None:
               f"csrc/wgrad.cuh fm::wgrad_group | {nbytes / 1e6:.1f} | {flops / 1e9:.1f} | "
               f"{sum(b for b, _ in bounds):.4f} (summed) | bytes for {by}, operations for "
               f"{len(works) - by} |")
+    for kid, works in teacher_work(loftr_tiny_config().model).items():
+        nbytes, flops = total(works)
+        b, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        print(f"| {kid} float32 (loftr_tiny_config() teacher, {len(works)} launches a "
+              f"forward; {FP32_FLOPS / 1e12:.0f} TFLOP/s) | csrc/"
+              f"{'dual_softmax_f32.cu' if kid == 'K1' else 'coarse_transformer_f32.cu'} | "
+              f"{nbytes / 1e6:.1f} | {flops / 1e9:.1f} | {b:.4f} | {by} |")
 
 
 if __name__ == "__main__":

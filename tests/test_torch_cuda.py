@@ -68,7 +68,11 @@ last unit or tile left out) past the tolerance, and their launch counters
 training step at its T and at ragged T, each backward's products in one
 launch as the step makes them, operands inside a stash with later blocks
 behind their last row, bit-identical twice, the wrapper's refusals, and one
-launch counted a backward call. They import neither
+launch counted a backward call; the float32 forms of K1 (ragged L and S,
+C = 16 and 256, planted ties across tiles, the teacher's shapes) and K5
+(token counts around their 32-token tiles at head dims 16, 32 and 64, the
+teacher's self call), their refusals, and the gates refusing float32
+configs at construction where a selected kernel lacks it. They import neither
 JAX nor the JAX package, so on a machine without JAX run them without the
 repository's conftest:
 
@@ -851,7 +855,7 @@ def test_wrappers_raise_rather_than_fall_back(gen):
         layer_norm_chain(x, s, b)
     with pytest.raises(ValueError, match="C in"):
         layer_norm_chain(_rnd(gen, 4, 96, dtype=torch.bfloat16), _rnd(gen, 96), _rnd(gen, 96))
-    f = _rnd(gen, 1, 64, 64)
+    f = _rnd(gen, 1, 64, 64, dtype=torch.float16)  # K1 takes bfloat16 and float32
     with pytest.raises(ValueError, match="bfloat16"):
         dual_softmax_match_stats(f, f, 0.1)
     assert layer_norm_chain.launches == before
@@ -2206,3 +2210,132 @@ def test_evaluation_forward_with_the_per_op_block(gen, heads):
     with torch.no_grad():
         model(a, a, train=True)
     assert window_attention.launches == after[0]
+
+
+@pytest.mark.parametrize("B, L, S, C", [
+    (2, 200, 137, 256),  # the last row and column tiles partial
+    (1, 129, 257, 256),  # one row past a 128-row tile, one column past two tiles
+    (3, 4800, 4800, 256),  # the teacher's shapes (several splits)
+    (1, 96, 80, 16),  # tiny_test_config()'s width
+])
+def test_dual_softmax_float32_ragged_with_ties(gen, B, L, S, C):
+    """K1's float32 kernel against its plain twin at ragged L and S: the
+    maxima within 1e-4 relative, each argmax a plain maximum within 1e-4.
+    Planted exact ties: f1's column 3 repeated at S - 1 and at 130 (other
+    column tiles, where they exist) and row 2 of f0 repeated at L - 1; row 2
+    is made to prefer column 3, so its argmax, and the duplicate row's, must
+    be the lower index, 3, and column 3's and its copies' must be row 2."""
+    f1 = _rnd(gen, B, S, C)
+    f0 = 0.3 * _rnd(gen, B, L, C)
+    dup_cols = sorted({S - 1, min(130, S - 1)} - {3})
+    f1[:, dup_cols] = f1[:, 3:4].clone()
+    f0[:, 2] = 2.0 * f1[:, 3]
+    f0[:, L - 1] = f0[:, 2]
+    got = dual_softmax_match_stats(f0, f1, 0.1)
+    ref = _stats_reference(f0, f1, 1.0 / (C * 0.1))
+    _assert_close(got.row_max, ref.row_max, 0.0, 1e-4)
+    _assert_close(got.col_max, ref.col_max, 0.0, 1e-4)
+    conf = dual_softmax_confidence(f0, f1, 1.0 / (C * 0.1))
+    row_pick = torch.gather(conf, 2, got.row_argmax.long()[..., None])[..., 0]
+    col_pick = torch.gather(conf, 1, got.col_argmax.long()[:, None])[:, 0]
+    assert (row_pick >= ref.row_max * (1 - 1e-4)).all()
+    assert (col_pick >= ref.col_max * (1 - 1e-4)).all()
+    assert got.row_argmax[:, [2, L - 1]].eq(3).all()
+    assert got.col_argmax[:, [3, *dup_cols]].eq(2).all()
+    again = dual_softmax_match_stats(f0, f1, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_dual_softmax_refuses_what_it_does_not_take(gen):
+    """The float32 kernel takes C a multiple of 16; half precision raises;
+    nothing is converted."""
+    f = _rnd(gen, 1, 64, 24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dual_softmax_match_stats(f, f, 0.1)
+    h = _rnd(gen, 1, 64, 64).half()
+    with pytest.raises(ValueError):
+        dual_softmax_match_stats(h, h, 0.1)
+
+
+def _f32_layer(gen, C):
+    from featurematching_tpu_torch.ops.coarse_transformer import layer_values as pack
+
+    def w(i, o):
+        return _rnd(gen, i, o, scale=i**-0.5).contiguous()
+
+    def ln():
+        return _rnd(gen, C, scale=0.1, shift=1.0), _rnd(gen, C, scale=0.1)
+
+    return pack(w(C, C), w(C, 2 * C), w(C, C), *ln(), w(2 * C, 2 * C), w(2 * C, C), *ln())
+
+
+@pytest.mark.parametrize("G, L, S", [(1, 1, 1), (2, 31, 33), (3, 100, 32), (8, 4800, 4800)])
+def test_coarse_layer_float32_ragged(gen, G, L, S):
+    """K5's float32 kernels (stats, merge, apply) at (256, 32) against the
+    plain twin at token counts around their 32-token tiles, a self call
+    (src = x) where L = S, and at the teacher's self call: out, kv (each
+    head's K^T V row-major, the twin's unpacked) and ks within 2e-4 (+ 2e-4
+    relative; f32 sums in another order), bit-identical twice; the launch
+    counted once a call."""
+    C, heads = 256, 8
+    lv = _f32_layer(gen, C)
+    x = _rnd(gen, G, L, C)
+    src = x if L == S else _rnd(gen, G, S, C)
+    before = ctt.coarse_layer_forward.launches
+    got = ctt.coarse_layer_forward(x, src, lv, heads)
+    assert ctt.coarse_layer_forward.launches == before + 1
+    out, kv, ks = encoder_reference_with_stats(x, src, lv, heads)
+    ref = out, unpack_heads(kv, heads).reshape(G, -1), ks
+    for g_, r_ in zip(got, ref):
+        assert g_.dtype == torch.float32 and g_.shape == r_.shape
+        _assert_close(g_, r_, 2e-4, 2e-4)
+    again = ctt.coarse_layer_forward(x, src, lv, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_coarse_layer_float32_refuses_what_it_does_not_take(gen):
+    """C = 128, head dims 16 and 64, and bf16 weights with float32
+    activations raise, and so does K9's backward at float32."""
+    lv128 = _f32_layer(gen, 128)
+    x = _rnd(gen, 1, 64, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        coarse_layer_with_stats(x, x, lv128, 4)
+    lv = _f32_layer(gen, 256)
+    x = _rnd(gen, 1, 64, 256)
+    for heads in (16, 4):
+        with pytest.raises(ValueError, match="head dim"):
+            coarse_layer_with_stats(x, x, lv, heads)
+    bf = lv._replace(wq=lv.wq.bfloat16())
+    with pytest.raises(ValueError, match="wq"):
+        coarse_layer_with_stats(x, x, bf, 8)
+    out, kv, ks = coarse_layer_with_stats(x, x, lv, 8)
+    with pytest.raises(ValueError):
+        ctt.coarse_layer_backward(x, x, kv, ks, out, lv, ctt.train_values(lv), 8)
+
+
+def test_float32_gates_refuse_at_construction(gen):
+    """On the card a config whose selected kernels lack float32 raises
+    NotImplementedError at construction, naming them: FastMatcher (K2, K3,
+    K4, K6), a training Swin Matcher (K9's and K10's backwards, wgrad, K7),
+    one that selects K8 or K11; the teacher's profile constructs (its K1 and
+    K5 take float32)."""
+    import dataclasses
+
+    from featurematching_tpu_torch.config import loftr_tiny_config
+    from featurematching_tpu_torch.models.matcher import Matcher
+
+    f32 = dataclasses.replace(ModelConfig(), compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="K2.*K6|K6.*K2"):
+        FastMatcher(f32, device="cuda")
+    off = dataclasses.replace(f32, swin=dataclasses.replace(
+        f32.swin, fused_block="off", fused_attention="off"))
+    for cfg, names in ((off, ("K9's backward", "K10", "wgrad", "K7")),
+                       (dataclasses.replace(f32, swin=dataclasses.replace(
+                           f32.swin, fused_attention="off")), ("K8",)),
+                       (dataclasses.replace(f32, swin=dataclasses.replace(
+                           f32.swin, fused_block="off")), ("K11",))):
+        with pytest.raises(NotImplementedError) as info:
+            Matcher(cfg, device="cuda")
+        assert all(n in str(info.value) for n in names), str(info.value)
+    model = Matcher(loftr_tiny_config().model, device="cuda")
+    assert model.widths_lacking() == []

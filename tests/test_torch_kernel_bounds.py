@@ -322,3 +322,47 @@ def test_all_kernels_at_tpu_optimized_config(capsys):
     main()
     rows = [r for r in capsys.readouterr().out.splitlines() if "(tpu_optimized_config" in r]
     assert [r.split(" (")[0] for r in rows] == [f"| K{i}" for i in range(1, 13)]
+
+
+def test_float32_forms_count_the_teachers_calls(capsys):
+    """The teacher's float32 kernels at loftr_tiny_config(): K1 once and K9's
+    forward in 12 encoder calls (4 self of G = 8 reading their one input
+    once, 8 cross of G = 4), K9's operations the bf16 counts' (the same
+    products) and its bytes more (4-byte operands), K1's one L x S product
+    (half the bf16 count's two: a float32 product costs more than storing
+    sim and reading it back), bounded at the float32 peak outside the
+    tensor cores; the command line prints both rows."""
+    from featurematching_tpu_torch.config import loftr_tiny_config
+    from featurematching_tpu_torch.utils.kernel_bounds import (
+        BF16_TENSOR_FLOPS,
+        FP32_FLOPS,
+        HBM_BYTES_PER_S,
+        coarse_layer_f32_work,
+        dual_softmax_f32_work,
+        dual_softmax_work,
+        teacher_work,
+    )
+
+    work = teacher_work(loftr_tiny_config().model)
+    assert len(work["K1"]) == 1 and len(work["K9 fwd"]) == 12
+    L, C = 4800, 256
+    assert work["K1"][0] == dual_softmax_f32_work(4, L, L, C)
+    k1_bytes, k1_ops = dual_softmax_f32_work(4, L, L, C)
+    assert 2 * k1_ops == dual_softmax_work(4, L, L, C)[1] == 4 * 4 * L * L * C
+    # one product outlasts the sim matrix's round trip through memory
+    assert k1_ops / FP32_FLOPS > 2 * 4 * 4 * L * L / HBM_BYTES_PER_S
+    assert bound_ms(k1_bytes, k1_ops, FP32_FLOPS) == (k1_ops / FP32_FLOPS * 1e3, "operations")
+    self_call, cross_call = coarse_layer_f32_work(8, L, L, C, 8, True), \
+        coarse_layer_f32_work(4, L, L, C, 8, False)
+    assert sorted(work["K9 fwd"]) == sorted([self_call] * 4 + [cross_call] * 8)
+    fwd_bf16 = total([coarse_stats_work(8, L, C, 8), coarse_apply_work(8, L, C, 8)])
+    assert self_call[1] == fwd_bf16[1] and self_call[0] > fwd_bf16[0]
+    # a cross call reads its sources too
+    assert cross_call[0] - coarse_layer_f32_work(4, L, L, C, 8, True)[0] == 4 * L * C * 4
+    nbytes, flops = total(work["K9 fwd"])
+    assert bound_ms(nbytes, flops, FP32_FLOPS) == (flops / FP32_FLOPS * 1e3, "operations")
+    assert bound_ms(nbytes, flops)[0] < bound_ms(nbytes, flops, FP32_FLOPS)[0]
+    assert BF16_TENSOR_FLOPS / FP32_FLOPS > 14
+    main()
+    rows = [r for r in capsys.readouterr().out.splitlines() if "float32 (loftr_tiny_config" in r]
+    assert [r.split(" float32")[0] for r in rows] == ["| K1", "| K9 fwd"]
