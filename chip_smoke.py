@@ -164,7 +164,27 @@ Phases (a failed phase is reported and the run ends with a non-zero exit):
      one pair (`teacher_agreement`), the same with the backbone's
      convolutions in TF32 (a planted fault it must catch) and identical
      images on the diagonal; and `make_teacher_fn(device="cuda")` on a
-     480x640 uint8 pair.
+     480x640 uint8 pair;
+ 15. pose evaluation (after the teacher): RANSAC
+     (`geometry/ransac.essential_ransac_core`) on the card over the two-plane
+     synthetic scene's GT correspondences in POSE_SLOTS slots (POSE_OUTLIERS
+     of the valid rows outliers, the rest padding), batch 4, POSE_HYP
+     hypotheses, 0.5 px: each pair within 1 degree of the true rotation and
+     0.99 of the translation's direction, the card within POSE_CARD_CPU_DEG
+     (rotation) and POSE_CARD_CPU_T_DEG (translation) of the port on the
+     CPU on the same Gumbel noise, no host sync on the way (PyTorch's
+     sync debug mode raising), its device time and launches; then
+     `apps/evaluate.evaluate_dataset` on EVAL_PAIRS two-plane 640x480 pairs
+     through `FastMatcher` (seeded random weights: the AUCs are not
+     checked): EXPECTED_PER_FORWARD a batch by the counters, the forward's
+     profiled launches equal to those of the serving forward built as in 3
+     and profiled beside it (late in the run the same forward can profile
+     a few launches short of phase 3's count; the kernels that moved are
+     printed), the four metric keys;
+     and one batch by its parts: every tensor of the chain on the card, no
+     host sync in the chain, the host ms a batch, the device ms and launches
+     of the forward and of the metric chain, the chain's largest kernels
+     and the peak memory. Nothing of it is added to the kernels JSON line.
 
 The six kernels of the forward: swin_block_fused (K2), layer_norm_chain (K3),
 patch_expand_ln (K4), coarse_transformer_fused (K5, one call runs all eight
@@ -381,6 +401,17 @@ EXPECTED_PER_EVAL = dict.fromkeys(SOURCES, 0) | {
     "window_attention": 13, "coarse_layer_forward": 12, "fine_layer_forward": 2,
     "dual_softmax_match_stats": 1, "dual_softmax_lse": 1,
 }
+# the pose-evaluation phase: RANSAC on the card over POSE_SLOTS
+# match slots (the serving forward's top-K), POSE_OUTLIERS of the valid
+# rows outliers, POSE_HYP hypotheses a pair; evaluate_dataset over
+# EVAL_PAIRS pairs. The card's poses against the CPU's on the same noise:
+# both run the same solver in float32, the card's QR, LU and matrix
+# products (cuBLAS) rounding otherwise than the CPU's (LAPACK), so a
+# candidate moves by float32 roundings and the polished pose by far less
+# than the scene's own accuracy (R_err < 1 degree); the translation's
+# direction, worse conditioned by the short baseline, within ten times that
+POSE_SLOTS, POSE_HYP, POSE_OUTLIERS, EVAL_PAIRS = 1024, 512, 0.2, 8
+POSE_CARD_CPU_DEG, POSE_CARD_CPU_T_DEG = 0.05, 0.5
 # K8 against the plain twin's autograd, max |kernel - plain| <= K8_TOL max |plain|
 # per tensor: both take the same bf16 activations and bf16-valued weights and
 # accumulate in f32; they round activations and activation gradients to bf16
@@ -457,6 +488,21 @@ def kernel_times(fn, expected=None, tries: int = 3):
         print(f"  profiler: launches seen {seen}, made {expected}: profiling again", flush=True)
     raise AssertionError(f"the profiler lost kernel events {tries} times: saw {seen}, "
                          f"made {expected}")
+
+
+def fullest_profile(fn, want=None, tries: int = 4):
+    """`kernel_times(fn)` of the profile with the most launches over up to
+    `tries` profiles, stopping at one that reads `want` launches: the
+    profiler now and then drops events (on an H100 a forward of 497
+    launches once read 377), which only lowers a count."""
+    best = []
+    for _ in range(tries):
+        rows = kernel_times(fn)
+        if sum(r[1] for r in rows) > sum(r[1] for r in best):
+            best = rows
+        if want is not None and sum(r[1] for r in best) >= want:
+            break
+    return best
 
 
 def device_ms(fn, kernel=None, reps: int = 20) -> float:
@@ -2498,11 +2544,12 @@ def teacher_fn_call(wrappers) -> None:
 
 
 @torch.no_grad()
-def breakdown(model, img0, img1, forward_ms: float) -> None:
+def breakdown(model, img0, img1, forward_ms: float) -> list:
     """Where one forward's time goes: the device time of each stage's kernels
     (profiler), each stage run alone through the path the forward takes, the
     rest being the remainder of the whole forward's; then the forward's
-    largest kernels and the device's busy share of its wall time."""
+    largest kernels and the device's busy share of its wall time. Returns
+    the forward's profile (`kernel_times` rows)."""
     hc, wc = H // 8, W // 8
     imgs = torch.cat([img0, img1]).to(model.dtype)
     feat_c, feat_f = model.backbone(imgs)
@@ -2516,7 +2563,7 @@ def breakdown(model, img0, img1, forward_ms: float) -> None:
         "fine stage": lambda: model.fine_stage(feat_f[:B], feat_f[B:], c0, c1, matches, (hc, wc)),
     }
     layers = {k: sum(t[0] for t in kernel_times(fn)) for k, fn in stages.items()}
-    kern = kernel_times(lambda: model(img0, img1))
+    kern = fullest_profile(lambda: model(img0, img1), tries=2)
     busy = sum(t[0] for t in kern)
     layers["the rest"] = busy - sum(layers.values())
     print(f"  layers (device ms of their kernels; forward {busy:.3f} busy): "
@@ -2526,14 +2573,16 @@ def breakdown(model, img0, img1, forward_ms: float) -> None:
           f"{forward_ms:.3f} ms forward")
     for ms, count, name in kern[:15]:
         print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+    return kern
 
 
-def serving_forward(cfg, wrappers, launches, check_cpu=False) -> None:
+def serving_forward(cfg, wrappers, launches, check_cpu=False) -> list:
     """The serving forward at `cfg`, 640x480, batch 4, bf16, seeded random
     weights: N_FORWARD forwards with the launch counters set to 0 just
     before and read just after (EXPECTED_PER_FORWARD, no eager coarse or
     fine EncoderLayer), finite outputs, pairs/s and the breakdown; with
-    `check_cpu`, the card against the CPU at 64x64 (`card_vs_cpu`)."""
+    `check_cpu`, the card against the CPU at 64x64 (`card_vs_cpu`).
+    Returns one forward's profile (`kernel_times` rows)."""
     from featurematching_tpu_torch.models.fast_inference import FastMatcher
 
     model = FastMatcher(cfg, device="cuda", seed=0)
@@ -2579,11 +2628,12 @@ def serving_forward(cfg, wrappers, launches, check_cpu=False) -> None:
     print(f"  matches per pair (thr {cfg.match_coarse.thr}): {m.sum(1).tolist()}")
     print(f"  forward: {dt / N_FORWARD * 1e3:.3f} ms, "
           f"{B * N_FORWARD / dt:.3f} pairs/s (batch {B}, {W}x{H}, bf16)", flush=True)
-    breakdown(model, img0, img1, dt / N_FORWARD * 1e3)
+    kernels = breakdown(model, img0, img1, dt / N_FORWARD * 1e3)
     if check_cpu:  # at thr=1e-8, as `semantic`: random weights match nothing at 0.2
         mc = dataclasses.replace(cfg.match_coarse, thr=1e-8)
         card_vs_cpu(FastMatcher(dataclasses.replace(cfg, match_coarse=mc), device="cuda",
                                 seed=0))
+    return kernels
 
 
 def card_vs_cpu(model) -> None:
@@ -2612,6 +2662,204 @@ def card_vs_cpu(model) -> None:
     # a 7x7 window at stride 2 spans +-6 px; bf16 moves a heatmap by ~1%
     if not (both.any() and px <= 0.5):
         raise AssertionError("the card's fine keypoints disagree with the plain path")
+
+
+def pose_slots(batch, rng, n_in=640, noise_px=0.3):
+    """A top-K-shaped match list [B, POSE_SLOTS] of a synthetic batch's GT
+    correspondences: up to n_in inliers with noise_px of noise, a quarter as
+    many outliers (POSE_OUTLIERS of the valid rows), the rest padding."""
+    import numpy as np
+
+    Bn = batch["gt_kp0"].shape[0]
+    kp0 = np.zeros((Bn, POSE_SLOTS, 2), np.float32)
+    kp1 = np.zeros((Bn, POSE_SLOTS, 2), np.float32)
+    mask = np.zeros((Bn, POSE_SLOTS), bool)
+    for b in range(Bn):
+        g0 = batch["gt_kp0"][b][batch["gt_mask"][b]][:n_in]
+        g1 = batch["gt_kp1"][b][batch["gt_mask"][b]][:n_in]
+        k, n_out = len(g0), len(g0) // 4
+        kp0[b, :k] = g0 + rng.normal(0, noise_px, g0.shape)
+        kp1[b, :k] = g1 + rng.normal(0, noise_px, g1.shape)
+        kp0[b, k:k + n_out] = rng.uniform(0, (W, H), (n_out, 2))
+        kp1[b, k:k + n_out] = rng.uniform(0, (W, H), (n_out, 2))
+        mask[b, :k + n_out] = True
+    return kp0, kp1, mask
+
+
+def rot_deg(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """The angle between rotations [..., 3, 3], in degrees."""
+    c = ((Ra.transpose(-1, -2) @ Rb).diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
+    return torch.rad2deg(torch.arccos(torch.clamp(c, -1.0, 1.0)))
+
+
+def ransac_on_the_card() -> None:
+    """RANSAC on the two-plane scene's GT correspondences (POSE_SLOTS slots,
+    POSE_OUTLIERS outliers, padding; B = 4, POSE_HYP hypotheses, 0.5 px):
+    each pair's pose against the truth, the card against the port on the CPU
+    on the same noise (POSE_CARD_CPU_DEG), no host sync on the way
+    (`torch.cuda.set_sync_debug_mode('error')`), its device ms and launches."""
+    import numpy as np
+
+    from featurematching_tpu_torch.data.synthetic import synthetic_batch
+    from featurematching_tpu_torch.geometry.epipolar import normalize_keypoints
+    from featurematching_tpu_torch.geometry.ransac import essential_ransac_core, gumbel_noise
+    from featurematching_tpu_torch.geometry.se3 import relative_pose_error
+
+    rng = np.random.default_rng(0)
+    batch = synthetic_batch(rng, batch_size=B, image_size=(H, W), num_gt=1024, n_planes=2)
+    kp0, kp1, mask = pose_slots(batch, rng)
+    K, T = torch.tensor(batch["K0"]), torch.tensor(batch["T_0to1"])
+    thr = 0.5 / (0.5 * (K[:, 0, 0] + K[:, 1, 1]))
+    cpu = [normalize_keypoints(torch.tensor(kp0), K), normalize_keypoints(torch.tensor(kp1), K),
+           torch.tensor(mask)]
+    card = [x.cuda() for x in cpu]
+    g = gumbel_noise(torch.Generator(device="cuda").manual_seed(0), (B, POSE_HYP, POSE_SLOTS))
+    thr_card = thr.cuda()
+
+    def run():
+        return essential_ransac_core(*card, g, thresh=thr_card)
+
+    run()  # warm-up: the solver's constant tables go to the card once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync on the way raises
+    try:
+        res = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = essential_ransac_core(*cpu, g.cpu(), thresh=thr)
+    T = T.cuda()
+    R_err, _ = relative_pose_error(T, res.R, res.t)
+    t_gt = T[:, :3, 3] / torch.linalg.norm(T[:, :3, 3], dim=-1, keepdim=True)
+    cos = (res.t * t_gt).sum(-1).abs()
+    vs_cpu = rot_deg(res.R.cpu(), ref.R)
+    t_vs_cpu = torch.rad2deg(torch.arccos(torch.clamp((res.t.cpu() * ref.t).sum(-1).abs(), max=1)))
+    print(f"  RANSAC on the card, B {B}, {POSE_SLOTS} slots ({mask.sum(1).tolist()} valid, "
+          f"{POSE_OUTLIERS:.0%} of them outliers), {POSE_HYP} hypotheses: R_err "
+          f"{[round(float(x), 4) for x in R_err]} deg, t cos {[round(float(x), 6) for x in cos]}, "
+          f"inliers {res.num_inliers.tolist()} (CPU {ref.num_inliers.tolist()}); card vs CPU "
+          f"rotation {[round(float(x), 5) for x in vs_cpu]} deg, translation "
+          f"{[round(float(x), 4) for x in t_vs_cpu]} deg; no host sync")
+    if not (res.valid.all() and (R_err < 1.0).all() and (cos > 0.99).all()):
+        raise AssertionError("RANSAC on the card misses the two-plane scene's pose")
+    if not ((vs_cpu < POSE_CARD_CPU_DEG).all() and (t_vs_cpu < POSE_CARD_CPU_T_DEG).all()):
+        raise AssertionError("RANSAC on the card disagrees with the CPU on the same noise")
+    rows = fullest_profile(run, tries=2)
+    busy = sum(r[0] for r in rows)
+    host = cuda_ms(run, iters=5, warmup=1)
+    print(f"  RANSAC core: {busy:.3f} ms device busy, {sum(r[1] for r in rows)} launches, "
+          f"{host:.3f} ms a call by CUDA events; largest:")
+    for ms, count, name in rows[:8]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+
+
+def pose_evaluation(wrappers, serving_kernels: dict) -> None:
+    """`apps.evaluate.evaluate_dataset` on EVAL_PAIRS two-plane 640x480 pairs,
+    batch 4, through `FastMatcher` on seeded random weights (the AUCs are
+    near 0 and not checked): the forward's launches a batch
+    (EXPECTED_PER_FORWARD by the counters; by the profiler those of the
+    serving forward built as its phase builds it, profiled beside it), the
+    metric dict's keys; then one batch by its parts: every
+    tensor of the chain on the card, no host sync in the chain, host ms a
+    batch, device ms and launches of the forward and of the chain, the
+    chain's largest kernels and the peak memory."""
+    from featurematching_tpu_torch.apps.evaluate import (
+        SyntheticPairs,
+        batch_errors,
+        build_matcher,
+        evaluate_dataset,
+    )
+    from featurematching_tpu_torch.config import default_config
+    from featurematching_tpu_torch.data.loader import BatchLoader
+    from featurematching_tpu_torch.geometry.ransac import gumbel_noise
+    from featurematching_tpu_torch.models.fast_inference import FastMatcher
+
+    ransac_on_the_card()
+    ds = SyntheticPairs(EVAL_PAIRS, W, H, gray=False, n_planes=2)
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    metrics = evaluate_dataset(ds, batch_size=B, device="cuda")
+    dt = time.perf_counter() - t
+    n_batches = EVAL_PAIRS // B
+    counts = {n: w.launches for n, w in wrappers.items()}
+    print(f"  evaluate_dataset: {EVAL_PAIRS} pairs in {dt * 1e3:.1f} ms (the matcher's build "
+          f"included); metrics {metrics}; launches {counts}")
+    for n in wrappers:
+        if counts[n] != EXPECTED_PER_FORWARD.get(n, 0) * n_batches:
+            raise AssertionError(f"{n}: {counts[n]} launches over {n_batches} batches")
+    if set(metrics) != {"auc@5", "auc@10", "auc@20", "prec@5e-04"}:
+        raise AssertionError(f"metric keys {sorted(metrics)}")
+
+    model = build_matcher(device="cuda")
+    batch = next(BatchLoader(ds, B, shuffle=False).epoch(0))
+    tb = {k: torch.from_numpy(batch[k]).cuda() for k in ("image0", "image1", "T_0to1", "K0", "K1")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = model(tb["image0"], tb["image1"])
+    m = out.coarse.mask
+    g = gumbel_noise(gen, (B, POSE_HYP, m.shape[1]))
+
+    def chain():
+        return batch_errors(out.fine.mkpts0_f, out.fine.mkpts1_f, m, tb["T_0to1"], tb["K0"],
+                            tb["K1"], g)
+
+    epi, pose = chain()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        epi, pose = chain()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tensors = {"mkpts0_f": out.fine.mkpts0_f, "mask": m, "noise": g, "epi": epi, **pose}
+    off = [k for k, v in tensors.items() if v.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"chain tensors off the card: {off}")
+    print(f"  matches a pair {m.sum(1).tolist()}; pose_valid {pose['pose_valid'].tolist()}; "
+          f"every tensor of the chain on {epi.device}, no host sync in the chain")
+
+    def step():
+        o = model(tb["image0"], tb["image1"])
+        return batch_errors(o.fine.mkpts0_f, o.fine.mkpts1_f, o.coarse.mask, tb["T_0to1"],
+                            tb["K0"], tb["K1"], g)
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    # the serving forward as its own phase builds it, profiled here beside
+    # the app's: late in this process the same forward profiles a few
+    # launches short of its own phase's count (on an H100 494 against 497,
+    # a concatenation and two elementwise kernels fewer, cause not found)
+    serving = FastMatcher(default_config().model, device="cuda", seed=0)
+    ref = fullest_profile(lambda: serving(tb["image0"], tb["image1"]))
+    fwd = fullest_profile(lambda: model(tb["image0"], tb["image1"]),
+                          want=sum(r[1] for r in ref))
+    ch = fullest_profile(chain, tries=2)
+    f_ms, f_n = sum(r[0] for r in fwd), sum(r[1] for r in fwd)
+    c_ms, c_n = sum(r[0] for r in ch), sum(r[1] for r in ch)
+    s_n = sum(r[1] for r in ref)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  a batch of {B} (forward + chain): host {sorted(round(x, 3) for x in times)} ms; "
+          f"device busy: forward {f_ms:.3f} ms in {f_n} launches (the serving forward here "
+          f"{s_n}, in its own phase {serving_kernels.get('launches')}), chain {c_ms:.3f} ms "
+          f"in {c_n} launches ({POSE_HYP} hypotheses, {m.shape[1]} slots); peak memory "
+          f"{peak_gib:.3f} GiB")
+    here, there = {n: c for _, c, n in ref}, serving_kernels.get("rows", {})
+    moved = {n[:60]: (here.get(n, 0), there.get(n, 0)) for n in set(here) | set(there)
+             if there and here.get(n, 0) != there.get(n, 0)}
+    if moved:
+        print(f"  kernels whose launches differ from the serving phase's (here, there): {moved}")
+    for ms, count, name in ch[:10]:
+        print(f"    {ms:8.3f} ms x{count:4d}  {name[:90]}")
+    if f_n != s_n:
+        raise AssertionError(f"the evaluation forward launched {f_n} kernels, the serving "
+                             f"forward {s_n}")
 
 
 def main() -> int:
@@ -2730,8 +2978,14 @@ def main() -> int:
     train_launches = {}  # of the training step
     eval_launches = {}  # of the evaluation step with the per-op block
 
-    phase("serving forward 640x480 batch 4 bf16",
-          lambda: serving_forward(cfg, wrappers, launches))
+    serving_kernels = {}  # the serving forward's profile: launches, and launches by kernel
+
+    def serving():
+        rows = serving_forward(cfg, wrappers, launches)
+        serving_kernels.update(launches=sum(r[1] for r in rows),
+                               rows={n: c for _, c, n in rows})
+
+    phase("serving forward 640x480 batch 4 bf16", serving)
 
     def semantic():
         mc = dataclasses.replace(cfg.match_coarse, thr=1e-8)
@@ -2773,6 +3027,8 @@ def main() -> int:
           lambda: teacher_forward(wrappers, teacher_launches))
     phase(f"make_teacher_fn on the card, a {H}x{W} uint8 pair",
           lambda: teacher_fn_call(wrappers))
+    phase(f"pose evaluation {W}x{H} batch {B}",
+          lambda: pose_evaluation(wrappers, serving_kernels))
 
     kernels = []
     path_launches = (dict.fromkeys(EXPECTED_PER_FORWARD, launches)
